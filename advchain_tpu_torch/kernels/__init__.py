@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels (CUDA C++ for sm_90a) with their plain
+PyTorch twins; built from ``csrc/`` on first use, never at import."""
+
+from advchain_tpu_torch.kernels.band_sample import (BandSample,
+                                                    band_sample_bwd,
+                                                    band_sample_bwd_plain,
+                                                    band_sample_fwd,
+                                                    band_sample_fwd_plain)
+
+__all__ = ["BandSample", "band_sample_fwd", "band_sample_bwd",
+           "band_sample_fwd_plain", "band_sample_bwd_plain"]

@@ -1,0 +1,7 @@
+"""Consistency divergences on PyTorch tensors."""
+
+from advchain_tpu_torch.losses.consistency import (
+    calc_segmentation_consistency, contour_loss, kl_divergence, one_hot)
+
+__all__ = ["calc_segmentation_consistency", "contour_loss", "kl_divergence",
+           "one_hot"]

@@ -1,0 +1,140 @@
+"""Segmentation consistency divergences (mse / kl / contour), 2D (port of
+advchain_tpu/losses/consistency.py).
+
+Reference quirks kept: the mse divergence divides torch's ``MSELoss(mean)``
+once more by ``numel / C``; the Sobel filters are tiled across input AND
+output channels (a full convolution, not a depthwise one); the kl ``is_gt``
+path clamps the one-hot reference to [1e-8, 1 - 1e-8].
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from advchain_tpu_torch.ops.conv import conv_same
+
+__all__ = ["calc_segmentation_consistency", "contour_loss", "kl_divergence",
+           "one_hot"]
+
+
+@functools.lru_cache(maxsize=8)
+def _sobel_kernels_2d(object_classes: int):
+    x_f = np.array([[1, 0, -1], [2, 0, -2], [1, 0, -1]], np.float32)
+    y_f = np.array([[1, 2, 1], [0, 0, 0], [-1, -2, -1]], np.float32)
+    tile = (object_classes, object_classes, 1, 1)
+    return (np.tile(x_f.reshape(1, 1, 3, 3), tile),
+            np.tile(y_f.reshape(1, 1, 3, 3), tile))
+
+
+def one_hot(labels, depth: int):
+    """Integer labelmap (N, *spatial) -> one-hot (N, depth, *spatial)."""
+    oh = F.one_hot(labels.long(), depth).to(torch.float32)
+    return torch.movedim(oh, -1, 1)
+
+
+def kl_divergence(reference, pred, mask=None, is_gt: bool = False):
+    """DKL(P || Q): mean over batch and space of sum_c mask * (p log p -
+    p log q)."""
+    if mask is None:
+        mask = torch.ones_like(pred)
+    if not is_gt:
+        p = torch.softmax(reference, dim=1)
+        log_p = torch.log_softmax(reference, dim=1)
+    else:
+        p = torch.where(reference == 0, torch.full_like(reference, 1e-8),
+                        torch.full_like(reference, 1 - 1e-8))
+        log_p = torch.log(p)
+    log_q = torch.log_softmax(pred, dim=1)
+    plogp = torch.sum(mask * (p * log_p), dim=1)
+    plogq = torch.sum(mask * (p * log_q), dim=1)
+    return torch.mean(plogp - plogq)
+
+
+def contour_loss(input, target, ignore_background: bool = True,
+                 one_hot_target: bool = True, mask=None):
+    """Sobel-gradient MSE across object boundaries.  input: probs
+    (N, C, H, W); target: labelmap (N, H, W) if ``one_hot_target`` else
+    probs (N, C, H, W)."""
+    num_classes = input.shape[1]
+    if input.dim() != 4:
+        raise NotImplementedError("only the 2D contour loss is ported yet")
+    if one_hot_target:
+        target = one_hot(target, num_classes).reshape(input.shape)
+    if target.shape != input.shape:
+        raise ValueError(f"pred size {tuple(input.shape)} must match target "
+                         f"size {tuple(target.shape)}")
+    if mask is None:
+        mask = torch.ones_like(input)
+    if ignore_background:
+        object_classes = num_classes - 1
+        target = target[:, 1:]
+        input = input[:, 1:]
+    else:
+        object_classes = num_classes
+    m = mask[:, :object_classes]
+    x_w, y_w = (torch.as_tensor(k, dtype=input.dtype, device=input.device)
+                for k in _sobel_kernels_2d(object_classes))
+    gx_p = conv_same(input, x_w) * m
+    gy_p = conv_same(input, y_w) * m
+    gx_t = conv_same(target, x_w) * m
+    gy_t = conv_same(target, y_w) * m
+    return 0.5 * (torch.mean((gx_p - gx_t) ** 2)
+                  + torch.mean((gy_p - gy_t) ** 2))
+
+
+def calc_segmentation_consistency(output, reference,
+                                  divergence_types=("kl", "contour"),
+                                  divergence_weights=(1.0, 0.5),
+                                  class_weights=None, scales=(0,),
+                                  mask=None, is_gt: bool = False):
+    """Weighted multi-scale divergence between two prediction tensors."""
+    if class_weights is not None:
+        raise NotImplementedError("class_weights")
+    if output.dim() != 4 or reference.dim() != 4:
+        raise NotImplementedError("only 2D consistency is ported yet")
+    num_classes = reference.shape[1]
+    if mask is None:
+        mask = torch.ones_like(output)
+    dist = 0.0
+    for scale in scales:
+        if scale > 0:
+            k = 2 ** scale
+            ref_s = F.avg_pool2d(reference, k)
+            out_s = F.avg_pool2d(output, k)
+            # the reference keeps the mask at full resolution, which cannot
+            # broadcast against pooled outputs; pool it alongside
+            mask_s = F.avg_pool2d(mask, k)
+        else:
+            ref_s, out_s, mask_s = reference, output, mask
+        for divergence_type, d_weight in zip(divergence_types,
+                                             divergence_weights):
+            if divergence_type == "kl":
+                loss = kl_divergence(pred=out_s, reference=ref_s,
+                                     mask=mask_s, is_gt=is_gt)
+            elif divergence_type == "mse":
+                target_pred = ref_s if is_gt else torch.softmax(ref_s, dim=1)
+                input_pred = torch.softmax(out_s, dim=1)
+                loss = torch.mean((target_pred * mask_s
+                                   - input_pred * mask_s) ** 2)
+                loss = loss / (out_s.numel() / num_classes)
+            elif divergence_type == "contour":
+                target_pred = ref_s if is_gt else torch.softmax(ref_s, dim=1)
+                input_pred = torch.softmax(out_s, dim=1)
+                loss = 0.0
+                for i in range(1, num_classes):
+                    loss = loss + contour_loss(
+                        input=input_pred[:, i:i + 1],
+                        target=target_pred[:, i:i + 1],
+                        ignore_background=False, mask=mask_s,
+                        one_hot_target=False)
+                if num_classes > 1:
+                    loss = loss / (num_classes - 1)
+            else:
+                raise NotImplementedError(
+                    f"divergence type {divergence_type!r}")
+            dist = dist + 2 ** scale * (d_weight * loss)
+    return dist / (1.0 * len(scales))

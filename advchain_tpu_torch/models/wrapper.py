@@ -1,0 +1,57 @@
+"""SegmentationModel — the solver's fixed-network contract around a torch
+module (port of advchain_tpu/models/wrapper.py).
+
+``train()`` mode (the default) normalises by batch statistics without
+writing them back, the reference's train-mode solver semantics;
+``eval()`` uses the running statistics.  ``apply_fixed(x, train=...)``
+forces a mode for one call; the solver uses it to force batch statistics
+in the final consistency pass.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from advchain_tpu_torch import resolve_device
+from advchain_tpu_torch.models.unet import init_unet_
+
+
+class SegmentationModel:
+    """Callable ``model(x) -> logits`` for the compose solver."""
+
+    def __init__(self, module: nn.Module,
+                 use_batch_stats_in_solver: bool = True):
+        self.module = module
+        self.training = bool(use_batch_stats_in_solver)
+
+    @classmethod
+    def create(cls, module: nn.Module, seed: int = 0, device=None):
+        """Random weights from ``seed`` (the JAX package's init scheme) on
+        ``device``; None means the GPU, and no GPU raises."""
+        dev = resolve_device(device)
+        gen = torch.Generator().manual_seed(int(seed))
+        return cls(init_unet_(module, gen).to(dev))
+
+    @property
+    def device(self):
+        return next(self.module.parameters()).device
+
+    def train(self, mode: bool = True):
+        """Solver forwards use batch statistics."""
+        self.training = bool(mode)
+        return self
+
+    def eval(self):
+        """Solver forwards use the running statistics."""
+        self.training = False
+        return self
+
+    def apply_fixed(self, x, train=None):
+        """Fixed-network forward; ``train`` forces the BN mode, None follows
+        the wrapper's mode."""
+        self.module.train(self.training if train is None else bool(train))
+        return self.module(x)
+
+    def __call__(self, x):
+        return self.apply_fixed(x)

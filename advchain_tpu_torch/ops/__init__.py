@@ -1,0 +1,24 @@
+"""Numeric primitives on PyTorch tensors (2D); the sampler's gather and
+scatter run in :mod:`advchain_tpu_torch.kernels`."""
+
+from .grid_sample import grid_sample, grid_sample_2d
+from .affine import affine_grid, affine_grid_2d, make_batch_eye, \
+    invert_affine_matrix
+from .resize import interpolate, interp_matrix
+from .conv import conv_same, conv_transpose, gaussian_smooth
+from .bspline import bspline_kernel, BSplineFieldSpec, \
+    make_bspline_field_spec, evaluate_bspline_field, clip_bias
+from .integrate import base_grid, compose_flow, exponentiate_flow
+from .norms import unit_normalize
+
+__all__ = [
+    "grid_sample", "grid_sample_2d",
+    "affine_grid", "affine_grid_2d", "make_batch_eye",
+    "invert_affine_matrix",
+    "interpolate", "interp_matrix",
+    "conv_same", "conv_transpose", "gaussian_smooth",
+    "bspline_kernel", "BSplineFieldSpec", "make_bspline_field_spec",
+    "evaluate_bspline_field", "clip_bias",
+    "base_grid", "compose_flow", "exponentiate_flow",
+    "unit_normalize",
+]

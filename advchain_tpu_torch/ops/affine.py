@@ -1,0 +1,61 @@
+"""Affine grid generation and homogeneous matrix inversion, 2D
+(port of advchain_tpu/ops/affine.py)."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["linspace", "affine_grid_2d", "affine_grid", "make_batch_eye",
+           "invert_affine_matrix"]
+
+
+def linspace(start: float, stop: float, num: int, dtype=torch.float32,
+             device=None):
+    """``linspace`` computed in float64 and rounded once, so every device
+    gives the same values."""
+    return torch.as_tensor(np.linspace(start, stop, num), dtype=dtype,
+                           device=device)
+
+
+def _base_coords(size: int, align_corners: bool, dtype, device):
+    xs = linspace(-1.0, 1.0, size, dtype, device)
+    if align_corners or size == 1:
+        return xs
+    return xs * (size - 1) / size
+
+
+def affine_grid_2d(theta, size, align_corners: bool = True):
+    """theta: (N, 2, 3); size: (N, C, H, W) -> grid (N, H, W, 2) with
+    ``grid[..., 0] = theta[0,0]*x + theta[0,1]*y + theta[0,2]``."""
+    _, _, h, w = size
+    xs = _base_coords(w, align_corners, theta.dtype, theta.device)
+    ys = _base_coords(h, align_corners, theta.dtype, theta.device)
+    by, bx = torch.meshgrid(ys, xs, indexing="ij")  # (H, W)
+    base = torch.stack([bx, by, torch.ones_like(bx)], dim=-1)  # (H, W, 3)
+    return torch.einsum("hwk,njk->nhwj", base, theta)
+
+
+def affine_grid(theta, size, align_corners: bool = True):
+    if len(size) == 4:
+        return affine_grid_2d(theta, size, align_corners)
+    if len(size) == 5:
+        raise NotImplementedError("3D affine grids are not ported yet")
+    raise ValueError(f"size must have 4 or 5 entries, got {len(size)}")
+
+
+def make_batch_eye(batch_size: int, ndim: int, dtype=torch.float32,
+                   device=None):
+    """Batched (ndim+1)x(ndim+1) identity matrices."""
+    eye = torch.eye(ndim + 1, dtype=dtype, device=device)
+    return eye.expand(batch_size, ndim + 1, ndim + 1)
+
+
+def invert_affine_matrix(affine_matrix):
+    """Exact inverse of (N, d, d+1) affine matrices via homogeneous
+    augmentation. Returns (N, d, d+1)."""
+    n, d, _ = affine_matrix.shape
+    last = make_batch_eye(n, d, affine_matrix.dtype,
+                          affine_matrix.device)[:, d:, :]
+    homo = torch.cat([affine_matrix, last], dim=1)
+    return torch.linalg.inv(homo)[:, :d, :]

@@ -1,0 +1,136 @@
+"""B-spline kernels and airlab-style control-point grid geometry, 2D (port
+of advchain_tpu/ops/bspline.py).
+
+The integer geometry is computed once on the host; the field itself is a
+transposed convolution, a border crop, a linear resize and ``exp``.  The
+kernel is the outer product of per-axis iterated box filters, which equals
+the reference's iterated all-ones convolution.  Quirks kept: the 2D kernel
+pads iteration i by ``i * spacing``, and the control grid carries a +2
+border and asymmetric crops.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .conv import conv_transpose
+from .grid_sample import clip
+from .resize import interpolate
+
+__all__ = ["bspline_kernel", "BSplineFieldSpec", "make_bspline_field_spec",
+           "evaluate_bspline_field", "clip_bias"]
+
+
+@functools.lru_cache(maxsize=64)
+def _bspline_kernel_1d(spacing: int, order: int,
+                       per_iter_padding: Tuple[int, ...]) -> np.ndarray:
+    k = np.ones(spacing, dtype=np.float64)
+    box = np.ones(spacing, dtype=np.float64)
+    for i in range(order):
+        k = np.convolve(np.pad(k, per_iter_padding[i]), box,
+                        mode="valid") / spacing
+    return k
+
+
+def bspline_kernel(spacing, order: int = 3,
+                   spatial_dims: int = 2) -> np.ndarray:
+    """2D B-spline interpolation kernel (iteration i pads by i * spacing)."""
+    if spatial_dims != 2:
+        raise NotImplementedError("3D B-spline fields are not ported yet")
+    spacing = tuple(int(s) for s in spacing)
+    axes = [_bspline_kernel_1d(s, order,
+                               tuple(i * s for i in range(1, order + 1)))
+            for s in spacing]
+    return np.multiply.outer(axes[0], axes[1]).astype(np.float32)
+
+
+@dataclass(frozen=True)
+class BSplineFieldSpec:
+    """Static geometry of a control-point bias field."""
+    spatial_dims: int
+    image_size: Tuple[int, ...]
+    cp_grid: Tuple[int, ...]      # control-point grid incl. the +2 border
+    stride: Tuple[int, ...]       # control_point_spacing // downscale
+    padding: Tuple[int, ...]      # conv-transpose padding = (k - 1) // 2
+    crop_start: Tuple[int, ...]
+    crop_end: Tuple[int, ...]
+    kernel_size: Tuple[int, ...]
+    order: int
+    downscale: int
+
+
+def make_bspline_field_spec(image_size, control_point_spacing,
+                            downscale: int, order: int = 3
+                            ) -> BSplineFieldSpec:
+    image_size = tuple(int(s) for s in image_size)
+    dims = len(image_size)
+    stride = np.array([int(s) // int(downscale)
+                       for s in control_point_spacing])
+    img = np.array(image_size, dtype=np.float64)
+    cp_grid = np.ceil(img / float(downscale) / stride).astype(int)
+    inner = stride * cp_grid - (stride - 1)
+    cp_grid = cp_grid + 2
+    diff = inner - img / float(downscale)
+    diff_floor = np.floor(np.abs(diff) / 2) * np.sign(diff)
+    crop_start = diff_floor + np.remainder(diff, 2) * np.sign(diff)
+    crop_end = diff_floor
+    kernel = bspline_kernel(stride.tolist(), order=order, spatial_dims=dims)
+    padding = tuple((np.array(kernel.shape) - 1) // 2)
+    conv_out = ((cp_grid - 1) * stride + np.array(kernel.shape)
+                - 2 * np.array(padding))
+    field = (conv_out - (stride + crop_start.astype(int))
+             - (stride + crop_end.astype(int)))
+    target = np.ceil(img / float(downscale)).astype(int)
+    if np.any(field > target):
+        raise ValueError(
+            f"inconsistent B-spline geometry: cropped field {tuple(field)} "
+            f"exceeds image/downscale {tuple(target)} for "
+            f"control_point_spacing="
+            f"{tuple(int(s) for s in control_point_spacing)}, "
+            f"downscale={downscale}, order={order}, image={image_size}")
+    return BSplineFieldSpec(
+        spatial_dims=dims, image_size=image_size,
+        cp_grid=tuple(int(v) for v in cp_grid),
+        stride=tuple(int(v) for v in stride),
+        padding=tuple(int(v) for v in padding),
+        crop_start=tuple(int(v) for v in crop_start.astype(int)),
+        crop_end=tuple(int(v) for v in crop_end.astype(int)),
+        kernel_size=tuple(kernel.shape), order=int(order),
+        downscale=int(downscale))
+
+
+def evaluate_bspline_field(cpoints, spec: BSplineFieldSpec,
+                           log_space: bool = True):
+    """Control points (N, 1, *cp_grid) -> bias field (N, 1, *image_size):
+    transposed conv by the B-spline kernel, border crop, linear resize
+    (align_corners=False), then ``exp`` (log space) or ``1 + field``."""
+    kernel = torch.as_tensor(
+        bspline_kernel(spec.stride, spec.order, spec.spatial_dims),
+        dtype=cpoints.dtype, device=cpoints.device)
+    field = conv_transpose(cpoints, kernel[None, None], stride=spec.stride,
+                           padding=spec.padding)
+    for axis, (s, cs, ce) in enumerate(zip(spec.stride, spec.crop_start,
+                                           spec.crop_end)):
+        start = s + cs
+        stop = field.shape[2 + axis] - (s + ce)
+        field = field.narrow(2 + axis, start, stop - start)
+    h, w = spec.image_size
+    cur = field.shape[2:]
+    if h / cur[0] > 1 or w / cur[1] > 1:
+        field = interpolate(field, size=(h, w), mode="bilinear",
+                            align_corners=False)
+    if log_space:
+        return torch.exp(field)
+    return 1.0 + field
+
+
+def clip_bias(bias_field, magnitude: float):
+    """Clamp the bias field into [1 - magnitude, 1 + magnitude]."""
+    if magnitude < 0:
+        raise ValueError(f"magnitude must be >= 0, got {magnitude}")
+    return 1.0 + clip(bias_field - 1.0, -magnitude, magnitude)

@@ -1,0 +1,79 @@
+"""Linear resize matching ``torch.nn.functional.interpolate`` (port of
+advchain_tpu/ops/resize.py): each spatial axis is resampled with a dense
+(out, in) interpolation matrix, so the result is exactly torch's separable
+linear resampling."""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+__all__ = ["interpolate", "interp_matrix"]
+
+
+@functools.lru_cache(maxsize=128)
+def _interp_matrix_np(in_size: int, out_size: int,
+                      align_corners: bool) -> np.ndarray:
+    """Dense 1-D linear interpolation matrix W (out, in): y = W @ x, with
+    torch's ``area_pixel_compute_source_index``."""
+    w = np.zeros((out_size, in_size), dtype=np.float64)
+    if out_size == 1:
+        if align_corners:
+            w[0, 0] = 1.0
+        else:
+            src = max(0.0, 0.5 * in_size / out_size - 0.5)
+            lo = int(np.floor(src))
+            hi = min(lo + 1, in_size - 1)
+            w[0, lo] += 1.0 - (src - lo)
+            w[0, hi] += src - lo
+        return w.astype(np.float32)
+    for i in range(out_size):
+        if align_corners:
+            src = i * (in_size - 1) / (out_size - 1)
+        else:
+            src = max((i + 0.5) * in_size / out_size - 0.5, 0.0)
+        lo = min(int(np.floor(src)), in_size - 1)
+        hi = min(lo + 1, in_size - 1)
+        frac = src - lo
+        w[i, lo] += 1.0 - frac
+        w[i, hi] += frac
+    return w.astype(np.float32)
+
+
+def interp_matrix(in_size: int, out_size: int, align_corners: bool,
+                  device=None):
+    return torch.as_tensor(_interp_matrix_np(in_size, out_size,
+                                             align_corners), device=device)
+
+
+def interpolate(x, size=None, scale_factor=None, mode: str = "bilinear",
+                align_corners: bool = False):
+    """Resize (N, C, *spatial) along every spatial axis with per-axis linear
+    interpolation.  ``size`` is the target spatial shape, or
+    ``scale_factor`` gives it with torch's ``floor(in * factor)`` rule."""
+    spatial = x.shape[2:]
+    ndim = len(spatial)
+    if size is None:
+        if scale_factor is None:
+            raise ValueError("need size or scale_factor")
+        if np.isscalar(scale_factor):
+            scale_factor = (scale_factor,) * ndim
+        size = tuple(int(np.floor(s * f))
+                     for s, f in zip(spatial, scale_factor))
+    else:
+        size = tuple(int(s) for s in size)
+    if len(size) != ndim:
+        raise ValueError(f"size {size} rank mismatch with input "
+                         f"{tuple(x.shape)}")
+    if mode not in ("linear", "bilinear", "trilinear"):
+        raise NotImplementedError(f"mode={mode!r}")
+    out = x
+    for axis, (ins, outs) in enumerate(zip(spatial, size)):
+        if ins == outs:
+            continue
+        w = interp_matrix(ins, outs, align_corners, x.device).to(x.dtype)
+        out = torch.movedim(
+            torch.tensordot(out, w, dims=([2 + axis], [1])), -1, 2 + axis)
+    return out

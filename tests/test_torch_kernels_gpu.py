@@ -1,0 +1,86 @@
+"""The port's CUDA kernels on the card, against their plain twins.
+
+Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
+
+This file imports no JAX (the card's machine has none), and each test
+decides at run time, not at import, whether CUDA is present.
+"""
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(device, n=4, c=3, h=37, w=45, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    img = torch.randn(n, c, h, w, generator=gen, device=device)
+    p = 500
+    y = torch.randint(-1, h + 1, (n, p), generator=gen, device=device,
+                      dtype=torch.int32)
+    x = torch.randint(-1, w + 1, (n, p), generator=gen, device=device,
+                      dtype=torch.int32)
+    wts = torch.rand(n, 4, p, generator=gen, device=device)
+    g = torch.randn(n, c, p, generator=gen, device=device)
+    return img, y, x, wts, g
+
+
+def test_fwd_kernel_matches_twin(cuda):
+    from advchain_tpu_torch.kernels import band_sample as bs
+    img, y, x, wts, _ = _inputs(cuda)
+    before = bs.FWD_LAUNCHES
+    out = bs.band_sample_fwd(img, y, x, wts)
+    torch.cuda.synchronize()
+    assert bs.FWD_LAUNCHES == before + 1
+    torch.testing.assert_close(out, bs.band_sample_fwd_plain(img, y, x, wts),
+                               atol=1e-5, rtol=0)
+
+
+def test_bwd_kernel_matches_twin(cuda):
+    from advchain_tpu_torch.kernels import band_sample as bs
+    img, y, x, wts, g = _inputs(cuda, seed=1)
+    before = bs.BWD_LAUNCHES
+    d_img, d_w = bs.band_sample_bwd(g, img, y, x, wts)
+    torch.cuda.synchronize()
+    assert bs.BWD_LAUNCHES == before + 1
+    r_img, r_w = bs.band_sample_bwd_plain(g, img, y, x, wts)
+    torch.testing.assert_close(d_w, r_w, atol=1e-5, rtol=0)
+    # atomics sum in no fixed order: f32 reassociation of max|d_img|
+    scale = float(r_img.abs().max())
+    assert float((d_img - r_img).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("padding", ["zeros", "border", "reflection"])
+def test_grid_sample_gradients_match_the_cpu(cuda, padding):
+    from advchain_tpu_torch.ops.grid_sample import grid_sample_2d
+    gen = torch.Generator().manual_seed(2)
+    img = torch.randn(2, 3, 20, 24, generator=gen)
+    grid = torch.rand(2, 17, 19, 2, generator=gen) * 2.4 - 1.2
+    cot = torch.randn(2, 3, 17, 19, generator=gen)
+    results = []
+    for dev in ("cpu", cuda):
+        x = img.to(dev).clone().requires_grad_(True)
+        gr = grid.to(dev).clone().requires_grad_(True)
+        out = grid_sample_2d(x, gr, padding_mode=padding)
+        (out * cot.to(dev)).sum().backward()
+        results.append([t.detach().cpu() for t in (out, x.grad, gr.grad)])
+    for a, b in zip(*results):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-5)
+
+
+def test_cuda_tensor_never_takes_the_twin(cuda):
+    from advchain_tpu_torch.kernels import band_sample as bs
+    img, y, x, wts, _ = _inputs(cuda, seed=3)
+    with pytest.raises(TypeError):
+        bs.band_sample_fwd(img.double(), y, x, wts)
