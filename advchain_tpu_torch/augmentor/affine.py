@@ -1,10 +1,12 @@
-"""AdvAffine — batched adversarial 2D affine warps with exact inverses
-(port of advchain_tpu/augmentor/affine.py).
+"""AdvAffine — batched adversarial 2D and 3D affine warps with exact
+inverses (port of advchain_tpu/augmentor/affine.py).
 
-The latent is 5 scalars per sample (rot, scale_x, scale_y, shift_x,
-shift_y), squashed by Hardtanh and scaled by the config ranges.  The PGD
-update uses the sign of the gradient.  Reference quirk kept: the
-constructor's ``image_padding_mode`` always wins over a per-call one.
+The latent is 5 scalars per sample in 2D (rot, scale_x, scale_y, shift_x,
+shift_y) or 9 in 3D (rot_x/y/z, scale_x/y/z, shift_x/y/z), squashed by
+Hardtanh and scaled by the config ranges; the 3D matrix is
+``T @ (R_zyx @ S)`` (:133-169).  The PGD update uses the sign of the
+gradient.  Reference quirk kept: the constructor's ``image_padding_mode``
+always wins over a per-call one.
 """
 
 from __future__ import annotations
@@ -43,8 +45,9 @@ def sample_with_padding(data, grid, interp: str, padding_mode,
 
 
 class AdvAffine(AdvTransformBase):
-    """config_dict keys: rot, scale_x, scale_y, shift_x, shift_y,
-    data_size, forward_interp, backward_interp."""
+    """config_dict keys: 2D rot, scale_x, scale_y, shift_x, shift_y;
+    3D rot_x/y/z, scale_x/y/z, shift_x/y/z; plus data_size,
+    forward_interp, backward_interp."""
 
     def __init__(self, spatial_dims: int = 2, config_dict=None,
                  image_padding_mode="zeros", power_iteration: bool = False,
@@ -67,7 +70,14 @@ class AdvAffine(AdvTransformBase):
         self.translation_y = config_dict["shift_y"]
         self.scale_x = config_dict["scale_x"]
         self.scale_y = config_dict["scale_y"]
-        self.rot_ratio = config_dict["rot"]
+        if self.spatial_dims == 2:
+            self.rot_ratio = config_dict["rot"]
+        else:
+            self.rot_x = config_dict["rot_x"]
+            self.rot_y = config_dict["rot_y"]
+            self.rot_z = config_dict["rot_z"]
+            self.scale_z = config_dict["scale_z"]
+            self.translation_z = config_dict["shift_z"]
         self.xi = 1e-6
         self.data_size = tuple(int(s) for s in config_dict["data_size"])
         self.batch_size = self.data_size[0]
@@ -77,12 +87,16 @@ class AdvAffine(AdvTransformBase):
                                                self.backward_interp)
 
     def init_params(self, generator, device=None):
-        return 2.0 * uniform((self.batch_size, 5), generator, device) - 1.0
+        num_params = 5 if self.spatial_dims == 2 else 9
+        return 2.0 * uniform((self.batch_size, num_params), generator,
+                             device) - 1.0
 
     def gen_batch_affine_matrix(self, affine_tensors):
-        """Latent (N, 5) -> affine matrices (N, 2, 3); the rotation entries
-        are multiplied by the scales."""
+        """Latent (N, 5|9) -> affine matrices (N, d, d+1); in 2D the
+        rotation entries are multiplied by the scales."""
         t = clip(affine_tensors, -1.0, 1.0)  # Hardtanh
+        if self.spatial_dims == 3:
+            return self._matrix_3d(t)
         rot, sx, sy, tx, ty = t.unbind(dim=1)
         ang = rot * self.rot_ratio * math.pi
         cx = 1.0 + sx * self.scale_x
@@ -92,6 +106,37 @@ class AdvAffine(AdvTransformBase):
         row1 = torch.stack([cx * torch.sin(ang), cy * torch.cos(ang),
                             ty * self.translation_y], dim=-1)
         return torch.stack([row0, row1], dim=1)
+
+    def _matrix_3d(self, t):
+        rx, ry, rz, sx, sy, sz, tx, ty, tz = t.unbind(dim=1)
+        o = torch.zeros_like(rx)
+        i = torch.ones_like(rx)
+
+        def mat(rows):
+            return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=1)
+
+        trans = mat([[i, o, o, tx * self.translation_x],
+                     [o, i, o, ty * self.translation_y],
+                     [o, o, i, tz * self.translation_z],
+                     [o, o, o, i]])
+        scale = mat([[1.0 + sx * self.scale_x, o, o, o],
+                     [o, 1.0 + sy * self.scale_y, o, o],
+                     [o, o, 1.0 + sz * self.scale_z, o],
+                     [o, o, o, i]])
+        # Euler z-y'-x'' intrinsic rotation
+        phi = rx * self.rot_x * math.pi
+        theta = ry * self.rot_y * math.pi
+        psi = rz * self.rot_z * math.pi
+        cphi, sphi = torch.cos(phi), torch.sin(phi)
+        cth, sth = torch.cos(theta), torch.sin(theta)
+        cpsi, spsi = torch.cos(psi), torch.sin(psi)
+        rot = mat([[cth * cpsi, -cphi * spsi + sphi * sth * cpsi,
+                    sphi * spsi + cphi * sth * cpsi, o],
+                   [cth * spsi, cphi * cpsi + sphi * sth * spsi,
+                    -sphi * cpsi + cphi * sth * spsi, o],
+                   [-sth, sphi * cth, cphi * cth, o],
+                   [o, o, o, i]])
+        return torch.bmm(trans, torch.bmm(rot, scale))[:, :3, :4]
 
     def _matrix(self, params, training: bool):
         if self.power_iteration and training:

@@ -36,8 +36,9 @@ class AdvTransformBase:
                  debug: bool = False, seed: Optional[int] = None,
                  use_gpu: bool = True, device=None):
         del use_gpu  # reference API; the device argument decides
-        if spatial_dims != 2:
-            raise NotImplementedError("only 2D transforms are ported yet")
+        if spatial_dims not in (2, 3):
+            raise ValueError(f"only 2D/3D are supported, got "
+                             f"spatial_dims={spatial_dims}")
         self.spatial_dims = spatial_dims
         self.config_dict = dict(config_dict or {})
         data_dim = len(self.config_dict["data_size"])

@@ -10,9 +10,10 @@ to the flagged transforms' parameters only; a non-finite divergence leaves
 the parameters unchanged (on the device, no host sync).
 
 Model contract: ``model(x) -> logits`` behaves as a fixed network for the
-episode.  A model with ``apply_fixed(x, train=...)`` (the port's
-SegmentationModel) gets batch statistics forced for the final pass, as the
-reference forces ``model.train()`` there.
+episode.  A model with ``begin_episode()`` (the port's SegmentationModel)
+has it called once per episode, which redraws its fixed dropout masks; one
+with ``apply_fixed(x, train=...)`` gets batch statistics forced for the
+final pass, as the reference forces ``model.train()`` there.
 
 Documented divergence kept from the JAX package: per-transform
 ``step_sizes`` are honoured (the reference uses ``step_sizes[0]`` for all).
@@ -77,6 +78,8 @@ class ComposeAdversarialTransformSolver:
         transforms = tuple(self.chain_of_transforms)
         data = data.detach()
         device = data.device
+        if hasattr(model, "begin_episode"):
+            model.begin_episode()
         if init_output is None:
             with torch.no_grad():
                 init_output = self._model_call(model, data)

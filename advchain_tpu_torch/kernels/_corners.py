@@ -1,0 +1,107 @@
+"""What the band (2D) and z-band (3D) corner samplers share: their plain
+PyTorch twins, written once for d spatial axes, and the wrappers' argument
+checks.
+
+Contract: ``img`` (N, C, *S) with d = len(S) spatial axes, ``idx`` a tuple
+of d (N, P) int32 base corners (the first spatial axis first), ``w``
+(N, 2^d, P) with corner k's offset along axis a equal to bit (d - 1 - a)
+of k (2D: (0,0) (0,1) (1,0) (1,1); 3D: (dz, dy, dx) binary order);
+``out[n,c,p] = sum_k w[n,k,p] * img[n, c, idx + offset_k]``, where a tap
+outside the image reads zero and receives no gradient.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def corners(idx, sizes):
+    """Flat source index (N, 2^d, P) int64 and tap validity (N, 2^d, P)."""
+    dims = len(sizes)
+    flat, valid = 0, True
+    for axis, (base, size) in enumerate(zip(idx, sizes)):
+        bit = dims - 1 - axis
+        coord = torch.stack([base + ((k >> bit) & 1)
+                             for k in range(2 ** dims)], dim=1).long()
+        valid = valid & (coord >= 0) & (coord < size)
+        flat = flat * size + coord
+    return torch.where(valid, flat, torch.zeros_like(flat)), valid
+
+
+def _gather_corners(img, flat, valid):
+    """vals (N, 2^d, C, P) = img at the taps, zero where invalid."""
+    n, c = img.shape[:2]
+    k, p = flat.shape[1:]
+    idx = flat.reshape(n, 1, k * p).expand(n, c, k * p)
+    vals = torch.gather(img.reshape(n, c, -1), 2, idx)
+    vals = vals.reshape(n, c, k, p).transpose(1, 2)
+    return torch.where(valid[:, :, None, :], vals, torch.zeros_like(vals))
+
+
+def fwd_plain(img, idx, w):
+    """Gather the corners, then sum k = 0..2^d-1 in order, as the kernels
+    do (any device, any float dtype)."""
+    flat, valid = corners(idx, img.shape[2:])
+    v = _gather_corners(img, flat, valid)
+    out = w[:, 0, None] * v[:, 0]
+    for k in range(1, w.shape[1]):
+        out = out + w[:, k, None] * v[:, k]
+    return out
+
+
+def bwd_plain(g, img, idx, w):
+    """``d_w[n,k,p] = sum_c g * v_k`` and ``d_img`` += ``w_k * g`` at each
+    valid tap (a deterministic scatter)."""
+    n, c = img.shape[:2]
+    flat, valid = corners(idx, img.shape[2:])
+    k, p = flat.shape[1:]
+    v = _gather_corners(img, flat, valid)
+    d_w = (g[:, None] * v).sum(dim=2)
+    contrib = w[:, :, None, :] * g[:, None]  # (N, 2^d, C, P)
+    contrib = torch.where(valid[:, :, None, :], contrib,
+                          torch.zeros_like(contrib))
+    d_img = torch.zeros(n, c, img[0, 0].numel(), dtype=img.dtype,
+                        device=img.device)
+    d_img.scatter_add_(2, flat.reshape(n, 1, k * p).expand(n, c, k * p),
+                       contrib.transpose(1, 2).reshape(n, c, k * p))
+    return d_img.reshape(img.shape), d_w
+
+
+def check(name: str, img, idx, w, g=None) -> bool:
+    """Validate a sampler call.  False: CPU tensors, which take the plain
+    twin; True: CUDA tensors the kernel takes; anything else raises."""
+    dims = len(idx)
+    if img.dim() != dims + 2:
+        raise ValueError(f"{name}: img must have {dims} spatial axes, got "
+                         f"{tuple(img.shape)}")
+    n, c = img.shape[:2]
+    shape = tuple(idx[0].shape)
+    if len(shape) != 2 or shape[0] != n or \
+            any(tuple(t.shape) != shape for t in idx):
+        raise ValueError(f"{name}: indices must be (N, P) with N={n}, got "
+                         f"{[tuple(t.shape) for t in idx]}")
+    p = shape[1]
+    if tuple(w.shape) != (n, 2 ** dims, p):
+        raise ValueError(f"{name}: w must be {(n, 2 ** dims, p)}, got "
+                         f"{tuple(w.shape)}")
+    if g is not None and tuple(g.shape) != (n, c, p):
+        raise ValueError(f"{name}: g must be {(n, c, p)}, got "
+                         f"{tuple(g.shape)}")
+    floats = [img, w] + ([g] if g is not None else [])
+    tensors = floats + list(idx)
+    if any(t.device != img.device for t in tensors):
+        raise ValueError(f"{name} tensors must share one device")
+    if img.device.type == "cpu":
+        return False
+    if img.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not "
+                         f"{img.device.type}")
+    if any(t.dtype != torch.float32 for t in floats) or \
+            any(t.dtype != torch.int32 for t in idx):
+        raise TypeError(f"the CUDA {name} takes f32 img/w/g and int32 "
+                        f"indices")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError(f"the CUDA {name} takes contiguous tensors")
+    if img.numel() >= 2 ** 31 or w.numel() >= 2 ** 31:
+        raise ValueError(f"{name} sizes must stay below 2^31 elements")
+    return True

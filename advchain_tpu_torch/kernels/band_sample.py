@@ -24,7 +24,7 @@ import functools
 
 import torch
 
-from advchain_tpu_torch.kernels import _build
+from advchain_tpu_torch.kernels import _build, _corners
 
 __all__ = ["BandSample", "band_sample_fwd",
            "band_sample_bwd", "band_sample_fwd_plain",
@@ -41,51 +41,16 @@ def reset_launch_counts() -> None:
 
 
 # ------------------------------------------------------------ plain twins
-def _corners(yidx, xidx, h: int, w: int):
-    """Flat source index (N, 4, P) int64 and tap validity (N, 4, P)."""
-    ys = torch.stack([yidx, yidx, yidx + 1, yidx + 1], dim=1).long()
-    xs = torch.stack([xidx, xidx + 1, xidx, xidx + 1], dim=1).long()
-    valid = (ys >= 0) & (ys < h) & (xs >= 0) & (xs < w)
-    flat = torch.where(valid, ys * w + xs, torch.zeros_like(ys))
-    return flat, valid
-
-
-def _gather_corners(img, flat, valid):
-    """vals (N, 4, C, P) = img at the four taps, zero where invalid."""
-    n, c, h, w = img.shape
-    p = flat.shape[2]
-    idx = flat.reshape(n, 1, 4 * p).expand(n, c, 4 * p)
-    vals = torch.gather(img.reshape(n, c, h * w), 2, idx)
-    vals = vals.reshape(n, c, 4, p).transpose(1, 2)
-    return torch.where(valid[:, :, None, :], vals, torch.zeros_like(vals))
-
-
 def band_sample_fwd_plain(img, yidx, xidx, w):
     """Plain PyTorch forward (any device, any float dtype): gather the four
     corners, then sum k = 0..3 in order, as the kernel does."""
-    flat, valid = _corners(yidx, xidx, img.shape[2], img.shape[3])
-    v = _gather_corners(img, flat, valid)
-    out = w[:, 0, None] * v[:, 0]
-    for k in range(1, 4):
-        out = out + w[:, k, None] * v[:, k]
-    return out
+    return _corners.fwd_plain(img, (yidx, xidx), w)
 
 
 def band_sample_bwd_plain(g, img, yidx, xidx, w):
     """Plain PyTorch backward: ``d_w[n,k,p] = sum_c g * v_k`` and
     ``d_img`` += ``w_k * g`` at each valid tap (deterministic scatter)."""
-    n, c, h, wd = img.shape
-    p = yidx.shape[1]
-    flat, valid = _corners(yidx, xidx, h, wd)
-    v = _gather_corners(img, flat, valid)
-    d_w = (g[:, None] * v).sum(dim=2)
-    contrib = w[:, :, None, :] * g[:, None]  # (N, 4, C, P)
-    contrib = torch.where(valid[:, :, None, :], contrib,
-                          torch.zeros_like(contrib))
-    idx = flat.reshape(n, 1, 4 * p).expand(n, c, 4 * p)
-    d_img = torch.zeros(n, c, h * wd, dtype=img.dtype, device=img.device)
-    d_img.scatter_add_(2, idx, contrib.transpose(1, 2).reshape(n, c, 4 * p))
-    return d_img.reshape(n, c, h, wd), d_w
+    return _corners.bwd_plain(g, img, (yidx, xidx), w)
 
 
 # ---------------------------------------------------------------- kernels
@@ -100,42 +65,10 @@ def _lib():
     return lib
 
 
-def _check(img, yidx, xidx, w, g=None):
-    if img.dim() != 4:
-        raise ValueError(f"img must be (N, C, H, W), got {tuple(img.shape)}")
-    n, c = img.shape[:2]
-    if yidx.dim() != 2 or yidx.shape[0] != n or xidx.shape != yidx.shape:
-        raise ValueError(f"yidx/xidx must be (N, P) with N={n}, got "
-                         f"{tuple(yidx.shape)} and {tuple(xidx.shape)}")
-    p = yidx.shape[1]
-    if tuple(w.shape) != (n, 4, p):
-        raise ValueError(f"w must be {(n, 4, p)}, got {tuple(w.shape)}")
-    if g is not None and tuple(g.shape) != (n, c, p):
-        raise ValueError(f"g must be {(n, c, p)}, got {tuple(g.shape)}")
-    tensors = [img, yidx, xidx, w] + ([g] if g is not None else [])
-    if any(t.device != img.device for t in tensors):
-        raise ValueError("band_sample tensors must share one device")
-    if img.device.type == "cpu":
-        return False
-    if img.device.type != "cuda":
-        raise ValueError(f"band_sample runs on cuda or cpu, not "
-                         f"{img.device.type}")
-    floats = [img, w] + ([g] if g is not None else [])
-    if any(t.dtype != torch.float32 for t in floats) or \
-            yidx.dtype != torch.int32 or xidx.dtype != torch.int32:
-        raise TypeError("the CUDA band_sample takes f32 img/w/g and int32 "
-                        "indices")
-    if any(not t.is_contiguous() for t in tensors):
-        raise ValueError("the CUDA band_sample takes contiguous tensors")
-    if img.numel() >= 2 ** 31 or n * 4 * p >= 2 ** 31:
-        raise ValueError("band_sample sizes must stay below 2^31 elements")
-    return True
-
-
 def band_sample_fwd(img, yidx, xidx, w):
     """Forward: ``out`` (N, C, P).  CPU tensors take the plain twin."""
     global FWD_LAUNCHES
-    if not _check(img, yidx, xidx, w):
+    if not _corners.check("band_sample", img, (yidx, xidx), w):
         return band_sample_fwd_plain(img, yidx, xidx, w)
     (n, c, h, wd), p = img.shape, yidx.shape[1]
     out = torch.empty(n, c, p, dtype=img.dtype, device=img.device)
@@ -154,7 +87,7 @@ def band_sample_bwd(g, img, yidx, xidx, w):
     """Backward: ``(d_img (N, C, H, W), d_w (N, 4, P))`` in one launch.
     CPU tensors take the plain twin."""
     global BWD_LAUNCHES
-    if not _check(img, yidx, xidx, w, g):
+    if not _corners.check("band_sample", img, (yidx, xidx), w, g):
         return band_sample_bwd_plain(g, img, yidx, xidx, w)
     (n, c, h, wd), p = img.shape, yidx.shape[1]
     d_img = torch.zeros_like(img)

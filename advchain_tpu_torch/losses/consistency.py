@@ -1,10 +1,12 @@
-"""Segmentation consistency divergences (mse / kl / contour), 2D (port of
-advchain_tpu/losses/consistency.py).
+"""Segmentation consistency divergences (mse / kl / contour), 2D and 3D
+(port of advchain_tpu/losses/consistency.py).
 
 Reference quirks kept: the mse divergence divides torch's ``MSELoss(mean)``
 once more by ``numel / C``; the Sobel filters are tiled across input AND
-output channels (a full convolution, not a depthwise one); the kl ``is_gt``
-path clamps the one-hot reference to [1e-8, 1 - 1e-8].
+output channels (a full convolution, not a depthwise one); the 3D Sobel
+filters are the reference's effective ones (its gy equals gx, and gz
+differentiates along the last axis); the kl ``is_gt`` path clamps the
+one-hot reference to [1e-8, 1 - 1e-8].
 """
 
 from __future__ import annotations
@@ -28,6 +30,20 @@ def _sobel_kernels_2d(object_classes: int):
     tile = (object_classes, object_classes, 1, 1)
     return (np.tile(x_f.reshape(1, 1, 3, 3), tile),
             np.tile(y_f.reshape(1, 1, 3, 3), tile))
+
+
+@functools.lru_cache(maxsize=8)
+def _sobel_kernels_3d(object_classes: int):
+    """Effective 3D kernels after the reference's gy/gz bugs:
+    gx[i,j,k] = s[i]*d[j]*s[k]; gy = gx; gz[i,j,k] = s[i]*s[j]*d[k]."""
+    smooth = np.array([1, 2, 1], np.float64)
+    diff = np.array([1, 0, -1], np.float64)
+    tile = (object_classes, object_classes, 1, 1, 1)
+    gx = np.einsum("i,j,k->ijk", smooth, diff, smooth)
+    gz = np.einsum("i,j,k->ijk", smooth, smooth, diff)
+    gx_w = np.tile(gx.reshape(1, 1, 3, 3, 3).astype(np.float32), tile)
+    gz_w = np.tile(gz.reshape(1, 1, 3, 3, 3).astype(np.float32), tile)
+    return gx_w, gx_w, gz_w
 
 
 def one_hot(labels, depth: int):
@@ -57,11 +73,12 @@ def kl_divergence(reference, pred, mask=None, is_gt: bool = False):
 def contour_loss(input, target, ignore_background: bool = True,
                  one_hot_target: bool = True, mask=None):
     """Sobel-gradient MSE across object boundaries.  input: probs
-    (N, C, H, W); target: labelmap (N, H, W) if ``one_hot_target`` else
-    probs (N, C, H, W)."""
+    (N, C, *S) with 2 or 3 spatial axes; target: labelmap (N, *S) if
+    ``one_hot_target`` else probs (N, C, *S)."""
     num_classes = input.shape[1]
-    if input.dim() != 4:
-        raise NotImplementedError("only the 2D contour loss is ported yet")
+    if input.dim() not in (4, 5):
+        raise ValueError(f"contour_loss takes 2D or 3D inputs, got "
+                         f"{tuple(input.shape)}")
     if one_hot_target:
         target = one_hot(target, num_classes).reshape(input.shape)
     if target.shape != input.shape:
@@ -76,14 +93,14 @@ def contour_loss(input, target, ignore_background: bool = True,
     else:
         object_classes = num_classes
     m = mask[:, :object_classes]
-    x_w, y_w = (torch.as_tensor(k, dtype=input.dtype, device=input.device)
-                for k in _sobel_kernels_2d(object_classes))
-    gx_p = conv_same(input, x_w) * m
-    gy_p = conv_same(input, y_w) * m
-    gx_t = conv_same(target, x_w) * m
-    gy_t = conv_same(target, y_w) * m
-    return 0.5 * (torch.mean((gx_p - gx_t) ** 2)
-                  + torch.mean((gy_p - gy_t) ** 2))
+    kernels = (_sobel_kernels_2d if input.dim() == 4
+               else _sobel_kernels_3d)(object_classes)
+    total = 0.0
+    for k in kernels:
+        k = torch.as_tensor(k, dtype=input.dtype, device=input.device)
+        total = total + torch.mean((conv_same(input, k) * m
+                                    - conv_same(target, k) * m) ** 2)
+    return total / len(kernels)
 
 
 def calc_segmentation_consistency(output, reference,
@@ -94,8 +111,11 @@ def calc_segmentation_consistency(output, reference,
     """Weighted multi-scale divergence between two prediction tensors."""
     if class_weights is not None:
         raise NotImplementedError("class_weights")
-    if output.dim() != 4 or reference.dim() != 4:
-        raise NotImplementedError("only 2D consistency is ported yet")
+    if output.dim() not in (4, 5) or reference.dim() != output.dim():
+        raise ValueError(f"only 2D or 3D segmentation is supported, got "
+                         f"{tuple(output.shape)} and "
+                         f"{tuple(reference.shape)}")
+    pool = F.avg_pool2d if output.dim() == 4 else F.avg_pool3d
     num_classes = reference.shape[1]
     if mask is None:
         mask = torch.ones_like(output)
@@ -103,11 +123,11 @@ def calc_segmentation_consistency(output, reference,
     for scale in scales:
         if scale > 0:
             k = 2 ** scale
-            ref_s = F.avg_pool2d(reference, k)
-            out_s = F.avg_pool2d(output, k)
+            ref_s = pool(reference, k)
+            out_s = pool(output, k)
             # the reference keeps the mask at full resolution, which cannot
             # broadcast against pooled outputs; pool it alongside
-            mask_s = F.avg_pool2d(mask, k)
+            mask_s = pool(mask, k)
         else:
             ref_s, out_s, mask_s = reference, output, mask
         for divergence_type, d_weight in zip(divergence_types,

@@ -1,5 +1,6 @@
-"""Weights carried across from the JAX package: its Flax UNet pytrees, as
-numpy arrays, become this port's ``state_dict`` (the inverse of
+"""Weights carried across from the JAX package: its Flax UNet and
+PseudoConv3dModel pytrees, as numpy arrays, become this port's
+``state_dict`` (for the UNet the inverse of
 advchain_tpu/models/convert.py::torch_unet_state_to_flax).
 
     flax                                torch
@@ -8,7 +9,10 @@ advchain_tpu/models/convert.py::torch_unet_state_to_flax).
     upK/conv/{conv1,bn1,conv2,bn2}      upK.conv.conv.{0,1,3,4}
     outc/conv                           outc.conv
 
-Conv kernels transpose (kH, kW, I, O) -> (O, I, kH, kW).
+    PseudoConv3dModel: conv1, bn1, conv2 keep their names.
+
+Conv kernels transpose (kH, kW, I, O) -> (O, I, kH, kW) and
+(kD, kH, kW, I, O) -> (O, I, kD, kH, kW).
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["flax_unet_to_torch_state"]
+__all__ = ["flax_unet_to_torch_state", "flax_pseudo3d_to_torch_state"]
 
 
 def _t(a) -> torch.Tensor:
@@ -26,8 +30,10 @@ def _t(a) -> torch.Tensor:
 
 
 def _conv(out: Dict[str, torch.Tensor], prefix: str, p) -> None:
-    out[prefix + ".weight"] = _t(np.transpose(np.asarray(p["kernel"]),
-                                              (3, 2, 0, 1)))
+    k = np.asarray(p["kernel"])
+    spatial = tuple(range(k.ndim - 2))
+    out[prefix + ".weight"] = _t(np.transpose(k, (k.ndim - 1, k.ndim - 2)
+                                              + spatial))
     if "bias" in p:
         out[prefix + ".bias"] = _t(p["bias"])
 
@@ -59,4 +65,16 @@ def flax_unet_to_torch_state(params, batch_stats) -> Dict[str, torch.Tensor]:
         _double_conv(out, f"up{k}.conv.conv", params[f"up{k}"]["conv"],
                      batch_stats[f"up{k}"]["conv"])
     _conv(out, "outc.conv", params["outc"]["conv"])
+    return out
+
+
+def flax_pseudo3d_to_torch_state(params, batch_stats
+                                 ) -> Dict[str, torch.Tensor]:
+    """(params, batch_stats) of the JAX package's PseudoConv3dModel -> a
+    state dict for
+    :class:`advchain_tpu_torch.models.unet.PseudoConv3dModel`."""
+    out: Dict[str, torch.Tensor] = {}
+    _conv(out, "conv1", params["conv1"])
+    _bn(out, "bn1", params["bn1"], batch_stats["bn1"])
+    _conv(out, "conv2", params["conv2"])
     return out

@@ -1,4 +1,4 @@
-"""Affine grid generation and homogeneous matrix inversion, 2D
+"""Affine grid generation and homogeneous matrix inversion, 2D and 3D
 (port of advchain_tpu/ops/affine.py)."""
 
 from __future__ import annotations
@@ -6,8 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["linspace", "affine_grid_2d", "affine_grid", "make_batch_eye",
-           "invert_affine_matrix"]
+__all__ = ["linspace", "affine_grid_2d", "affine_grid_3d", "affine_grid",
+           "make_batch_eye", "invert_affine_matrix"]
 
 
 def linspace(start: float, stop: float, num: int, dtype=torch.float32,
@@ -36,11 +36,23 @@ def affine_grid_2d(theta, size, align_corners: bool = True):
     return torch.einsum("hwk,njk->nhwj", base, theta)
 
 
+def affine_grid_3d(theta, size, align_corners: bool = True):
+    """theta: (N, 3, 4); size: (N, C, D, H, W) -> grid (N, D, H, W, 3)
+    with ``grid[..., 0]`` (x, over W) first."""
+    _, _, d, h, w = size
+    xs = _base_coords(w, align_corners, theta.dtype, theta.device)
+    ys = _base_coords(h, align_corners, theta.dtype, theta.device)
+    zs = _base_coords(d, align_corners, theta.dtype, theta.device)
+    bz, by, bx = torch.meshgrid(zs, ys, xs, indexing="ij")  # (D, H, W)
+    base = torch.stack([bx, by, bz, torch.ones_like(bx)], dim=-1)
+    return torch.einsum("dhwk,njk->ndhwj", base, theta)
+
+
 def affine_grid(theta, size, align_corners: bool = True):
     if len(size) == 4:
         return affine_grid_2d(theta, size, align_corners)
     if len(size) == 5:
-        raise NotImplementedError("3D affine grids are not ported yet")
+        return affine_grid_3d(theta, size, align_corners)
     raise ValueError(f"size must have 4 or 5 entries, got {len(size)}")
 
 

@@ -1,17 +1,20 @@
-"""B-spline kernels and airlab-style control-point grid geometry, 2D (port
-of advchain_tpu/ops/bspline.py).
+"""B-spline kernels and airlab-style control-point grid geometry, 2D and 3D
+(port of advchain_tpu/ops/bspline.py).
 
 The integer geometry is computed once on the host; the field itself is a
 transposed convolution, a border crop, a linear resize and ``exp``.  The
 kernel is the outer product of per-axis iterated box filters, which equals
 the reference's iterated all-ones convolution.  Quirks kept: the 2D kernel
-pads iteration i by ``i * spacing``, and the control grid carries a +2
-border and asymmetric crops.
+pads iteration i by ``i * spacing`` and the 3D kernel pads every iteration
+by ``spacing - 1``; the control grid carries a +2 border and asymmetric
+crops; the 3D field is resized to ``floor(size * scale)`` (torch
+``Upsample(scale_factor=...)``).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -39,14 +42,23 @@ def _bspline_kernel_1d(spacing: int, order: int,
 
 def bspline_kernel(spacing, order: int = 3,
                    spatial_dims: int = 2) -> np.ndarray:
-    """2D B-spline interpolation kernel (iteration i pads by i * spacing)."""
-    if spatial_dims != 2:
-        raise NotImplementedError("3D B-spline fields are not ported yet")
+    """N-D B-spline interpolation kernel: in 2D iteration i pads by
+    ``i * spacing``, in 3D every iteration pads by ``spacing - 1``."""
     spacing = tuple(int(s) for s in spacing)
-    axes = [_bspline_kernel_1d(s, order,
-                               tuple(i * s for i in range(1, order + 1)))
-            for s in spacing]
-    return np.multiply.outer(axes[0], axes[1]).astype(np.float32)
+    if len(spacing) != spatial_dims or spatial_dims not in (2, 3):
+        raise ValueError(f"spacing {spacing} does not fit spatial_dims="
+                         f"{spatial_dims}")
+    axes = []
+    for s in spacing:
+        if spatial_dims == 2:
+            pads = tuple(i * s for i in range(1, order + 1))
+        else:
+            pads = (s - 1,) * order
+        axes.append(_bspline_kernel_1d(s, order, pads))
+    k = axes[0]
+    for a in axes[1:]:
+        k = np.multiply.outer(k, a)
+    return k.astype(np.float32)
 
 
 @dataclass(frozen=True)
@@ -119,11 +131,19 @@ def evaluate_bspline_field(cpoints, spec: BSplineFieldSpec,
         start = s + cs
         stop = field.shape[2 + axis] - (s + ce)
         field = field.narrow(2 + axis, start, stop - start)
-    h, w = spec.image_size
     cur = field.shape[2:]
-    if h / cur[0] > 1 or w / cur[1] > 1:
-        field = interpolate(field, size=(h, w), mode="bilinear",
-                            align_corners=False)
+    if spec.spatial_dims == 2:
+        h, w = spec.image_size
+        if h / cur[0] > 1 or w / cur[1] > 1:
+            field = interpolate(field, size=(h, w), mode="bilinear",
+                                align_corners=False)
+    else:
+        factors = tuple(t / c for t, c in zip(spec.image_size, cur))
+        if any(f > 1 for f in factors):
+            out_size = tuple(int(math.floor(c * f))
+                             for c, f in zip(cur, factors))
+            field = interpolate(field, size=out_size, mode="trilinear",
+                                align_corners=False)
     if log_space:
         return torch.exp(field)
     return 1.0 + field

@@ -1,5 +1,5 @@
 """Convolution primitives with torch semantics on NCHW tensors (port of
-advchain_tpu/ops/conv.py, 2D).  The convolutions go to cuDNN through
+advchain_tpu/ops/conv.py, 2D and 3D).  The convolutions go to cuDNN through
 ``torch.nn.functional``; the Gaussian smoothing keeps the JAX package's
 separable tap accumulation so its arithmetic matches term for term."""
 
@@ -14,20 +14,24 @@ __all__ = ["conv_same", "conv_transpose", "effective_gaussian_ks",
            "gaussian_smooth"]
 
 
+def _conv_fns(x):
+    if x.dim() == 4:
+        return F.conv2d, F.conv_transpose2d
+    if x.dim() == 5:
+        return F.conv3d, F.conv_transpose3d
+    raise ValueError(f"only 2/3 spatial dims supported, got {x.dim() - 2}")
+
+
 def conv_same(x, weight, groups: int = 1):
     """Cross-correlation with 'padding = k // 2' (odd kernels).
-    x: (N, C_in, H, W); weight: (C_out, C_in / groups, kH, kW)."""
-    if x.dim() != 4:
-        raise NotImplementedError("only 2D convolutions are ported yet")
+    x: (N, C_in, *S); weight: (C_out, C_in / groups, *K)."""
     pad = tuple((k - 1) // 2 for k in weight.shape[2:])
-    return F.conv2d(x, weight, padding=pad, groups=groups)
+    return _conv_fns(x)[0](x, weight, padding=pad, groups=groups)
 
 
 def conv_transpose(x, weight, stride, padding):
-    """``conv_transpose2d`` (groups=1); weight (C_in, C_out, kH, kW)."""
-    if x.dim() != 4:
-        raise NotImplementedError("only 2D convolutions are ported yet")
-    return F.conv_transpose2d(x, weight, stride=stride, padding=padding)
+    """``conv_transpose{2,3}d`` (groups=1); weight (C_in, C_out, *K)."""
+    return _conv_fns(x)[1](x, weight, stride=stride, padding=padding)
 
 
 @functools.lru_cache(maxsize=32)

@@ -1,13 +1,16 @@
-"""Differentiable 2D bilinear grid sampling with torch ``grid_sample``
-semantics, on the band-sample kernel pair.
+"""Differentiable grid sampling with torch ``grid_sample`` semantics:
+2D bilinear on the band-sample kernel pair, 3D trilinear on the z-band
+kernel pair, and nearest in both on the same kernels.
 
-Port of advchain_tpu/ops/grid_sample.py (2D) and of the coordinate and
-weight preparation in kernels/gather_matmul.py::grid_sample_2d_pallas
-(:1584-1619): coordinates are unnormalized and padded in PyTorch, the
-corner weights are folded onto the clipped base corner, and the gather and
-its transpose run in ``kernels.band_sample``.  Gradients flow to the image
-(the scatter kernel) and to the grid (autograd over the weight math here,
-as XLA differentiates it in JAX).
+Port of advchain_tpu/ops/grid_sample.py and of the coordinate and weight
+preparation in kernels/gather_matmul.py: ``grid_sample_2d_pallas``
+(:1584-1619), ``_grid_sample_3d_zband`` (:1866-1952) and the nearest
+wrappers (:1653-1754).  Coordinates are unnormalized and padded in
+PyTorch, the corner weights are folded onto the clipped base corner, and
+the gather and its transpose run in ``kernels``.  Gradients flow to the
+image (the scatter kernel) and to the grid (autograd over the weight math
+here, as XLA differentiates it in JAX); nearest sampling gives the grid a
+zero gradient.
 
 Clips are written ``minimum(maximum(x, lo), hi)``: at an exact bound that
 passes half the gradient, as ``jnp.clip`` does, where ``torch.clamp``
@@ -19,8 +22,10 @@ from __future__ import annotations
 import torch
 
 from advchain_tpu_torch.kernels.band_sample import BandSample
+from advchain_tpu_torch.kernels.zband_sample import ZBandSample
 
-__all__ = ["grid_sample", "grid_sample_2d", "corner_weights", "clip"]
+__all__ = ["grid_sample", "grid_sample_2d", "grid_sample_3d",
+           "corner_weights", "corner_weights_3d", "nearest_weights", "clip"]
 
 
 def clip(x, lo, hi):
@@ -114,6 +119,107 @@ def corner_weights(grid, h: int, w: int, padding_mode: str = "zeros",
             weights.contiguous())
 
 
+def corner_weights_3d(grid, d: int, h: int, w: int,
+                      padding_mode: str = "zeros",
+                      align_corners: bool = True):
+    """The z-band inputs for ``grid`` (N, Do, Ho, Wo, 3) over a D x H x W
+    volume: base corners ``zidx``/``yidx``/``xidx`` (N, P) int32 and folded
+    weights (N, 8, P) f32 in (dz, dy, dx) order, differentiable with
+    respect to the grid (``_grid_sample_3d_zband``, :1866-1952)."""
+    n = grid.shape[0]
+    if grid.dim() != 5 or grid.shape[-1] != 3:
+        raise ValueError(f"grid must be (N, Do, Ho, Wo, 3), got "
+                         f"{tuple(grid.shape)}")
+    p = grid[0, ..., 0].numel()
+    gx = grid[..., 0].reshape(n, p)
+    gy = grid[..., 1].reshape(n, p)
+    gz = grid[..., 2].reshape(n, p)
+    ix = _prep_coord(gx, w, align_corners, padding_mode)
+    iy = _prep_coord(gy, h, align_corners, padding_mode)
+    iz = _prep_coord(gz, d, align_corners, padding_mode)
+    x0 = torch.floor(ix)
+    y0 = torch.floor(iy)
+    z0 = torch.floor(iz)
+    fx, fy, fz = ix - x0, iy - y0, iz - z0
+
+    def inb(xi, yi, zi):
+        if padding_mode == "zeros":
+            return ((xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+                    & (zi >= 0) & (zi <= d - 1)).to(fx.dtype)
+        return torch.ones_like(fx)
+
+    x0c = clip(x0, 0, w - 1)
+    y0c = clip(y0, 0, h - 1)
+    z0c = clip(z0, 0, d - 1)
+    # collapse indicators: does the clipped +1 tap differ from the base?
+    dxf = clip(x0 + 1, 0, w - 1) - x0c
+    dyf = clip(y0 + 1, 0, h - 1) - y0c
+    dzf = clip(z0 + 1, 0, d - 1) - z0c
+
+    wxs = (1 - fx, fx)
+    wys = (1 - fy, fy)
+    wzs = (1 - fz, fz)
+    raw = {}
+    for pz in (0, 1):
+        for py in (0, 1):
+            for px in (0, 1):
+                raw[(pz, py, px)] = (wzs[pz] * wys[py] * wxs[px]
+                                     * inb(x0 + px, y0 + py, z0 + pz))
+
+    def fold(tap, corner, m):
+        # tap-0 weight stays on corner 0; a collapsed +1 tap (m == 0)
+        # folds onto the base corner
+        if tap == 0:
+            return 1.0 if corner == 0 else None
+        return m if corner == 1 else (1 - m)
+
+    corners = []
+    for a in (0, 1):
+        for b in (0, 1):
+            for cc in (0, 1):
+                acc = None
+                for (pz, py, px), wv in raw.items():
+                    factors = (fold(pz, a, dzf), fold(py, b, dyf),
+                               fold(px, cc, dxf))
+                    if any(f is None for f in factors):
+                        continue
+                    term = wv
+                    for f in factors:
+                        if not (isinstance(f, float) and f == 1.0):
+                            term = term * f
+                    acc = term if acc is None else acc + term
+                corners.append(acc)
+    weights = torch.stack(corners, dim=1).float()
+    return (z0c.to(torch.int32).contiguous(),
+            y0c.to(torch.int32).contiguous(),
+            x0c.to(torch.int32).contiguous(), weights.contiguous())
+
+
+def nearest_weights(grid, sizes, padding_mode: str = "zeros",
+                    align_corners: bool = True):
+    """Nearest-neighbour inputs for the corner kernels
+    (``grid_sample_{2d,3d}_pallas_nearest``, :1653-1754): rounded
+    (half-to-even, as ``jnp.round``) and clipped base corners (N, P) int32
+    in (z,) y, x order, and weights (N, 2^d, P) with the zero-padding mask
+    on corner 0 and 0 elsewhere.  Piecewise constant: no grid gradient."""
+    n = grid.shape[0]
+    dims = len(sizes)
+    p = grid[0, ..., 0].numel()
+    bases, w0 = [], None
+    for axis, size in enumerate(sizes):
+        g = grid[..., dims - 1 - axis].reshape(n, p)
+        i_n = torch.round(_prep_coord(g, size, align_corners, padding_mode))
+        ok = (i_n >= 0) & (i_n <= size - 1)
+        w0 = ok if w0 is None else w0 & ok
+        bases.append(clip(i_n, 0, size - 1).to(torch.int32).contiguous())
+    if padding_mode != "zeros":
+        w0 = torch.ones_like(w0)
+    w0 = w0.to(torch.float32)
+    zero = torch.zeros_like(w0)
+    weights = torch.stack([w0] + [zero] * (2 ** dims - 1), dim=1)
+    return bases, weights.contiguous()
+
+
 def grid_sample_2d(x, grid, mode: str = "bilinear",
                    padding_mode: str = "zeros", align_corners: bool = True,
                    tile_order: str = "rows"):
@@ -121,26 +227,53 @@ def grid_sample_2d(x, grid, mode: str = "bilinear",
     ``grid[..., 0]`` indexes W.  ``tile_order`` is a TPU tiling hint of the
     JAX package, accepted and ignored."""
     del tile_order
-    if mode == "nearest":
-        raise NotImplementedError("nearest sampling is not ported yet")
-    if mode != "bilinear":
-        raise NotImplementedError(f"mode={mode!r}")
     n, c, h, w = x.shape
     if grid.shape[0] != n:
         raise ValueError(f"grid batch {grid.shape[0]} != image batch {n}")
-    yidx, xidx, weights = corner_weights(grid, h, w, padding_mode,
-                                         align_corners)
+    if mode == "bilinear":
+        yidx, xidx, weights = corner_weights(grid, h, w, padding_mode,
+                                             align_corners)
+    elif mode == "nearest":
+        (yidx, xidx), weights = nearest_weights(grid, (h, w), padding_mode,
+                                                align_corners)
+    else:
+        raise NotImplementedError(f"mode={mode!r}")
     out = BandSample.apply(x.float().contiguous(), yidx, xidx, weights)
     return out.reshape(n, c, grid.shape[1], grid.shape[2]).to(x.dtype)
 
 
+def grid_sample_3d(x, grid, mode: str = "bilinear",
+                   padding_mode: str = "zeros", align_corners: bool = True,
+                   tile_order: str = "rows"):
+    """Sample ``x`` (N, C, D, H, W) at ``grid`` (N, Do, Ho, Wo, 3);
+    ``grid[..., 0]`` indexes W, ``[..., 1]`` H and ``[..., 2]`` D
+    (``mode="bilinear"`` is trilinear, as in torch).  ``tile_order`` is
+    accepted and ignored."""
+    del tile_order
+    n, c, d, h, w = x.shape
+    if grid.shape[0] != n:
+        raise ValueError(f"grid batch {grid.shape[0]} != image batch {n}")
+    if mode == "bilinear":
+        zidx, yidx, xidx, weights = corner_weights_3d(
+            grid, d, h, w, padding_mode, align_corners)
+    elif mode == "nearest":
+        (zidx, yidx, xidx), weights = nearest_weights(
+            grid, (d, h, w), padding_mode, align_corners)
+    else:
+        raise NotImplementedError(f"mode={mode!r}")
+    out = ZBandSample.apply(x.float().contiguous(), zidx, yidx, xidx,
+                            weights)
+    return out.reshape((n, c) + tuple(grid.shape[1:4])).to(x.dtype)
+
+
 def grid_sample(x, grid, mode: str = "bilinear", padding_mode: str = "zeros",
                 align_corners: bool = True, tile_order: str = "rows"):
-    """Rank dispatch; only 4-D (2D) inputs are ported so far."""
+    """Dispatch on rank: 4-D input -> 2D sampler, 5-D input -> 3D."""
     if x.dim() == 4:
         return grid_sample_2d(x, grid, mode, padding_mode, align_corners,
                               tile_order=tile_order)
     if x.dim() == 5:
-        raise NotImplementedError("3D grid sampling is not ported yet")
+        return grid_sample_3d(x, grid, mode, padding_mode, align_corners,
+                              tile_order=tile_order)
     raise ValueError(f"grid_sample expects 4-D or 5-D input, got "
                      f"{x.dim()}-D")

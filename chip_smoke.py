@@ -1,26 +1,44 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (advchain_tpu_torch) once on one GPU.
 
-    python3 chip_smoke.py [--profile PATH]
+    python3 chip_smoke.py [--profile PATH] [--profile3d PATH]
 
 Phases (any failure raises and the script exits non-zero):
   1. print the card's name and power limit, build the CUDA kernels from
-     ``advchain_tpu_torch/kernels/csrc`` and print the build time;
-  2. hold each kernel against its plain PyTorch twin on the card at the main
-     path's shapes (N=128, 192x192, C in {1, 2, 5}; a 30-degree rotation
-     with zeros padding and a near-identity warp with border padding);
-  3. check the episode on a small input against the same episode on the CPU
-     (plain twins), with identical weights and transform parameters;
+     ``advchain_tpu_torch/kernels/csrc`` (one nvcc per source, started
+     together) and print the build time;
+  2. hold each 2D kernel against its plain PyTorch twin on the card at the
+     main path's shapes (N=128, 192x192, C in {1, 2, 5}; a 30-degree
+     rotation with zeros padding and a near-identity warp with border
+     padding);
+  3. check the 2D episode on a small input against the same episode on the
+     CPU (plain twins), with identical weights and transform parameters;
   4. run the headline adversarial episode (noise -> bias -> affine -> morph,
      batch 128 at 192x192, UNet_16 with 4 classes and seeded random
      weights, mse + contour, n_iter=1, smart power iteration), count the
      kernel launches of one episode and time 5 episodes after 2 warm-ups;
-  5. time each kernel, its twin and ``F.grid_sample`` (the library
-     yardstick, never used by the port) and print the ``kernels`` line.
+  5. time each 2D kernel, its twin and ``F.grid_sample`` (the library
+     yardstick, never used by the port);
+  6. hold the z-band kernels against their twins at the 3D episode's shapes
+     (N=2, 12x192x192, C in {1, 3, 5}; a 10-degree rotation about each
+     axis with zeros padding and a near-identity warp of up to 1 voxel with
+     border padding), and 2D and 3D nearest sampling on the card against
+     the CPU;
+  7. check a small 3D episode (batch 2, 1x8x32x32, dropout 0) against the
+     same episode on the CPU;
+  8. run the 3D volume episode of bench.py:349-404 (noise -> bias ->
+     affine -> morph in 3D, batch 2 at 1x12x192x192, PseudoConv3dModel
+     with 4 classes, dropout 0.1 and seeded random weights, mse,
+     n_iter=1), count its kernel launches, print its adaptive step counts
+     and time 5 episodes after 2 warm-ups;
+  9. time the z-band kernels, their twins and ``F.grid_sample`` on 5-D
+     input, and nearest sampling on both kernel pairs, then print the
+     ``kernels`` line for all four kernels.
 The last line of standard output is the device record.  ``--profile PATH``
-additionally writes a torch.profiler summary of one episode to PATH.
+/ ``--profile3d PATH`` additionally write a torch.profiler summary of one
+2D / 3D episode to PATH.
 
-Convolutions and matmuls run in full f32 (TF32 off): morph's 8
+Convolutions and matmuls run in full f32 (TF32 off): morph's 8 or more
 self-compositions amplify rounding.
 """
 
@@ -38,17 +56,42 @@ import numpy as np
 
 BATCH = 128
 SHAPE = (192, 192)
+BATCH3D = 2
+SHAPE3D = (12, 192, 192)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+SM_CLOCK_HZ = 1.98e9         # H100 SXM peak SM clock
 TOL_FWD = 1e-5
 TOL_DW = 1e-5
 TOL_DIMG_REL = 1e-5          # of max|d_img|: atomics sum in no fixed order
-KERNEL_SOURCE = "advchain_tpu_torch/kernels/csrc/band_sample.cu"
+KERNEL_SOURCES = {"band": "advchain_tpu_torch/kernels/csrc/band_sample.cu",
+                  "zband": "advchain_tpu_torch/kernels/csrc/zband_sample.cu"}
+# the TPU kernels each pair replaces (advchain_tpu/kernels/gather_matmul.py)
+REPLACES = {"band": {"fwd": 839, "bwd": 923},
+            "zband": {"fwd": 1081, "bwd": 1230}}
 
 
 def chain_configs(batch, shape):
-    """The headline transform configs (bench.py:156-168)."""
+    """The headline transform configs (bench.py:156-168), or the 3D volume
+    episode's (bench.py:363-382) for a 3-D shape."""
     size = [batch, 1, *shape]
+    if len(shape) == 3:
+        return {
+            "noise": {"epsilon": 1.0, "xi": 1e-6, "data_size": size},
+            "bias": {"epsilon": 0.3,
+                     "control_point_spacing": [max(s // 2, 2)
+                                               for s in shape],
+                     "downscale": 4, "data_size": size,
+                     "interpolation_order": 3, "init_mode": "random",
+                     "space": "log"},
+            "affine": {"rot_x": 10.0 / 180, "rot_y": 10.0 / 180,
+                       "rot_z": 10.0 / 180, "scale_x": 0.1, "scale_y": 0.1,
+                       "scale_z": 0.1, "shift_x": 0.1, "shift_y": 0.1,
+                       "shift_z": 0.1, "data_size": size},
+            "morph": {"epsilon": 1.5, "data_size": size,
+                      "vector_size": [max(shape[0] // 2, 2),
+                                      shape[1] // 16, shape[2] // 16]},
+        }
     return {
         "noise": {"epsilon": 1.0, "xi": 1e-6, "data_size": size},
         "bias": {"epsilon": 0.3, "control_point_spacing": [48, 48],
@@ -75,24 +118,72 @@ def make_image(batch, shape):
     return (x + 0.05 * r.rand(batch, 1, *shape)).astype(np.float32)
 
 
+def make_volume(batch, shape):
+    """The 3D episode's synthetic volume (bench.py make_volume)."""
+    d, h, w = shape
+    ii, jj, kk = np.meshgrid(np.arange(d), np.arange(h), np.arange(w),
+                             indexing="ij")
+    img = np.exp(-(((ii - d / 2) / (d / 3)) ** 2
+                   + ((jj - h / 2) / (h / 4)) ** 2
+                   + ((kk - w / 2) / (w / 4)) ** 2))
+    r = np.random.RandomState(0)
+    x = np.broadcast_to(img, (batch, 1) + tuple(shape)).copy()
+    return (x + 0.05 * r.rand(batch, 1, *shape)).astype(np.float32)
+
+
+def make_input(batch, shape):
+    return (make_image if len(shape) == 2 else make_volume)(batch, shape)
+
+
 def build_solver(batch, shape, names=("noise", "bias", "affine", "morph")):
+    """The headline solver (mse + contour), or the 3D episode's (mse) for a
+    3-D shape."""
     from advchain_tpu_torch.augmentor import (
         AdvAffine, AdvBias, AdvMorph, AdvNoise,
         ComposeAdversarialTransformSolver)
     cls = {"noise": AdvNoise, "bias": AdvBias, "affine": AdvAffine,
            "morph": AdvMorph}
     cfg = chain_configs(batch, shape)
-    chain = [cls[n](config_dict=cfg[n], seed=i) for i, n in enumerate(names)]
+    dims = len(shape)
+    chain = [cls[n](spatial_dims=dims, config_dict=cfg[n], seed=i)
+             for i, n in enumerate(names)]
+    if dims == 3:
+        return ComposeAdversarialTransformSolver(
+            chain_of_transforms=chain, divergence_types=["mse"],
+            divergence_weights=[1.0])
     return ComposeAdversarialTransformSolver(
         chain_of_transforms=chain, divergence_types=["mse", "contour"],
         divergence_weights=[1.0, 0.5])
 
 
-def build_model(device, seed=0):
-    from advchain_tpu_torch.models import SegmentationModel, UNet
-    return SegmentationModel.create(
-        UNet(input_channel=1, num_classes=4, feature_scale=4), seed=seed,
-        device=device)
+def build_model(device, seed=0, dims=2, dropout=0.1):
+    """UNet_16 (2D) or PseudoConv3dModel (3D; ``dropout`` applies), 4
+    classes, seeded random weights."""
+    from advchain_tpu_torch.models import (PseudoConv3dModel,
+                                           SegmentationModel, UNet)
+    module = (UNet(input_channel=1, num_classes=4, feature_scale=4)
+              if dims == 2 else
+              PseudoConv3dModel(num_classes=4, dropout=dropout))
+    return SegmentationModel.create(module, seed=seed, device=device)
+
+
+# the episodes' power-iteration setting: the headline's "smart", the 3D
+# episode's default (bench.py:384-392)
+POWER_ITERATION = {2: "smart", 3: False}
+
+
+def reset_launch_counts():
+    from advchain_tpu_torch.kernels import band_sample, zband_sample
+    band_sample.reset_launch_counts()
+    zband_sample.reset_launch_counts()
+
+
+def launch_counts():
+    from advchain_tpu_torch.kernels import band_sample, zband_sample
+    return {"band": {"fwd": band_sample.FWD_LAUNCHES,
+                     "bwd": band_sample.BWD_LAUNCHES},
+            "zband": {"fwd": zband_sample.FWD_LAUNCHES,
+                      "bwd": zband_sample.BWD_LAUNCHES}}
 
 
 def sync(device):
@@ -101,64 +192,91 @@ def sync(device):
         torch.cuda.synchronize()
 
 
-def sample_grids(n, h, w, device, seed=0):
-    """(name, padding, grid): a 30-degree rotation and a near-identity warp
-    of up to 1.5 px (the scaling-and-squaring compositions)."""
+def sampler(dims):
+    """(family name, kernel module) of the corner sampler for 2D / 3D."""
+    from advchain_tpu_torch.kernels import band_sample, zband_sample
+    return ("band", band_sample) if dims == 2 else ("zband", zband_sample)
+
+
+def sample_grids(n, shape, device, seed=0):
+    """(name, padding, grid) for an image of spatial ``shape``.  2D: a
+    30-degree rotation and a near-identity warp of up to 1.5 px; 3D: a
+    10-degree rotation about each axis and a near-identity warp of up to 1
+    voxel (the scaling-and-squaring compositions)."""
     import torch
     from advchain_tpu_torch.ops.affine import affine_grid
     gen = torch.Generator(device=device).manual_seed(seed)
-    a = math.radians(30.0)
-    theta = torch.tensor([[math.cos(a), -math.sin(a), 0.0],
-                          [math.sin(a), math.cos(a), 0.0]],
-                         device=device).expand(n, 2, 3)
-    rot = affine_grid(theta, (n, 1, h, w))
-    ident = affine_grid(torch.eye(2, 3, device=device).expand(n, 2, 3),
-                        (n, 1, h, w))
-    scale = torch.tensor([1.5 * 2 / (w - 1), 1.5 * 2 / (h - 1)],
+    dims = len(shape)
+    size = (n, 1) + tuple(shape)
+    if dims == 2:
+        a = math.radians(30.0)
+        rot = torch.tensor([[math.cos(a), -math.sin(a), 0.0],
+                            [math.sin(a), math.cos(a), 0.0]])
+        name, disp = "rot30", 1.5
+    else:
+        c, s = math.cos(math.radians(10.0)), math.sin(math.radians(10.0))
+        rx = torch.tensor([[1, 0, 0], [0, c, -s], [0, s, c]])
+        ry = torch.tensor([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+        rz = torch.tensor([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+        rot = torch.cat([rz @ ry @ rx, torch.zeros(3, 1)], dim=1)
+        name, disp = "rot10xyz", 1.0
+    eye = torch.eye(dims, dims + 1)
+    rot_grid = affine_grid(rot.to(device).expand(n, dims, dims + 1), size)
+    ident = affine_grid(eye.to(device).expand(n, dims, dims + 1), size)
+    # one pixel/voxel per axis, channel 0 along the last axis
+    scale = torch.tensor([disp * 2 / (s - 1) for s in reversed(shape)],
                          device=device)
     near = ident + (2 * torch.rand(ident.shape, generator=gen,
                                    device=device) - 1) * scale
-    return [("rot30", "zeros", rot), ("near_identity", "border", near)]
+    return [(name, "zeros", rot_grid), ("near_identity", "border", near)]
 
 
-def kernel_inputs(n, c, h, w, grid, padding, device, seed=0):
+def kernel_inputs(n, c, shape, grid, padding, device, seed=0):
+    """img, base indices (tuple), folded weights and a cotangent for the
+    sampler kernels of ``len(shape)`` dims."""
     import torch
-    from advchain_tpu_torch.ops.grid_sample import corner_weights
+    from advchain_tpu_torch.ops.grid_sample import (corner_weights,
+                                                    corner_weights_3d)
     gen = torch.Generator(device=device).manual_seed(seed + c)
-    img = torch.randn(n, c, h, w, generator=gen, device=device)
-    yidx, xidx, wts = corner_weights(grid, h, w, padding, True)
-    g = torch.randn(n, c, h * w, generator=gen, device=device)
-    return img, yidx, xidx, wts, g
+    img = torch.randn((n, c) + tuple(shape), generator=gen, device=device)
+    prep = corner_weights if len(shape) == 2 else corner_weights_3d
+    *idx, wts = prep(grid, *shape, padding, True)
+    g = torch.randn(n, c, grid[0, ..., 0].numel(), generator=gen,
+                    device=device)
+    return img, tuple(idx), wts, g
 
 
 def check_kernels(n, shape, device, channels=(1, 2, 5)):
-    """Phase 2: each kernel against its twin.  Returns the largest errors."""
+    """Phases 2 and 6: each kernel against its twin.  Returns the largest
+    errors."""
     import torch
-    from advchain_tpu_torch.kernels import band_sample as bs
-    h, w = shape
+    fam, mod = sampler(len(shape))
+    fwd, fwd_plain = (getattr(mod, f"{fam}_sample_fwd"),
+                      getattr(mod, f"{fam}_sample_fwd_plain"))
+    bwd, bwd_plain = (getattr(mod, f"{fam}_sample_bwd"),
+                      getattr(mod, f"{fam}_sample_bwd_plain"))
     worst = {"fwd": 0.0, "bwd": 0.0}
-    for name, padding, grid in sample_grids(n, h, w, device):
+    for name, padding, grid in sample_grids(n, shape, device):
         for c in channels:
-            img, yidx, xidx, wts, g = kernel_inputs(n, c, h, w, grid,
-                                                    padding, device)
+            img, idx, wts, g = kernel_inputs(n, c, shape, grid, padding,
+                                             device)
             with torch.no_grad():
-                out = bs.band_sample_fwd(img, yidx, xidx, wts)
-                ref = bs.band_sample_fwd_plain(img, yidx, xidx, wts)
-                d_img, d_w = bs.band_sample_bwd(g, img, yidx, xidx, wts)
-                r_img, r_w = bs.band_sample_bwd_plain(g, img, yidx, xidx,
-                                                      wts)
+                out = fwd(img, *idx, wts)
+                ref = fwd_plain(img, *idx, wts)
+                d_img, d_w = bwd(g, img, *idx, wts)
+                r_img, r_w = bwd_plain(g, img, *idx, wts)
             sync(device)
             e_fwd = float((out - ref).abs().max())
             e_dw = float((d_w - r_w).abs().max())
             scale = float(r_img.abs().max())
             e_dimg = float((d_img - r_img).abs().max())
-            print(f"[kernels] {name:13s} {padding:6s} C={c}: fwd {e_fwd:.3e} "
-                  f"d_w {e_dw:.3e} d_img {e_dimg:.3e} (max|d_img| "
-                  f"{scale:.3e})", flush=True)
+            print(f"[kernels] {fam:5s} {name:13s} {padding:6s} C={c}: fwd "
+                  f"{e_fwd:.3e} d_w {e_dw:.3e} d_img {e_dimg:.3e} "
+                  f"(max|d_img| {scale:.3e})", flush=True)
             if not (e_fwd <= TOL_FWD and e_dw <= TOL_DW
                     and e_dimg <= TOL_DIMG_REL * scale):
                 raise AssertionError(
-                    f"kernel disagrees with its twin: {name} C={c} "
+                    f"{fam} kernel disagrees with its twin: {name} C={c} "
                     f"fwd {e_fwd} d_w {e_dw} d_img {e_dimg} "
                     f"(limit {TOL_DIMG_REL * scale})")
             worst["fwd"] = max(worst["fwd"], e_fwd)
@@ -166,24 +284,57 @@ def check_kernels(n, shape, device, channels=(1, 2, 5)):
     return worst
 
 
-def check_episode_against_cpu(device, batch=2, shape=(64, 64)):
-    """Phase 3: the same small episodes on ``device`` and on the CPU (plain
-    twins), with identical weights and transform parameters.
-
-    Full chain without PGD: dist within 1e-3 absolute (morph's 8
-    self-compositions amplify rounding, tests/test_reference_e2e.py).
-    Morph-free chain, one PGD step on the noise alone: with power iteration
-    the new noise is the unit-normalised gradient of the divergence, which
-    runs back through the affine warp's backward kernel and the UNet, so
-    each sample's direction must agree to cosine 0.999, and dist to 1e-2
-    relative.  (A PGD step's outcome is not compared tighter: ReLU and
-    max-pool switches move gradients between two devices, and affine's
-    sign-of-gradient update would amplify them.)"""
+def check_nearest(device, cases=((BATCH, SHAPE), (BATCH3D, SHAPE3D))):
+    """Phase 6: 2D and 3D nearest sampling (on the band and z-band kernels)
+    on the card against the same calls on the CPU (the plain twins), output
+    and image gradient, at the main paths' shapes (C=1, rotation grids,
+    zeros padding)."""
     import torch
-    model_d = build_model(device)
-    model_c = build_model("cpu")
+    from advchain_tpu_torch.ops.grid_sample import grid_sample
+    for n, shape in cases:
+        _, padding, grid = sample_grids(n, shape, device)[0]
+        gen = torch.Generator(device=device).manual_seed(11)
+        img = torch.randn((n, 1) + tuple(shape), generator=gen,
+                          device=device)
+        cot = torch.randn(img.shape, generator=gen, device=device)
+        res = []
+        for dev in (device, "cpu"):
+            x = img.detach().to(dev).clone().requires_grad_(True)
+            out = grid_sample(x, grid.to(dev), mode="nearest",
+                              padding_mode=padding)
+            (out * cot.to(dev)).sum().backward()
+            res.append((out.detach().cpu(), x.grad.cpu()))
+        e_out = float((res[0][0] - res[1][0]).abs().max())
+        e_img = float((res[0][1] - res[1][1]).abs().max())
+        scale = float(res[1][1].abs().max())
+        print(f"[nearest] {len(shape)}D {tuple(shape)}: out {e_out:.3e} "
+              f"d_img {e_img:.3e} (max|d_img| {scale:.3e})", flush=True)
+        if not (e_out <= TOL_FWD and e_img <= TOL_DIMG_REL * scale):
+            raise AssertionError(f"{len(shape)}D nearest sampling on the "
+                                 f"card disagrees with the CPU")
+
+
+def check_episode_against_cpu(device, batch=2, shape=(64, 64)):
+    """Phases 3 and 7: the same small episodes on ``device`` and on the CPU
+    (plain twins), with identical weights and transform parameters (and,
+    in 3D, dropout 0).
+
+    Full chain without PGD: dist within 1e-3 absolute in 2D, 1e-4
+    relative in 3D (morph's 8 or more self-compositions amplify rounding,
+    tests/test_reference_e2e.py).  Morph-free chain, one PGD step on the
+    noise alone: with power iteration the new noise is the unit-normalised
+    gradient of the divergence, which runs back through the affine warp's
+    backward kernel and the network, so each sample's direction must agree
+    to cosine 0.999, and dist to 1e-2 relative.  (A PGD step's outcome is
+    not compared tighter: ReLU and max-pool switches move gradients between
+    two devices, and affine's sign-of-gradient update would amplify
+    them.)"""
+    import torch
+    dims = len(shape)
+    model_d = build_model(device, dims=dims, dropout=0.0)
+    model_c = build_model("cpu", dims=dims, dropout=0.0)
     model_c.module.load_state_dict(model_d.module.state_dict())
-    data = torch.as_tensor(make_image(batch, shape))
+    data = torch.as_tensor(make_input(batch, shape))
     results = {}
     for names, n_iter, flags in (
             (("noise", "bias", "affine", "morph"), 0, None),
@@ -203,49 +354,56 @@ def check_episode_against_cpu(device, batch=2, shape=(64, 64)):
         noise = [s.chain_of_transforms[0].param.cpu().reshape(batch, -1)
                  for s in solvers]
         cos = float(torch.nn.functional.cosine_similarity(*noise).min())
-        key = "+".join(names) + f" n_iter={n_iter}"
+        key = f"{dims}D " + "+".join(names) + f" n_iter={n_iter}"
         print(f"[reference] {key}: dist {dists[0]:.6e} vs cpu "
               f"{dists[1]:.6e} (abs {diff:.2e}, rel "
               f"{diff / abs(dists[1]):.2e}), noise cosine {cos:.7f}",
               flush=True)
-        ok = (diff < 1e-3 if n_iter == 0
-              else diff < 1e-2 * abs(dists[1]) and cos > 0.999)
+        if n_iter == 0:
+            ok = diff < 1e-3 if dims == 2 else diff <= 1e-4 * abs(dists[1])
+        else:
+            ok = diff < 1e-2 * abs(dists[1]) and cos > 0.999
         if not ok:
             raise AssertionError(f"episode disagrees with the CPU run: {key}")
         results[key] = (diff, cos)
     return results
 
 
-def episode_once(solver, model, data):
+def episode_once(solver, model, data, power_iteration="smart"):
     dist = solver.adversarial_training(data=data, model=model, n_iter=1,
-                                       power_iteration="smart",
+                                       power_iteration=power_iteration,
                                        step_sizes=1.0)
     sync(data.device)
     return dist
 
 
 def run_episode(device, batch, shape, warm=2, reps=5):
-    """Phase 4: returns (launch counts of one episode, median seconds per
-    episode, all rep times, final loss, peak device bytes allocated)."""
+    """Phases 4 and 8: returns (launch counts of one episode, median
+    seconds per episode, all rep times, final loss, peak device bytes
+    allocated, adaptive step counts of that episode)."""
     import torch
-    from advchain_tpu_torch.kernels import band_sample as bs
+    from advchain_tpu_torch.ops import integrate
+    dims = len(shape)
     solver = build_solver(batch, shape)
-    model = build_model(device)
-    data = torch.as_tensor(make_image(batch, shape), device=device)
+    model = build_model(device, dims=dims)
+    data = torch.as_tensor(make_input(batch, shape), device=device)
+    pi = POWER_ITERATION[dims]
     for _ in range(warm):
-        episode_once(solver, model, data)
+        episode_once(solver, model, data, pi)
     times = []
-    launches = None
+    launches = steps = None
     if data.is_cuda:
         torch.cuda.reset_peak_memory_stats()
     for i in range(reps):
         if i == 0:
-            bs.reset_launch_counts()
+            reset_launch_counts()
+            integrate.ADAPTIVE_STEPS.clear()
         t0 = time.perf_counter()
-        dist = episode_once(solver, model, data)
+        dist = episode_once(solver, model, data, pi)
         times.append(time.perf_counter() - t0)
         if i == 0:
-            launches = {"fwd": bs.FWD_LAUNCHES, "bwd": bs.BWD_LAUNCHES}
+            launches = launch_counts()
+            steps = list(integrate.ADAPTIVE_STEPS)
             loss = float(dist)
             adv = solver.adv_data
             warped = solver.warped_back_adv_output
@@ -256,20 +414,32 @@ def run_episode(device, batch, shape, warm=2, reps=5):
                     and bool(torch.isfinite(warped).all())):
                 raise AssertionError(f"episode output is not finite or has "
                                      f"the wrong shape (loss {loss})")
-    if not (launches["fwd"] > 0 and launches["bwd"] > 0):
-        raise AssertionError(f"the episode did not launch both kernels: "
-                             f"{launches}")
+    fam = sampler(dims)[0]
+    if not (launches[fam]["fwd"] > 0 and launches[fam]["bwd"] > 0):
+        raise AssertionError(f"the {dims}D episode did not launch both "
+                             f"{fam} kernels: {launches}")
     peak = torch.cuda.max_memory_allocated() if data.is_cuda else 0
-    return launches, statistics.median(times), times, loss, peak
+    return launches, statistics.median(times), times, loss, peak, steps
 
 
 def time_ms(fn, iters=20):
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
+    """Mean device time of ``fn`` over ``iters`` launches (CUDA events).
+    The launches are queued behind a sleep kernel that outlasts their
+    enqueueing, so the events time the device's work and not the host's
+    launch rate (a 3D sampler kernel runs for less time than a Python call
+    takes to launch it)."""
     import torch
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0  # bounds one call's enqueue time
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # cycles at the H100's 1.98 GHz peak clock: at a lower clock the sleep
+    # only lasts longer
+    torch.cuda._sleep(int(min(2 * iters * host_s, 2.0) * SM_CLOCK_HZ))
     start.record()
     for _ in range(iters):
         fn()
@@ -285,28 +455,37 @@ def bound_ms(nbytes, flops):
                                  else "operations")
 
 
-def time_kernels(n, shape, device):
-    """Phase 5 timings per case: kernel, twin, library, and the bound."""
+def time_kernels(n, shape, device, channels=(1, 2, 5)):
+    """Phases 5 and 9: timings per case: kernel, twin, library, and the
+    bound.  Bytes: each input read once and each output written once (f32
+    and int32, 4 bytes); operations: the weighted sum's multiplies and adds
+    (forward), the weight gradient's and the scatter's (backward)."""
     import torch
     import torch.nn.functional as F
-    from advchain_tpu_torch.kernels import band_sample as bs
-    h, w = shape
-    p = h * w
+    dims = len(shape)
+    fam, mod = sampler(dims)
+    fwd, fwd_plain = (getattr(mod, f"{fam}_sample_fwd"),
+                      getattr(mod, f"{fam}_sample_fwd_plain"))
+    bwd, bwd_plain = (getattr(mod, f"{fam}_sample_bwd"),
+                      getattr(mod, f"{fam}_sample_bwd_plain"))
+    k = 2 ** dims  # corners
+    s = math.prod(shape)
     rows = []
-    for name, padding, grid in sample_grids(n, h, w, device):
-        for c in (1, 2, 5):
-            img, yidx, xidx, wts, g = kernel_inputs(n, c, h, w, grid,
-                                                    padding, device)
-            f4 = 4  # bytes of f32 and int32
-            fwd_bytes = f4 * (n * c * h * w + 2 * n * p + 4 * n * p
+    for name, padding, grid in sample_grids(n, shape, device):
+        p = grid[0, ..., 0].numel()
+        for c in channels:
+            img, idx, wts, g = kernel_inputs(n, c, shape, grid, padding,
+                                             device)
+            f4 = 4
+            fwd_bytes = f4 * (n * c * s + dims * n * p + k * n * p
                               + n * c * p)
-            bwd_bytes = f4 * (n * c * p + n * c * h * w + 2 * n * p
-                              + 4 * n * p + n * c * h * w + 4 * n * p)
-            fwd_bound = bound_ms(fwd_bytes, 7 * n * c * p)
-            bwd_bound = bound_ms(bwd_bytes, 16 * n * c * p)
+            bwd_bytes = f4 * (n * c * p + n * c * s + dims * n * p
+                              + k * n * p + n * c * s + k * n * p)
+            fwd_bound = bound_ms(fwd_bytes, (2 * k - 1) * n * c * p)
+            bwd_bound = bound_ms(bwd_bytes, 4 * k * n * c * p)
             img_g = img.clone().requires_grad_(True)
             grid_g = grid.clone().requires_grad_(True)
-            g_img = g.reshape(n, c, h, w)
+            g_img = g.reshape(img.shape)
 
             def lib_bwd():
                 out = F.grid_sample(img_g, grid_g, mode="bilinear",
@@ -315,19 +494,17 @@ def time_kernels(n, shape, device):
 
             with torch.no_grad():
                 row = {
-                    "case": name, "padding": padding, "C": c,
-                    "fwd_ms": time_ms(lambda: bs.band_sample_fwd(
-                        img, yidx, xidx, wts)),
-                    "fwd_plain_ms": time_ms(lambda: bs.band_sample_fwd_plain(
-                        img, yidx, xidx, wts)),
+                    "kernel": fam, "case": name, "padding": padding, "C": c,
+                    "fwd_ms": time_ms(lambda: fwd(img, *idx, wts)),
+                    "fwd_plain_ms": time_ms(lambda: fwd_plain(img, *idx,
+                                                              wts)),
                     "fwd_library_ms": time_ms(lambda: F.grid_sample(
                         img, grid, mode="bilinear", padding_mode=padding,
                         align_corners=True)),
                     "fwd_bound_ms": fwd_bound[0],
-                    "bwd_ms": time_ms(lambda: bs.band_sample_bwd(
-                        g, img, yidx, xidx, wts)),
-                    "bwd_plain_ms": time_ms(lambda: bs.band_sample_bwd_plain(
-                        g, img, yidx, xidx, wts)),
+                    "bwd_ms": time_ms(lambda: bwd(g, img, *idx, wts)),
+                    "bwd_plain_ms": time_ms(lambda: bwd_plain(g, img, *idx,
+                                                              wts)),
                     "bwd_bound_ms": bwd_bound[0],
                 }
             row["bwd_library_ms"] = time_ms(lib_bwd)
@@ -337,18 +514,79 @@ def time_kernels(n, shape, device):
     return rows
 
 
+def time_nearest(device, cases=((BATCH, SHAPE), (BATCH3D, SHAPE3D))):
+    """Phase 9: nearest sampling rides the sampler kernels with unit
+    corner-0 weights; time each kernel on those inputs (C=1, the rotation
+    grid, zeros padding) beside its twin and ``F.grid_sample(mode=
+    "nearest")``, with the kernels' byte bound."""
+    import torch
+    import torch.nn.functional as F
+    from advchain_tpu_torch.ops.grid_sample import nearest_weights
+    rows = []
+    for n, shape in cases:
+        dims = len(shape)
+        fam, mod = sampler(dims)
+        name, padding, grid = sample_grids(n, shape, device)[0]
+        gen = torch.Generator(device=device).manual_seed(5)
+        img = torch.randn((n, 1) + tuple(shape), generator=gen,
+                          device=device)
+        idx, wts = nearest_weights(grid, shape, padding)
+        p = wts.shape[2]
+        g = torch.randn(n, 1, p, generator=gen, device=device)
+        k, s = 2 ** dims, math.prod(shape)
+        fwd_bound = bound_ms(4 * (n * s + dims * n * p + k * n * p + n * p),
+                             (2 * k - 1) * n * p)
+        bwd_bound = bound_ms(4 * (n * p + 2 * n * s + dims * n * p
+                                  + 2 * k * n * p), 4 * k * n * p)
+        img_g = img.clone().requires_grad_(True)
+        g_img = g.reshape((n, 1) + tuple(grid.shape[1:-1]))
+
+        def lib_bwd():
+            out = F.grid_sample(img_g, grid, mode="nearest",
+                                padding_mode=padding, align_corners=True)
+            torch.autograd.grad(out, img_g, g_img)
+
+        with torch.no_grad():
+            row = {
+                "kernel": fam, "mode": "nearest", "case": name,
+                "padding": padding, "C": 1,
+                "fwd_ms": time_ms(lambda: getattr(mod, f"{fam}_sample_fwd")(
+                    img, *idx, wts)),
+                "fwd_plain_ms": time_ms(lambda: getattr(
+                    mod, f"{fam}_sample_fwd_plain")(img, *idx, wts)),
+                "fwd_library_ms": time_ms(lambda: F.grid_sample(
+                    img, grid, mode="nearest", padding_mode=padding,
+                    align_corners=True)),
+                "fwd_bound_ms": fwd_bound[0],
+                "bwd_ms": time_ms(lambda: getattr(mod, f"{fam}_sample_bwd")(
+                    g, img, *idx, wts)),
+                "bwd_plain_ms": time_ms(lambda: getattr(
+                    mod, f"{fam}_sample_bwd_plain")(g, img, *idx, wts)),
+                "bwd_bound_ms": bwd_bound[0],
+            }
+        row["bwd_library_ms"] = time_ms(lib_bwd)
+        row["bound_by"] = [fwd_bound[1], bwd_bound[1]]
+        rows.append(row)
+        print("[timing] " + json.dumps(row), flush=True)
+    return rows
+
+
 def profile_episode(device, batch, shape, path):
     """Device time of one episode by kernel (torch.profiler), written to
     ``path`` as JSON; prints the busy time and the largest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    dims = len(shape)
     solver = build_solver(batch, shape)
-    model = build_model(device)
-    data = torch.as_tensor(make_image(batch, shape), device=device)
-    episode_once(solver, model, data)
+    model = build_model(device, dims=dims)
+    data = torch.as_tensor(make_input(batch, shape), device=device)
+    pi = POWER_ITERATION[dims]
+    episode_once(solver, model, data, pi)
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        episode_once(solver, model, data)
+        episode_once(solver, model, data, pi)
+    wall = (time.perf_counter() - t0) * 1e3
     rows = [{"name": e.key, "count": e.count,
              "device_ms": e.self_device_time_total / 1e3}
             for e in prof.key_averages()
@@ -356,12 +594,14 @@ def profile_episode(device, batch, shape, path):
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
-    sampler = sum(r["device_ms"] for r in rows if "band_sample" in r["name"])
+    # both sampler families' kernels carry "band_sample" in their names
+    samp = sum(r["device_ms"] for r in rows if "band_sample" in r["name"])
     with open(path, "w") as f:
-        json.dump({"device_busy_ms": busy, "band_sample_ms": sampler,
-                   "kernels": rows[:60]}, f, indent=1)
-    print(f"[profile] device busy {busy:.1f} ms, band_sample kernels "
-          f"{sampler:.1f} ms; top: " + "; ".join(
+        json.dump({"episode_wall_ms": wall, "device_busy_ms": busy,
+                   "sampler_ms": samp, "kernels": rows[:60]}, f, indent=1)
+    print(f"[profile] {dims}D episode {wall:.1f} ms under the profiler, "
+          f"device busy {busy:.1f} ms, sampler kernels {samp:.1f} ms; "
+          f"top: " + "; ".join(
               f"{r['name'][:50]} {r['device_ms']:.1f} ms x{r['count']}"
               for r in rows[:6]), flush=True)
 
@@ -373,10 +613,32 @@ def card_line():
         text=True).stdout.strip().splitlines()[0]
 
 
+def kernel_records(fam, launches, worst, rows, c_head, shape_note):
+    """The ``kernels`` line's entries of one sampler family, timed at its
+    most frequent call: the near-identity scaling-and-squaring
+    compositions, border padding, ``c_head`` channels."""
+    head = next(r for r in rows if r["case"] == "near_identity"
+                and r["C"] == c_head)
+    return [{
+        "name": f"{fam}_sample_{kind}", "route": "cuda",
+        "source": KERNEL_SOURCES[fam],
+        "replaces": f"advchain_tpu/kernels/gather_matmul.py:"
+                    f"{REPLACES[fam][kind]}",
+        "launches": launches[fam][kind], "max_abs_err": worst[kind],
+        "ms": head[f"{kind}_ms"], "plain_ms": head[f"{kind}_plain_ms"],
+        "bound_ms": head[f"{kind}_bound_ms"],
+        "bound_by": head["bound_by"][i],
+        "library_ms": head[f"{kind}_library_ms"],
+        "shape": f"{shape_note} C={c_head} near-identity border",
+    } for i, kind in enumerate(("fwd", "bwd"))]
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="PATH",
-                        help="also write a profile of one episode to PATH")
+                        help="also write a profile of one 2D episode to PATH")
+    parser.add_argument("--profile3d", metavar="PATH",
+                        help="also write a profile of one 3D episode to PATH")
     args = parser.parse_args(argv)
 
     import torch
@@ -391,42 +653,52 @@ def main(argv=None):
     card = card_line()
     print(card, flush=True)  # name, power limit, as nvidia-smi gives them
     t0 = time.perf_counter()
-    _build.build(["band_sample"])
-    print(f"[build] band_sample.cu in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    _build.build(["band_sample", "zband_sample"])
+    print(f"[build] band_sample.cu + zband_sample.cu in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    worst = check_kernels(BATCH, SHAPE, device)
+    # 2D: the headline episode
+    worst2 = check_kernels(BATCH, SHAPE, device)
     check_episode_against_cpu(device)
-    launches, sec, times, loss, peak = run_episode(device, BATCH, SHAPE)
+    launches2, sec, times, loss, peak, _ = run_episode(device, BATCH, SHAPE)
     print(f"[episode] batch {BATCH} {SHAPE[0]}x{SHAPE[1]}: loss {loss:.6e}, "
-          f"launches fwd {launches['fwd']} bwd {launches['bwd']}, median "
-          f"{sec * 1e3:.1f} ms ({BATCH / sec:.2f} img/s) over "
+          f"launches band fwd {launches2['band']['fwd']} bwd "
+          f"{launches2['band']['bwd']}, median {sec * 1e3:.1f} ms "
+          f"({BATCH / sec:.2f} img/s) over "
           f"{[round(t * 1e3, 1) for t in times]} ms, peak "
           f"{peak / 1e9:.2f} GB on {card}", flush=True)
     if args.profile:
         profile_episode(device, BATCH, SHAPE, args.profile)
+    rows2 = time_kernels(BATCH, SHAPE, device)
 
-    rows = time_kernels(BATCH, SHAPE, device)
-    # the line's timed case: the scaling-and-squaring compositions (C=2,
-    # near-identity, border), the most frequent sampler call of the episode
-    head = next(r for r in rows if r["case"] == "near_identity"
-                and r["C"] == 2)
-    kernels = []
-    for i, (kind, line) in enumerate((("fwd", 839), ("bwd", 923))):
-        kernels.append({
-            "name": f"band_sample_{kind}", "route": "cuda",
-            "source": KERNEL_SOURCE,
-            "replaces": f"advchain_tpu/kernels/gather_matmul.py:{line}",
-            "launches": launches[kind], "max_abs_err": worst[kind],
-            "ms": head[f"{kind}_ms"], "plain_ms": head[f"{kind}_plain_ms"],
-            "bound_ms": head[f"{kind}_bound_ms"],
-            "bound_by": head["bound_by"][i],
-            "library_ms": head[f"{kind}_library_ms"],
-            "shape": f"N={BATCH} C=2 {SHAPE[0]}x{SHAPE[1]} near-identity "
-                     f"border",
-        })
+    # 3D: the volume episode
+    worst3 = check_kernels(BATCH3D, SHAPE3D, device, channels=(1, 3, 5))
+    check_nearest(device)
+    check_episode_against_cpu(device, 2, (8, 32, 32))
+    launches3, sec3, times3, loss3, peak3, steps = run_episode(
+        device, BATCH3D, SHAPE3D)
+    print(f"[episode3d] batch {BATCH3D} 1x{'x'.join(map(str, SHAPE3D))}: "
+          f"loss {loss3:.6e}, launches zband fwd "
+          f"{launches3['zband']['fwd']} bwd {launches3['zband']['bwd']} "
+          f"(band fwd {launches3['band']['fwd']} bwd "
+          f"{launches3['band']['bwd']}), adaptive steps {steps}, median "
+          f"{sec3 * 1e3:.1f} ms ({BATCH3D / sec3:.3f} vol/s), reps "
+          f"{[round(t * 1e3, 1) for t in times3]} ms (spread "
+          f"{(max(times3) - min(times3)) * 1e3:.1f} ms), peak "
+          f"{peak3 / 1e9:.2f} GB on {card}", flush=True)
+    if args.profile3d:
+        profile_episode(device, BATCH3D, SHAPE3D, args.profile3d)
+    rows3 = time_kernels(BATCH3D, SHAPE3D, device, channels=(1, 3, 5))
+    time_nearest(device)
+
+    kernels = (kernel_records("band", launches2, worst2, rows2, 2,
+                              f"N={BATCH} {SHAPE[0]}x{SHAPE[1]}")
+               + kernel_records("zband", launches3, worst3, rows3, 3,
+                                f"N={BATCH3D} "
+                                f"{'x'.join(map(str, SHAPE3D))}"))
+    print(f"[episode] {BATCH / sec:.2f} img/s (2D), {BATCH3D / sec3:.3f} "
+          f"vol/s (3D) on {card}", flush=True)
     print(json.dumps({"kernels": kernels}))
-    print(f"[episode] {BATCH / sec:.2f} img/s on {card}", flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

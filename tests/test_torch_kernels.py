@@ -176,7 +176,14 @@ def test_corner_weights_are_contiguous_kernel_inputs():
 
 
 def test_grid_sample_2d_rejects_nearest():
+    """Nearest sampling is ported (tests/test_torch_kernels3d.py holds it
+    against JAX); what it rejects is the grid gradient, which is zero as
+    the sample is piecewise constant.  Unknown modes still raise."""
     img, grid, _ = _grid_case(8)
+    x = torch.from_numpy(img).requires_grad_(True)
+    g = torch.from_numpy(grid).requires_grad_(True)
+    grid_sample_2d(x, g, mode="nearest").sum().backward()
+    assert g.grad is None or not torch.any(g.grad)
+    assert torch.any(x.grad)
     with pytest.raises(NotImplementedError):
-        grid_sample_2d(torch.from_numpy(img), torch.from_numpy(grid),
-                       mode="nearest")
+        grid_sample_2d(torch.from_numpy(img), g, mode="bicubic")

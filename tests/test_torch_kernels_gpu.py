@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain twins.
+"""The port's CUDA kernels (band and z-band samplers) on the card, against
+their plain twins and the samplers' CPU path.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 
@@ -84,3 +85,89 @@ def test_cuda_tensor_never_takes_the_twin(cuda):
     img, y, x, wts, _ = _inputs(cuda, seed=3)
     with pytest.raises(TypeError):
         bs.band_sample_fwd(img.double(), y, x, wts)
+
+
+def _zband_inputs(device, n=2, c=3, d=7, h=13, w=17, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    img = torch.randn(n, c, d, h, w, generator=gen, device=device)
+    p = 700
+    idx = [torch.randint(-1, s + 1, (n, p), generator=gen, device=device,
+                         dtype=torch.int32) for s in (d, h, w)]
+    wts = torch.rand(n, 8, p, generator=gen, device=device)
+    g = torch.randn(n, c, p, generator=gen, device=device)
+    return img, idx, wts, g
+
+
+def test_zband_fwd_kernel_matches_twin(cuda):
+    from advchain_tpu_torch.kernels import zband_sample as zs
+    img, idx, wts, _ = _zband_inputs(cuda)
+    before = zs.FWD_LAUNCHES
+    out = zs.zband_sample_fwd(img, *idx, wts)
+    torch.cuda.synchronize()
+    assert zs.FWD_LAUNCHES == before + 1
+    torch.testing.assert_close(out, zs.zband_sample_fwd_plain(img, *idx, wts),
+                               atol=1e-5, rtol=0)
+
+
+def test_zband_bwd_kernel_matches_twin(cuda):
+    from advchain_tpu_torch.kernels import zband_sample as zs
+    img, idx, wts, g = _zband_inputs(cuda, seed=1)
+    before = zs.BWD_LAUNCHES
+    d_img, d_w = zs.zband_sample_bwd(g, img, *idx, wts)
+    torch.cuda.synchronize()
+    assert zs.BWD_LAUNCHES == before + 1
+    r_img, r_w = zs.zband_sample_bwd_plain(g, img, *idx, wts)
+    torch.testing.assert_close(d_w, r_w, atol=1e-5, rtol=0)
+    # atomics sum in no fixed order: f32 reassociation of max|d_img|
+    scale = float(r_img.abs().max())
+    assert float((d_img - r_img).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("padding", ["zeros", "border", "reflection"])
+def test_grid_sample_3d_gradients_match_the_cpu(cuda, padding):
+    from advchain_tpu_torch.ops.grid_sample import grid_sample_3d
+    gen = torch.Generator().manual_seed(2)
+    img = torch.randn(2, 3, 6, 11, 13, generator=gen)
+    grid = torch.rand(2, 5, 9, 10, 3, generator=gen) * 2.4 - 1.2
+    cot = torch.randn(2, 3, 5, 9, 10, generator=gen)
+    results = []
+    for dev in ("cpu", cuda):
+        x = img.to(dev).clone().requires_grad_(True)
+        gr = grid.to(dev).clone().requires_grad_(True)
+        out = grid_sample_3d(x, gr, padding_mode=padding)
+        (out * cot.to(dev)).sum().backward()
+        results.append([t.detach().cpu() for t in (out, x.grad, gr.grad)])
+    for a, b in zip(*results):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_nearest_matches_the_cpu(cuda, dims):
+    from advchain_tpu_torch.kernels import band_sample as bs
+    from advchain_tpu_torch.kernels import zband_sample as zs
+    from advchain_tpu_torch.ops.grid_sample import grid_sample
+    gen = torch.Generator().manual_seed(3)
+    spatial = (5, 11, 13)[3 - dims:]
+    img = torch.randn((2, 2) + spatial, generator=gen)
+    grid = torch.rand((2,) + spatial + (dims,), generator=gen) * 2.4 - 1.2
+    cot = torch.randn(img.shape, generator=gen)
+    mod = bs if dims == 2 else zs
+    results = []
+    for dev in ("cpu", cuda):
+        before = (mod.FWD_LAUNCHES, mod.BWD_LAUNCHES)
+        x = img.to(dev).clone().requires_grad_(True)
+        out = grid_sample(x, grid.to(dev), mode="nearest")
+        (out * cot.to(dev)).sum().backward()
+        if dev != "cpu":
+            assert (mod.FWD_LAUNCHES, mod.BWD_LAUNCHES) == \
+                (before[0] + 1, before[1] + 1)
+        results.append([t.detach().cpu() for t in (out, x.grad)])
+    for a, b in zip(*results):
+        torch.testing.assert_close(b, a, atol=1e-5, rtol=0)
+
+
+def test_cuda_tensor_never_takes_the_zband_twin(cuda):
+    from advchain_tpu_torch.kernels import zband_sample as zs
+    img, idx, wts, _ = _zband_inputs(cuda, seed=3)
+    with pytest.raises(TypeError):
+        zs.zband_sample_fwd(img.double(), *idx, wts)
