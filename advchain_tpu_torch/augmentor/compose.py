@@ -149,13 +149,15 @@ class ComposeAdversarialTransformSolver:
         return data
 
     def _warped_dist(self, params, data, init_output, train_flags,
-                     model_fn):
+                     model_fn, detach_input: bool = False):
         """Chain apply -> net -> warp back with the validity mask -> the
         divergence.  The one-channel mask rides the prediction's backward
-        chain: one warp instead of two."""
+        chain: one warp instead of two.  ``detach_input`` stops the
+        gradient at the adversarial image (the final pass)."""
         auxs = self._precompute_chain(params, train_flags)
         adv_data = self._chain_apply(params, data, train_flags, auxs)
-        adv_output = model_fn(adv_data)
+        adv_output = model_fn(adv_data.detach() if detach_input
+                              else adv_data)
         if not self.if_contains_geo_transform():
             return (self.loss_fn(pred=adv_output, reference=init_output),
                     adv_data, adv_output, adv_output)
@@ -175,7 +177,9 @@ class ComposeAdversarialTransformSolver:
         """One PGD iteration (the JAX package's ``build_pgd_step_fn``,
         compose.py:454-534): the divergence's gradient with respect to the
         flagged transforms' parameters, then each flagged transform's update
-        rule.  Returns (new params, divergence)."""
+        rule.  ``model`` is any callable ``model(x) -> logits`` (a train
+        step passes its frozen network); no gradient reaches its weights.
+        Returns (new params, divergence)."""
         opt = [p.detach().requires_grad_(True)
                for p, f in zip(params, flags) if f]
         it = iter(opt)
@@ -198,11 +202,15 @@ class ComposeAdversarialTransformSolver:
     def _final_loss(self, model, params, data, init_output):
         """The final consistency pass (``_final_loss_math``,
         compose.py:651-688): eval-mode chain, batch statistics in the
-        network."""
+        network.  Differentiable with respect to the network's weights,
+        with the adversarial image and ``init_output`` detached as in JAX;
+        ``adversarial_training`` runs it under ``no_grad``, a train step
+        does not."""
         eval_flags = (False,) * len(self.chain_of_transforms)
         return self._warped_dist(
-            params, data, init_output, eval_flags,
-            lambda x: self._model_call(model, x, train=True))
+            params, data, init_output.detach(), eval_flags,
+            lambda x: self._model_call(model, x, train=True),
+            detach_input=True)
 
     # -------------------------------------------------------------- model
     def get_net_output(self, model, data):

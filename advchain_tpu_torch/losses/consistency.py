@@ -1,5 +1,6 @@
-"""Segmentation consistency divergences (mse / kl / contour), 2D and 3D
-(port of advchain_tpu/losses/consistency.py).
+"""Segmentation consistency divergences (mse / kl / contour), 2D and 3D,
+and the supervised cross-entropy (port of advchain_tpu/losses/
+consistency.py).
 
 Reference quirks kept: the mse divergence divides torch's ``MSELoss(mean)``
 once more by ``numel / C``; the Sobel filters are tiled across input AND
@@ -12,6 +13,7 @@ one-hot reference to [1e-8, 1 - 1e-8].
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -20,7 +22,7 @@ import torch.nn.functional as F
 from advchain_tpu_torch.ops.conv import conv_same
 
 __all__ = ["calc_segmentation_consistency", "contour_loss", "kl_divergence",
-           "one_hot"]
+           "one_hot", "cross_entropy_2d", "cross_entropy"]
 
 
 @functools.lru_cache(maxsize=8)
@@ -158,3 +160,48 @@ def calc_segmentation_consistency(output, reference,
                     f"divergence type {divergence_type!r}")
             dist = dist + 2 ** scale * (d_weight * loss)
     return dist / (1.0 * len(scales))
+
+
+def cross_entropy_2d(input, target, weight=None, size_average: bool = True):
+    """Cross-entropy of 2D logits (N, C, H, W) against a hard labelmap
+    (N, H, W) or soft probabilities (N, C, H, W) (reference
+    loss.py:274-327).  ``weight`` (C,) is renormalised to sum to C;
+    ``size_average`` divides the sum by N*H*W."""
+    n, c, h, w = input.shape
+    log_p = torch.log_softmax(input, dim=1)
+    if weight is not None:
+        weight = torch.as_tensor(np.asarray(weight, np.float64),
+                                 dtype=torch.float64)
+        weight = (weight / weight.sum() * c).to(input.dtype).to(input.device)
+    if target.dim() == 3:
+        t = target.long()
+        picked = torch.gather(log_p, 1, t[:, None])[:, 0]
+        if weight is not None:
+            picked = picked * weight[t]
+        loss = -picked.sum()
+    elif target.dim() == 4:
+        plogq = target * log_p
+        if weight is not None:
+            plogq = plogq * weight.reshape(1, c, 1, 1)
+        loss = -plogq.sum()
+    else:
+        raise NotImplementedError("target must be 3-D labels or 4-D probs")
+    return loss / (n * h * w) if size_average else loss
+
+
+def cross_entropy(input, target, weight=None, size_average: bool = True):
+    """Cross-entropy of logits (N, C, *S) against hard labels (N, *S) or
+    soft probabilities (N, C, *S) for any spatial rank: the spatial axes
+    are flattened and handed to :func:`cross_entropy_2d`."""
+    n, c = input.shape[:2]
+    s = math.prod(input.shape[2:])
+    if target.dim() == input.dim() - 1:
+        target = target.reshape(n, s, 1)
+    elif target.dim() == input.dim():
+        target = target.reshape(n, c, s, 1)
+    else:
+        raise NotImplementedError(
+            f"target rank {target.dim()} does not match logits rank "
+            f"{input.dim()}")
+    return cross_entropy_2d(input.reshape(n, c, s, 1), target,
+                            weight=weight, size_average=size_average)

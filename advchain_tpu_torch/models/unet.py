@@ -11,9 +11,13 @@ state dicts load directly.
 BatchNorm follows the solver's fixed-network contract: in ``train()`` mode
 it normalises by batch statistics and never writes the running statistics
 back (the reference's ``_disable_tracking_bn_stats``); in ``eval()`` mode
-it uses the running statistics.  Dropout (:class:`EpisodeDropout`) replays
-one mask for a whole adversarial episode (the reference's Fixable dropout);
-``SegmentationModel.begin_episode`` redraws it.
+it uses the running statistics.  A training step's supervised pass alone
+writes them back (``write_back``, set by ``SegmentationModel.apply_train``),
+as torch's BatchNorm does: momentum 0.1, the unbiased batch variance into
+the running variance, the biased one for normalisation, eps 1e-5.
+Dropout (:class:`EpisodeDropout`) replays one mask for a whole adversarial
+episode (the reference's Fixable dropout); ``SegmentationModel.
+begin_episode`` redraws it.
 
 The JAX package computes PseudoConv3dModel's 3x3x3 convolutions as
 ``ZDecomposedConv3d``, three 2D convolutions over z-shifted plane stacks,
@@ -36,10 +40,18 @@ __all__ = ["UNet", "DoubleConv", "Down", "Up", "OutConv", "FrozenStatsBN",
 
 class _FrozenStats:
     """Training mode uses batch statistics without updating the running
-    ones; eval mode uses the running ones."""
+    ones, unless ``write_back`` is set (the JAX package's TorchBatchNorm
+    with a mutable ``batch_stats`` collection); eval mode uses the running
+    ones."""
+
+    write_back = False
 
     def forward(self, x):
         if self.training:
+            if self.write_back:
+                return F.batch_norm(x, self.running_mean, self.running_var,
+                                     self.weight, self.bias, training=True,
+                                     momentum=self.momentum, eps=self.eps)
             return F.batch_norm(x, None, None, self.weight, self.bias,
                                 training=True, eps=self.eps)
         return F.batch_norm(x, self.running_mean, self.running_var,

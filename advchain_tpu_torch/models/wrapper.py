@@ -5,7 +5,8 @@ module (port of advchain_tpu/models/wrapper.py).
 writing them back, the reference's train-mode solver semantics;
 ``eval()`` uses the running statistics.  ``apply_fixed(x, train=...)``
 forces a mode for one call; the solver uses it to force batch statistics
-in the final consistency pass.
+in the final consistency pass.  ``apply_train(x)`` is a training step's
+supervised forward: batch statistics, written back into the running ones.
 
 Dropout stays fixed for an episode: every :class:`EpisodeDropout` of the
 module replays one mask until :meth:`begin_episode` redraws it, which the
@@ -19,7 +20,7 @@ import torch
 from torch import nn
 
 from advchain_tpu_torch import resolve_device
-from advchain_tpu_torch.models.unet import EpisodeDropout
+from advchain_tpu_torch.models.unet import EpisodeDropout, _FrozenStats
 
 
 class SegmentationModel:
@@ -74,3 +75,19 @@ class SegmentationModel:
 
     def __call__(self, x):
         return self.apply_fixed(x)
+
+    def apply_train(self, x):
+        """One training-mode forward that also updates every BatchNorm's
+        running statistics (JAX ``apply_train`` with a mutable
+        ``batch_stats``); returns the logits, differentiable with respect
+        to the weights."""
+        self.module.train(True)
+        norms = [m for m in self.module.modules()
+                 if isinstance(m, _FrozenStats)]
+        for m in norms:
+            m.write_back = True
+        try:
+            return self.module(x)
+        finally:
+            for m in norms:
+                m.write_back = False

@@ -1,7 +1,8 @@
 """Numeric primitives on PyTorch tensors (2D and 3D); the samplers' gather
 and scatter run in :mod:`advchain_tpu_torch.kernels`."""
 
-from .grid_sample import grid_sample, grid_sample_2d, grid_sample_3d
+from .grid_sample import grid_sample, grid_sample_2d, grid_sample_3d, \
+    stencil_warp_2d
 from .affine import affine_grid, affine_grid_2d, affine_grid_3d, \
     make_batch_eye, invert_affine_matrix
 from .resize import interpolate, interp_matrix
@@ -12,7 +13,7 @@ from .integrate import base_grid, compose_flow, exponentiate_flow
 from .norms import unit_normalize
 
 __all__ = [
-    "grid_sample", "grid_sample_2d", "grid_sample_3d",
+    "grid_sample", "grid_sample_2d", "grid_sample_3d", "stencil_warp_2d",
     "affine_grid", "affine_grid_2d", "affine_grid_3d", "make_batch_eye",
     "invert_affine_matrix",
     "interpolate", "interp_matrix",

@@ -1,6 +1,7 @@
 """Differentiable grid sampling with torch ``grid_sample`` semantics:
 2D bilinear on the band-sample kernel pair, 3D trilinear on the z-band
-kernel pair, and nearest in both on the same kernels.
+kernel pair, and nearest in both on the same kernels; and the 2D stencil
+warp (bilinear, border padding, channel-first grid) on its own kernel pair.
 
 Port of advchain_tpu/ops/grid_sample.py and of the coordinate and weight
 preparation in kernels/gather_matmul.py: ``grid_sample_2d_pallas``
@@ -22,10 +23,12 @@ from __future__ import annotations
 import torch
 
 from advchain_tpu_torch.kernels.band_sample import BandSample
+from advchain_tpu_torch.kernels.stencil_warp import StencilWarp
 from advchain_tpu_torch.kernels.zband_sample import ZBandSample
 
 __all__ = ["grid_sample", "grid_sample_2d", "grid_sample_3d",
-           "corner_weights", "corner_weights_3d", "nearest_weights", "clip"]
+           "stencil_warp_2d", "corner_weights", "corner_weights_3d",
+           "nearest_weights", "clip"]
 
 
 def clip(x, lo, hi):
@@ -264,6 +267,30 @@ def grid_sample_3d(x, grid, mode: str = "bilinear",
     out = ZBandSample.apply(x.float().contiguous(), zidx, yidx, xidx,
                             weights)
     return out.reshape((n, c) + tuple(grid.shape[1:4])).to(x.dtype)
+
+
+def stencil_warp_2d(img, grid, radius: int = 2, grid_layout: str = "last"):
+    """Bilinear warp of ``img`` (N, C, H, W) with border padding and
+    align_corners=True at a grid on the image's own H x W raster (port of
+    advchain_tpu/ops/grid_sample.py::stencil_warp_2d, :197-392).
+
+    ``grid_layout``: 'last' = (N, H, W, 2), the torch convention; 'first' =
+    (N, 2, H, W), the channel-first flow that ``compose_flow`` passes
+    without a transpose.  ``radius`` is accepted so the API matches and is
+    ignored: the JAX stencil sums (2R+1)^2 taps of an R-pixel edge-padded
+    frame, so its caller must keep every sample within R pixels, whereas
+    the kernel reads clamped taps and is exact for any displacement.
+    Gradients reach the image and the grid through one backward kernel
+    (the JAX analytic VJP); autograd saves only ``(img, grid)``."""
+    del radius
+    if grid_layout == "last":
+        grid = torch.movedim(grid, -1, 1)
+    elif grid_layout != "first":
+        raise ValueError(f"grid_layout must be 'last' or 'first', got "
+                         f"{grid_layout!r}")
+    out = StencilWarp.apply(img.float().contiguous(),
+                            grid.float().contiguous())
+    return out.to(img.dtype)
 
 
 def grid_sample(x, grid, mode: str = "bilinear", padding_mode: str = "zeros",

@@ -1,11 +1,16 @@
 """Diffeomorphic flow integration (scaling and squaring) and flow
 composition, 2D and 3D (port of advchain_tpu/ops/integrate.py).
 
-The JAX package chooses, per composition, between a near-identity stencil
-and the sampler with a ``lax.cond``; both compute exact bi/trilinear
-sampling with border padding, so the choice is only about TPU speed.  Here
-every composition goes through ``grid_sample_2d`` / ``grid_sample_3d``:
-no branch, and no host sync on a device scalar per composition.
+Every 2D composition of two same-shape flows goes through
+``stencil_warp_2d``, which reads the channel-first flow directly.  The JAX
+package picks, per composition, between its stencil (displacement under 2
+px) and the sampler with a ``lax.cond``, because its TPU stencil holds only
+R pixels of halo; the port's stencil kernel reads clamped taps and is exact
+for any displacement, so there is no predicate and no host read.  Both
+agree with the sampler except at an exact border (a grid entry on +-1),
+where the stencil's one-sided slope is what JAX's default dispatch takes.
+3D compositions (and 2D ones of differing shapes) go through
+``grid_sample_3d`` / ``grid_sample_2d``.
 
 The adaptive 3D step count depends on the whole batch's velocity norm.  It
 is read to the host once per exponentiation (one sync), and the squarings
@@ -22,7 +27,7 @@ import math
 import torch
 
 from .affine import linspace
-from .grid_sample import grid_sample_2d, grid_sample_3d
+from .grid_sample import grid_sample_2d, grid_sample_3d, stencil_warp_2d
 
 __all__ = ["base_grid", "compose_flow", "exponentiate_flow",
            "adaptive_step_count", "ADAPTIVE_STEPS"]
@@ -50,6 +55,8 @@ def compose_flow(flow1, flow2):
     """h = f(g(x)): sample ``flow1`` at the positions given by ``flow2``
     (both (N, d, *spatial) grids in [-1, 1], d = 2 or 3), border padding,
     align_corners=True."""
+    if flow1.shape[1] == 2 and flow1.shape == flow2.shape:
+        return stencil_warp_2d(flow1, flow2, grid_layout="first")
     grid = torch.movedim(flow2, 1, -1)
     sample = {2: grid_sample_2d, 3: grid_sample_3d}[flow1.shape[1]]
     return sample(flow1, grid, mode="bilinear", padding_mode="border",

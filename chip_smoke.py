@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (advchain_tpu_torch) once on one GPU.
 
     python3 chip_smoke.py [--profile PATH] [--profile3d PATH]
+                          [--profile-train PATH]
 
 Phases (any failure raises and the script exits non-zero):
   1. print the card's name and power limit, build the CUDA kernels from
@@ -32,11 +33,24 @@ Phases (any failure raises and the script exits non-zero):
      n_iter=1), count its kernel launches, print its adaptive step counts
      and time 5 episodes after 2 warm-ups;
   9. time the z-band kernels, their twins and ``F.grid_sample`` on 5-D
-     input, and nearest sampling on both kernel pairs, then print the
-     ``kernels`` line for all four kernels.
+     input, and nearest sampling on both kernel pairs;
+ 10. hold the stencil-warp kernels (every 2D flow composition) against
+     their twins at the compositions' shapes (N=128, 192x192, C in
+     {1, 2, 5}; near-identity flows under 2 px, and flows of up to 20 px
+     that run past the border with entries on exactly +-1);
+ 11. check a small adversarial train step (batch 2, 32x32, UNet_16, the
+     same weights and transform draws, 2 steps) against the CPU;
+ 12. run the headline fused adversarial train step of bench.py:408-447
+     (batch 128 at 192x192, UNet_16, Adam 1e-4, n_iter=1, smart power
+     iteration, mse + contour, seeded random weights and labels), count
+     the kernel launches of one step and time 5 steps after 2 warm-ups;
+     then time the supervised step the same way;
+ 13. time the stencil kernels, their twins and ``F.grid_sample`` at the
+     composition shape (N=128, C=2, 192x192), then print the ``kernels``
+     line for all six kernels.
 The last line of standard output is the device record.  ``--profile PATH``
-/ ``--profile3d PATH`` additionally write a torch.profiler summary of one
-2D / 3D episode to PATH.
+/ ``--profile3d PATH`` / ``--profile-train PATH`` additionally write a
+torch.profiler summary of one 2D episode / 3D episode / train step to PATH.
 
 Convolutions and matmuls run in full f32 (TF32 off): morph's 8 or more
 self-compositions amplify rounding.
@@ -64,11 +78,20 @@ SM_CLOCK_HZ = 1.98e9         # H100 SXM peak SM clock
 TOL_FWD = 1e-5
 TOL_DW = 1e-5
 TOL_DIMG_REL = 1e-5          # of max|d_img|: atomics sum in no fixed order
+TOL_DFLOW_REL = 1e-5         # of max|d_flow|
+LR = 1e-4                    # the headline train step's Adam rate
 KERNEL_SOURCES = {"band": "advchain_tpu_torch/kernels/csrc/band_sample.cu",
-                  "zband": "advchain_tpu_torch/kernels/csrc/zband_sample.cu"}
-# the TPU kernels each pair replaces (advchain_tpu/kernels/gather_matmul.py)
-REPLACES = {"band": {"fwd": 839, "bwd": 923},
-            "zband": {"fwd": 1081, "bwd": 1230}}
+                  "zband": "advchain_tpu_torch/kernels/csrc/zband_sample.cu",
+                  "stencil": "advchain_tpu_torch/kernels/csrc/"
+                             "stencil_warp.cu"}
+KERNEL_NAMES = {"band": "band_sample", "zband": "zband_sample",
+                "stencil": "stencil_warp"}
+# the TPU kernels each pair replaces
+_GM = "advchain_tpu/kernels/gather_matmul.py"
+REPLACES = {"band": {"fwd": f"{_GM}:839", "bwd": f"{_GM}:923"},
+            "zband": {"fwd": f"{_GM}:1081", "bwd": f"{_GM}:1230"},
+            "stencil": {"fwd": "advchain_tpu/kernels/stencil.py:132",
+                        "bwd": "advchain_tpu/kernels/stencil.py:172"}}
 
 
 def chain_configs(batch, shape):
@@ -172,18 +195,21 @@ def build_model(device, seed=0, dims=2, dropout=0.1):
 POWER_ITERATION = {2: "smart", 3: False}
 
 
+def _kernel_modules():
+    from advchain_tpu_torch.kernels import (band_sample, stencil_warp,
+                                            zband_sample)
+    return {"band": band_sample, "zband": zband_sample,
+            "stencil": stencil_warp}
+
+
 def reset_launch_counts():
-    from advchain_tpu_torch.kernels import band_sample, zband_sample
-    band_sample.reset_launch_counts()
-    zband_sample.reset_launch_counts()
+    for mod in _kernel_modules().values():
+        mod.reset_launch_counts()
 
 
 def launch_counts():
-    from advchain_tpu_torch.kernels import band_sample, zband_sample
-    return {"band": {"fwd": band_sample.FWD_LAUNCHES,
-                     "bwd": band_sample.BWD_LAUNCHES},
-            "zband": {"fwd": zband_sample.FWD_LAUNCHES,
-                      "bwd": zband_sample.BWD_LAUNCHES}}
+    return {fam: {"fwd": mod.FWD_LAUNCHES, "bwd": mod.BWD_LAUNCHES}
+            for fam, mod in _kernel_modules().items()}
 
 
 def sync(device):
@@ -414,10 +440,11 @@ def run_episode(device, batch, shape, warm=2, reps=5):
                     and bool(torch.isfinite(warped).all())):
                 raise AssertionError(f"episode output is not finite or has "
                                      f"the wrong shape (loss {loss})")
-    fam = sampler(dims)[0]
-    if not (launches[fam]["fwd"] > 0 and launches[fam]["bwd"] > 0):
-        raise AssertionError(f"the {dims}D episode did not launch both "
-                             f"{fam} kernels: {launches}")
+    fams = [sampler(dims)[0]] + (["stencil"] if dims == 2 else [])
+    for fam in fams:
+        if not (launches[fam]["fwd"] > 0 and launches[fam]["bwd"] > 0):
+            raise AssertionError(f"the {dims}D episode did not launch both "
+                                 f"{fam} kernels: {launches}")
     peak = torch.cuda.max_memory_allocated() if data.is_cuda else 0
     return launches, statistics.median(times), times, loss, peak, steps
 
@@ -572,20 +599,28 @@ def time_nearest(device, cases=((BATCH, SHAPE), (BATCH3D, SHAPE3D))):
 
 
 def profile_episode(device, batch, shape, path):
-    """Device time of one episode by kernel (torch.profiler), written to
-    ``path`` as JSON; prints the busy time and the largest kernels."""
+    """Profile one episode (see :func:`profile_run`)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     dims = len(shape)
     solver = build_solver(batch, shape)
     model = build_model(device, dims=dims)
     data = torch.as_tensor(make_input(batch, shape), device=device)
     pi = POWER_ITERATION[dims]
-    episode_once(solver, model, data, pi)
+    profile_run(f"{dims}D episode",
+                lambda: episode_once(solver, model, data, pi), path)
+
+
+def profile_run(label, fn, path):
+    """Device time of one call of ``fn`` (after one warm-up call) by
+    kernel (torch.profiler), written to ``path`` as JSON; prints the busy
+    time and the largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        episode_once(solver, model, data, pi)
+        fn()
     wall = (time.perf_counter() - t0) * 1e3
     rows = [{"name": e.key, "count": e.count,
              "device_ms": e.self_device_time_total / 1e3}
@@ -594,16 +629,248 @@ def profile_episode(device, batch, shape, path):
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
-    # both sampler families' kernels carry "band_sample" in their names
-    samp = sum(r["device_ms"] for r in rows if "band_sample" in r["name"])
+    # the port's kernels: "band_sample" (both sampler families) and
+    # "stencil_warp" in their names
+    samp = sum(r["device_ms"] for r in rows if "band_sample" in r["name"]
+               or "stencil_warp" in r["name"])
     with open(path, "w") as f:
-        json.dump({"episode_wall_ms": wall, "device_busy_ms": busy,
-                   "sampler_ms": samp, "kernels": rows[:60]}, f, indent=1)
-    print(f"[profile] {dims}D episode {wall:.1f} ms under the profiler, "
-          f"device busy {busy:.1f} ms, sampler kernels {samp:.1f} ms; "
+        json.dump({"wall_ms": wall, "device_busy_ms": busy,
+                   "port_kernels_ms": samp, "kernels": rows[:60]}, f,
+                  indent=1)
+    print(f"[profile] {label} {wall:.1f} ms under the profiler, "
+          f"device busy {busy:.1f} ms, the port's kernels {samp:.1f} ms; "
           f"top: " + "; ".join(
               f"{r['name'][:50]} {r['device_ms']:.1f} ms x{r['count']}"
               for r in rows[:6]), flush=True)
+
+
+# ---------------------------------------------------------------- slice 3
+def stencil_flows(n, shape, device, seed=0):
+    """(name, flow) pairs (N, 2, H, W) for the stencil kernels: a
+    near-identity flow of up to 1.9 px (the early scaling-and-squaring
+    compositions), and one of up to 20 px whose top rows run past the
+    border, with 5% of its entries set to exactly +-1."""
+    import torch
+    from advchain_tpu_torch.ops.integrate import base_grid
+    gen = torch.Generator(device=device).manual_seed(seed)
+    h, w = shape
+    base = base_grid(n, shape, device=device)
+    px = torch.tensor([2.0 / (w - 1), 2.0 / (h - 1)],
+                      device=device).reshape(1, 2, 1, 1)
+
+    def jitter(disp):
+        return base + (2 * torch.rand(base.shape, generator=gen,
+                                      device=device) - 1) * disp * px
+
+    far = jitter(20.0)
+    far[:, :, :8] *= 1.3
+    pick = torch.rand(far.shape, generator=gen, device=device) < 0.05
+    sign = torch.where(torch.rand(far.shape, generator=gen, device=device)
+                       < 0.5, -1.0, 1.0)
+    far = torch.where(pick, sign, far)
+    return [("near_identity", jitter(1.9).contiguous()),
+            ("far_bounds", far.contiguous())]
+
+
+def stencil_inputs(n, c, flow, seed=0):
+    import torch
+    gen = torch.Generator(device=flow.device).manual_seed(seed + c)
+    shape = (n, c) + tuple(flow.shape[2:])
+    return (torch.randn(shape, generator=gen, device=flow.device),
+            torch.randn(shape, generator=gen, device=flow.device))
+
+
+def check_stencil(n, shape, device, channels=(1, 2, 5)):
+    """Phase 10: the stencil kernels against their twins.  Forward within
+    TOL_FWD absolute; ``d_flow`` within TOL_DFLOW_REL and ``d_img`` within
+    TOL_DIMG_REL of their largest entries (the atomics sum in no fixed
+    order).  Returns the largest absolute errors."""
+    import torch
+    from advchain_tpu_torch.kernels import stencil_warp as sw
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for name, flow in stencil_flows(n, shape, device):
+        for c in channels:
+            img, g = stencil_inputs(n, c, flow)
+            with torch.no_grad():
+                out = sw.stencil_warp_fwd(img, flow)
+                ref = sw.stencil_warp_fwd_plain(img, flow)
+                d_img, d_flow = sw.stencil_warp_bwd(g, img, flow)
+                r_img, r_flow = sw.stencil_warp_bwd_plain(g, img, flow)
+            sync(device)
+            e_fwd = float((out - ref).abs().max())
+            e_flow = float((d_flow - r_flow).abs().max())
+            e_img = float((d_img - r_img).abs().max())
+            s_flow = float(r_flow.abs().max())
+            s_img = float(r_img.abs().max())
+            print(f"[stencil] {name:13s} C={c}: fwd {e_fwd:.3e} d_flow "
+                  f"{e_flow:.3e} (max {s_flow:.3e}) d_img {e_img:.3e} "
+                  f"(max {s_img:.3e})", flush=True)
+            if not (e_fwd <= TOL_FWD and e_flow <= TOL_DFLOW_REL * s_flow
+                    and e_img <= TOL_DIMG_REL * s_img):
+                raise AssertionError(
+                    f"stencil kernel disagrees with its twin: {name} C={c} "
+                    f"fwd {e_fwd} d_flow {e_flow} d_img {e_img}")
+            worst["fwd"] = max(worst["fwd"], e_fwd)
+            worst["bwd"] = max(worst["bwd"], e_flow, e_img)
+    return worst
+
+
+def make_labels(batch, shape):
+    """Random integer labels (bench.py:432-435)."""
+    return np.random.RandomState(0).randint(0, 4, (batch,) + tuple(shape))
+
+
+def build_train_step(device, batch, shape, names=("noise", "bias", "affine",
+                                                  "morph"),
+                     supervised=False):
+    """(step, state, batch dict) of the headline train step (bench.py:
+    408-447): UNet_16 with seeded random weights, Adam 1e-4, n_iter=1,
+    smart power iteration, mse + contour; or the supervised step."""
+    import torch
+    from advchain_tpu_torch.parallel import (TrainState,
+                                             make_adversarial_train_step,
+                                             make_supervised_train_step)
+    model = build_model(device)
+    opt = torch.optim.Adam(model.module.parameters(), lr=LR)
+    if supervised:
+        step = make_supervised_train_step(model, opt)
+    else:
+        step = make_adversarial_train_step(
+            model, build_solver(batch, shape, names), opt, n_iter=1,
+            power_iteration="smart")
+    data = {"image": torch.as_tensor(make_image(batch, shape),
+                                     device=device),
+            "label": torch.as_tensor(make_labels(batch, shape),
+                                     device=device)}
+    return step, TrainState.create(model, opt), data
+
+
+def check_train_step_against_cpu(device, batch=2, shape=(32, 32), steps=2):
+    """Phase 11: the same adversarial train steps on ``device`` and on the
+    CPU: identical weights, and the transform draws made by two CPU
+    generators of one seed.  Held to tests/test_torch_train.py's
+    tolerances: step 1's supervised loss to 1e-5 relative, consistency
+    loss to 0.12 (the morph DIVERGENCE bound) and total to 1.2e-2; step
+    2's supervised and total losses to 1e-2 and consistency to 0.12;
+    every weight after step 1 within 2 lr (Adam's first step moves a
+    weight by about lr * sign(g))."""
+    import torch
+    runs = []
+    for dev in (device, "cpu"):
+        # seeded weights: the same on both devices
+        step, state, data = build_train_step(dev, batch, shape)
+        gen = torch.Generator().manual_seed(3)
+        metrics, first = [], None
+        for i in range(steps):
+            state, m = step(state, data, gen)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                first = {k: v.detach().cpu().clone() for k, v in
+                         state.model.module.state_dict().items()}
+        runs.append((metrics, first))
+    (m_d, w_d), (m_c, w_c) = runs
+    rel = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in a}
+           for a, b in zip(m_d, m_c)]
+    w_err = max(float((w_d[k] - w_c[k]).abs().max()) for k in w_c
+                if "running" not in k and "num_batches" not in k)
+    print(f"[train-ref] batch {batch} {shape}: losses {m_d} vs cpu {m_c}, "
+          f"relative {rel}, weights after step 1 max {w_err:.3e} "
+          f"(2 lr = {2 * LR:.1e})", flush=True)
+    ok = (rel[0]["supervised_loss"] < 1e-5
+          and rel[0]["consistency_loss"] < 0.12
+          and rel[0]["total_loss"] < 1.2e-2
+          and all(r["supervised_loss"] < 1e-2 and r["total_loss"] < 1e-2
+                  and r["consistency_loss"] < 0.12 for r in rel[1:])
+          and w_err <= 2 * LR * (1 + 1e-4))
+    if not ok:
+        raise AssertionError("train step on the card disagrees with the CPU")
+    return rel, w_err
+
+
+def run_train_step(device, batch, shape, supervised=False, warm=2, reps=5):
+    """Phase 12: returns (launch counts of one step, median seconds per
+    step, all rep times, the first timed step's metrics, peak device bytes
+    allocated)."""
+    import torch
+    step, state, data = build_train_step(device, batch, shape,
+                                         supervised=supervised)
+    gen = torch.Generator(device=device).manual_seed(1)
+    for _ in range(warm):
+        state, _ = step(state, data, gen)
+    sync(device)
+    if data["image"].is_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    times, launches, first = [], None, None
+    for i in range(reps):
+        if i == 0:
+            reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, data, gen)
+        sync(device)
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = launch_counts()
+            first = {k: float(v) for k, v in metrics.items()}
+            if not all(math.isfinite(v) for v in first.values()):
+                raise AssertionError(f"train step loss is not finite: "
+                                     f"{first}")
+    if not supervised:
+        for fam in ("band", "stencil"):
+            if not (launches[fam]["fwd"] > 0 and launches[fam]["bwd"] > 0):
+                raise AssertionError(f"the train step did not launch both "
+                                     f"{fam} kernels: {launches}")
+    peak = torch.cuda.max_memory_allocated() if data["image"].is_cuda else 0
+    return launches, statistics.median(times), times, first, peak
+
+
+def time_stencil(n, shape, device, channels=(2,)):
+    """Phase 13: kernel, twin and ``F.grid_sample`` (bilinear, border,
+    align_corners=True) times on the near-identity flow, with the bounds.
+    The library's channel-last grid is copied before the timed window.
+    Bytes: forward reads img and flow and writes out; backward reads g,
+    img and flow and writes d_img and d_flow (its zeroing pass is one more
+    write of d_img, not counted).  Operations: 9 per (pixel, channel) and
+    12 per pixel forward, 24 and 22 backward."""
+    import torch
+    import torch.nn.functional as F
+    from advchain_tpu_torch.kernels import stencil_warp as sw
+    p = math.prod(shape)
+    rows = []
+    _, flow = stencil_flows(n, shape, device)[0]
+    grid = flow.movedim(1, -1).contiguous()
+    for c in channels:
+        img, g = stencil_inputs(n, c, flow)
+        fwd_bound = bound_ms(4 * n * p * (2 * c + 2), n * p * (9 * c + 12))
+        bwd_bound = bound_ms(4 * n * p * (3 * c + 4), n * p * (24 * c + 22))
+        img_g = img.clone().requires_grad_(True)
+        grid_g = grid.clone().requires_grad_(True)
+
+        def lib_bwd():
+            out = F.grid_sample(img_g, grid_g, mode="bilinear",
+                                padding_mode="border", align_corners=True)
+            torch.autograd.grad(out, (img_g, grid_g), g)
+
+        with torch.no_grad():
+            row = {
+                "kernel": "stencil", "case": "near_identity",
+                "padding": "border", "C": c,
+                "fwd_ms": time_ms(lambda: sw.stencil_warp_fwd(img, flow)),
+                "fwd_plain_ms": time_ms(
+                    lambda: sw.stencil_warp_fwd_plain(img, flow)),
+                "fwd_library_ms": time_ms(lambda: F.grid_sample(
+                    img, grid, mode="bilinear", padding_mode="border",
+                    align_corners=True)),
+                "fwd_bound_ms": fwd_bound[0],
+                "bwd_ms": time_ms(lambda: sw.stencil_warp_bwd(g, img, flow)),
+                "bwd_plain_ms": time_ms(
+                    lambda: sw.stencil_warp_bwd_plain(g, img, flow)),
+                "bwd_bound_ms": bwd_bound[0],
+            }
+        row["bwd_library_ms"] = time_ms(lib_bwd)
+        row["bound_by"] = [fwd_bound[1], bwd_bound[1]]
+        rows.append(row)
+        print("[timing] " + json.dumps(row), flush=True)
+    return rows
 
 
 def card_line():
@@ -613,23 +880,20 @@ def card_line():
         text=True).stdout.strip().splitlines()[0]
 
 
-def kernel_records(fam, launches, worst, rows, c_head, shape_note):
-    """The ``kernels`` line's entries of one sampler family, timed at its
-    most frequent call: the near-identity scaling-and-squaring
-    compositions, border padding, ``c_head`` channels."""
-    head = next(r for r in rows if r["case"] == "near_identity"
-                and r["C"] == c_head)
+def kernel_records(fam, launches, worst, rows, case, c_head, shape_note):
+    """The ``kernels`` line's entries of one kernel pair, timed at its most
+    frequent call on its path: the ``case`` rows with ``c_head``
+    channels."""
+    head = next(r for r in rows if r["case"] == case and r["C"] == c_head)
     return [{
-        "name": f"{fam}_sample_{kind}", "route": "cuda",
-        "source": KERNEL_SOURCES[fam],
-        "replaces": f"advchain_tpu/kernels/gather_matmul.py:"
-                    f"{REPLACES[fam][kind]}",
+        "name": f"{KERNEL_NAMES[fam]}_{kind}", "route": "cuda",
+        "source": KERNEL_SOURCES[fam], "replaces": REPLACES[fam][kind],
         "launches": launches[fam][kind], "max_abs_err": worst[kind],
         "ms": head[f"{kind}_ms"], "plain_ms": head[f"{kind}_plain_ms"],
         "bound_ms": head[f"{kind}_bound_ms"],
         "bound_by": head["bound_by"][i],
         "library_ms": head[f"{kind}_library_ms"],
-        "shape": f"{shape_note} C={c_head} near-identity border",
+        "shape": f"{shape_note} C={c_head} {case} {head['padding']}",
     } for i, kind in enumerate(("fwd", "bwd"))]
 
 
@@ -639,6 +903,9 @@ def main(argv=None):
                         help="also write a profile of one 2D episode to PATH")
     parser.add_argument("--profile3d", metavar="PATH",
                         help="also write a profile of one 3D episode to PATH")
+    parser.add_argument("--profile-train", metavar="PATH",
+                        help="also write a profile of one headline train "
+                             "step to PATH")
     args = parser.parse_args(argv)
 
     import torch
@@ -653,9 +920,9 @@ def main(argv=None):
     card = card_line()
     print(card, flush=True)  # name, power limit, as nvidia-smi gives them
     t0 = time.perf_counter()
-    _build.build(["band_sample", "zband_sample"])
-    print(f"[build] band_sample.cu + zband_sample.cu in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    _build.build(list(KERNEL_NAMES.values()))
+    print(f"[build] {' + '.join(n + '.cu' for n in KERNEL_NAMES.values())} "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 2D: the headline episode
     worst2 = check_kernels(BATCH, SHAPE, device)
@@ -663,7 +930,9 @@ def main(argv=None):
     launches2, sec, times, loss, peak, _ = run_episode(device, BATCH, SHAPE)
     print(f"[episode] batch {BATCH} {SHAPE[0]}x{SHAPE[1]}: loss {loss:.6e}, "
           f"launches band fwd {launches2['band']['fwd']} bwd "
-          f"{launches2['band']['bwd']}, median {sec * 1e3:.1f} ms "
+          f"{launches2['band']['bwd']}, stencil fwd "
+          f"{launches2['stencil']['fwd']} bwd "
+          f"{launches2['stencil']['bwd']}, median {sec * 1e3:.1f} ms "
           f"({BATCH / sec:.2f} img/s) over "
           f"{[round(t * 1e3, 1) for t in times]} ms, peak "
           f"{peak / 1e9:.2f} GB on {card}", flush=True)
@@ -691,13 +960,49 @@ def main(argv=None):
     rows3 = time_kernels(BATCH3D, SHAPE3D, device, channels=(1, 3, 5))
     time_nearest(device)
 
-    kernels = (kernel_records("band", launches2, worst2, rows2, 2,
-                              f"N={BATCH} {SHAPE[0]}x{SHAPE[1]}")
-               + kernel_records("zband", launches3, worst3, rows3, 3,
+    # the fused adversarial train step, with every 2D composition on the
+    # stencil kernels
+    worst_s = check_stencil(BATCH, SHAPE, device)
+    check_train_step_against_cpu(device)
+    launches_t, sec_t, times_t, first_t, peak_t = run_train_step(
+        device, BATCH, SHAPE)
+    print(f"[train] adversarial step, batch {BATCH} {SHAPE[0]}x{SHAPE[1]}: "
+          f"losses {first_t}, launches stencil fwd "
+          f"{launches_t['stencil']['fwd']} bwd "
+          f"{launches_t['stencil']['bwd']}, band fwd "
+          f"{launches_t['band']['fwd']} bwd {launches_t['band']['bwd']}, "
+          f"median {sec_t * 1e3:.1f} ms ({BATCH / sec_t:.2f} img/s) over "
+          f"{[round(t * 1e3, 1) for t in times_t]} ms, peak "
+          f"{peak_t / 1e9:.2f} GB on {card}", flush=True)
+    _, sec_s, times_s, first_s, peak_s = run_train_step(
+        device, BATCH, SHAPE, supervised=True)
+    print(f"[train] supervised step, batch {BATCH}: loss {first_s}, median "
+          f"{sec_s * 1e3:.1f} ms ({BATCH / sec_s:.2f} img/s) over "
+          f"{[round(t * 1e3, 1) for t in times_s]} ms, peak "
+          f"{peak_s / 1e9:.2f} GB on {card}", flush=True)
+    if args.profile_train:
+        step, state, data = build_train_step(device, BATCH, SHAPE)
+        gen = torch.Generator(device=device).manual_seed(1)
+
+        def one_step():
+            step(state, data, gen)
+            sync(device)
+
+        profile_run("train step", one_step, args.profile_train)
+    rows_s = time_stencil(BATCH, SHAPE, device)
+
+    shape2 = f"N={BATCH} {SHAPE[0]}x{SHAPE[1]}"
+    kernels = (kernel_records("band", launches2, worst2, rows2, "rot30", 1,
+                              shape2)
+               + kernel_records("zband", launches3, worst3, rows3,
+                                "near_identity", 3,
                                 f"N={BATCH3D} "
-                                f"{'x'.join(map(str, SHAPE3D))}"))
+                                f"{'x'.join(map(str, SHAPE3D))}")
+               + kernel_records("stencil", launches_t, worst_s, rows_s,
+                                "near_identity", 2, shape2))
     print(f"[episode] {BATCH / sec:.2f} img/s (2D), {BATCH3D / sec3:.3f} "
-          f"vol/s (3D) on {card}", flush=True)
+          f"vol/s (3D), train step {BATCH / sec_t:.2f} img/s (supervised "
+          f"{BATCH / sec_s:.2f}) on {card}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

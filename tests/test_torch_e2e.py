@@ -2,9 +2,10 @@
 JAX package and through the port, with the Flax UNet_16's weights carried
 across and identical transform parameters injected with
 ``set_transformation`` + ``lazy_load=True`` (the packages' random streams
-cannot match).  Each case runs against JAX's default dispatch and against
-JAX built with ADVCHAIN_STENCIL=0 (every composition on the sampler, as in
-the port).
+cannot match).  Each case runs against JAX's default dispatch (the
+stencil for sub-2-px compositions, as the port takes its stencil for
+every 2D composition) and against JAX built with ADVCHAIN_STENCIL=0
+(every composition on the sampler).
 
 DIVERGENCE (tests/test_reference_e2e.py, the note before
 test_cardiac_2d_n_iter0_parity): morph composes a bilinear sample with

@@ -40,7 +40,8 @@ def test_port_imports_with_jax_blocked():
         "    sys.modules[name] = None\n"
         "import advchain_tpu_torch.augmentor, advchain_tpu_torch.models\n"
         "import advchain_tpu_torch.kernels, advchain_tpu_torch.ops\n"
-        "import advchain_tpu_torch.losses, chip_smoke\n"
+        "import advchain_tpu_torch.losses, advchain_tpu_torch.parallel\n"
+        "import chip_smoke\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (band and z-band samplers) on the card, against
-their plain twins and the samplers' CPU path.
+"""The port's CUDA kernels (band and z-band samplers, the stencil warp) on
+the card, against their plain twins and the CPU path.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 
@@ -171,3 +171,55 @@ def test_cuda_tensor_never_takes_the_zband_twin(cuda):
     img, idx, wts, _ = _zband_inputs(cuda, seed=3)
     with pytest.raises(TypeError):
         zs.zband_sample_fwd(img.double(), *idx, wts)
+
+
+@pytest.mark.parametrize("c", [1, 2, 5])
+def test_stencil_kernels_match_twins(cuda, c):
+    """chip_smoke.py phase 10's cases: N=128, 192x192, a near-identity flow
+    and one of up to 20 px past the border with entries on exactly +-1."""
+    import chip_smoke
+    from advchain_tpu_torch.kernels import stencil_warp as sw
+    for _, flow in chip_smoke.stencil_flows(128, (192, 192), cuda):
+        img, g = chip_smoke.stencil_inputs(128, c, flow)
+        before = (sw.FWD_LAUNCHES, sw.BWD_LAUNCHES)
+        out = sw.stencil_warp_fwd(img, flow)
+        d_img, d_flow = sw.stencil_warp_bwd(g, img, flow)
+        torch.cuda.synchronize()
+        assert (sw.FWD_LAUNCHES, sw.BWD_LAUNCHES) == \
+            (before[0] + 1, before[1] + 1)
+        torch.testing.assert_close(out, sw.stencil_warp_fwd_plain(img, flow),
+                                   atol=1e-5, rtol=0)
+        r_img, r_flow = sw.stencil_warp_bwd_plain(g, img, flow)
+        # atomics sum in no fixed order; channel sums reassociate
+        for ours, ref in ((d_img, r_img), (d_flow, r_flow)):
+            scale = float(ref.abs().max())
+            assert float((ours - ref).abs().max()) <= 1e-5 * scale
+
+
+def test_compose_flow_takes_the_stencil_kernels(cuda):
+    from advchain_tpu_torch.kernels import stencil_warp as sw
+    from advchain_tpu_torch.ops.integrate import base_grid, compose_flow
+    gen = torch.Generator().manual_seed(4)
+    flow = base_grid(2, (17, 23)) + 0.05 * torch.randn(2, 2, 17, 23,
+                                                       generator=gen)
+    cot = torch.randn(flow.shape, generator=gen)
+    results = []
+    for dev in ("cpu", cuda):
+        before = (sw.FWD_LAUNCHES, sw.BWD_LAUNCHES)
+        f = flow.to(dev).clone().requires_grad_(True)
+        out = compose_flow(f, f)
+        (out * cot.to(dev)).sum().backward()
+        if dev != "cpu":
+            assert (sw.FWD_LAUNCHES, sw.BWD_LAUNCHES) == \
+                (before[0] + 1, before[1] + 1)
+        results.append([t.detach().cpu() for t in (out, f.grad)])
+    for a, b in zip(*results):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-5)
+
+
+def test_cuda_tensor_never_takes_the_stencil_twin(cuda):
+    from advchain_tpu_torch.kernels import stencil_warp as sw
+    img = torch.randn(2, 3, 8, 9, device=cuda)
+    flow = torch.zeros(2, 2, 8, 9, device=cuda)
+    with pytest.raises(TypeError):
+        sw.stencil_warp_fwd(img.double(), flow.double())

@@ -1,7 +1,10 @@
 """The port's 2D ops and losses against the JAX package on identical numpy
 inputs.  Flow composition and exponentiation are compared with the JAX
 side built with ADVCHAIN_STENCIL=0 (read at trace time), which pins its
-compositions to the sampler, as the port's are."""
+compositions to the sampler; the port's 2D compositions take its stencil
+kernels, which are the same exact bilinear sampling with border padding
+(tests/test_torch_stencil.py holds them against JAX's default
+dispatch)."""
 
 import numpy as np
 import pytest
