@@ -6,6 +6,16 @@ from advchain_tpu_torch.kernels.band_sample import (BandSample,
                                                     band_sample_bwd_plain,
                                                     band_sample_fwd,
                                                     band_sample_fwd_plain)
+from advchain_tpu_torch.kernels.plane_sample import (CornerSample,
+                                                     PlaneSample,
+                                                     corner_sample_bwd,
+                                                     corner_sample_bwd_plain,
+                                                     corner_sample_fwd,
+                                                     corner_sample_fwd_plain,
+                                                     plane_sample_bwd,
+                                                     plane_sample_bwd_plain,
+                                                     plane_sample_fwd,
+                                                     plane_sample_fwd_plain)
 from advchain_tpu_torch.kernels.stencil_warp import (StencilWarp,
                                                      stencil_warp_bwd,
                                                      stencil_warp_bwd_plain,
@@ -22,4 +32,8 @@ __all__ = ["BandSample", "band_sample_fwd", "band_sample_bwd",
            "ZBandSample", "zband_sample_fwd", "zband_sample_bwd",
            "zband_sample_fwd_plain", "zband_sample_bwd_plain",
            "StencilWarp", "stencil_warp_fwd", "stencil_warp_bwd",
-           "stencil_warp_fwd_plain", "stencil_warp_bwd_plain"]
+           "stencil_warp_fwd_plain", "stencil_warp_bwd_plain",
+           "CornerSample", "corner_sample_fwd", "corner_sample_bwd",
+           "corner_sample_fwd_plain", "corner_sample_bwd_plain",
+           "PlaneSample", "plane_sample_fwd", "plane_sample_bwd",
+           "plane_sample_fwd_plain", "plane_sample_bwd_plain"]

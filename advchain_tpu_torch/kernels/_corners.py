@@ -1,6 +1,7 @@
-"""What the band (2D) and z-band (3D) corner samplers share: their plain
-PyTorch twins, written once for d spatial axes, and the wrappers' argument
-checks.
+"""What the corner samplers share: the plain PyTorch twins of the band (2D)
+and z-band (3D) samplers, written once for d spatial axes, the weighted
+gather and its transpose at precomputed flat taps (which the flat-index
+corner and plane samplers also use), and the wrappers' argument checks.
 
 Contract: ``img`` (N, C, *S) with d = len(S) spatial axes, ``idx`` a tuple
 of d (N, P) int32 base corners (the first spatial axis first), ``w``
@@ -29,7 +30,7 @@ def corners(idx, sizes):
 
 
 def _gather_corners(img, flat, valid):
-    """vals (N, 2^d, C, P) = img at the taps, zero where invalid."""
+    """vals (N, K, C, P) = img at the taps, zero where invalid."""
     n, c = img.shape[:2]
     k, p = flat.shape[1:]
     idx = flat.reshape(n, 1, k * p).expand(n, c, k * p)
@@ -41,7 +42,19 @@ def _gather_corners(img, flat, valid):
 def fwd_plain(img, idx, w):
     """Gather the corners, then sum k = 0..2^d-1 in order, as the kernels
     do (any device, any float dtype)."""
-    flat, valid = corners(idx, img.shape[2:])
+    return fwd_taps(img, *corners(idx, img.shape[2:]), w)
+
+
+def bwd_plain(g, img, idx, w):
+    """``d_w[n,k,p] = sum_c g * v_k`` and ``d_img`` += ``w_k * g`` at each
+    valid tap (a deterministic scatter)."""
+    return bwd_taps(g, img, *corners(idx, img.shape[2:]), w)
+
+
+def fwd_taps(img, flat, valid, w):
+    """``out[n,c,p] = sum_k w[n,k,p] * img[n,c].flatten()[flat[n,k,p]]``
+    over the valid taps, summed k = 0..K-1 in order, each product rounded
+    on its own (the kernels' order)."""
     v = _gather_corners(img, flat, valid)
     out = w[:, 0, None] * v[:, 0]
     for k in range(1, w.shape[1]):
@@ -49,15 +62,13 @@ def fwd_plain(img, idx, w):
     return out
 
 
-def bwd_plain(g, img, idx, w):
-    """``d_w[n,k,p] = sum_c g * v_k`` and ``d_img`` += ``w_k * g`` at each
-    valid tap (a deterministic scatter)."""
+def bwd_taps(g, img, flat, valid, w):
+    """The transpose of :func:`fwd_taps`: ``(d_img, d_w)``."""
     n, c = img.shape[:2]
-    flat, valid = corners(idx, img.shape[2:])
     k, p = flat.shape[1:]
     v = _gather_corners(img, flat, valid)
     d_w = (g[:, None] * v).sum(dim=2)
-    contrib = w[:, :, None, :] * g[:, None]  # (N, 2^d, C, P)
+    contrib = w[:, :, None, :] * g[:, None]  # (N, K, C, P)
     contrib = torch.where(valid[:, :, None, :], contrib,
                           torch.zeros_like(contrib))
     d_img = torch.zeros(n, c, img[0, 0].numel(), dtype=img.dtype,
@@ -67,10 +78,13 @@ def bwd_plain(g, img, idx, w):
     return d_img.reshape(img.shape), d_w
 
 
-def check(name: str, img, idx, w, g=None) -> bool:
-    """Validate a sampler call.  False: CPU tensors, which take the plain
-    twin; True: CUDA tensors the kernel takes; anything else raises."""
+def check(name: str, img, idx, w, g=None, taps=None) -> bool:
+    """Validate a sampler call with ``len(idx)`` index arrays against an
+    image of as many axes after (N, C), and ``taps`` weights per point
+    (default 2^d).  False: CPU tensors, which take the plain twin; True:
+    CUDA tensors the kernel takes; anything else raises."""
     dims = len(idx)
+    taps = 2 ** dims if taps is None else taps
     if img.dim() != dims + 2:
         raise ValueError(f"{name}: img must have {dims} spatial axes, got "
                          f"{tuple(img.shape)}")
@@ -81,8 +95,8 @@ def check(name: str, img, idx, w, g=None) -> bool:
         raise ValueError(f"{name}: indices must be (N, P) with N={n}, got "
                          f"{[tuple(t.shape) for t in idx]}")
     p = shape[1]
-    if tuple(w.shape) != (n, 2 ** dims, p):
-        raise ValueError(f"{name}: w must be {(n, 2 ** dims, p)}, got "
+    if tuple(w.shape) != (n, taps, p):
+        raise ValueError(f"{name}: w must be {(n, taps, p)}, got "
                          f"{tuple(w.shape)}")
     if g is not None and tuple(g.shape) != (n, c, p):
         raise ValueError(f"{name}: g must be {(n, c, p)}, got "

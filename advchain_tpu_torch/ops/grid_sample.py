@@ -2,16 +2,22 @@
 2D bilinear on the band-sample kernel pair, 3D trilinear on the z-band
 kernel pair, and nearest in both on the same kernels; and the 2D stencil
 warp (bilinear, border padding, channel-first grid) on its own kernel pair.
+The JAX package's switches select its legacy flat-index kernels, read here
+at call time: ``ADVCHAIN_BAND_KERNEL=0`` sends 2D sampling (bilinear and
+nearest) to the corner kernels, ``ADVCHAIN_ZBAND=0`` sends 3D trilinear
+sampling to the plane kernels (3D nearest stays on the z-band kernels, as
+in JAX).
 
 Port of advchain_tpu/ops/grid_sample.py and of the coordinate and weight
 preparation in kernels/gather_matmul.py: ``grid_sample_2d_pallas``
-(:1584-1619), ``_grid_sample_3d_zband`` (:1866-1952) and the nearest
-wrappers (:1653-1754).  Coordinates are unnormalized and padded in
-PyTorch, the corner weights are folded onto the clipped base corner, and
-the gather and its transpose run in ``kernels``.  Gradients flow to the
-image (the scatter kernel) and to the grid (autograd over the weight math
-here, as XLA differentiates it in JAX); nearest sampling gives the grid a
-zero gradient.
+(:1584-1648), ``_grid_sample_3d_pallas_packed`` (:1790-1863),
+``_grid_sample_3d_zband`` (:1866-1952) and the nearest wrappers
+(:1653-1754).  Coordinates are unnormalized and padded in PyTorch, the
+corner weights are folded onto the clipped base corner, and the gather and
+its transpose run in ``kernels``.  Gradients flow to the image (the
+scatter kernel) and to the grid (autograd over the weight math here, as
+XLA differentiates it in JAX); nearest sampling gives the grid a zero
+gradient.
 
 Clips are written ``minimum(maximum(x, lo), hi)``: at an exact bound that
 passes half the gradient, as ``jnp.clip`` does, where ``torch.clamp``
@@ -20,15 +26,18 @@ passes all of it (base grid corners sit exactly on +-1).
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from advchain_tpu_torch.kernels.band_sample import BandSample
+from advchain_tpu_torch.kernels.plane_sample import CornerSample, PlaneSample
 from advchain_tpu_torch.kernels.stencil_warp import StencilWarp
 from advchain_tpu_torch.kernels.zband_sample import ZBandSample
 
 __all__ = ["grid_sample", "grid_sample_2d", "grid_sample_3d",
            "stencil_warp_2d", "corner_weights", "corner_weights_3d",
-           "nearest_weights", "clip"]
+           "plane_weights", "nearest_weights", "clip"]
 
 
 def clip(x, lo, hi):
@@ -112,14 +121,21 @@ def corner_weights(grid, h: int, w: int, padding_mode: str = "zeros",
     w01 = fx * (1 - fy) * inb(x0 + 1, y0)
     w10 = (1 - fx) * fy * inb(x0, y0 + 1)
     w11 = fx * fy * inb(x0 + 1, y0 + 1)
+    weights = _fold_2d(w00, w01, w10, w11, dxf, dyf)
+    return (y0c.to(torch.int32).contiguous(), x0c.to(torch.int32).contiguous(),
+            weights)
+
+
+def _fold_2d(w00, w01, w10, w11, dxf, dyf):
+    """Fold the four raw bilinear weights onto the taps of the clipped base
+    corner: a +1 tap whose clipped coordinate collapses onto the base
+    (``dxf`` / ``dyf`` 0) adds its weight to the base's.  (N, 4, P) f32."""
     cw00 = w00 + w01 * (1 - dxf) + w10 * (1 - dyf) \
         + w11 * (1 - dxf) * (1 - dyf)
     cw01 = w01 * dxf + w11 * dxf * (1 - dyf)
     cw10 = w10 * dyf + w11 * (1 - dxf) * dyf
     cw11 = w11 * dxf * dyf
-    weights = torch.stack([cw00, cw01, cw10, cw11], dim=1).float()
-    return (y0c.to(torch.int32).contiguous(), x0c.to(torch.int32).contiguous(),
-            weights.contiguous())
+    return torch.stack([cw00, cw01, cw10, cw11], dim=1).float().contiguous()
 
 
 def corner_weights_3d(grid, d: int, h: int, w: int,
@@ -198,6 +214,55 @@ def corner_weights_3d(grid, d: int, h: int, w: int,
             x0c.to(torch.int32).contiguous(), weights.contiguous())
 
 
+def plane_weights(grid, d: int, h: int, w: int, padding_mode: str = "zeros",
+                  align_corners: bool = True):
+    """The plane-sample inputs for ``grid`` (N, Do, Ho, Wo, 3) over a
+    D x H x W volume, in the channel-packed formulation of
+    ``_grid_sample_3d_pallas_packed`` (:1790-1863): for each z tap dz in
+    (0, 1) its clipped plane ``zidx[dz]`` (N, P) int32 and folded in-plane
+    weights ``weights[dz]`` (N, 4, P) f32 for offsets (0, 1, w, w+1), both
+    z taps sharing the in-plane base ``yxidx = y0c * w + x0c`` (N, P) int32.
+    Differentiable with respect to the grid."""
+    n = grid.shape[0]
+    if grid.dim() != 5 or grid.shape[-1] != 3:
+        raise ValueError(f"grid must be (N, Do, Ho, Wo, 3), got "
+                         f"{tuple(grid.shape)}")
+    p = grid[0, ..., 0].numel()
+    ix = _prep_coord(grid[..., 0].reshape(n, p), w, align_corners,
+                     padding_mode)
+    iy = _prep_coord(grid[..., 1].reshape(n, p), h, align_corners,
+                     padding_mode)
+    iz = _prep_coord(grid[..., 2].reshape(n, p), d, align_corners,
+                     padding_mode)
+    x0 = torch.floor(ix)
+    y0 = torch.floor(iy)
+    z0 = torch.floor(iz)
+    fx, fy, fz = ix - x0, iy - y0, iz - z0
+
+    def inb(xi, yi, zi):
+        if padding_mode == "zeros":
+            return ((xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+                    & (zi >= 0) & (zi <= d - 1)).to(fx.dtype)
+        return torch.ones_like(fx)
+
+    x0c = clip(x0, 0, w - 1)
+    y0c = clip(y0, 0, h - 1)
+    dxf = clip(x0 + 1, 0, w - 1) - x0c  # 0.0 or 1.0
+    dyf = clip(y0 + 1, 0, h - 1) - y0c
+    # integer index arithmetic: a float combine loses exactness above 2^24
+    yxidx = (y0c.to(torch.int32) * w + x0c.to(torch.int32)).contiguous()
+    zidx, weights = [], []
+    for dz in (0, 1):
+        wz = fz if dz else (1.0 - fz)
+        w00 = (1 - fx) * (1 - fy) * wz * inb(x0, y0, z0 + dz)
+        w01 = fx * (1 - fy) * wz * inb(x0 + 1, y0, z0 + dz)
+        w10 = (1 - fx) * fy * wz * inb(x0, y0 + 1, z0 + dz)
+        w11 = fx * fy * wz * inb(x0 + 1, y0 + 1, z0 + dz)
+        zidx.append(clip(z0 + dz, 0, d - 1).to(torch.int32).contiguous())
+        weights.append(_fold_2d(w00, w01, w10, w11, dxf, dyf))
+    return zidx, yxidx, weights
+
+
 def nearest_weights(grid, sizes, padding_mode: str = "zeros",
                     align_corners: bool = True):
     """Nearest-neighbour inputs for the corner kernels
@@ -223,6 +288,19 @@ def nearest_weights(grid, sizes, padding_mode: str = "zeros",
     return bases, weights.contiguous()
 
 
+def _band_enabled() -> bool:
+    """False when ``ADVCHAIN_BAND_KERNEL=0``: 2D sampling then takes the
+    flat-index corner kernels (the JAX package's switch,
+    gather_matmul.py:117-120, read here at call time)."""
+    return os.environ.get("ADVCHAIN_BAND_KERNEL", "1") != "0"
+
+
+def _zband_enabled() -> bool:
+    """False when ``ADVCHAIN_ZBAND=0``: 3D trilinear sampling then takes
+    the plane kernels (gather_matmul.py:1992-1996, read at call time)."""
+    return os.environ.get("ADVCHAIN_ZBAND") != "0"
+
+
 def grid_sample_2d(x, grid, mode: str = "bilinear",
                    padding_mode: str = "zeros", align_corners: bool = True,
                    tile_order: str = "rows"):
@@ -236,12 +314,25 @@ def grid_sample_2d(x, grid, mode: str = "bilinear",
     if mode == "bilinear":
         yidx, xidx, weights = corner_weights(grid, h, w, padding_mode,
                                              align_corners)
+        offsets = (0, 1, w, w + 1)
     elif mode == "nearest":
         (yidx, xidx), weights = nearest_weights(grid, (h, w), padding_mode,
                                                 align_corners)
+        offsets = (0,)  # one unit-weight tap (gather_matmul.py:1697-1704)
     else:
         raise NotImplementedError(f"mode={mode!r}")
-    out = BandSample.apply(x.float().contiguous(), yidx, xidx, weights)
+    xf = x.float().contiguous()
+    # JAX also sends an image whose band stack exceeds its 5 MiB VMEM
+    # budget to the corner kernels (gather_matmul.py:1621-1627); the band
+    # kernel here has no size limit, so only the switch selects them
+    if _band_enabled():
+        out = BandSample.apply(xf, yidx, xidx, weights)
+    else:
+        # int32 index arithmetic, as JAX's (:1607); the wrapper rejects
+        # images of 2^31 elements or more
+        out = CornerSample.apply(xf.reshape(n, c, h * w), yidx * w + xidx,
+                                 weights[:, :len(offsets)].contiguous(),
+                                 offsets)
     return out.reshape(n, c, grid.shape[1], grid.shape[2]).to(x.dtype)
 
 
@@ -256,6 +347,19 @@ def grid_sample_3d(x, grid, mode: str = "bilinear",
     n, c, d, h, w = x.shape
     if grid.shape[0] != n:
         raise ValueError(f"grid batch {grid.shape[0]} != image batch {n}")
+    if mode == "bilinear" and not _zband_enabled():
+        # JAX's packed formulation for every C: two plane launches, one
+        # per z tap, summed dz = 0 then 1.  Its 4-base formulation, taken
+        # when all channels' K=2 stack fits the TPU's VMEM budget, differs
+        # from it only by f32 reassociation (:1997-2012).
+        zidx, yxidx, weights = plane_weights(grid, d, h, w, padding_mode,
+                                             align_corners)
+        xf = x.float().contiguous().reshape(n, c, d, h * w)
+        offsets = (0, 1, w, w + 1)
+        out = PlaneSample.apply(xf, zidx[0], yxidx, weights[0], offsets)
+        out = out + PlaneSample.apply(xf, zidx[1], yxidx, weights[1],
+                                      offsets)
+        return out.reshape((n, c) + tuple(grid.shape[1:4])).to(x.dtype)
     if mode == "bilinear":
         zidx, yidx, xidx, weights = corner_weights_3d(
             grid, d, h, w, padding_mode, align_corners)

@@ -46,8 +46,24 @@ Phases (any failure raises and the script exits non-zero):
      the kernel launches of one step and time 5 steps after 2 warm-ups;
      then time the supervised step the same way;
  13. time the stencil kernels, their twins and ``F.grid_sample`` at the
-     composition shape (N=128, C=2, 192x192), then print the ``kernels``
-     line for all six kernels.
+     composition shape (N=128, C=2, 192x192);
+ 14. hold the flat-index corner kernels (the 2D route under
+     ADVCHAIN_BAND_KERNEL=0) against their twins at the 2D episode's
+     shapes (N=128, 192x192, C in {1, 2, 5}, K in {1, 4}) and the plane
+     kernels (the 3D route under ADVCHAIN_ZBAND=0) at the 3D episode's
+     (N=2, 12x192x192, C in {1, 3, 5}, K in {2, 4}), on phase 2's and 6's
+     grids with 5% of the near-identity entries on exactly +-1 (bases on
+     the last column, row and plane: the 2D wrap and the plane edge);
+ 15. run the headline episode with ADVCHAIN_BAND_KERNEL=0 (set inside a
+     try/finally that restores the environment): its loss against the
+     band route's with the same weights and injected transform
+     parameters (within 1e-4 relative), its launches (corner as many as
+     band on the default route, band 0, stencil unchanged) and 3 timed
+     episodes after 2 warm-ups;
+ 16. the same for the 3D volume episode with ADVCHAIN_ZBAND=0 (plane
+     launches, z-band 0);
+ 17. time the corner and plane kernels, their twins and ``F.grid_sample``,
+     then print the ``kernels`` line for all ten kernels.
 The last line of standard output is the device record.  ``--profile PATH``
 / ``--profile3d PATH`` / ``--profile-train PATH`` additionally write a
 torch.profiler summary of one 2D episode / 3D episode / train step to PATH.
@@ -59,8 +75,10 @@ self-compositions amplify rounding.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -79,19 +97,31 @@ TOL_FWD = 1e-5
 TOL_DW = 1e-5
 TOL_DIMG_REL = 1e-5          # of max|d_img|: atomics sum in no fixed order
 TOL_DFLOW_REL = 1e-5         # of max|d_flow|
+TOL_ROUTES = 1e-4            # episode loss, legacy route vs default route
 LR = 1e-4                    # the headline train step's Adam rate
-KERNEL_SOURCES = {"band": "advchain_tpu_torch/kernels/csrc/band_sample.cu",
-                  "zband": "advchain_tpu_torch/kernels/csrc/zband_sample.cu",
-                  "stencil": "advchain_tpu_torch/kernels/csrc/"
-                             "stencil_warp.cu"}
+_CSRC = "advchain_tpu_torch/kernels/csrc/"
+KERNEL_SOURCES = {"band": _CSRC + "band_sample.cu",
+                  "zband": _CSRC + "zband_sample.cu",
+                  "stencil": _CSRC + "stencil_warp.cu",
+                  # one kernel pair serves the corner (2D) and plane (3D)
+                  # routes
+                  "corner": _CSRC + "plane_sample.cu",
+                  "plane": _CSRC + "plane_sample.cu"}
 KERNEL_NAMES = {"band": "band_sample", "zband": "zband_sample",
-                "stencil": "stencil_warp"}
+                "stencil": "stencil_warp", "corner": "corner_sample",
+                "plane": "plane_sample"}
+# the sources to build, one nvcc each
+BUILD = sorted({src.rsplit("/", 1)[1][:-3] for src in KERNEL_SOURCES.values()})
 # the TPU kernels each pair replaces
 _GM = "advchain_tpu/kernels/gather_matmul.py"
 REPLACES = {"band": {"fwd": f"{_GM}:839", "bwd": f"{_GM}:923"},
             "zband": {"fwd": f"{_GM}:1081", "bwd": f"{_GM}:1230"},
             "stencil": {"fwd": "advchain_tpu/kernels/stencil.py:132",
-                        "bwd": "advchain_tpu/kernels/stencil.py:172"}}
+                        "bwd": "advchain_tpu/kernels/stencil.py:172"},
+            "corner": {"fwd": f"{_GM}:134", "bwd": f"{_GM}:283"},
+            "plane": {"fwd": f"{_GM}:466", "bwd": f"{_GM}:603"}}
+# the switches that send 2D / 3D sampling to the corner / plane kernels
+LEGACY_SWITCH = {2: "ADVCHAIN_BAND_KERNEL", 3: "ADVCHAIN_ZBAND"}
 
 
 def chain_configs(batch, shape):
@@ -203,13 +233,21 @@ def _kernel_modules():
 
 
 def reset_launch_counts():
+    from advchain_tpu_torch.kernels import plane_sample
     for mod in _kernel_modules().values():
         mod.reset_launch_counts()
+    plane_sample.reset_launch_counts()
 
 
 def launch_counts():
-    return {fam: {"fwd": mod.FWD_LAUNCHES, "bwd": mod.BWD_LAUNCHES}
-            for fam, mod in _kernel_modules().items()}
+    """Launches per family: band, zband, stencil, and corner and plane (the
+    two routes of one kernel pair, counted apart)."""
+    from advchain_tpu_torch.kernels import plane_sample
+    counts = {fam: {"fwd": mod.FWD_LAUNCHES, "bwd": mod.BWD_LAUNCHES}
+              for fam, mod in _kernel_modules().items()}
+    counts.update({route: dict(c) for route, c in
+                   plane_sample.LAUNCHES.items()})
+    return counts
 
 
 def sync(device):
@@ -222,6 +260,14 @@ def sampler(dims):
     """(family name, kernel module) of the corner sampler for 2D / 3D."""
     from advchain_tpu_torch.kernels import band_sample, zband_sample
     return ("band", band_sample) if dims == 2 else ("zband", zband_sample)
+
+
+def route_family(dims):
+    """The kernel family this process's switches send bilinear sampling
+    to: band / zband, or corner / plane under ``LEGACY_SWITCH[dims]=0``."""
+    legacy = os.environ.get(LEGACY_SWITCH[dims]) == "0"
+    return {(2, False): "band", (2, True): "corner", (3, False): "zband",
+            (3, True): "plane"}[dims, legacy]
 
 
 def sample_grids(n, shape, device, seed=0):
@@ -275,7 +321,6 @@ def kernel_inputs(n, c, shape, grid, padding, device, seed=0):
 def check_kernels(n, shape, device, channels=(1, 2, 5)):
     """Phases 2 and 6: each kernel against its twin.  Returns the largest
     errors."""
-    import torch
     fam, mod = sampler(len(shape))
     fwd, fwd_plain = (getattr(mod, f"{fam}_sample_fwd"),
                       getattr(mod, f"{fam}_sample_fwd_plain"))
@@ -286,28 +331,36 @@ def check_kernels(n, shape, device, channels=(1, 2, 5)):
         for c in channels:
             img, idx, wts, g = kernel_inputs(n, c, shape, grid, padding,
                                              device)
-            with torch.no_grad():
-                out = fwd(img, *idx, wts)
-                ref = fwd_plain(img, *idx, wts)
-                d_img, d_w = bwd(g, img, *idx, wts)
-                r_img, r_w = bwd_plain(g, img, *idx, wts)
-            sync(device)
-            e_fwd = float((out - ref).abs().max())
-            e_dw = float((d_w - r_w).abs().max())
-            scale = float(r_img.abs().max())
-            e_dimg = float((d_img - r_img).abs().max())
-            print(f"[kernels] {fam:5s} {name:13s} {padding:6s} C={c}: fwd "
-                  f"{e_fwd:.3e} d_w {e_dw:.3e} d_img {e_dimg:.3e} "
-                  f"(max|d_img| {scale:.3e})", flush=True)
-            if not (e_fwd <= TOL_FWD and e_dw <= TOL_DW
-                    and e_dimg <= TOL_DIMG_REL * scale):
-                raise AssertionError(
-                    f"{fam} kernel disagrees with its twin: {name} C={c} "
-                    f"fwd {e_fwd} d_w {e_dw} d_img {e_dimg} "
-                    f"(limit {TOL_DIMG_REL * scale})")
-            worst["fwd"] = max(worst["fwd"], e_fwd)
-            worst["bwd"] = max(worst["bwd"], e_dw, e_dimg)
+            hold_against_twin(
+                f"{fam:5s} {name:13s} {padding:6s} C={c}", device,
+                lambda: fwd(img, *idx, wts), lambda: fwd_plain(img, *idx, wts),
+                lambda: bwd(g, img, *idx, wts),
+                lambda: bwd_plain(g, img, *idx, wts), worst)
     return worst
+
+
+def hold_against_twin(label, device, fwd, fwd_plain, bwd, bwd_plain, worst):
+    """Run a sampler kernel pair and its twins on the same inputs; raise
+    unless fwd and ``d_w`` are within TOL_FWD / TOL_DW and ``d_img`` within
+    TOL_DIMG_REL of its largest entry.  Updates ``worst``."""
+    import torch
+    with torch.no_grad():
+        out, ref = fwd(), fwd_plain()
+        (d_img, d_w), (r_img, r_w) = bwd(), bwd_plain()
+    sync(device)
+    e_fwd = float((out - ref).abs().max())
+    e_dw = float((d_w - r_w).abs().max())
+    scale = float(r_img.abs().max())
+    e_dimg = float((d_img - r_img).abs().max())
+    print(f"[kernels] {label}: fwd {e_fwd:.3e} d_w {e_dw:.3e} d_img "
+          f"{e_dimg:.3e} (max|d_img| {scale:.3e})", flush=True)
+    if not (e_fwd <= TOL_FWD and e_dw <= TOL_DW
+            and e_dimg <= TOL_DIMG_REL * scale):
+        raise AssertionError(
+            f"kernel disagrees with its twin: {label} fwd {e_fwd} d_w "
+            f"{e_dw} d_img {e_dimg} (limit {TOL_DIMG_REL * scale})")
+    worst["fwd"] = max(worst["fwd"], e_fwd)
+    worst["bwd"] = max(worst["bwd"], e_dw, e_dimg)
 
 
 def check_nearest(device, cases=((BATCH, SHAPE), (BATCH3D, SHAPE3D))):
@@ -440,11 +493,17 @@ def run_episode(device, batch, shape, warm=2, reps=5):
                     and bool(torch.isfinite(warped).all())):
                 raise AssertionError(f"episode output is not finite or has "
                                      f"the wrong shape (loss {loss})")
-    fams = [sampler(dims)[0]] + (["stencil"] if dims == 2 else [])
-    for fam in fams:
-        if not (launches[fam]["fwd"] > 0 and launches[fam]["bwd"] > 0):
+    fam = route_family(dims)
+    for used in [fam] + (["stencil"] if dims == 2 else []):
+        if not (launches[used]["fwd"] > 0 and launches[used]["bwd"] > 0):
             raise AssertionError(f"the {dims}D episode did not launch both "
-                                 f"{fam} kernels: {launches}")
+                                 f"{used} kernels: {launches}")
+    # a legacy route replaces the default family's bilinear launches; the
+    # episodes sample nothing with nearest
+    replaced = sampler(dims)[0] if fam != sampler(dims)[0] else None
+    if replaced and any(launches[replaced].values()):
+        raise AssertionError(f"the {dims}D episode on the {fam} route "
+                             f"launched {replaced} kernels: {launches}")
     peak = torch.cuda.max_memory_allocated() if data.is_cuda else 0
     return launches, statistics.median(times), times, loss, peak, steps
 
@@ -873,6 +932,208 @@ def time_stencil(n, shape, device, channels=(2,)):
     return rows
 
 
+# ---------------------------------------------------------------- slice 4
+@contextlib.contextmanager
+def legacy_route(dims):
+    """``LEGACY_SWITCH[dims]=0`` inside the block (2D sampling on the
+    corner kernels, 3D trilinear on the plane kernels); the environment is
+    restored after it."""
+    name = LEGACY_SWITCH[dims]
+    prev = os.environ.get(name)
+    os.environ[name] = "0"
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = prev
+
+
+def flat_grids(n, shape, device):
+    """Phase 14's grids: :func:`sample_grids`' two, with 5% of the
+    near-identity grid's entries set to exactly +-1, so that bases sit on
+    the last column (in 2D its +1 tap wraps to the next row) and on the
+    last row and plane (taps past the plane's flat end read zero), beside
+    the rotation's samples past the border."""
+    import torch
+    grids = sample_grids(n, shape, device)
+    name, padding, near = grids[1]
+    gen = torch.Generator(device=device).manual_seed(1)
+    pick = torch.rand(near.shape, generator=gen, device=device) < 0.05
+    sign = torch.where(torch.rand(near.shape, generator=gen, device=device)
+                       < 0.5, -1.0, 1.0)
+    grids[1] = (name, padding, torch.where(pick, sign, near))
+    return grids
+
+
+def flat_inputs(n, c, shape, grid, padding, k, device, seed=0):
+    """(route, img, index tuple, weights, cotangent, offsets) for the
+    corner (2D) or plane (3D) kernels with ``k`` taps, built as the routes
+    build them: K=4 the folded bilinear weights on offsets (0, 1, w, w+1)
+    (in 3D those of the dz = 0 launch); 2D K=1 nearest's unit tap; 3D K=2
+    the first two of those weights on offsets (0, 1), the taps of JAX's
+    4-base formulation."""
+    import torch
+    from advchain_tpu_torch.ops.grid_sample import (corner_weights,
+                                                    nearest_weights,
+                                                    plane_weights)
+    gen = torch.Generator(device=device).manual_seed(seed + c)
+    img = torch.randn((n, c) + tuple(shape), generator=gen, device=device)
+    *lead, h, w = shape
+    if not lead:
+        if k == 1:
+            (yidx, xidx), wts = nearest_weights(grid, shape, padding)
+        else:
+            yidx, xidx, wts = corner_weights(grid, h, w, padding, True)
+        route, idx = "corner", (yidx * w + xidx,)
+    else:
+        zidx, yxidx, wts = plane_weights(grid, lead[0], h, w, padding, True)
+        route, idx, wts = "plane", (zidx[0], yxidx), wts[0]
+    img = img.reshape(n, c, *lead, h * w)
+    g = torch.randn(n, c, idx[-1].shape[1], generator=gen, device=device)
+    offsets = {1: (0,), 2: (0, 1), 4: (0, 1, w, w + 1)}[k]
+    return route, img, idx, wts[:, :k].contiguous(), g, offsets
+
+
+def check_flat_kernels(n, shape, device, channels, taps):
+    """Phase 14: the corner (2D) or plane (3D) kernels against their twins
+    on :func:`flat_grids`, for each channel count and tap count, at phase
+    2's tolerances.  Returns the largest errors."""
+    from advchain_tpu_torch.kernels import plane_sample as ps
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for name, padding, grid in flat_grids(n, shape, device):
+        for c in channels:
+            for k in taps:
+                route, img, idx, wts, g, offs = flat_inputs(
+                    n, c, shape, grid, padding, k, device)
+                kern = {f"{kind}{plain}": getattr(
+                    ps, f"{route}_sample_{kind}{plain}")
+                    for kind in ("fwd", "bwd") for plain in ("", "_plain")}
+                hold_against_twin(
+                    f"{route:6s} {name:13s} {padding:6s} C={c} K={k}",
+                    device, lambda: kern["fwd"](img, *idx, wts, offs),
+                    lambda: kern["fwd_plain"](img, *idx, wts, offs),
+                    lambda: kern["bwd"](g, img, *idx, wts, offs),
+                    lambda: kern["bwd_plain"](g, img, *idx, wts, offs),
+                    worst)
+    return worst
+
+
+def compare_routes(device, batch, shape):
+    """Phases 15 and 16: the episode on the default route and on the legacy
+    route (``LEGACY_SWITCH=0``), each with a fresh model of one seed (so
+    one dropout draw) and the same injected transform parameters.  The
+    routes compute one function; returns (default loss, legacy loss)."""
+    import torch
+    dims = len(shape)
+    data = torch.as_tensor(make_input(batch, shape), device=device)
+    gen = torch.Generator().manual_seed(7)
+    params, losses = None, []
+    for legacy in (False, True):
+        solver = build_solver(batch, shape)
+        model = build_model(device, dims=dims)
+        if params is None:
+            params = [t.init_params(gen) for t in solver.chain_of_transforms]
+        solver.set_transformation(params)
+        with legacy_route(dims) if legacy else contextlib.nullcontext():
+            dist = solver.adversarial_training(
+                data=data, model=model, n_iter=1, lazy_load=True,
+                power_iteration=POWER_ITERATION[dims], step_sizes=1.0)
+        losses.append(float(dist))
+    return tuple(losses)
+
+
+def run_legacy_episode(device, batch, shape, card):
+    """Phases 15 and 16: compare the routes' losses (within TOL_ROUTES
+    relative), then count one episode's launches on the legacy route and
+    time 3 episodes after 2 warm-ups.  Returns run_episode's result."""
+    dims = len(shape)
+    loss_d, loss_l = compare_routes(device, batch, shape)
+    rel = abs(loss_l - loss_d) / abs(loss_d)
+    fam = {2: "corner", 3: "plane"}[dims]
+    print(f"[legacy] {dims}D {fam} route: loss {loss_l:.8e} vs default "
+          f"route {loss_d:.8e} (relative {rel:.3e})", flush=True)
+    if not rel <= TOL_ROUTES:
+        raise AssertionError(f"the {dims}D {fam} route's loss is {rel:.3e} "
+                             f"relative off the default route's")
+    with legacy_route(dims):
+        result = run_episode(device, batch, shape, reps=3)
+    launches, sec, times, loss, peak, steps = result
+    print(f"[legacy] {dims}D episode on the {fam} route, batch {batch} "
+          f"{'x'.join(map(str, shape))}: loss {loss:.6e}, launches "
+          f"{json.dumps(launches)}, adaptive steps {steps}, median "
+          f"{sec * 1e3:.1f} ms ({batch / sec:.3f} samples/s) over "
+          f"{[round(t * 1e3, 1) for t in times]} ms, peak "
+          f"{peak / 1e9:.2f} GB on {card}", flush=True)
+    return result
+
+
+def time_flat_kernels(n, shape, device, c, k=4):
+    """Phase 17: kernel, twin and ``F.grid_sample`` times of the corner
+    (2D: the image warps' case, the rotation grid, zeros padding) or plane
+    (3D: the compositions' case, near-identity, border) pair, with the
+    bounds of one launch: each input read once and each output written
+    once (f32 and int32, 4 bytes), the weighted sum's operations.  A 3D
+    sample is two plane launches (one per z tap): ``sample_*_ms`` times
+    both, the work ``F.grid_sample`` does in one call."""
+    import torch
+    import torch.nn.functional as F
+    from advchain_tpu_torch.kernels import plane_sample as ps
+    from advchain_tpu_torch.ops.grid_sample import plane_weights
+    dims = len(shape)
+    name, padding, grid = sample_grids(n, shape, device)[dims - 2]
+    route, img, idx, wts, g, offs = flat_inputs(n, c, shape, grid, padding,
+                                                k, device)
+    fwd, bwd = (getattr(ps, f"{route}_sample_fwd"),
+                getattr(ps, f"{route}_sample_bwd"))
+    fwd_plain, bwd_plain = (getattr(ps, f"{route}_sample_fwd_plain"),
+                            getattr(ps, f"{route}_sample_bwd_plain"))
+    calls = [(idx, wts)]
+    if dims == 3:  # the dz = 1 launch of the same sample
+        zidx, yxidx, wz = plane_weights(grid, *shape, padding, True)
+        calls.append(((zidx[1], yxidx), wz[1]))
+    p, s = wts.shape[2], img[0, 0].numel()
+    fwd_bound = bound_ms(4 * (n * c * s + len(idx) * n * p + k * n * p
+                              + n * c * p), (2 * k - 1) * n * c * p)
+    bwd_bound = bound_ms(4 * (n * c * p + 2 * n * c * s + len(idx) * n * p
+                              + 2 * k * n * p), 4 * k * n * c * p)
+    full = img.reshape((n, c) + tuple(shape))
+    img_g = full.clone().requires_grad_(True)
+    grid_g = grid.clone().requires_grad_(True)
+    g_full = g.reshape((n, c) + tuple(grid.shape[1:-1]))
+
+    def lib_bwd():
+        out = F.grid_sample(img_g, grid_g, mode="bilinear",
+                            padding_mode=padding, align_corners=True)
+        torch.autograd.grad(out, (img_g, grid_g), g_full)
+
+    with torch.no_grad():
+        row = {
+            "kernel": route, "case": name, "padding": padding, "C": c,
+            "K": k,
+            "fwd_ms": time_ms(lambda: fwd(img, *idx, wts, offs)),
+            "fwd_plain_ms": time_ms(lambda: fwd_plain(img, *idx, wts,
+                                                      offs)),
+            "fwd_library_ms": time_ms(lambda: F.grid_sample(
+                full, grid, mode="bilinear", padding_mode=padding,
+                align_corners=True)),
+            "fwd_bound_ms": fwd_bound[0],
+            "sample_fwd_ms": time_ms(lambda: [fwd(img, *i, w, offs)
+                                              for i, w in calls]),
+            "bwd_ms": time_ms(lambda: bwd(g, img, *idx, wts, offs)),
+            "bwd_plain_ms": time_ms(lambda: bwd_plain(g, img, *idx, wts,
+                                                      offs)),
+            "bwd_bound_ms": bwd_bound[0],
+            "sample_bwd_ms": time_ms(lambda: [bwd(g, img, *i, w, offs)
+                                              for i, w in calls]),
+        }
+    row["bwd_library_ms"] = time_ms(lib_bwd)
+    row["bound_by"] = [fwd_bound[1], bwd_bound[1]]
+    print("[timing] " + json.dumps(row), flush=True)
+    return [row]
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -885,7 +1146,7 @@ def kernel_records(fam, launches, worst, rows, case, c_head, shape_note):
     frequent call on its path: the ``case`` rows with ``c_head``
     channels."""
     head = next(r for r in rows if r["case"] == case and r["C"] == c_head)
-    return [{
+    records = [{
         "name": f"{KERNEL_NAMES[fam]}_{kind}", "route": "cuda",
         "source": KERNEL_SOURCES[fam], "replaces": REPLACES[fam][kind],
         "launches": launches[fam][kind], "max_abs_err": worst[kind],
@@ -895,6 +1156,12 @@ def kernel_records(fam, launches, worst, rows, case, c_head, shape_note):
         "library_ms": head[f"{kind}_library_ms"],
         "shape": f"{shape_note} C={c_head} {case} {head['padding']}",
     } for i, kind in enumerate(("fwd", "bwd"))]
+    for rec, kind in zip(records, ("fwd", "bwd")):
+        if f"sample_{kind}_ms" in head:
+            # the launches of one sampler call, the work library_ms times
+            # (a 3D sample is two plane launches)
+            rec["sample_ms"] = head[f"sample_{kind}_ms"]
+    return records
 
 
 def main(argv=None):
@@ -920,8 +1187,8 @@ def main(argv=None):
     card = card_line()
     print(card, flush=True)  # name, power limit, as nvidia-smi gives them
     t0 = time.perf_counter()
-    _build.build(list(KERNEL_NAMES.values()))
-    print(f"[build] {' + '.join(n + '.cu' for n in KERNEL_NAMES.values())} "
+    _build.build(BUILD)
+    print(f"[build] {' + '.join(n + '.cu' for n in BUILD)} "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 2D: the headline episode
@@ -991,15 +1258,31 @@ def main(argv=None):
         profile_run("train step", one_step, args.profile_train)
     rows_s = time_stencil(BATCH, SHAPE, device)
 
+    # the legacy flat-index routes: corner kernels (2D) and plane kernels
+    # (3D), selected by the JAX package's switches
+    worst_c = check_flat_kernels(BATCH, SHAPE, device, (1, 2, 5), (1, 4))
+    worst_p = check_flat_kernels(BATCH3D, SHAPE3D, device, (1, 3, 5), (2, 4))
+    launches_c = run_legacy_episode(device, BATCH, SHAPE, card)[0]
+    if not (launches_c["corner"] == launches2["band"]
+            and launches_c["stencil"] == launches2["stencil"]):
+        raise AssertionError(f"the corner route's launches {launches_c} "
+                             f"differ from the band route's {launches2}")
+    launches_p = run_legacy_episode(device, BATCH3D, SHAPE3D, card)[0]
+    rows_c = time_flat_kernels(BATCH, SHAPE, device, 1)
+    rows_p = time_flat_kernels(BATCH3D, SHAPE3D, device, 3)
+
     shape2 = f"N={BATCH} {SHAPE[0]}x{SHAPE[1]}"
+    shape3 = f"N={BATCH3D} {'x'.join(map(str, SHAPE3D))}"
     kernels = (kernel_records("band", launches2, worst2, rows2, "rot30", 1,
                               shape2)
                + kernel_records("zband", launches3, worst3, rows3,
-                                "near_identity", 3,
-                                f"N={BATCH3D} "
-                                f"{'x'.join(map(str, SHAPE3D))}")
+                                "near_identity", 3, shape3)
                + kernel_records("stencil", launches_t, worst_s, rows_s,
-                                "near_identity", 2, shape2))
+                                "near_identity", 2, shape2)
+               + kernel_records("corner", launches_c, worst_c, rows_c,
+                                "rot30", 1, shape2 + " K=4")
+               + kernel_records("plane", launches_p, worst_p, rows_p,
+                                "near_identity", 3, shape3 + " K=4"))
     print(f"[episode] {BATCH / sec:.2f} img/s (2D), {BATCH3D / sec3:.3f} "
           f"vol/s (3D), train step {BATCH / sec_t:.2f} img/s (supervised "
           f"{BATCH / sec_s:.2f}) on {card}", flush=True)

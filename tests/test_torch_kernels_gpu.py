@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (band and z-band samplers, the stencil warp) on
-the card, against their plain twins and the CPU path.
+"""The port's CUDA kernels (band, z-band, corner and plane samplers, the
+stencil warp) on the card, against their plain twins and the CPU path.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 
@@ -223,3 +223,96 @@ def test_cuda_tensor_never_takes_the_stencil_twin(cuda):
     flow = torch.zeros(2, 2, 8, 9, device=cuda)
     with pytest.raises(TypeError):
         sw.stencil_warp_fwd(img.double(), flow.double())
+
+
+def _plane_inputs(device, k, n=3, c=3, d=4, h=13, w=17, seed=0,
+                  planes=True):
+    """Flat-index inputs with points on the last column (the +1 tap wraps
+    to the next row), the last row and the last pixel of a plane (taps past
+    HW read zero), and, for the plane pair, planes outside [0, D)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    hw = h * w
+    img = torch.randn((n, c, d, hw) if planes else (n, c, hw), generator=gen,
+                      device=device)
+    p = 600
+    yx = torch.randint(0, hw, (n, p), generator=gen, device=device,
+                       dtype=torch.int32)
+    yx[:, :10] = torch.arange(10, device=device) % h * w + w - 1
+    yx[:, 10:20] = (h - 1) * w + torch.arange(10, device=device) % w
+    yx[:, 20:30] = hw - 1
+    z = torch.randint(-1, d + 1, (n, p), generator=gen, device=device,
+                      dtype=torch.int32) if planes else None
+    wts = torch.rand(n, k, p, generator=gen, device=device)
+    g = torch.randn(n, c, p, generator=gen, device=device)
+    offsets = {1: (0,), 2: (0, 1), 4: (0, 1, w, w + 1)}[k]
+    return img, z, yx, wts, g, offsets
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("route", ["corner", "plane"])
+def test_plane_sample_kernels_match_twins(cuda, route, k):
+    from advchain_tpu_torch.kernels import plane_sample as ps
+    img, z, yx, wts, g, offsets = _plane_inputs(cuda, k, seed=k,
+                                                planes=route == "plane")
+    idx = (yx,) if route == "corner" else (z, yx)
+    fwd = getattr(ps, f"{route}_sample_fwd")
+    bwd = getattr(ps, f"{route}_sample_bwd")
+    before = dict(ps.LAUNCHES[route])
+    out = fwd(img, *idx, wts, offsets)
+    d_img, d_w = bwd(g, img, *idx, wts, offsets)
+    torch.cuda.synchronize()
+    assert ps.LAUNCHES[route] == {"fwd": before["fwd"] + 1,
+                                  "bwd": before["bwd"] + 1}
+    # the forward sums in the twin's order with rounded products: equal
+    assert torch.equal(out, getattr(ps, f"{route}_sample_fwd_plain")(
+        img, *idx, wts, offsets))
+    r_img, r_w = getattr(ps, f"{route}_sample_bwd_plain")(g, img, *idx, wts,
+                                                          offsets)
+    torch.testing.assert_close(d_w, r_w, atol=1e-5, rtol=0)
+    # atomics sum in no fixed order: f32 reassociation of max|d_img|
+    scale = float(r_img.abs().max())
+    assert float((d_img - r_img).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("padding", ["zeros", "border", "reflection"])
+@pytest.mark.parametrize("dims", [2, 3])
+def test_legacy_routes_match_the_cpu(cuda, dims, padding, monkeypatch):
+    """ADVCHAIN_BAND_KERNEL=0 / ADVCHAIN_ZBAND=0 on the card: the corner or
+    plane kernels launch (the band or z-band ones do not), and the sample
+    and its gradients equal the CPU's."""
+    import chip_smoke
+    from advchain_tpu_torch.ops.grid_sample import grid_sample
+    monkeypatch.setenv("ADVCHAIN_BAND_KERNEL", "0")
+    monkeypatch.setenv("ADVCHAIN_ZBAND", "0")
+    gen = torch.Generator().manual_seed(5)
+    spatial = (6, 11, 13)[3 - dims:]
+    img = torch.randn((2, 3) + spatial, generator=gen)
+    grid = torch.rand((2, 5, 9, 10)[:dims + 1] + (dims,),
+                      generator=gen) * 2.4 - 1.2
+    cot = torch.randn((2, 3) + tuple(grid.shape[1:-1]), generator=gen)
+    route, old = ("corner", "band") if dims == 2 else ("plane", "zband")
+    results = []
+    for dev in ("cpu", cuda):
+        chip_smoke.reset_launch_counts()
+        x = img.to(dev).clone().requires_grad_(True)
+        gr = grid.to(dev).clone().requires_grad_(True)
+        out = grid_sample(x, gr, padding_mode=padding)
+        (out * cot.to(dev)).sum().backward()
+        counts = chip_smoke.launch_counts()
+        if dev != "cpu":
+            launches = 1 if dims == 2 else 2  # one plane launch per z tap
+            assert counts[route] == {"fwd": launches, "bwd": launches}
+            assert counts[old] == {"fwd": 0, "bwd": 0}
+        results.append([t.detach().cpu() for t in (out, x.grad, gr.grad)])
+    for a, b in zip(*results):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-5)
+
+
+def test_cuda_tensor_never_takes_the_plane_twin(cuda):
+    from advchain_tpu_torch.kernels import plane_sample as ps
+    img, z, yx, wts, _, offsets = _plane_inputs(cuda, 4, seed=9)
+    with pytest.raises(TypeError):
+        ps.plane_sample_fwd(img.double(), z, yx, wts, offsets)
+    with pytest.raises(TypeError):
+        ps.corner_sample_fwd(img[:, :, 0].contiguous(), yx.long(), wts,
+                             offsets)
