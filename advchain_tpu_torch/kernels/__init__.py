@@ -21,16 +21,18 @@ from advchain_tpu_torch.kernels.stencil_warp import (StencilWarp,
                                                      stencil_warp_bwd_plain,
                                                      stencil_warp_fwd,
                                                      stencil_warp_fwd_plain)
-from advchain_tpu_torch.kernels.zband_sample import (ZBandSample,
-                                                     zband_sample_bwd,
-                                                     zband_sample_bwd_plain,
-                                                     zband_sample_fwd,
-                                                     zband_sample_fwd_plain)
+from advchain_tpu_torch.kernels.zband_sample import (
+    ZBandGridSample, ZBandSample, zband_grid_sample_bwd,
+    zband_grid_sample_bwd_plain, zband_grid_sample_fwd,
+    zband_grid_sample_fwd_plain, zband_sample_bwd, zband_sample_bwd_plain,
+    zband_sample_fwd, zband_sample_fwd_plain)
 
 __all__ = ["BandSample", "band_sample_fwd", "band_sample_bwd",
            "band_sample_fwd_plain", "band_sample_bwd_plain",
            "ZBandSample", "zband_sample_fwd", "zband_sample_bwd",
            "zband_sample_fwd_plain", "zband_sample_bwd_plain",
+           "ZBandGridSample", "zband_grid_sample_fwd", "zband_grid_sample_bwd",
+           "zband_grid_sample_fwd_plain", "zband_grid_sample_bwd_plain",
            "StencilWarp", "stencil_warp_fwd", "stencil_warp_bwd",
            "stencil_warp_fwd_plain", "stencil_warp_bwd_plain",
            "CornerSample", "corner_sample_fwd", "corner_sample_bwd",

@@ -1,46 +1,66 @@
-"""Trilinear corner sampler: the CUDA kernel pair, their plain twins, and
-the autograd wrapper.
+"""Trilinear sampler: the CUDA kernels, their plain twins and the autograd
+wrappers, on two contracts.
 
 Replaces advchain_tpu/kernels/gather_matmul.py::zband_gather (:1081) and
 ::zband_scatter (:1230), wired there by ``_weighted_zband_sample`` (:1379)
-with ``_wzs_fwd`` / ``_wzs_bwd``.  The kernels live in
+with ``_wzs_fwd`` / ``_wzs_bwd``, and the coordinate prep and corner fold
+of ``_grid_sample_3d_zband`` (:1866-1952) and
+``grid_sample_3d_pallas_nearest`` (:1713).  The kernels live in
 ``csrc/zband_sample.cu`` (which carries the design and bound note) and are
 built by ``_build`` on first use.
 
-Contract: ``img`` (N, C, D, H, W), ``zidx``/``yidx``/``xidx`` (N, P) int32
-base corners, ``w`` (N, 8, P) in (dz, dy, dx) binary corner order
-(k = 4*dz + 2*dy + dx);
+Grid contract (``zband_grid_sample_*``, ``ZBandGridSample``, the default 3D
+route): ``img`` (N, C, D, H, W), ``grid`` (N, P, 3) normalised (x, y, z);
+``padding_mode`` in {zeros, border, reflection}, ``align_corners``, ``mode``
+in {bilinear, nearest}; ``out`` (N, C, P), and from a cotangent ``g``
+(N, C, P) the gradients ``d_img`` and ``d_grid`` (zero in nearest mode).
+The kernels fold the corner weights in registers; the plain forward is
+``_coords.corner_weights_3d`` (or ``nearest_weights``) followed by the
+corner contract's plain forward, and the plain backward is the closed form
+the backward kernel computes, on ``_coords``' coordinate prep.
+
+Corner contract (``zband_sample_*``, ``ZBandSample``): ``img``
+(N, C, D, H, W), ``zidx``/``yidx``/``xidx`` (N, P) int32 base corners,
+``w`` (N, 8, P) in (dz, dy, dx) binary corner order (k = 4*dz + 2*dy + dx);
 ``out[n,c,p] = sum_k w[n,k,p] * img[n, c, z+dz_k, y+dy_k, x+dx_k]``, where
 a tap outside the volume reads zero and receives no gradient.
 
 Dispatch: a CPU tensor takes the plain twin; a CUDA tensor launches the
-kernel or raises.  ``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` count kernel launches
-(and nothing else), so a run can show it went through the kernels.  The JAX
-package's ``tile_order`` and channel groups are TPU tiling choices with no
-counterpart here.
+kernel or raises.  ``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` (corner contract) and
+``GRID_FWD_LAUNCHES`` / ``GRID_BWD_LAUNCHES`` (grid contract) count kernel
+launches and nothing else, so a run can show it went through the kernels.
+The JAX package's ``tile_order`` and channel groups are TPU tiling choices
+with no counterpart here.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
-from advchain_tpu_torch.kernels import _build, _corners
+from advchain_tpu_torch.kernels import _build, _coords, _corners
 
 __all__ = ["ZBandSample", "zband_sample_fwd", "zband_sample_bwd",
            "zband_sample_fwd_plain", "zband_sample_bwd_plain",
-           "reset_launch_counts"]
+           "ZBandGridSample", "zband_grid_sample_fwd",
+           "zband_grid_sample_bwd", "zband_grid_sample_fwd_plain",
+           "zband_grid_sample_bwd_plain", "reset_launch_counts"]
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+GRID_FWD_LAUNCHES = 0
+GRID_BWD_LAUNCHES = 0
+PADDING_MODES = ("zeros", "border", "reflection")
+MODES = ("bilinear", "nearest")
 
 
 def reset_launch_counts() -> None:
-    global FWD_LAUNCHES, BWD_LAUNCHES
-    FWD_LAUNCHES = 0
-    BWD_LAUNCHES = 0
+    global FWD_LAUNCHES, BWD_LAUNCHES, GRID_FWD_LAUNCHES, GRID_BWD_LAUNCHES
+    FWD_LAUNCHES = BWD_LAUNCHES = 0
+    GRID_FWD_LAUNCHES = GRID_BWD_LAUNCHES = 0
 
 
 # ------------------------------------------------------------ plain twins
@@ -65,6 +85,10 @@ def _lib():
     lib.advchain_zband_sample_fwd.restype = i32
     lib.advchain_zband_sample_bwd.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
     lib.advchain_zband_sample_bwd.restype = i32
+    lib.advchain_zband_grid_sample_fwd.argtypes = [ptr] * 3 + [i32] * 9 + [ptr]
+    lib.advchain_zband_grid_sample_fwd.restype = i32
+    lib.advchain_zband_grid_sample_bwd.argtypes = [ptr] * 5 + [i32] * 9 + [ptr]
+    lib.advchain_zband_grid_sample_bwd.restype = i32
     return lib
 
 
@@ -125,3 +149,197 @@ class ZBandSample(torch.autograd.Function):
         d_img, d_w = zband_sample_bwd(g.contiguous(), img, zidx, yidx, xidx,
                                       w)
         return d_img, None, None, None, d_w
+
+
+# ------------------------------------------------- grid contract: twins
+def _corner_inputs(img, grid, padding_mode, align_corners, mode):
+    """The corner contract's ``(zidx, yidx, xidx, w)`` for ``grid``
+    (N, P, 3): ``corner_weights_3d`` or ``nearest_weights``."""
+    d, h, w = img.shape[2:]
+    vol = grid.reshape(grid.shape[0], grid.shape[1], 1, 1, 3)
+    if mode == "nearest":
+        idx, weights = _coords.nearest_weights(vol, (d, h, w), padding_mode,
+                                               align_corners)
+        return (*idx, weights)
+    return _coords.corner_weights_3d(vol, d, h, w, padding_mode,
+                                     align_corners)
+
+
+def zband_grid_sample_fwd_plain(img, grid, padding_mode="zeros",
+                                align_corners=True, mode="bilinear"):
+    """Plain PyTorch forward (any device, any float dtype): the fold of
+    ``_coords.corner_weights_3d`` (or ``nearest_weights``), then
+    the corner contract's plain forward.  ``out`` (N, C, P)."""
+    return zband_sample_fwd_plain(
+        img, *_corner_inputs(img, grid, padding_mode, align_corners, mode))
+
+
+class _AxisTerms(NamedTuple):
+    w: tuple        # hat weights (1 - f, f)
+    m: torch.Tensor  # int64 1 where the clipped +1 tap differs from the base
+    ins: tuple      # zeros padding: unclipped taps x0, x0 + 1 in [0, S-1]
+    slope: torch.Tensor  # d coord / d unnormalised coord
+    scale: float    # S - 1 (align_corners) or S
+
+
+def _axis_terms(g, size: int, align_corners: bool, padding_mode: str):
+    """One axis of the backward kernel's ``axis_prep``, elementwise: the
+    padded coordinate and its slope from ``_coords.prep_coord`` (the
+    forward's operations, so the same floor), then the hat weights, the
+    collapse indicator and the zeros-padding masks."""
+    hi = float(size - 1)
+    c, slope = _coords.prep_coord(g, size, align_corners, padding_mode,
+                                   with_slope=True)
+    x0 = torch.floor(c)
+    x1 = x0 + 1
+    f = c - x0
+    m = (_coords.clip(x1, 0.0, hi) != _coords.clip(x0, 0.0, hi)).long()
+    if padding_mode == "zeros":
+        ins = ((x0 >= 0) & (x0 <= hi), (x1 >= 0) & (x1 <= hi))
+    else:
+        ins = (torch.ones_like(m, dtype=torch.bool),) * 2
+    return _AxisTerms((1 - f, f), m, ins, slope,
+                      hi if align_corners else float(size))
+
+
+def zband_grid_sample_bwd_plain(g, img, grid, padding_mode="zeros",
+                                align_corners=True, mode="bilinear"):
+    """Plain PyTorch backward: ``(d_img (N, C, D, H, W), d_grid (N, P,
+    3))``.  ``d_img`` and the folded weights' gradient ``d_w`` come from the
+    corner contract's plain backward; ``d_grid`` is the closed form of the
+    backward kernel's ``grid_grad``, in its order: each raw tap takes the
+    ``d_w`` of the corner it folds onto (zero where zeros padding masks
+    it), ``d_f = d_w1 - d_w0`` per axis through ``raw = ((wz * wy) * wx)``,
+    then the axis slope and ``scale / 2``.  Zero in nearest mode."""
+    zidx, yidx, xidx, w = _corner_inputs(img, grid, padding_mode,
+                                         align_corners, mode)
+    d_img, d_w = zband_sample_bwd_plain(g, img, zidx, yidx, xidx, w)
+    if mode == "nearest":
+        return d_img, torch.zeros_like(grid)
+    d, h, wd = img.shape[2:]
+    ax, ay, az = (_axis_terms(grid[..., i], size, align_corners, padding_mode)
+                  for i, size in enumerate((wd, h, d)))
+    mask = (az.m << 2) | (ay.m << 1) | ax.m
+    dwx, dwy, dwz = [0, 0], [0, 0], [0, 0]
+    for j in range(8):
+        dz, dy, dx = j >> 2, (j >> 1) & 1, j & 1
+        dr = torch.gather(d_w, 1, (j & mask)[:, None])[:, 0]
+        dr = torch.where(az.ins[dz] & ay.ins[dy] & ax.ins[dx], dr, 0.0)
+        dwx[dx] = dwx[dx] + dr * (az.w[dz] * ay.w[dy])
+        drx = dr * ax.w[dx]
+        dwy[dy] = dwy[dy] + drx * az.w[dz]
+        dwz[dz] = dwz[dz] + drx * ay.w[dy]
+    d_grid = torch.stack([(dw[1] - dw[0]) * a.slope * a.scale * 0.5
+                          for dw, a in ((dwx, ax), (dwy, ay), (dwz, az))],
+                         dim=-1)
+    return d_img, d_grid.to(grid.dtype)
+
+
+# ----------------------------------------------- grid contract: kernels
+def _check_grid(img, grid, padding_mode, mode, g=None) -> bool:
+    """Validate a grid-contract call.  False: CPU tensors, which take the
+    plain twin; True: CUDA tensors the kernel takes; anything else
+    raises."""
+    if padding_mode not in PADDING_MODES:
+        raise ValueError(f"unknown padding_mode {padding_mode!r}")
+    if mode not in MODES:
+        raise ValueError(f"zband_grid_sample: mode must be one of {MODES}, "
+                         f"got {mode!r}")
+    if img.dim() != 5 or grid.dim() != 3 or grid.shape[0] != img.shape[0] \
+            or grid.shape[2] != 3:
+        raise ValueError(f"zband_grid_sample takes img (N, C, D, H, W) and "
+                         f"grid (N, P, 3), got {tuple(img.shape)} and "
+                         f"{tuple(grid.shape)}")
+    n, c = img.shape[:2]
+    if g is not None and tuple(g.shape) != (n, c, grid.shape[1]):
+        raise ValueError(f"zband_grid_sample: g must be "
+                         f"{(n, c, grid.shape[1])}, got {tuple(g.shape)}")
+    tensors = [img, grid] + ([g] if g is not None else [])
+    if any(t.device != img.device for t in tensors):
+        raise ValueError("zband_grid_sample tensors must share one device")
+    if img.device.type == "cpu":
+        return False
+    if img.device.type != "cuda":
+        raise ValueError(f"zband_grid_sample runs on cuda or cpu, not "
+                         f"{img.device.type}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("the CUDA zband_grid_sample takes f32 tensors")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError("the CUDA zband_grid_sample takes contiguous "
+                         "tensors")
+    if max(t.numel() for t in tensors) >= 2 ** 31:
+        raise ValueError("zband_grid_sample sizes must stay below 2^31 "
+                         "elements")
+    return True
+
+
+def _grid_flags(padding_mode, align_corners, mode):
+    return (PADDING_MODES.index(padding_mode), int(bool(align_corners)),
+            int(mode == "nearest"))
+
+
+def zband_grid_sample_fwd(img, grid, padding_mode="zeros",
+                          align_corners=True, mode="bilinear"):
+    """Forward: ``out`` (N, C, P) in one launch.  CPU tensors take the plain
+    twin."""
+    global GRID_FWD_LAUNCHES
+    if not _check_grid(img, grid, padding_mode, mode):
+        return zband_grid_sample_fwd_plain(img, grid, padding_mode,
+                                           align_corners, mode)
+    (n, c, d, h, w), p = img.shape, grid.shape[1]
+    out = torch.empty(n, c, p, dtype=img.dtype, device=img.device)
+    with torch.cuda.device(img.device):
+        err = _lib().advchain_zband_grid_sample_fwd(
+            img.data_ptr(), grid.data_ptr(), out.data_ptr(), n, c, d, h, w,
+            p, *_grid_flags(padding_mode, align_corners, mode),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"zband_grid_sample_fwd launch failed: CUDA error "
+                           f"{err}")
+    GRID_FWD_LAUNCHES += 1
+    return out
+
+
+def zband_grid_sample_bwd(g, img, grid, padding_mode="zeros",
+                          align_corners=True, mode="bilinear"):
+    """Backward: ``(d_img (N, C, D, H, W), d_grid (N, P, 3))`` in one
+    launch.  CPU tensors take the plain twin."""
+    global GRID_BWD_LAUNCHES
+    if not _check_grid(img, grid, padding_mode, mode, g):
+        return zband_grid_sample_bwd_plain(g, img, grid, padding_mode,
+                                           align_corners, mode)
+    (n, c, d, h, w), p = img.shape, grid.shape[1]
+    d_img = torch.zeros_like(img)
+    d_grid = torch.empty_like(grid)
+    with torch.cuda.device(img.device):
+        err = _lib().advchain_zband_grid_sample_bwd(
+            g.data_ptr(), img.data_ptr(), grid.data_ptr(), d_img.data_ptr(),
+            d_grid.data_ptr(), n, c, d, h, w, p,
+            *_grid_flags(padding_mode, align_corners, mode),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"zband_grid_sample_bwd launch failed: CUDA error "
+                           f"{err}")
+    GRID_BWD_LAUNCHES += 1
+    return d_img, d_grid
+
+
+class ZBandGridSample(torch.autograd.Function):
+    """``out = zband_grid_sample_fwd(img, grid, padding_mode, align_corners,
+    mode)`` with gradients to ``img`` and ``grid`` from one
+    ``zband_grid_sample_bwd`` launch.  Saves only ``(img, grid)``: no
+    folded weights or their intermediates."""
+
+    @staticmethod
+    def forward(ctx, img, grid, padding_mode, align_corners, mode):
+        ctx.save_for_backward(img, grid)
+        ctx.opts = (padding_mode, align_corners, mode)
+        return zband_grid_sample_fwd(img, grid, *ctx.opts)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        img, grid = ctx.saved_tensors
+        d_img, d_grid = zband_grid_sample_bwd(g.contiguous(), img, grid,
+                                              *ctx.opts)
+        return d_img, d_grid, None, None, None

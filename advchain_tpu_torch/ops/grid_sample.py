@@ -12,16 +12,22 @@ Port of advchain_tpu/ops/grid_sample.py and of the coordinate and weight
 preparation in kernels/gather_matmul.py: ``grid_sample_2d_pallas``
 (:1584-1648), ``_grid_sample_3d_pallas_packed`` (:1790-1863),
 ``_grid_sample_3d_zband`` (:1866-1952) and the nearest wrappers
-(:1653-1754).  Coordinates are unnormalized and padded in PyTorch, the
-corner weights are folded onto the clipped base corner, and the gather and
-its transpose run in ``kernels``.  Gradients flow to the image (the
-scatter kernel) and to the grid (autograd over the weight math here, as
-XLA differentiates it in JAX); nearest sampling gives the grid a zero
-gradient.
+(:1653-1754).  3D sampling (trilinear and nearest) hands the grid to the
+z-band grid kernels, which unnormalize, pad and fold the corner weights in
+registers and return the grid's gradient from their backward; the
+coordinate prep and the 3D folds (``corner_weights_3d``,
+``nearest_weights``) live beside those kernels in ``kernels._coords``, the
+body of their plain versions, and are re-exported here.  2D sampling and
+the legacy 3D plane route still unnormalize and pad in PyTorch, fold the
+corner weights onto the clipped base corner, and run the gather and its
+transpose in ``kernels``, with the grid's gradient from autograd over the
+weight math, as XLA differentiates it in JAX.  Nearest sampling gives the
+grid a zero gradient.
 
-Clips are written ``minimum(maximum(x, lo), hi)``: at an exact bound that
-passes half the gradient, as ``jnp.clip`` does, where ``torch.clamp``
-passes all of it (base grid corners sit exactly on +-1).
+Clips are written ``minimum(maximum(x, lo), hi)`` (``kernels._coords.clip``):
+at an exact bound that passes half the gradient, as ``jnp.clip`` does,
+where ``torch.clamp`` passes all of it (base grid corners sit exactly on
++-1).
 """
 
 from __future__ import annotations
@@ -30,59 +36,16 @@ import os
 
 import torch
 
+from advchain_tpu_torch.kernels._coords import (clip, corner_weights_3d,
+                                                nearest_weights, prep_coord)
 from advchain_tpu_torch.kernels.band_sample import BandSample
 from advchain_tpu_torch.kernels.plane_sample import CornerSample, PlaneSample
 from advchain_tpu_torch.kernels.stencil_warp import StencilWarp
-from advchain_tpu_torch.kernels.zband_sample import ZBandSample
+from advchain_tpu_torch.kernels.zband_sample import ZBandGridSample
 
 __all__ = ["grid_sample", "grid_sample_2d", "grid_sample_3d",
            "stencil_warp_2d", "corner_weights", "corner_weights_3d",
            "plane_weights", "nearest_weights", "clip"]
-
-
-def clip(x, lo, hi):
-    """``jnp.clip`` with its subgradient: 0.5 at an exact bound."""
-    lo = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
-    hi = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
-    return torch.minimum(torch.maximum(x, lo), hi)
-
-
-def _unnormalize(coord, size: int, align_corners: bool):
-    """[-1, 1] -> pixel coordinate, torch grid_sampler convention."""
-    size = float(size)
-    if align_corners:
-        return (coord + 1.0) * 0.5 * (size - 1.0)
-    return ((coord + 1.0) * size - 1.0) * 0.5
-
-
-def _reflect(coord, size: int, align_corners: bool):
-    """Reflect out-of-range pixel coordinates (torch reflect_coordinates)."""
-    if align_corners:
-        low, high = 0.0, float(size - 1)
-    else:
-        low, high = -0.5, float(size) - 0.5
-    span = high - low
-    if span <= 0:
-        return torch.zeros_like(coord)
-    # |.| written as a select: its gradient at 0 is 1, as jnp.abs's is
-    # (torch.abs gives 0 there, and a grid on the border lands exactly on 0)
-    x = coord - low
-    x = torch.where(x >= 0, x, -x)
-    x = torch.remainder(x, 2.0 * span)
-    x = torch.where(x > span, 2.0 * span - x, x)
-    return x + low
-
-
-def _prep_coord(g, size: int, align_corners: bool, padding_mode: str):
-    """Pixel-space coordinate, transformed per padding mode."""
-    ix = _unnormalize(g, size, align_corners)
-    if padding_mode == "reflection":
-        ix = clip(_reflect(ix, size, align_corners), 0.0, float(size - 1))
-    elif padding_mode == "border":
-        ix = clip(ix, 0.0, float(size - 1))
-    elif padding_mode != "zeros":
-        raise ValueError(f"unknown padding_mode {padding_mode!r}")
-    return ix
 
 
 def corner_weights(grid, h: int, w: int, padding_mode: str = "zeros",
@@ -96,8 +59,8 @@ def corner_weights(grid, h: int, w: int, padding_mode: str = "zeros",
                          f"{tuple(grid.shape)}")
     gx = grid[..., 0].reshape(n, ho * wo)
     gy = grid[..., 1].reshape(n, ho * wo)
-    ix = _prep_coord(gx, w, align_corners, padding_mode)
-    iy = _prep_coord(gy, h, align_corners, padding_mode)
+    ix = prep_coord(gx, w, align_corners, padding_mode)
+    iy = prep_coord(gy, h, align_corners, padding_mode)
     x0 = torch.floor(ix)
     y0 = torch.floor(iy)
     fx = ix - x0
@@ -138,82 +101,6 @@ def _fold_2d(w00, w01, w10, w11, dxf, dyf):
     return torch.stack([cw00, cw01, cw10, cw11], dim=1).float().contiguous()
 
 
-def corner_weights_3d(grid, d: int, h: int, w: int,
-                      padding_mode: str = "zeros",
-                      align_corners: bool = True):
-    """The z-band inputs for ``grid`` (N, Do, Ho, Wo, 3) over a D x H x W
-    volume: base corners ``zidx``/``yidx``/``xidx`` (N, P) int32 and folded
-    weights (N, 8, P) f32 in (dz, dy, dx) order, differentiable with
-    respect to the grid (``_grid_sample_3d_zband``, :1866-1952)."""
-    n = grid.shape[0]
-    if grid.dim() != 5 or grid.shape[-1] != 3:
-        raise ValueError(f"grid must be (N, Do, Ho, Wo, 3), got "
-                         f"{tuple(grid.shape)}")
-    p = grid[0, ..., 0].numel()
-    gx = grid[..., 0].reshape(n, p)
-    gy = grid[..., 1].reshape(n, p)
-    gz = grid[..., 2].reshape(n, p)
-    ix = _prep_coord(gx, w, align_corners, padding_mode)
-    iy = _prep_coord(gy, h, align_corners, padding_mode)
-    iz = _prep_coord(gz, d, align_corners, padding_mode)
-    x0 = torch.floor(ix)
-    y0 = torch.floor(iy)
-    z0 = torch.floor(iz)
-    fx, fy, fz = ix - x0, iy - y0, iz - z0
-
-    def inb(xi, yi, zi):
-        if padding_mode == "zeros":
-            return ((xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
-                    & (zi >= 0) & (zi <= d - 1)).to(fx.dtype)
-        return torch.ones_like(fx)
-
-    x0c = clip(x0, 0, w - 1)
-    y0c = clip(y0, 0, h - 1)
-    z0c = clip(z0, 0, d - 1)
-    # collapse indicators: does the clipped +1 tap differ from the base?
-    dxf = clip(x0 + 1, 0, w - 1) - x0c
-    dyf = clip(y0 + 1, 0, h - 1) - y0c
-    dzf = clip(z0 + 1, 0, d - 1) - z0c
-
-    wxs = (1 - fx, fx)
-    wys = (1 - fy, fy)
-    wzs = (1 - fz, fz)
-    raw = {}
-    for pz in (0, 1):
-        for py in (0, 1):
-            for px in (0, 1):
-                raw[(pz, py, px)] = (wzs[pz] * wys[py] * wxs[px]
-                                     * inb(x0 + px, y0 + py, z0 + pz))
-
-    def fold(tap, corner, m):
-        # tap-0 weight stays on corner 0; a collapsed +1 tap (m == 0)
-        # folds onto the base corner
-        if tap == 0:
-            return 1.0 if corner == 0 else None
-        return m if corner == 1 else (1 - m)
-
-    corners = []
-    for a in (0, 1):
-        for b in (0, 1):
-            for cc in (0, 1):
-                acc = None
-                for (pz, py, px), wv in raw.items():
-                    factors = (fold(pz, a, dzf), fold(py, b, dyf),
-                               fold(px, cc, dxf))
-                    if any(f is None for f in factors):
-                        continue
-                    term = wv
-                    for f in factors:
-                        if not (isinstance(f, float) and f == 1.0):
-                            term = term * f
-                    acc = term if acc is None else acc + term
-                corners.append(acc)
-    weights = torch.stack(corners, dim=1).float()
-    return (z0c.to(torch.int32).contiguous(),
-            y0c.to(torch.int32).contiguous(),
-            x0c.to(torch.int32).contiguous(), weights.contiguous())
-
-
 def plane_weights(grid, d: int, h: int, w: int, padding_mode: str = "zeros",
                   align_corners: bool = True):
     """The plane-sample inputs for ``grid`` (N, Do, Ho, Wo, 3) over a
@@ -228,12 +115,12 @@ def plane_weights(grid, d: int, h: int, w: int, padding_mode: str = "zeros",
         raise ValueError(f"grid must be (N, Do, Ho, Wo, 3), got "
                          f"{tuple(grid.shape)}")
     p = grid[0, ..., 0].numel()
-    ix = _prep_coord(grid[..., 0].reshape(n, p), w, align_corners,
-                     padding_mode)
-    iy = _prep_coord(grid[..., 1].reshape(n, p), h, align_corners,
-                     padding_mode)
-    iz = _prep_coord(grid[..., 2].reshape(n, p), d, align_corners,
-                     padding_mode)
+    ix = prep_coord(grid[..., 0].reshape(n, p), w, align_corners,
+                    padding_mode)
+    iy = prep_coord(grid[..., 1].reshape(n, p), h, align_corners,
+                    padding_mode)
+    iz = prep_coord(grid[..., 2].reshape(n, p), d, align_corners,
+                    padding_mode)
     x0 = torch.floor(ix)
     y0 = torch.floor(iy)
     z0 = torch.floor(iz)
@@ -261,31 +148,6 @@ def plane_weights(grid, d: int, h: int, w: int, padding_mode: str = "zeros",
         zidx.append(clip(z0 + dz, 0, d - 1).to(torch.int32).contiguous())
         weights.append(_fold_2d(w00, w01, w10, w11, dxf, dyf))
     return zidx, yxidx, weights
-
-
-def nearest_weights(grid, sizes, padding_mode: str = "zeros",
-                    align_corners: bool = True):
-    """Nearest-neighbour inputs for the corner kernels
-    (``grid_sample_{2d,3d}_pallas_nearest``, :1653-1754): rounded
-    (half-to-even, as ``jnp.round``) and clipped base corners (N, P) int32
-    in (z,) y, x order, and weights (N, 2^d, P) with the zero-padding mask
-    on corner 0 and 0 elsewhere.  Piecewise constant: no grid gradient."""
-    n = grid.shape[0]
-    dims = len(sizes)
-    p = grid[0, ..., 0].numel()
-    bases, w0 = [], None
-    for axis, size in enumerate(sizes):
-        g = grid[..., dims - 1 - axis].reshape(n, p)
-        i_n = torch.round(_prep_coord(g, size, align_corners, padding_mode))
-        ok = (i_n >= 0) & (i_n <= size - 1)
-        w0 = ok if w0 is None else w0 & ok
-        bases.append(clip(i_n, 0, size - 1).to(torch.int32).contiguous())
-    if padding_mode != "zeros":
-        w0 = torch.ones_like(w0)
-    w0 = w0.to(torch.float32)
-    zero = torch.zeros_like(w0)
-    weights = torch.stack([w0] + [zero] * (2 ** dims - 1), dim=1)
-    return bases, weights.contiguous()
 
 
 def _band_enabled() -> bool:
@@ -360,16 +222,12 @@ def grid_sample_3d(x, grid, mode: str = "bilinear",
         out = out + PlaneSample.apply(xf, zidx[1], yxidx, weights[1],
                                       offsets)
         return out.reshape((n, c) + tuple(grid.shape[1:4])).to(x.dtype)
-    if mode == "bilinear":
-        zidx, yidx, xidx, weights = corner_weights_3d(
-            grid, d, h, w, padding_mode, align_corners)
-    elif mode == "nearest":
-        (zidx, yidx, xidx), weights = nearest_weights(
-            grid, (d, h, w), padding_mode, align_corners)
-    else:
+    if mode not in ("bilinear", "nearest"):
         raise NotImplementedError(f"mode={mode!r}")
-    out = ZBandSample.apply(x.float().contiguous(), zidx, yidx, xidx,
-                            weights)
+    # one launch each way: the kernels read the grid and fold in registers
+    out = ZBandGridSample.apply(x.float().contiguous(),
+                                grid.float().reshape(n, -1, 3).contiguous(),
+                                padding_mode, align_corners, mode)
     return out.reshape((n, c) + tuple(grid.shape[1:4])).to(x.dtype)
 
 

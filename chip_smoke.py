@@ -20,20 +20,28 @@ Phases (any failure raises and the script exits non-zero):
      kernel launches of one episode and time 5 episodes after 2 warm-ups;
   5. time each 2D kernel, its twin and ``F.grid_sample`` (the library
      yardstick, never used by the port);
-  6. hold the z-band kernels against their twins at the 3D episode's shapes
-     (N=2, 12x192x192, C in {1, 3, 5}; a 10-degree rotation about each
-     axis with zeros padding and a near-identity warp of up to 1 voxel with
-     border padding), and 2D and 3D nearest sampling on the card against
-     the CPU;
+  6. hold the corner-level z-band kernels against their twins at the 3D
+     episode's shapes (N=2, 12x192x192, C in {1, 3, 5}; a 10-degree
+     rotation about each axis with zeros padding and a near-identity warp
+     of up to 1 voxel with border padding), the fused grid-level pair
+     (trilinear and nearest) against its plain versions at the same shapes
+     with three paddings and both align_corners on the near-identity grid,
+     that grid with 5% exact +-1 entries, and the rotation (samples past
+     the volume); and 2D and 3D nearest sampling on the card against the
+     CPU;
   7. check a small 3D episode (batch 2, 1x8x32x32, dropout 0) against the
      same episode on the CPU;
   8. run the 3D volume episode of bench.py:349-404 (noise -> bias ->
      affine -> morph in 3D, batch 2 at 1x12x192x192, PseudoConv3dModel
      with 4 classes, dropout 0.1 and seeded random weights, mse,
-     n_iter=1), count its kernel launches, print its adaptive step counts
-     and time 5 episodes after 2 warm-ups;
-  9. time the z-band kernels, their twins and ``F.grid_sample`` on 5-D
-     input, and nearest sampling on both kernel pairs;
+     n_iter=1), count its kernel launches (44 / 22 on the fused pair, none
+     on the corner-level pair, no call of the host-side fold), print its
+     adaptive step counts and time 5 episodes after 2 warm-ups;
+  9. time the corner-level and fused z-band kernels, their twins and
+     ``F.grid_sample`` on 5-D input, nearest sampling on both pairs, and a
+     whole 3D sample three ways in turns: the pre-fusion route (the
+     host-side fold and the corner-level pair), the fused pair, and
+     ``F.grid_sample``;
  10. hold the stencil-warp kernels (every 2D flow composition) against
      their twins at the compositions' shapes (N=128, 192x192, C in
      {1, 2, 5}; near-identity flows under 2 px, and flows of up to 20 px
@@ -63,7 +71,7 @@ Phases (any failure raises and the script exits non-zero):
  16. the same for the 3D volume episode with ADVCHAIN_ZBAND=0 (plane
      launches, z-band 0);
  17. time the corner and plane kernels, their twins and ``F.grid_sample``,
-     then print the ``kernels`` line for all ten kernels.
+     then print the ``kernels`` line for all twelve kernels.
 The last line of standard output is the device record.  ``--profile PATH``
 / ``--profile3d PATH`` / ``--profile-train PATH`` additionally write a
 torch.profiler summary of one 2D episode / 3D episode / train step to PATH.
@@ -76,6 +84,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
 import json
 import math
 import os
@@ -94,6 +103,7 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 SM_CLOCK_HZ = 1.98e9         # H100 SXM peak SM clock
 TOL_FWD = 1e-5
+TOL_GRID_FWD = 1e-6          # the fused forward repeats its plain fold
 TOL_DW = 1e-5
 TOL_DIMG_REL = 1e-5          # of max|d_img|: atomics sum in no fixed order
 TOL_DFLOW_REL = 1e-5         # of max|d_flow|
@@ -102,12 +112,14 @@ LR = 1e-4                    # the headline train step's Adam rate
 _CSRC = "advchain_tpu_torch/kernels/csrc/"
 KERNEL_SOURCES = {"band": _CSRC + "band_sample.cu",
                   "zband": _CSRC + "zband_sample.cu",
+                  "zband_grid": _CSRC + "zband_sample.cu",
                   "stencil": _CSRC + "stencil_warp.cu",
                   # one kernel pair serves the corner (2D) and plane (3D)
                   # routes
                   "corner": _CSRC + "plane_sample.cu",
                   "plane": _CSRC + "plane_sample.cu"}
 KERNEL_NAMES = {"band": "band_sample", "zband": "zband_sample",
+                "zband_grid": "zband_grid_sample",
                 "stencil": "stencil_warp", "corner": "corner_sample",
                 "plane": "plane_sample"}
 # the sources to build, one nvcc each
@@ -116,12 +128,18 @@ BUILD = sorted({src.rsplit("/", 1)[1][:-3] for src in KERNEL_SOURCES.values()})
 _GM = "advchain_tpu/kernels/gather_matmul.py"
 REPLACES = {"band": {"fwd": f"{_GM}:839", "bwd": f"{_GM}:923"},
             "zband": {"fwd": f"{_GM}:1081", "bwd": f"{_GM}:1230"},
+            "zband_grid": {"fwd": f"{_GM}:1081", "bwd": f"{_GM}:1230"},
             "stencil": {"fwd": "advchain_tpu/kernels/stencil.py:132",
                         "bwd": "advchain_tpu/kernels/stencil.py:172"},
             "corner": {"fwd": f"{_GM}:134", "bwd": f"{_GM}:283"},
             "plane": {"fwd": f"{_GM}:466", "bwd": f"{_GM}:603"}}
+# substrings of the port's CUDA kernel names (the profiler's rows)
+PORT_KERNEL_NAMES = ("band_sample", "zband_grid", "stencil_warp",
+                     "plane_sample")
 # the switches that send 2D / 3D sampling to the corner / plane kernels
 LEGACY_SWITCH = {2: "ADVCHAIN_BAND_KERNEL", 3: "ADVCHAIN_ZBAND"}
+# the family the default route sends bilinear sampling to
+DEFAULT_FAMILY = {2: "band", 3: "zband_grid"}
 
 
 def chain_configs(batch, shape):
@@ -240,11 +258,14 @@ def reset_launch_counts():
 
 
 def launch_counts():
-    """Launches per family: band, zband, stencil, and corner and plane (the
-    two routes of one kernel pair, counted apart)."""
-    from advchain_tpu_torch.kernels import plane_sample
+    """Launches per family: band, zband (the corner-level pair), zband_grid
+    (the fused pair), stencil, and corner and plane (the two routes of one
+    kernel pair, counted apart)."""
+    from advchain_tpu_torch.kernels import plane_sample, zband_sample
     counts = {fam: {"fwd": mod.FWD_LAUNCHES, "bwd": mod.BWD_LAUNCHES}
               for fam, mod in _kernel_modules().items()}
+    counts["zband_grid"] = {"fwd": zband_sample.GRID_FWD_LAUNCHES,
+                            "bwd": zband_sample.GRID_BWD_LAUNCHES}
     counts.update({route: dict(c) for route, c in
                    plane_sample.LAUNCHES.items()})
     return counts
@@ -264,10 +285,11 @@ def sampler(dims):
 
 def route_family(dims):
     """The kernel family this process's switches send bilinear sampling
-    to: band / zband, or corner / plane under ``LEGACY_SWITCH[dims]=0``."""
-    legacy = os.environ.get(LEGACY_SWITCH[dims]) == "0"
-    return {(2, False): "band", (2, True): "corner", (3, False): "zband",
-            (3, True): "plane"}[dims, legacy]
+    to: band / zband_grid, or corner / plane under
+    ``LEGACY_SWITCH[dims]=0``."""
+    if os.environ.get(LEGACY_SWITCH[dims]) == "0":
+        return {2: "corner", 3: "plane"}[dims]
+    return DEFAULT_FAMILY[dims]
 
 
 def sample_grids(n, shape, device, seed=0):
@@ -498,12 +520,15 @@ def run_episode(device, batch, shape, warm=2, reps=5):
         if not (launches[used]["fwd"] > 0 and launches[used]["bwd"] > 0):
             raise AssertionError(f"the {dims}D episode did not launch both "
                                  f"{used} kernels: {launches}")
-    # a legacy route replaces the default family's bilinear launches; the
-    # episodes sample nothing with nearest
-    replaced = sampler(dims)[0] if fam != sampler(dims)[0] else None
-    if replaced and any(launches[replaced].values()):
-        raise AssertionError(f"the {dims}D episode on the {fam} route "
-                             f"launched {replaced} kernels: {launches}")
+    # a legacy route replaces the default family's bilinear launches (the
+    # episodes sample nothing with nearest); no 3D route takes the
+    # corner-level z-band pair since the fused pair
+    idle = ([DEFAULT_FAMILY[dims]] if fam != DEFAULT_FAMILY[dims] else []) \
+        + (["zband"] if dims == 3 else [])
+    for other in idle:
+        if any(launches[other].values()):
+            raise AssertionError(f"the {dims}D episode on the {fam} route "
+                                 f"launched {other} kernels: {launches}")
     peak = torch.cuda.max_memory_allocated() if data.is_cuda else 0
     return launches, statistics.median(times), times, loss, peak, steps
 
@@ -658,21 +683,23 @@ def time_nearest(device, cases=((BATCH, SHAPE), (BATCH3D, SHAPE3D))):
 
 
 def profile_episode(device, batch, shape, path):
-    """Profile one episode (see :func:`profile_run`)."""
+    """Profile one episode (see :func:`profile_run`); returns its
+    summary."""
     import torch
     dims = len(shape)
     solver = build_solver(batch, shape)
     model = build_model(device, dims=dims)
     data = torch.as_tensor(make_input(batch, shape), device=device)
     pi = POWER_ITERATION[dims]
-    profile_run(f"{dims}D episode",
-                lambda: episode_once(solver, model, data, pi), path)
+    return profile_run(f"{dims}D episode",
+                       lambda: episode_once(solver, model, data, pi), path)
 
 
 def profile_run(label, fn, path):
     """Device time of one call of ``fn`` (after one warm-up call) by
     kernel (torch.profiler), written to ``path`` as JSON; prints the busy
-    time and the largest kernels."""
+    time, the kernel launches and the largest kernels, and returns the
+    wall and busy times and the launch count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -688,19 +715,20 @@ def profile_run(label, fn, path):
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
-    # the port's kernels: "band_sample" (both sampler families) and
-    # "stencil_warp" in their names
-    samp = sum(r["device_ms"] for r in rows if "band_sample" in r["name"]
-               or "stencil_warp" in r["name"])
+    launches = sum(r["count"] for r in rows)
+    # the port's kernels, by the names in their sources
+    samp = sum(r["device_ms"] for r in rows
+               if any(k in r["name"] for k in PORT_KERNEL_NAMES))
+    summary = {"wall_ms": wall, "device_busy_ms": busy,
+               "device_launches": launches, "port_kernels_ms": samp}
     with open(path, "w") as f:
-        json.dump({"wall_ms": wall, "device_busy_ms": busy,
-                   "port_kernels_ms": samp, "kernels": rows[:60]}, f,
-                  indent=1)
+        json.dump(dict(summary, kernels=rows[:60]), f, indent=1)
     print(f"[profile] {label} {wall:.1f} ms under the profiler, "
-          f"device busy {busy:.1f} ms, the port's kernels {samp:.1f} ms; "
-          f"top: " + "; ".join(
+          f"device busy {busy:.1f} ms over {launches} kernel launches, the "
+          f"port's kernels {samp:.1f} ms; top: " + "; ".join(
               f"{r['name'][:50]} {r['device_ms']:.1f} ms x{r['count']}"
               for r in rows[:6]), flush=True)
+    return summary
 
 
 # ---------------------------------------------------------------- slice 3
@@ -1134,6 +1162,243 @@ def time_flat_kernels(n, shape, device, c, k=4):
     return [row]
 
 
+# ---------------------------------------------------------------- slice 5
+# estimated operations of the fused pair beyond the corner arithmetic: per
+# point, the three axes' coordinate prep and the raw weights (forward), and
+# also the chain rule to d_grid (backward)
+GRID_PREP_OPS = {"fwd": 60, "bwd": 150}
+
+
+def grid_cases(n, shape, device):
+    """Phase 6's grids for the fused pair, (name, grid (N, P, 3)): the
+    near-identity warp, the same with 5% exact +-1 entries
+    (:func:`flat_grids`: bases on the border planes, where taps collapse)
+    and the 10-degree rotation (samples past the volume)."""
+    (rot_name, _, rot), (near_name, _, near) = sample_grids(n, shape, device)
+    pm1 = flat_grids(n, shape, device)[1][2]
+    return [(name, g.reshape(n, -1, 3).contiguous())
+            for name, g in ((near_name, near), ("near_pm1", pm1),
+                            (rot_name, rot))]
+
+
+def check_grid_kernels(n, shape, device, channels=(1, 3, 5)):
+    """Phase 6: the fused pair against its plain versions on each of
+    :func:`grid_cases`, for each channel count, mode, padding and
+    align_corners.  Forward within TOL_GRID_FWD absolute (it repeats its
+    plain fold), ``d_img`` and ``d_grid`` within TOL_DIMG_REL and
+    TOL_DFLOW_REL of their largest entries (atomics and the channel sum
+    reassociate); nearest mode's ``d_grid`` exactly zero.  Returns the
+    largest errors."""
+    import torch
+    from advchain_tpu_torch.kernels import zband_sample as zs
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for name, grid in grid_cases(n, shape, device):
+        for c in channels:
+            gen = torch.Generator(device=device).manual_seed(c)
+            img = torch.randn((n, c) + tuple(shape), generator=gen,
+                              device=device)
+            g = torch.randn(n, c, grid.shape[1], generator=gen, device=device)
+            for mode in zs.MODES:
+                for padding in zs.PADDING_MODES:
+                    for align in (True, False):
+                        args = (padding, align, mode)
+                        with torch.no_grad():
+                            out = zs.zband_grid_sample_fwd(img, grid, *args)
+                            ref = zs.zband_grid_sample_fwd_plain(img, grid,
+                                                                 *args)
+                            r_img, r_grid = zs.zband_grid_sample_bwd_plain(
+                                g, img, grid, *args)
+                            d_img, d_grid = zs.zband_grid_sample_bwd(
+                                g, img, grid, *args)
+                        e_fwd = float((out - ref).abs().max())
+                        s_img = float(r_img.abs().max())
+                        s_grid = float(r_grid.abs().max())
+                        e_img = float((d_img - r_img).abs().max())
+                        e_grid = float((d_grid - r_grid).abs().max())
+                        ok = e_fwd <= TOL_GRID_FWD
+                        if mode == "nearest":
+                            ok = ok and float(d_grid.abs().max()) == 0.0
+                        label = (f"{name:13s} C={c} {mode:8s} {padding:10s} "
+                                 f"align={int(align)}")
+                        print(f"[grid] {label}: fwd {e_fwd:.3e} d_img "
+                              f"{e_img:.3e} (max {s_img:.3e}) d_grid "
+                              f"{e_grid:.3e} (max {s_grid:.3e})", flush=True)
+                        ok = (ok and e_img <= TOL_DIMG_REL * s_img
+                              and e_grid <= TOL_DFLOW_REL * s_grid)
+                        if not ok:
+                            raise AssertionError(
+                                f"the fused z-band pair disagrees with its "
+                                f"plain versions: {label} fwd {e_fwd} d_img "
+                                f"{e_img} d_grid {e_grid}")
+                        worst["fwd"] = max(worst["fwd"], e_fwd)
+                        worst["bwd"] = max(worst["bwd"], e_img, e_grid)
+    return worst
+
+
+@contextlib.contextmanager
+def count_calls(modules, names):
+    """Count the calls of each ``<module>.<name>`` made inside the block,
+    summed over ``modules`` (the callers look the attribute up at call
+    time); restored after it."""
+    calls = dict.fromkeys(names, 0)
+    saved = [(module, name, getattr(module, name)) for module in modules
+             for name in names]
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for module, name, fn in saved:
+        setattr(module, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def time_grid_kernels(n, shape, device, channels=(1, 3, 5)):
+    """Phase 9: the fused pair alone beside its plain versions and
+    ``F.grid_sample`` on each of :func:`sample_grids` (trilinear), and in
+    nearest mode on the rotation at C=1.  Bytes: the forward reads img and
+    the grid and writes out, the backward reads g, img and the grid and
+    writes d_img and d_grid (its zeroing of d_img is one more write, not
+    counted); operations: the corner arithmetic per (point, channel) and
+    GRID_PREP_OPS per point.  Rows as :func:`time_kernels`'."""
+    import torch
+    import torch.nn.functional as F
+    from advchain_tpu_torch.kernels import zband_sample as zs
+    s = math.prod(shape)
+    rows = []
+    cases = [(name, padding, grid5, c, "bilinear")
+             for name, padding, grid5 in sample_grids(n, shape, device)
+             for c in channels]
+    rot_name, rot_pad, rot = sample_grids(n, shape, device)[0]
+    cases.append((rot_name, rot_pad, rot, 1, "nearest"))
+    for name, padding, grid5, c, mode in cases:
+        grid = grid5.reshape(n, -1, 3).contiguous()
+        p = grid.shape[1]
+        gen = torch.Generator(device=device).manual_seed(c)
+        img = torch.randn((n, c) + tuple(shape), generator=gen,
+                          device=device)
+        g = torch.randn(n, c, p, generator=gen, device=device)
+        taps = 1 if mode == "nearest" else 8
+        fwd_bound = bound_ms(4 * (n * c * s + 3 * n * p + n * c * p),
+                             (2 * taps - 1) * n * c * p
+                             + GRID_PREP_OPS["fwd"] * n * p)
+        bwd_bound = bound_ms(4 * (n * c * p + 2 * n * c * s + 6 * n * p),
+                             4 * taps * n * c * p
+                             + GRID_PREP_OPS["bwd"] * n * p)
+        args = (padding, True, mode)
+        img_g = img.clone().requires_grad_(True)
+        grid_g = grid5.clone().requires_grad_(True)
+        g_lib = g.reshape((n, c) + tuple(grid5.shape[1:4]))
+
+        def lib_bwd():
+            out = F.grid_sample(img_g, grid_g, mode=mode,
+                                padding_mode=padding, align_corners=True)
+            torch.autograd.grad(out, (img_g, grid_g), g_lib)
+
+        with torch.no_grad():
+            row = {
+                "kernel": "zband_grid", "mode": mode, "case": name,
+                "padding": padding, "C": c,
+                "fwd_ms": time_ms(lambda: zs.zband_grid_sample_fwd(
+                    img, grid, *args)),
+                "fwd_plain_ms": time_ms(lambda: zs.zband_grid_sample_fwd_plain(
+                    img, grid, *args)),
+                "fwd_library_ms": time_ms(lambda: F.grid_sample(
+                    img, grid5, mode=mode, padding_mode=padding,
+                    align_corners=True)),
+                "fwd_bound_ms": fwd_bound[0],
+                "bwd_ms": time_ms(lambda: zs.zband_grid_sample_bwd(
+                    g, img, grid, *args)),
+                "bwd_plain_ms": time_ms(lambda: zs.zband_grid_sample_bwd_plain(
+                    g, img, grid, *args)),
+                "bwd_bound_ms": bwd_bound[0],
+            }
+        row["bwd_library_ms"] = time_ms(lib_bwd)
+        row["bound_by"] = [fwd_bound[1], bwd_bound[1]]
+        rows.append(row)
+        print("[timing] " + json.dumps(row), flush=True)
+    return rows
+
+
+def wall_ms(fn, iters=20):
+    """Host-clock time per call of ``fn`` over ``iters`` calls ending in a
+    synchronize, after one warm-up call: what a host-bound caller pays."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def time_grid_routes(n, shape, device, c=3):
+    """Phase 9: one whole trilinear 3D sample at the compositions' case
+    (near-identity, border, C channels), forward and forward+backward
+    (gradients to the image and the grid), three ways in turns (a b c c b
+    a): (a) the pre-fusion route, ``corner_weights_3d`` (autograd over the
+    host-side fold) and the corner-level ``ZBandSample``; (b) the fused
+    ``ZBandGridSample``; (c) ``F.grid_sample`` on 5-D input, the yardstick
+    the port never calls.  Each as wall ms (:func:`wall_ms`) and device ms
+    (:func:`time_ms`), the mean of its two turns."""
+    import torch
+    import torch.nn.functional as F
+    from advchain_tpu_torch.kernels.zband_sample import (ZBandGridSample,
+                                                         ZBandSample)
+    from advchain_tpu_torch.ops.grid_sample import corner_weights_3d
+    _, padding, grid5 = sample_grids(n, shape, device)[1]
+    gen = torch.Generator(device=device).manual_seed(c)
+    img = torch.randn((n, c) + tuple(shape), generator=gen, device=device)
+    cot = torch.randn((n, c) + tuple(grid5.shape[1:4]), generator=gen,
+                      device=device)
+
+    def pre_fusion(x, gr):
+        *idx, wts = corner_weights_3d(gr, *shape, padding, True)
+        return ZBandSample.apply(x, *idx, wts)
+
+    def fused(x, gr):  # what grid_sample_3d runs
+        return ZBandGridSample.apply(x, gr.reshape(n, -1, 3).contiguous(),
+                                     padding, True, "bilinear")
+
+    def library(x, gr):
+        return F.grid_sample(x, gr, mode="bilinear", padding_mode=padding,
+                             align_corners=True)
+
+    routes = {"pre_fusion": pre_fusion, "fused": fused, "library": library}
+    x = img.clone().requires_grad_(True)
+    gr = grid5.clone().requires_grad_(True)
+
+    def fwd(route):
+        with torch.no_grad():
+            route(img, grid5)
+
+    def fwd_bwd(route):
+        out = route(x, gr)
+        torch.autograd.grad(out, (x, gr), cot.reshape(out.shape))
+
+    times = {name: {} for name in routes}
+    for name in ("pre_fusion", "fused", "library", "library", "fused",
+                 "pre_fusion"):
+        route = routes[name]
+        for kind, fn in (("fwd", lambda: fwd(route)),
+                         ("fwd_bwd", lambda: fwd_bwd(route))):
+            times[name].setdefault(f"wall_{kind}_ms", []).append(wall_ms(fn))
+            times[name].setdefault(f"device_{kind}_ms", []).append(
+                time_ms(fn))
+    result = {name: {key: statistics.mean(v) for key, v in t.items()}
+              for name, t in times.items()}
+    print(f"[routes] a 3D sample, N={n} C={c} {'x'.join(map(str, shape))} "
+          f"near-identity {padding}: {json.dumps(result)}", flush=True)
+    return result
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1207,25 +1472,42 @@ def main(argv=None):
         profile_episode(device, BATCH, SHAPE, args.profile)
     rows2 = time_kernels(BATCH, SHAPE, device)
 
-    # 3D: the volume episode
+    # 3D: the volume episode, its trilinear and nearest samples on the
+    # fused z-band pair
     worst3 = check_kernels(BATCH3D, SHAPE3D, device, channels=(1, 3, 5))
+    worst_g = check_grid_kernels(BATCH3D, SHAPE3D, device)
     check_nearest(device)
     check_episode_against_cpu(device, 2, (8, 32, 32))
-    launches3, sec3, times3, loss3, peak3, steps = run_episode(
-        device, BATCH3D, SHAPE3D)
+    # the fold's callers: the ops routes and the z-band plain versions
+    fold_modules = [importlib.import_module(f"advchain_tpu_torch.{name}")
+                    for name in ("ops.grid_sample", "kernels._coords")]
+    with count_calls(fold_modules, ("corner_weights_3d",
+                                    "nearest_weights")) as folds:
+        launches3, sec3, times3, loss3, peak3, steps = run_episode(
+            device, BATCH3D, SHAPE3D)
     print(f"[episode3d] batch {BATCH3D} 1x{'x'.join(map(str, SHAPE3D))}: "
-          f"loss {loss3:.6e}, launches zband fwd "
-          f"{launches3['zband']['fwd']} bwd {launches3['zband']['bwd']} "
-          f"(band fwd {launches3['band']['fwd']} bwd "
-          f"{launches3['band']['bwd']}), adaptive steps {steps}, median "
-          f"{sec3 * 1e3:.1f} ms ({BATCH3D / sec3:.3f} vol/s), reps "
-          f"{[round(t * 1e3, 1) for t in times3]} ms (spread "
+          f"loss {loss3:.6e}, launches {json.dumps(launches3)}, host-side "
+          f"fold calls over 7 episodes {json.dumps(folds)}, adaptive steps "
+          f"{steps}, median {sec3 * 1e3:.1f} ms ({BATCH3D / sec3:.3f} "
+          f"vol/s), reps {[round(t * 1e3, 1) for t in times3]} ms (spread "
           f"{(max(times3) - min(times3)) * 1e3:.1f} ms), peak "
           f"{peak3 / 1e9:.2f} GB on {card}", flush=True)
+    if launches3["zband_grid"] != {"fwd": 44, "bwd": 22} \
+            or any(folds.values()):
+        raise AssertionError(f"the 3D episode did not sample through the "
+                             f"fused pair alone (44 / 22 launches, no fold): "
+                             f"{launches3}, {folds}")
     if args.profile3d:
-        profile_episode(device, BATCH3D, SHAPE3D, args.profile3d)
+        prof3 = profile_episode(device, BATCH3D, SHAPE3D, args.profile3d)
+        print(f"[profile] 3D episode: device busy "
+              f"{prof3['device_busy_ms']:.1f} ms of the unprofiled median "
+              f"{sec3 * 1e3:.1f} ms, idle share "
+              f"{1 - prof3['device_busy_ms'] / (sec3 * 1e3):.3f}, "
+              f"{prof3['device_launches']} kernel launches", flush=True)
     rows3 = time_kernels(BATCH3D, SHAPE3D, device, channels=(1, 3, 5))
+    rows_g = time_grid_kernels(BATCH3D, SHAPE3D, device)
     time_nearest(device)
+    time_grid_routes(BATCH3D, SHAPE3D, device)
 
     # the fused adversarial train step, with every 2D composition on the
     # stencil kernels
@@ -1276,6 +1558,8 @@ def main(argv=None):
     kernels = (kernel_records("band", launches2, worst2, rows2, "rot30", 1,
                               shape2)
                + kernel_records("zband", launches3, worst3, rows3,
+                                "near_identity", 3, shape3)
+               + kernel_records("zband_grid", launches3, worst_g, rows_g,
                                 "near_identity", 3, shape3)
                + kernel_records("stencil", launches_t, worst_s, rows_s,
                                 "near_identity", 2, shape2)

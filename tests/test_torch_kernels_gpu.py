@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (band, z-band, corner and plane samplers, the
-stencil warp) on the card, against their plain twins and the CPU path.
+"""The port's CUDA kernels (band, z-band corner-level and fused, corner and
+plane samplers, the stencil warp) on the card, against their plain twins
+and the CPU path.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 
@@ -8,6 +9,8 @@ Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 This file imports no JAX (the card's machine has none), and each test
 decides at run time, not at import, whether CUDA is present.
 """
+
+import sys
 
 import pytest
 import torch
@@ -151,19 +154,101 @@ def test_nearest_matches_the_cpu(cuda, dims):
     img = torch.randn((2, 2) + spatial, generator=gen)
     grid = torch.rand((2,) + spatial + (dims,), generator=gen) * 2.4 - 1.2
     cot = torch.randn(img.shape, generator=gen)
-    mod = bs if dims == 2 else zs
+    # 2D on the band pair, 3D on the fused z-band pair
+    mod, fwd, bwd = ((bs, "FWD_LAUNCHES", "BWD_LAUNCHES") if dims == 2 else
+                     (zs, "GRID_FWD_LAUNCHES", "GRID_BWD_LAUNCHES"))
     results = []
     for dev in ("cpu", cuda):
-        before = (mod.FWD_LAUNCHES, mod.BWD_LAUNCHES)
+        before = (getattr(mod, fwd), getattr(mod, bwd))
         x = img.to(dev).clone().requires_grad_(True)
         out = grid_sample(x, grid.to(dev), mode="nearest")
         (out * cot.to(dev)).sum().backward()
         if dev != "cpu":
-            assert (mod.FWD_LAUNCHES, mod.BWD_LAUNCHES) == \
+            assert (getattr(mod, fwd), getattr(mod, bwd)) == \
                 (before[0] + 1, before[1] + 1)
         results.append([t.detach().cpu() for t in (out, x.grad)])
     for a, b in zip(*results):
         torch.testing.assert_close(b, a, atol=1e-5, rtol=0)
+
+
+def _zband_grid_inputs(device, spread, c=3, n=2, shape=(8, 32, 48), seed=0):
+    """img, grid (N, P, 3) on the volume's own raster and a cotangent.
+    ``spread`` None: an identity grid jittered by up to one voxel per axis
+    (neighbouring points' atomics land on shared corners); a number:
+    uniform over ``spread`` times the volume (samples past the volume)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    img = torch.randn((n, c) + shape, generator=gen, device=device)
+    axes = [torch.linspace(-1, 1, s, device=device) for s in shape]
+    zz, yy, xx = torch.meshgrid(*axes, indexing="ij")
+    ident = torch.stack([xx, yy, zz], -1).reshape(1, -1, 3).expand(n, -1, 3)
+    jitter = 2 * torch.rand(ident.shape, generator=gen, device=device) - 1
+    if spread is None:
+        voxel = torch.tensor([2 / (s - 1) for s in reversed(shape)],
+                             device=device)
+        grid = ident + jitter * voxel
+    else:
+        grid = jitter * spread
+    g = torch.randn(n, c, grid.shape[1], generator=gen, device=device)
+    return img, grid.contiguous(), g
+
+
+@pytest.mark.parametrize("padding", ["zeros", "border", "reflection"])
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+@pytest.mark.parametrize("grid_kind", ["near_identity", "spread"])
+def test_zband_grid_kernels_match_plain(cuda, grid_kind, mode, padding):
+    """The fused pair against its plain versions on a near-identity grid
+    and on one that reaches past the volume: forward within 1e-6, d_img
+    and d_grid within 1e-5 of their largest entries (atomics and the
+    channel sum reassociate), one launch each way."""
+    from advchain_tpu_torch.kernels import zband_sample as zs
+    img, grid, g = _zband_grid_inputs(
+        cuda, *((None, 2) if grid_kind == "near_identity" else (1.2, 3)))
+    for align in (True, False):
+        args = (padding, align, mode)
+        before = (zs.GRID_FWD_LAUNCHES, zs.GRID_BWD_LAUNCHES)
+        out = zs.zband_grid_sample_fwd(img, grid, *args)
+        torch.testing.assert_close(
+            out, zs.zband_grid_sample_fwd_plain(img, grid, *args),
+            atol=1e-6, rtol=0)
+        r_img, r_grid = zs.zband_grid_sample_bwd_plain(g, img, grid, *args)
+        d_img, d_grid = zs.zband_grid_sample_bwd(g, img, grid, *args)
+        for ours, ref in ((d_img, r_img), (d_grid, r_grid)):
+            scale = float(ref.abs().max())
+            assert float((ours - ref).abs().max()) <= 1e-5 * scale
+        if mode == "nearest":
+            assert not bool(d_grid.any())
+        assert (zs.GRID_FWD_LAUNCHES, zs.GRID_BWD_LAUNCHES) == \
+            (before[0] + 1, before[1] + 1)
+
+
+def test_grid_sample_3d_takes_the_fused_pair(cuda, monkeypatch):
+    """grid_sample_3d on CUDA tensors: one fused launch each way, none of
+    the corner-level pair, and no call of the host-side fold or of a plain
+    twin."""
+    import chip_smoke
+    from advchain_tpu_torch.kernels import zband_sample as zs
+    from advchain_tpu_torch.kernels import _coords
+    from advchain_tpu_torch.ops import grid_sample_3d
+    gs = sys.modules["advchain_tpu_torch.ops.grid_sample"]
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CUDA route took a host-side fold or twin")
+
+    for module, name in ((gs, "corner_weights_3d"), (gs, "nearest_weights"),
+                         (_coords, "corner_weights_3d"),
+                         (_coords, "nearest_weights"),
+                         (zs, "zband_grid_sample_fwd_plain"),
+                         (zs, "zband_grid_sample_bwd_plain")):
+        monkeypatch.setattr(module, name, refuse)
+    img, grid, _ = _zband_grid_inputs(cuda, 1.1, shape=(5, 9, 11))
+    x = img.clone().requires_grad_(True)
+    gr = grid.reshape(2, 5, 9, 11, 3).clone().requires_grad_(True)
+    chip_smoke.reset_launch_counts()
+    grid_sample_3d(x, gr, padding_mode="border").sum().backward()
+    counts = chip_smoke.launch_counts()
+    assert counts["zband_grid"] == {"fwd": 1, "bwd": 1}
+    assert counts["zband"] == {"fwd": 0, "bwd": 0}
+    assert gr.grad is not None and bool(gr.grad.abs().sum() > 0)
 
 
 def test_cuda_tensor_never_takes_the_zband_twin(cuda):
@@ -171,6 +256,9 @@ def test_cuda_tensor_never_takes_the_zband_twin(cuda):
     img, idx, wts, _ = _zband_inputs(cuda, seed=3)
     with pytest.raises(TypeError):
         zs.zband_sample_fwd(img.double(), *idx, wts)
+    img, grid, _ = _zband_grid_inputs(cuda, 1.0)
+    with pytest.raises(TypeError):
+        zs.zband_grid_sample_fwd(img, grid.double())
 
 
 @pytest.mark.parametrize("c", [1, 2, 5])

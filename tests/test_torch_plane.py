@@ -181,7 +181,7 @@ def _no_zband(monkeypatch):
         def apply(*args):
             raise AssertionError("the plane route took the z-band kernels")
 
-    monkeypatch.setattr(tgs, "ZBandSample", Refuse)
+    monkeypatch.setattr(tgs, "ZBandGridSample", Refuse)
 
 
 # JAX's two formulations: one channel whose K=2 stack fits the budget takes
