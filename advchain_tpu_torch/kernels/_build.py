@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/advchain_tpu_torch/lib<name>-<digest>.so`` at the repository
-root; the digest covers the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused.  Nothing here runs at import time:
+root; the digest covers the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source is rebuilt and an unchanged one is
+reused.  Nothing here runs at import time:
 the first call to :func:`load` (or :func:`build`) compiles.  A missing
 ``nvcc`` or a failed compile raises; there is no fallback.
 """
@@ -40,8 +41,8 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(src.read_bytes() for src in sources)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

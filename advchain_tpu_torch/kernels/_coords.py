@@ -1,12 +1,16 @@
-"""The sampling grid's coordinate prep and the 3D corner folds, in PyTorch:
-the arithmetic that the z-band grid kernels (``csrc/zband_sample.cu``,
-``axis_prep`` / ``point_prep``) do in registers, and the body of their
-plain versions in ``zband_sample``.  The ops routes that still fold on
-the host (2D, the legacy 3D plane route) share the same coordinate prep.
+"""The sampling grid's coordinate prep and the 2D and 3D corner folds, in
+PyTorch: the arithmetic that the grid-level kernels
+(``csrc/grid_coords.cuh``'s ``axis_prep``, ``point_prep`` in
+``csrc/band_sample.cu`` and ``csrc/zband_sample.cu``) do in registers, the
+body of their plain versions in ``band_sample`` and ``zband_sample``, and
+the per-axis terms of their closed-form backward.  The legacy routes that
+still fold on the host (the 2D corner route, the 3D plane route) share the
+same coordinate prep and folds.
 
 Port of the coordinate and weight preparation in
-advchain_tpu/kernels/gather_matmul.py: ``_grid_sample_3d_zband``
-(:1866-1952) and the nearest wrappers (:1653-1754).
+advchain_tpu/kernels/gather_matmul.py: ``grid_sample_2d_pallas``
+(:1584-1648), ``_grid_sample_3d_zband`` (:1866-1952) and the nearest
+wrappers (:1653-1754).
 
 Clips are written ``minimum(maximum(x, lo), hi)``: at an exact bound that
 passes half the gradient, as ``jnp.clip`` does, where ``torch.clamp``
@@ -15,9 +19,12 @@ passes all of it (base grid corners sit exactly on +-1).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-__all__ = ["clip", "prep_coord", "corner_weights_3d", "nearest_weights"]
+__all__ = ["clip", "prep_coord", "axis_terms", "corner_weights", "fold_2d",
+           "corner_weights_3d", "nearest_weights"]
 
 
 def clip(x, lo, hi):
@@ -61,10 +68,12 @@ def _reflect(coord, size: int, align_corners: bool, slope=None):
     return x + low, slope
 
 
-def _clip_slope(v, lo: float, hi: float):
+def _clip_slope(v, lo: float, hi: float, edge: bool = False):
     """The factor ``clip(v, lo, hi)`` passes: 0.5 at each exact bound, as
-    ``jnp.clip``'s subgradient."""
-    a = torch.where(v > lo, 1.0, torch.where(v == lo, 0.5, 0.0))
+    ``jnp.clip``'s subgradient; with ``edge``, 1 at the lower bound (the
+    edge-padded stencil's one-sided difference)."""
+    a = torch.where(v > lo, 1.0,
+                    torch.where(v == lo, 1.0 if edge else 0.5, 0.0))
     m = torch.clamp(v, min=lo)
     return a * torch.where(m < hi, 1.0, torch.where(m == hi, 0.5, 0.0))
 
@@ -74,19 +83,115 @@ def prep_coord(g, size: int, align_corners: bool, padding_mode: str,
     """Pixel-space coordinate, transformed per padding mode.  With
     ``with_slope``, also d coordinate / d unnormalised coordinate: the
     reflection's signs times the clip's factor (a power of two or 0), as
-    the z-band backward kernel carries it."""
+    the grid kernels carry it.  ``padding_mode="edge"`` is border padding
+    whose slope at the lower bound is whole (the edge-padded stencil's
+    one-sided difference, which the 3D flow compositions take, as the 2D
+    stencil kernel does); its coordinate is border padding's."""
     hi = float(size - 1)
     ix = _unnormalize(g, size, align_corners)
     slope = torch.ones_like(ix) if with_slope else None
     if padding_mode == "reflection":
         ix, slope = _reflect(ix, size, align_corners, slope)
-    elif padding_mode not in ("border", "zeros"):
+    elif padding_mode not in ("border", "zeros", "edge"):
         raise ValueError(f"unknown padding_mode {padding_mode!r}")
     if padding_mode != "zeros":
         if with_slope:
-            slope = slope * _clip_slope(ix, 0.0, hi)
-        ix = clip(ix, 0.0, hi)
+            slope = slope * _clip_slope(ix, 0.0, hi, padding_mode == "edge")
+        if padding_mode == "edge":
+            # the clip's value; autograd passes the whole slope at 0
+            ix = torch.where(ix >= 0, torch.minimum(
+                ix, torch.as_tensor(hi, dtype=ix.dtype, device=ix.device)),
+                torch.zeros_like(ix))
+        else:
+            ix = clip(ix, 0.0, hi)
     return (ix, slope) if with_slope else ix
+
+
+class AxisTerms(NamedTuple):
+    """One axis of a grid kernel's coordinate prep (:func:`axis_terms`)."""
+    w: tuple        # hat weights (1 - f, f)
+    m: torch.Tensor  # int64 1 where the clipped +1 tap differs from the base
+    ins: tuple      # zeros padding: unclipped taps x0, x0 + 1 in [0, S-1]
+    slope: torch.Tensor  # d coord / d unnormalised coord
+    scale: float    # S - 1 (align_corners) or S
+
+
+def axis_terms(g, size: int, align_corners: bool, padding_mode: str):
+    """One axis of the grid kernels' ``axis_prep``, elementwise, for the
+    plain closed-form backwards: the padded coordinate and its slope from
+    :func:`prep_coord` (the forward's operations, so the same floor), then
+    the hat weights, the collapse indicator and the zeros-padding masks."""
+    hi = float(size - 1)
+    c, slope = prep_coord(g, size, align_corners, padding_mode,
+                          with_slope=True)
+    x0 = torch.floor(c)
+    x1 = x0 + 1
+    f = c - x0
+    m = (clip(x1, 0.0, hi) != clip(x0, 0.0, hi)).long()
+    if padding_mode == "zeros":
+        ins = ((x0 >= 0) & (x0 <= hi), (x1 >= 0) & (x1 <= hi))
+    else:
+        ins = (torch.ones_like(m, dtype=torch.bool),) * 2
+    return AxisTerms((1 - f, f), m, ins, slope,
+                     hi if align_corners else float(size))
+
+
+def corner_weights(grid, h: int, w: int, padding_mode: str = "zeros",
+                   align_corners: bool = True):
+    """The band-sample inputs for ``grid`` (N, Ho, Wo, 2) over an H x W
+    image: base corners ``yidx``/``xidx`` (N, P) int32 and folded weights
+    (N, 4, P) f32 (float64 for a float64 grid), differentiable with respect
+    to the grid."""
+    n, ho, wo, two = grid.shape
+    if two != 2:
+        raise ValueError(f"grid must be (N, Ho, Wo, 2), got "
+                         f"{tuple(grid.shape)}")
+    gx = grid[..., 0].reshape(n, ho * wo)
+    gy = grid[..., 1].reshape(n, ho * wo)
+    ix = prep_coord(gx, w, align_corners, padding_mode)
+    iy = prep_coord(gy, h, align_corners, padding_mode)
+    x0 = torch.floor(ix)
+    y0 = torch.floor(iy)
+    fx = ix - x0
+    fy = iy - y0
+
+    def inb(xi, yi):
+        if padding_mode == "zeros":
+            return ((xi >= 0) & (xi <= w - 1) & (yi >= 0)
+                    & (yi <= h - 1)).to(fx.dtype)
+        return torch.ones_like(fx)
+
+    # corner taps use CLIPPED coordinates; offsets from the clipped base are
+    # 0/1 per axis, so a tap whose clipped coordinate collapses onto the base
+    # folds its weight into the base tap's
+    x0c = clip(x0, 0, w - 1)
+    y0c = clip(y0, 0, h - 1)
+    dxf = clip(x0 + 1, 0, w - 1) - x0c  # 0.0 or 1.0
+    dyf = clip(y0 + 1, 0, h - 1) - y0c
+
+    w00 = (1 - fx) * (1 - fy) * inb(x0, y0)
+    w01 = fx * (1 - fy) * inb(x0 + 1, y0)
+    w10 = (1 - fx) * fy * inb(x0, y0 + 1)
+    w11 = fx * fy * inb(x0 + 1, y0 + 1)
+    weights = fold_2d(w00, w01, w10, w11, dxf, dyf)
+    return (y0c.to(torch.int32).contiguous(), x0c.to(torch.int32).contiguous(),
+            weights)
+
+
+def fold_2d(w00, w01, w10, w11, dxf, dyf):
+    """Fold the four raw bilinear weights onto the taps of the clipped base
+    corner: a +1 tap whose clipped coordinate collapses onto the base
+    (``dxf`` / ``dyf`` 0) adds its weight to the base's.  (N, 4, P) f32, or
+    float64 from float64 weights."""
+    cw00 = w00 + w01 * (1 - dxf) + w10 * (1 - dyf) \
+        + w11 * (1 - dxf) * (1 - dyf)
+    cw01 = w01 * dxf + w11 * dxf * (1 - dyf)
+    cw10 = w10 * dyf + w11 * (1 - dxf) * dyf
+    cw11 = w11 * dxf * dyf
+    # f32, as JAX's; a float64 grid keeps float64 (the plain twins' gradcheck)
+    weights = torch.stack([cw00, cw01, cw10, cw11], dim=1)
+    return weights.to(torch.promote_types(weights.dtype,
+                                          torch.float32)).contiguous()
 
 
 def corner_weights_3d(grid, d: int, h: int, w: int,

@@ -1,7 +1,10 @@
 """What the corner samplers share: the plain PyTorch twins of the band (2D)
 and z-band (3D) samplers, written once for d spatial axes, the weighted
 gather and its transpose at precomputed flat taps (which the flat-index
-corner and plane samplers also use), and the wrappers' argument checks.
+corner and plane samplers also use), and the wrappers' argument checks,
+for the corner contract below and for the grid contract of the grid-level
+pairs (``img`` (N, C, *S), ``grid`` (N, P, d) normalised, a padding mode,
+``align_corners`` and a mode).
 
 Contract: ``img`` (N, C, *S) with d = len(S) spatial axes, ``idx`` a tuple
 of d (N, P) int32 base corners (the first spatial axis first), ``w``
@@ -14,6 +17,13 @@ outside the image reads zero and receives no gradient.
 from __future__ import annotations
 
 import torch
+
+PADDING_MODES = ("zeros", "border", "reflection")
+# the grid kernels' padding codes: PADDING_MODES and "edge", border padding
+# with the edge-padded stencil's one-sided slope at the lower bound (the 3D
+# flow compositions)
+KERNEL_PADDING = PADDING_MODES + ("edge",)
+MODES = ("bilinear", "nearest")
 
 
 def corners(idx, sizes):
@@ -119,3 +129,45 @@ def check(name: str, img, idx, w, g=None, taps=None) -> bool:
     if img.numel() >= 2 ** 31 or w.numel() >= 2 ** 31:
         raise ValueError(f"{name} sizes must stay below 2^31 elements")
     return True
+
+
+def check_grid(name: str, img, grid, padding_mode, mode, g=None) -> bool:
+    """Validate a grid-contract call with d = ``grid.shape[2]`` spatial
+    axes.  False: CPU tensors, which take the plain twin; True: CUDA
+    tensors the kernel takes; anything else raises."""
+    if padding_mode not in KERNEL_PADDING:
+        raise ValueError(f"unknown padding_mode {padding_mode!r}")
+    if mode not in MODES:
+        raise ValueError(f"{name}: mode must be one of {MODES}, got "
+                         f"{mode!r}")
+    dims = img.dim() - 2
+    if grid.dim() != 3 or grid.shape[0] != img.shape[0] \
+            or grid.shape[2] != dims:
+        raise ValueError(f"{name} takes img (N, C, *{dims} axes) and grid "
+                         f"(N, P, {dims}), got {tuple(img.shape)} and "
+                         f"{tuple(grid.shape)}")
+    n, c = img.shape[:2]
+    if g is not None and tuple(g.shape) != (n, c, grid.shape[1]):
+        raise ValueError(f"{name}: g must be {(n, c, grid.shape[1])}, got "
+                         f"{tuple(g.shape)}")
+    tensors = [img, grid] + ([g] if g is not None else [])
+    if any(t.device != img.device for t in tensors):
+        raise ValueError(f"{name} tensors must share one device")
+    if img.device.type == "cpu":
+        return False
+    if img.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not "
+                         f"{img.device.type}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"the CUDA {name} takes f32 tensors")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError(f"the CUDA {name} takes contiguous tensors")
+    if max(t.numel() for t in tensors) >= 2 ** 31:
+        raise ValueError(f"{name} sizes must stay below 2^31 elements")
+    return True
+
+
+def grid_flags(padding_mode, align_corners, mode):
+    """The kernels' integer options: padding index, align, nearest."""
+    return (KERNEL_PADDING.index(padding_mode), int(bool(align_corners)),
+            int(mode == "nearest"))

@@ -37,8 +37,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
-
 import torch
 
 from advchain_tpu_torch.kernels import _build, _coords, _corners
@@ -53,8 +51,8 @@ FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 GRID_FWD_LAUNCHES = 0
 GRID_BWD_LAUNCHES = 0
-PADDING_MODES = ("zeros", "border", "reflection")
-MODES = ("bilinear", "nearest")
+PADDING_MODES = _corners.PADDING_MODES
+MODES = _corners.MODES
 
 
 def reset_launch_counts() -> None:
@@ -174,34 +172,6 @@ def zband_grid_sample_fwd_plain(img, grid, padding_mode="zeros",
         img, *_corner_inputs(img, grid, padding_mode, align_corners, mode))
 
 
-class _AxisTerms(NamedTuple):
-    w: tuple        # hat weights (1 - f, f)
-    m: torch.Tensor  # int64 1 where the clipped +1 tap differs from the base
-    ins: tuple      # zeros padding: unclipped taps x0, x0 + 1 in [0, S-1]
-    slope: torch.Tensor  # d coord / d unnormalised coord
-    scale: float    # S - 1 (align_corners) or S
-
-
-def _axis_terms(g, size: int, align_corners: bool, padding_mode: str):
-    """One axis of the backward kernel's ``axis_prep``, elementwise: the
-    padded coordinate and its slope from ``_coords.prep_coord`` (the
-    forward's operations, so the same floor), then the hat weights, the
-    collapse indicator and the zeros-padding masks."""
-    hi = float(size - 1)
-    c, slope = _coords.prep_coord(g, size, align_corners, padding_mode,
-                                   with_slope=True)
-    x0 = torch.floor(c)
-    x1 = x0 + 1
-    f = c - x0
-    m = (_coords.clip(x1, 0.0, hi) != _coords.clip(x0, 0.0, hi)).long()
-    if padding_mode == "zeros":
-        ins = ((x0 >= 0) & (x0 <= hi), (x1 >= 0) & (x1 <= hi))
-    else:
-        ins = (torch.ones_like(m, dtype=torch.bool),) * 2
-    return _AxisTerms((1 - f, f), m, ins, slope,
-                      hi if align_corners else float(size))
-
-
 def zband_grid_sample_bwd_plain(g, img, grid, padding_mode="zeros",
                                 align_corners=True, mode="bilinear"):
     """Plain PyTorch backward: ``(d_img (N, C, D, H, W), d_grid (N, P,
@@ -217,7 +187,8 @@ def zband_grid_sample_bwd_plain(g, img, grid, padding_mode="zeros",
     if mode == "nearest":
         return d_img, torch.zeros_like(grid)
     d, h, wd = img.shape[2:]
-    ax, ay, az = (_axis_terms(grid[..., i], size, align_corners, padding_mode)
+    ax, ay, az = (_coords.axis_terms(grid[..., i], size, align_corners,
+                                     padding_mode)
                   for i, size in enumerate((wd, h, d)))
     mask = (az.m << 2) | (ay.m << 1) | ax.m
     dwx, dwy, dwz = [0, 0], [0, 0], [0, 0]
@@ -236,54 +207,13 @@ def zband_grid_sample_bwd_plain(g, img, grid, padding_mode="zeros",
 
 
 # ----------------------------------------------- grid contract: kernels
-def _check_grid(img, grid, padding_mode, mode, g=None) -> bool:
-    """Validate a grid-contract call.  False: CPU tensors, which take the
-    plain twin; True: CUDA tensors the kernel takes; anything else
-    raises."""
-    if padding_mode not in PADDING_MODES:
-        raise ValueError(f"unknown padding_mode {padding_mode!r}")
-    if mode not in MODES:
-        raise ValueError(f"zband_grid_sample: mode must be one of {MODES}, "
-                         f"got {mode!r}")
-    if img.dim() != 5 or grid.dim() != 3 or grid.shape[0] != img.shape[0] \
-            or grid.shape[2] != 3:
-        raise ValueError(f"zband_grid_sample takes img (N, C, D, H, W) and "
-                         f"grid (N, P, 3), got {tuple(img.shape)} and "
-                         f"{tuple(grid.shape)}")
-    n, c = img.shape[:2]
-    if g is not None and tuple(g.shape) != (n, c, grid.shape[1]):
-        raise ValueError(f"zband_grid_sample: g must be "
-                         f"{(n, c, grid.shape[1])}, got {tuple(g.shape)}")
-    tensors = [img, grid] + ([g] if g is not None else [])
-    if any(t.device != img.device for t in tensors):
-        raise ValueError("zband_grid_sample tensors must share one device")
-    if img.device.type == "cpu":
-        return False
-    if img.device.type != "cuda":
-        raise ValueError(f"zband_grid_sample runs on cuda or cpu, not "
-                         f"{img.device.type}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("the CUDA zband_grid_sample takes f32 tensors")
-    if any(not t.is_contiguous() for t in tensors):
-        raise ValueError("the CUDA zband_grid_sample takes contiguous "
-                         "tensors")
-    if max(t.numel() for t in tensors) >= 2 ** 31:
-        raise ValueError("zband_grid_sample sizes must stay below 2^31 "
-                         "elements")
-    return True
-
-
-def _grid_flags(padding_mode, align_corners, mode):
-    return (PADDING_MODES.index(padding_mode), int(bool(align_corners)),
-            int(mode == "nearest"))
-
-
 def zband_grid_sample_fwd(img, grid, padding_mode="zeros",
                           align_corners=True, mode="bilinear"):
     """Forward: ``out`` (N, C, P) in one launch.  CPU tensors take the plain
     twin."""
     global GRID_FWD_LAUNCHES
-    if not _check_grid(img, grid, padding_mode, mode):
+    if not _corners.check_grid("zband_grid_sample", img, grid, padding_mode,
+                               mode):
         return zband_grid_sample_fwd_plain(img, grid, padding_mode,
                                            align_corners, mode)
     (n, c, d, h, w), p = img.shape, grid.shape[1]
@@ -291,7 +221,7 @@ def zband_grid_sample_fwd(img, grid, padding_mode="zeros",
     with torch.cuda.device(img.device):
         err = _lib().advchain_zband_grid_sample_fwd(
             img.data_ptr(), grid.data_ptr(), out.data_ptr(), n, c, d, h, w,
-            p, *_grid_flags(padding_mode, align_corners, mode),
+            p, *_corners.grid_flags(padding_mode, align_corners, mode),
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"zband_grid_sample_fwd launch failed: CUDA error "
@@ -305,7 +235,8 @@ def zband_grid_sample_bwd(g, img, grid, padding_mode="zeros",
     """Backward: ``(d_img (N, C, D, H, W), d_grid (N, P, 3))`` in one
     launch.  CPU tensors take the plain twin."""
     global GRID_BWD_LAUNCHES
-    if not _check_grid(img, grid, padding_mode, mode, g):
+    if not _corners.check_grid("zband_grid_sample", img, grid, padding_mode,
+                               mode, g):
         return zband_grid_sample_bwd_plain(g, img, grid, padding_mode,
                                            align_corners, mode)
     (n, c, d, h, w), p = img.shape, grid.shape[1]
@@ -315,7 +246,7 @@ def zband_grid_sample_bwd(g, img, grid, padding_mode="zeros",
         err = _lib().advchain_zband_grid_sample_bwd(
             g.data_ptr(), img.data_ptr(), grid.data_ptr(), d_img.data_ptr(),
             d_grid.data_ptr(), n, c, d, h, w, p,
-            *_grid_flags(padding_mode, align_corners, mode),
+            *_corners.grid_flags(padding_mode, align_corners, mode),
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"zband_grid_sample_bwd launch failed: CUDA error "

@@ -4,11 +4,14 @@
 The integer geometry is computed once on the host; the field itself is a
 transposed convolution, a border crop, a linear resize and ``exp``.  The
 kernel is the outer product of per-axis iterated box filters, which equals
-the reference's iterated all-ones convolution.  Quirks kept: the 2D kernel
-pads iteration i by ``i * spacing`` and the 3D kernel pads every iteration
-by ``spacing - 1``; the control grid carries a +2 border and asymmetric
-crops; the 3D field is resized to ``floor(size * scale)`` (torch
-``Upsample(scale_factor=...)``).
+the reference's iterated all-ones convolution, so the strided transposed
+convolution and its crop are one small matrix product per axis
+(``A_y . cp . A_x^T`` in 2D): f32 sums in full precision, with no
+convolution algorithm to choose and no reduced-precision path.  Quirks
+kept: the 2D kernel pads iteration i by ``i * spacing`` and the 3D kernel
+pads every iteration by ``spacing - 1``; the control grid carries a +2
+border and asymmetric crops; the 3D field is resized to ``floor(size *
+scale)`` (torch ``Upsample(scale_factor=...)``).
 """
 
 from __future__ import annotations
@@ -21,7 +24,6 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .conv import conv_transpose
 from .grid_sample import clip
 from .resize import interpolate
 
@@ -40,14 +42,10 @@ def _bspline_kernel_1d(spacing: int, order: int,
     return k
 
 
-def bspline_kernel(spacing, order: int = 3,
-                   spatial_dims: int = 2) -> np.ndarray:
-    """N-D B-spline interpolation kernel: in 2D iteration i pads by
-    ``i * spacing``, in 3D every iteration pads by ``spacing - 1``."""
-    spacing = tuple(int(s) for s in spacing)
-    if len(spacing) != spatial_dims or spatial_dims not in (2, 3):
-        raise ValueError(f"spacing {spacing} does not fit spatial_dims="
-                         f"{spatial_dims}")
+def _axis_kernels(spacing, order: int, spatial_dims: int):
+    """The float64 1-D factors of the N-D kernel, one per axis: in 2D
+    iteration i pads by ``i * spacing``, in 3D every iteration pads by
+    ``spacing - 1``."""
     axes = []
     for s in spacing:
         if spatial_dims == 2:
@@ -55,6 +53,18 @@ def bspline_kernel(spacing, order: int = 3,
         else:
             pads = (s - 1,) * order
         axes.append(_bspline_kernel_1d(s, order, pads))
+    return axes
+
+
+def bspline_kernel(spacing, order: int = 3,
+                   spatial_dims: int = 2) -> np.ndarray:
+    """N-D B-spline interpolation kernel: the outer product of
+    :func:`_axis_kernels`."""
+    spacing = tuple(int(s) for s in spacing)
+    if len(spacing) != spatial_dims or spatial_dims not in (2, 3):
+        raise ValueError(f"spacing {spacing} does not fit spatial_dims="
+                         f"{spatial_dims}")
+    axes = _axis_kernels(spacing, order, spatial_dims)
     k = axes[0]
     for a in axes[1:]:
         k = np.multiply.outer(k, a)
@@ -116,21 +126,52 @@ def make_bspline_field_spec(image_size, control_point_spacing,
         downscale=int(downscale))
 
 
+@functools.lru_cache(maxsize=64)
+def _axis_matrices(spec: BSplineFieldSpec, dtype: torch.dtype,
+                   device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """Per spatial axis, the matrix A (cropped length, control points) of
+    the transposed convolution by that axis's 1-D B-spline factor, with the
+    crop folded into its rows: ``A[o, i] = k[o + start + padding - i *
+    stride]`` where the index lies in the kernel (conv_transpose's
+    definition), ``start = stride + crop_start``.  Built in float64 and
+    cast to ``dtype`` on ``device`` once: a copy to the card each call
+    would wait for the work queued before it."""
+    mats = []
+    for k, cp, s, pad, cs, ce in zip(
+            _axis_kernels(spec.stride, spec.order, spec.spatial_dims),
+            spec.cp_grid, spec.stride, spec.padding, spec.crop_start,
+            spec.crop_end):
+        ks = k.shape[0]
+        full = (cp - 1) * s + ks - 2 * pad
+        start, stop = s + cs, full - (s + ce)
+        tap = (np.arange(start, stop)[:, None] + pad
+               - np.arange(cp)[None, :] * s)
+        inside = (tap >= 0) & (tap < ks)
+        mats.append(torch.as_tensor(
+            np.where(inside, k[np.clip(tap, 0, ks - 1)], 0.0), dtype=dtype,
+            device=device))
+    return tuple(mats)
+
+
+def _transposed_conv_cropped(cpoints, spec: BSplineFieldSpec):
+    """The transposed convolution by the separable B-spline kernel and the
+    border crop: one matrix product along each spatial axis, in the
+    control points' dtype (the matrices are cast from float64)."""
+    field = cpoints
+    for axis, a in enumerate(_axis_matrices(spec, cpoints.dtype,
+                                            cpoints.device)):
+        field = torch.movedim(
+            torch.tensordot(a, field, dims=([1], [2 + axis])), 0, 2 + axis)
+    return field
+
+
 def evaluate_bspline_field(cpoints, spec: BSplineFieldSpec,
                            log_space: bool = True):
     """Control points (N, 1, *cp_grid) -> bias field (N, 1, *image_size):
-    transposed conv by the B-spline kernel, border crop, linear resize
-    (align_corners=False), then ``exp`` (log space) or ``1 + field``."""
-    kernel = torch.as_tensor(
-        bspline_kernel(spec.stride, spec.order, spec.spatial_dims),
-        dtype=cpoints.dtype, device=cpoints.device)
-    field = conv_transpose(cpoints, kernel[None, None], stride=spec.stride,
-                           padding=spec.padding)
-    for axis, (s, cs, ce) in enumerate(zip(spec.stride, spec.crop_start,
-                                           spec.crop_end)):
-        start = s + cs
-        stop = field.shape[2 + axis] - (s + ce)
-        field = field.narrow(2 + axis, start, stop - start)
+    transposed conv by the B-spline kernel and border crop (one matrix
+    product per axis), linear resize (align_corners=False), then ``exp``
+    (log space) or ``1 + field``."""
+    field = _transposed_conv_cropped(cpoints, spec)
     cur = field.shape[2:]
     if spec.spatial_dims == 2:
         h, w = spec.image_size

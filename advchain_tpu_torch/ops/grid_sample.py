@@ -1,5 +1,5 @@
 """Differentiable grid sampling with torch ``grid_sample`` semantics:
-2D bilinear on the band-sample kernel pair, 3D trilinear on the z-band
+2D bilinear on the band grid kernel pair, 3D trilinear on the z-band grid
 kernel pair, and nearest in both on the same kernels; and the 2D stencil
 warp (bilinear, border padding, channel-first grid) on its own kernel pair.
 The JAX package's switches select its legacy flat-index kernels, read here
@@ -12,17 +12,18 @@ Port of advchain_tpu/ops/grid_sample.py and of the coordinate and weight
 preparation in kernels/gather_matmul.py: ``grid_sample_2d_pallas``
 (:1584-1648), ``_grid_sample_3d_pallas_packed`` (:1790-1863),
 ``_grid_sample_3d_zband`` (:1866-1952) and the nearest wrappers
-(:1653-1754).  3D sampling (trilinear and nearest) hands the grid to the
-z-band grid kernels, which unnormalize, pad and fold the corner weights in
-registers and return the grid's gradient from their backward; the
-coordinate prep and the 3D folds (``corner_weights_3d``,
-``nearest_weights``) live beside those kernels in ``kernels._coords``, the
-body of their plain versions, and are re-exported here.  2D sampling and
-the legacy 3D plane route still unnormalize and pad in PyTorch, fold the
-corner weights onto the clipped base corner, and run the gather and its
-transpose in ``kernels``, with the grid's gradient from autograd over the
-weight math, as XLA differentiates it in JAX.  Nearest sampling gives the
-grid a zero gradient.
+(:1653-1754).  2D and 3D sampling (bilinear or trilinear, and nearest)
+hand the grid to the band and z-band grid kernels, which unnormalize, pad
+and fold the corner weights in registers and return the grid's gradient
+from their backward; the coordinate prep and the folds
+(``corner_weights``, ``corner_weights_3d``, ``nearest_weights``) live
+beside those kernels in ``kernels._coords``, the body of their plain
+versions, and are re-exported here.  The legacy corner (2D) and plane (3D)
+routes still unnormalize and pad in PyTorch, fold the corner weights onto
+the clipped base corner, and run the gather and its transpose in
+``kernels``, with the grid's gradient from autograd over the weight math,
+as XLA differentiates it in JAX.  Nearest sampling gives the grid a zero
+gradient.
 
 Clips are written ``minimum(maximum(x, lo), hi)`` (``kernels._coords.clip``):
 at an exact bound that passes half the gradient, as ``jnp.clip`` does,
@@ -36,9 +37,10 @@ import os
 
 import torch
 
-from advchain_tpu_torch.kernels._coords import (clip, corner_weights_3d,
+from advchain_tpu_torch.kernels._coords import (clip, corner_weights,
+                                                corner_weights_3d, fold_2d,
                                                 nearest_weights, prep_coord)
-from advchain_tpu_torch.kernels.band_sample import BandSample
+from advchain_tpu_torch.kernels.band_sample import BandGridSample
 from advchain_tpu_torch.kernels.plane_sample import CornerSample, PlaneSample
 from advchain_tpu_torch.kernels.stencil_warp import StencilWarp
 from advchain_tpu_torch.kernels.zband_sample import ZBandGridSample
@@ -46,59 +48,6 @@ from advchain_tpu_torch.kernels.zband_sample import ZBandGridSample
 __all__ = ["grid_sample", "grid_sample_2d", "grid_sample_3d",
            "stencil_warp_2d", "corner_weights", "corner_weights_3d",
            "plane_weights", "nearest_weights", "clip"]
-
-
-def corner_weights(grid, h: int, w: int, padding_mode: str = "zeros",
-                   align_corners: bool = True):
-    """The band-sample inputs for ``grid`` (N, Ho, Wo, 2) over an H x W
-    image: base corners ``yidx``/``xidx`` (N, P) int32 and folded weights
-    (N, 4, P) f32, differentiable with respect to the grid."""
-    n, ho, wo, two = grid.shape
-    if two != 2:
-        raise ValueError(f"grid must be (N, Ho, Wo, 2), got "
-                         f"{tuple(grid.shape)}")
-    gx = grid[..., 0].reshape(n, ho * wo)
-    gy = grid[..., 1].reshape(n, ho * wo)
-    ix = prep_coord(gx, w, align_corners, padding_mode)
-    iy = prep_coord(gy, h, align_corners, padding_mode)
-    x0 = torch.floor(ix)
-    y0 = torch.floor(iy)
-    fx = ix - x0
-    fy = iy - y0
-
-    def inb(xi, yi):
-        if padding_mode == "zeros":
-            return ((xi >= 0) & (xi <= w - 1) & (yi >= 0)
-                    & (yi <= h - 1)).to(fx.dtype)
-        return torch.ones_like(fx)
-
-    # corner taps use CLIPPED coordinates; offsets from the clipped base are
-    # 0/1 per axis, so a tap whose clipped coordinate collapses onto the base
-    # folds its weight into the base tap's
-    x0c = clip(x0, 0, w - 1)
-    y0c = clip(y0, 0, h - 1)
-    dxf = clip(x0 + 1, 0, w - 1) - x0c  # 0.0 or 1.0
-    dyf = clip(y0 + 1, 0, h - 1) - y0c
-
-    w00 = (1 - fx) * (1 - fy) * inb(x0, y0)
-    w01 = fx * (1 - fy) * inb(x0 + 1, y0)
-    w10 = (1 - fx) * fy * inb(x0, y0 + 1)
-    w11 = fx * fy * inb(x0 + 1, y0 + 1)
-    weights = _fold_2d(w00, w01, w10, w11, dxf, dyf)
-    return (y0c.to(torch.int32).contiguous(), x0c.to(torch.int32).contiguous(),
-            weights)
-
-
-def _fold_2d(w00, w01, w10, w11, dxf, dyf):
-    """Fold the four raw bilinear weights onto the taps of the clipped base
-    corner: a +1 tap whose clipped coordinate collapses onto the base
-    (``dxf`` / ``dyf`` 0) adds its weight to the base's.  (N, 4, P) f32."""
-    cw00 = w00 + w01 * (1 - dxf) + w10 * (1 - dyf) \
-        + w11 * (1 - dxf) * (1 - dyf)
-    cw01 = w01 * dxf + w11 * dxf * (1 - dyf)
-    cw10 = w10 * dyf + w11 * (1 - dxf) * dyf
-    cw11 = w11 * dxf * dyf
-    return torch.stack([cw00, cw01, cw10, cw11], dim=1).float().contiguous()
 
 
 def plane_weights(grid, d: int, h: int, w: int, padding_mode: str = "zeros",
@@ -146,7 +95,7 @@ def plane_weights(grid, d: int, h: int, w: int, padding_mode: str = "zeros",
         w10 = (1 - fx) * fy * wz * inb(x0, y0 + 1, z0 + dz)
         w11 = fx * fy * wz * inb(x0 + 1, y0 + 1, z0 + dz)
         zidx.append(clip(z0 + dz, 0, d - 1).to(torch.int32).contiguous())
-        weights.append(_fold_2d(w00, w01, w10, w11, dxf, dyf))
+        weights.append(fold_2d(w00, w01, w10, w11, dxf, dyf).float())
     return zidx, yxidx, weights
 
 
@@ -173,28 +122,32 @@ def grid_sample_2d(x, grid, mode: str = "bilinear",
     n, c, h, w = x.shape
     if grid.shape[0] != n:
         raise ValueError(f"grid batch {grid.shape[0]} != image batch {n}")
-    if mode == "bilinear":
-        yidx, xidx, weights = corner_weights(grid, h, w, padding_mode,
-                                             align_corners)
-        offsets = (0, 1, w, w + 1)
-    elif mode == "nearest":
-        (yidx, xidx), weights = nearest_weights(grid, (h, w), padding_mode,
-                                                align_corners)
-        offsets = (0,)  # one unit-weight tap (gather_matmul.py:1697-1704)
-    else:
+    if mode not in ("bilinear", "nearest"):
         raise NotImplementedError(f"mode={mode!r}")
     xf = x.float().contiguous()
     # JAX also sends an image whose band stack exceeds its 5 MiB VMEM
     # budget to the corner kernels (gather_matmul.py:1621-1627); the band
-    # kernel here has no size limit, so only the switch selects them
+    # kernels here have no size limit, so only the switch selects them
     if _band_enabled():
-        out = BandSample.apply(xf, yidx, xidx, weights)
+        # one launch each way: the kernels read the grid and fold in
+        # registers
+        out = BandGridSample.apply(
+            xf, grid.float().reshape(n, -1, 2).contiguous(), padding_mode,
+            align_corners, mode)
+        return out.reshape(n, c, grid.shape[1], grid.shape[2]).to(x.dtype)
+    if mode == "bilinear":
+        yidx, xidx, weights = corner_weights(grid, h, w, padding_mode,
+                                             align_corners)
+        offsets = (0, 1, w, w + 1)
     else:
-        # int32 index arithmetic, as JAX's (:1607); the wrapper rejects
-        # images of 2^31 elements or more
-        out = CornerSample.apply(xf.reshape(n, c, h * w), yidx * w + xidx,
-                                 weights[:, :len(offsets)].contiguous(),
-                                 offsets)
+        (yidx, xidx), weights = nearest_weights(grid, (h, w), padding_mode,
+                                                align_corners)
+        offsets = (0,)  # one unit-weight tap (gather_matmul.py:1697-1704)
+    # int32 index arithmetic, as JAX's (:1607); the wrapper rejects images
+    # of 2^31 elements or more
+    out = CornerSample.apply(xf.reshape(n, c, h * w), yidx * w + xidx,
+                             weights[:, :len(offsets)].float().contiguous(),
+                             offsets)
     return out.reshape(n, c, grid.shape[1], grid.shape[2]).to(x.dtype)
 
 

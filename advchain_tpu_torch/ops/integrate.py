@@ -10,7 +10,9 @@ for any displacement, so there is no predicate and no host read.  Both
 agree with the sampler except at an exact border (a grid entry on +-1),
 where the stencil's one-sided slope is what JAX's default dispatch takes.
 3D compositions (and 2D ones of differing shapes) go through
-``grid_sample_3d`` / ``grid_sample_2d``.
+``grid_sample_3d`` / ``grid_sample_2d``; a same-shape 3D composition takes
+the stencil's slope at an exact lower border too (``padding_mode="edge"``),
+so 2D and 3D share one convention.
 
 The adaptive 3D step count depends on the whole batch's velocity norm.  It
 is read to the host once per exponentiation (one sync), and the squarings
@@ -58,9 +60,15 @@ def compose_flow(flow1, flow2):
     if flow1.shape[1] == 2 and flow1.shape == flow2.shape:
         return stencil_warp_2d(flow1, flow2, grid_layout="first")
     grid = torch.movedim(flow2, 1, -1)
-    sample = {2: grid_sample_2d, 3: grid_sample_3d}[flow1.shape[1]]
-    return sample(flow1, grid, mode="bilinear", padding_mode="border",
-                  align_corners=True)
+    if flow1.shape[1] == 3:
+        # a same-shape composition takes the edge-padded stencil's slope at
+        # the lower bound, as the 2D stencil kernel does (JAX's sub-voxel
+        # dispatch, integrate.py:126-153); its values are border padding's
+        padding = "edge" if flow1.shape == flow2.shape else "border"
+        return grid_sample_3d(flow1, grid, mode="bilinear",
+                              padding_mode=padding, align_corners=True)
+    return grid_sample_2d(flow1, grid, mode="bilinear", padding_mode="border",
+                          align_corners=True)
 
 
 def adaptive_step_count(duv, nb_steps: int) -> int:

@@ -9,17 +9,24 @@ Phases (any failure raises and the script exits non-zero):
      ``advchain_tpu_torch/kernels/csrc`` (one nvcc per source, started
      together) and print the build time;
   2. hold each 2D kernel against its plain PyTorch twin on the card at the
-     main path's shapes (N=128, 192x192, C in {1, 2, 5}; a 30-degree
-     rotation with zeros padding and a near-identity warp with border
-     padding);
+     main path's shapes (N=128, 192x192): the corner-level band pair at C
+     in {1, 2, 5} on a 30-degree rotation with zeros padding and a
+     near-identity warp with border padding; the band grid pair (the
+     default 2D route, bilinear and nearest) at C in {1, 2, 4, 5} with
+     three paddings and both align_corners on the near-identity grid, that
+     grid with 5% exact +-1 entries, and the rotation;
   3. check the 2D episode on a small input against the same episode on the
      CPU (plain twins), with identical weights and transform parameters;
   4. run the headline adversarial episode (noise -> bias -> affine -> morph,
      batch 128 at 192x192, UNet_16 with 4 classes and seeded random
      weights, mse + contour, n_iter=1, smart power iteration), count the
-     kernel launches of one episode and time 5 episodes after 2 warm-ups;
+     kernel launches of one episode (12 / 6 on the band grid pair, none on
+     the corner-level pair, no call of a host-side fold) and time 5
+     episodes after 2 warm-ups;
   5. time each 2D kernel, its twin and ``F.grid_sample`` (the library
-     yardstick, never used by the port);
+     yardstick, never used by the port), and a whole 2D sample three ways
+     in turns: the pre-fusion route (the host-side fold and the
+     corner-level pair), the band grid pair, and ``F.grid_sample``;
   6. hold the corner-level z-band kernels against their twins at the 3D
      episode's shapes (N=2, 12x192x192, C in {1, 3, 5}; a 10-degree
      rotation about each axis with zeros padding and a near-identity warp
@@ -51,8 +58,9 @@ Phases (any failure raises and the script exits non-zero):
  12. run the headline fused adversarial train step of bench.py:408-447
      (batch 128 at 192x192, UNet_16, Adam 1e-4, n_iter=1, smart power
      iteration, mse + contour, seeded random weights and labels), count
-     the kernel launches of one step and time 5 steps after 2 warm-ups;
-     then time the supervised step the same way;
+     the kernel launches of one step (12 / 8 on the band grid pair, none on
+     the corner-level pair, no call of a host-side fold) and time 5 steps
+     after 2 warm-ups; then time the supervised step the same way;
  13. time the stencil kernels, their twins and ``F.grid_sample`` at the
      composition shape (N=128, C=2, 192x192);
  14. hold the flat-index corner kernels (the 2D route under
@@ -66,12 +74,12 @@ Phases (any failure raises and the script exits non-zero):
      try/finally that restores the environment): its loss against the
      band route's with the same weights and injected transform
      parameters (within 1e-4 relative), its launches (corner as many as
-     band on the default route, band 0, stencil unchanged) and 3 timed
-     episodes after 2 warm-ups;
+     the band grid pair on the default route, the band pairs 0, stencil
+     unchanged) and 3 timed episodes after 2 warm-ups;
  16. the same for the 3D volume episode with ADVCHAIN_ZBAND=0 (plane
      launches, z-band 0);
  17. time the corner and plane kernels, their twins and ``F.grid_sample``,
-     then print the ``kernels`` line for all twelve kernels.
+     then print the ``kernels`` line for all fourteen kernels.
 The last line of standard output is the device record.  ``--profile PATH``
 / ``--profile3d PATH`` / ``--profile-train PATH`` additionally write a
 torch.profiler summary of one 2D episode / 3D episode / train step to PATH.
@@ -111,6 +119,7 @@ TOL_ROUTES = 1e-4            # episode loss, legacy route vs default route
 LR = 1e-4                    # the headline train step's Adam rate
 _CSRC = "advchain_tpu_torch/kernels/csrc/"
 KERNEL_SOURCES = {"band": _CSRC + "band_sample.cu",
+                  "band_grid": _CSRC + "band_sample.cu",
                   "zband": _CSRC + "zband_sample.cu",
                   "zband_grid": _CSRC + "zband_sample.cu",
                   "stencil": _CSRC + "stencil_warp.cu",
@@ -118,7 +127,8 @@ KERNEL_SOURCES = {"band": _CSRC + "band_sample.cu",
                   # routes
                   "corner": _CSRC + "plane_sample.cu",
                   "plane": _CSRC + "plane_sample.cu"}
-KERNEL_NAMES = {"band": "band_sample", "zband": "zband_sample",
+KERNEL_NAMES = {"band": "band_sample", "band_grid": "band_grid_sample",
+                "zband": "zband_sample",
                 "zband_grid": "zband_grid_sample",
                 "stencil": "stencil_warp", "corner": "corner_sample",
                 "plane": "plane_sample"}
@@ -127,6 +137,7 @@ BUILD = sorted({src.rsplit("/", 1)[1][:-3] for src in KERNEL_SOURCES.values()})
 # the TPU kernels each pair replaces
 _GM = "advchain_tpu/kernels/gather_matmul.py"
 REPLACES = {"band": {"fwd": f"{_GM}:839", "bwd": f"{_GM}:923"},
+            "band_grid": {"fwd": f"{_GM}:839", "bwd": f"{_GM}:923"},
             "zband": {"fwd": f"{_GM}:1081", "bwd": f"{_GM}:1230"},
             "zband_grid": {"fwd": f"{_GM}:1081", "bwd": f"{_GM}:1230"},
             "stencil": {"fwd": "advchain_tpu/kernels/stencil.py:132",
@@ -134,12 +145,22 @@ REPLACES = {"band": {"fwd": f"{_GM}:839", "bwd": f"{_GM}:923"},
             "corner": {"fwd": f"{_GM}:134", "bwd": f"{_GM}:283"},
             "plane": {"fwd": f"{_GM}:466", "bwd": f"{_GM}:603"}}
 # substrings of the port's CUDA kernel names (the profiler's rows)
-PORT_KERNEL_NAMES = ("band_sample", "zband_grid", "stencil_warp",
+PORT_KERNEL_NAMES = ("band_sample", "band_grid", "zband_grid",
+                     "stencil_warp",
                      "plane_sample")
 # the switches that send 2D / 3D sampling to the corner / plane kernels
 LEGACY_SWITCH = {2: "ADVCHAIN_BAND_KERNEL", 3: "ADVCHAIN_ZBAND"}
 # the family the default route sends bilinear sampling to
-DEFAULT_FAMILY = {2: "band", 3: "zband_grid"}
+DEFAULT_FAMILY = {2: "band_grid", 3: "zband_grid"}
+# the corner-level pairs no default route takes since the grid-level pairs
+CORNER_LEVEL = {2: "band", 3: "zband"}
+# the grid-level pair's launches (fwd, bwd) in one 2D episode, one 2D train
+# step and one 3D episode
+GRID_LAUNCHES = {"episode2d": {"fwd": 12, "bwd": 6},
+                 "train": {"fwd": 12, "bwd": 8},
+                 "episode3d": {"fwd": 44, "bwd": 22}}
+# the host-side folds that no default route calls
+FOLDS = ("corner_weights", "corner_weights_3d", "nearest_weights")
 
 
 def chain_configs(batch, shape):
@@ -258,14 +279,17 @@ def reset_launch_counts():
 
 
 def launch_counts():
-    """Launches per family: band, zband (the corner-level pair), zband_grid
-    (the fused pair), stencil, and corner and plane (the two routes of one
-    kernel pair, counted apart)."""
-    from advchain_tpu_torch.kernels import plane_sample, zband_sample
+    """Launches per family: band and zband (the corner-level pairs),
+    band_grid and zband_grid (the grid-level pairs), stencil, and corner
+    and plane (the two routes of one kernel pair, counted apart)."""
+    from advchain_tpu_torch.kernels import (band_sample, plane_sample,
+                                            zband_sample)
     counts = {fam: {"fwd": mod.FWD_LAUNCHES, "bwd": mod.BWD_LAUNCHES}
               for fam, mod in _kernel_modules().items()}
     counts["zband_grid"] = {"fwd": zband_sample.GRID_FWD_LAUNCHES,
                             "bwd": zband_sample.GRID_BWD_LAUNCHES}
+    counts["band_grid"] = {"fwd": band_sample.GRID_FWD_LAUNCHES,
+                           "bwd": band_sample.GRID_BWD_LAUNCHES}
     counts.update({route: dict(c) for route, c in
                    plane_sample.LAUNCHES.items()})
     return counts
@@ -521,10 +545,10 @@ def run_episode(device, batch, shape, warm=2, reps=5):
             raise AssertionError(f"the {dims}D episode did not launch both "
                                  f"{used} kernels: {launches}")
     # a legacy route replaces the default family's bilinear launches (the
-    # episodes sample nothing with nearest); no 3D route takes the
-    # corner-level z-band pair since the fused pair
+    # episodes sample nothing with nearest); no route takes the
+    # corner-level band or z-band pair since the grid-level pairs
     idle = ([DEFAULT_FAMILY[dims]] if fam != DEFAULT_FAMILY[dims] else []) \
-        + (["zband"] if dims == 3 else [])
+        + [CORNER_LEVEL[dims]]
     for other in idle:
         if any(launches[other].values()):
             raise AssertionError(f"the {dims}D episode on the {fam} route "
@@ -902,7 +926,7 @@ def run_train_step(device, batch, shape, supervised=False, warm=2, reps=5):
                 raise AssertionError(f"train step loss is not finite: "
                                      f"{first}")
     if not supervised:
-        for fam in ("band", "stencil"):
+        for fam in (route_family(2), "stencil"):
             if not (launches[fam]["fwd"] > 0 and launches[fam]["bwd"] > 0):
                 raise AssertionError(f"the train step did not launch both "
                                      f"{fam} kernels: {launches}")
@@ -1163,34 +1187,43 @@ def time_flat_kernels(n, shape, device, c, k=4):
 
 
 # ---------------------------------------------------------------- slice 5
-# estimated operations of the fused pair beyond the corner arithmetic: per
-# point, the three axes' coordinate prep and the raw weights (forward), and
-# also the chain rule to d_grid (backward)
-GRID_PREP_OPS = {"fwd": 60, "bwd": 150}
+# estimated operations of a grid-level pair beyond the corner arithmetic:
+# per point, the axes' coordinate prep and the raw weights (forward), and
+# also the chain rule to d_grid (backward), in 2D and 3D
+GRID_PREP_OPS = {2: {"fwd": 40, "bwd": 100}, 3: {"fwd": 60, "bwd": 150}}
 
 
 def grid_cases(n, shape, device):
-    """Phase 6's grids for the fused pair, (name, grid (N, P, 3)): the
-    near-identity warp, the same with 5% exact +-1 entries
-    (:func:`flat_grids`: bases on the border planes, where taps collapse)
-    and the 10-degree rotation (samples past the volume)."""
+    """Phases 2 and 6's grids for the grid-level pairs, (name, grid (N, P,
+    d)): the near-identity warp, the same with 5% exact +-1 entries
+    (:func:`flat_grids`: bases on the border rows and planes, where taps
+    collapse) and the rotation (samples past the image or volume)."""
     (rot_name, _, rot), (near_name, _, near) = sample_grids(n, shape, device)
     pm1 = flat_grids(n, shape, device)[1][2]
-    return [(name, g.reshape(n, -1, 3).contiguous())
+    return [(name, g.reshape(n, -1, len(shape)).contiguous())
             for name, g in ((near_name, near), ("near_pm1", pm1),
                             (rot_name, rot))]
 
 
+def grid_module(dims):
+    """(family, module) of the grid-level pair for 2D / 3D."""
+    from advchain_tpu_torch.kernels import band_sample, zband_sample
+    return (("band_grid", band_sample) if dims == 2
+            else ("zband_grid", zband_sample))
+
+
 def check_grid_kernels(n, shape, device, channels=(1, 3, 5)):
-    """Phase 6: the fused pair against its plain versions on each of
-    :func:`grid_cases`, for each channel count, mode, padding and
-    align_corners.  Forward within TOL_GRID_FWD absolute (it repeats its
-    plain fold), ``d_img`` and ``d_grid`` within TOL_DIMG_REL and
-    TOL_DFLOW_REL of their largest entries (atomics and the channel sum
-    reassociate); nearest mode's ``d_grid`` exactly zero.  Returns the
-    largest errors."""
+    """Phases 2 and 6: the grid-level pair of ``len(shape)`` dims against
+    its plain versions on each of :func:`grid_cases`, for each channel
+    count, mode, padding and align_corners.  Forward within TOL_GRID_FWD
+    absolute (it repeats its plain fold: 0 in every case so far),
+    ``d_img`` and ``d_grid`` within TOL_DIMG_REL and TOL_DFLOW_REL of their
+    largest entries (atomics and the channel sum reassociate); nearest
+    mode's ``d_grid`` exactly zero.  Returns the largest errors."""
     import torch
-    from advchain_tpu_torch.kernels import zband_sample as zs
+    fam, mod = grid_module(len(shape))
+    kern = {f"{kind}{plain}": getattr(mod, f"{fam}_sample_{kind}{plain}")
+            for kind in ("fwd", "bwd") for plain in ("", "_plain")}
     worst = {"fwd": 0.0, "bwd": 0.0}
     for name, grid in grid_cases(n, shape, device):
         for c in channels:
@@ -1198,18 +1231,16 @@ def check_grid_kernels(n, shape, device, channels=(1, 3, 5)):
             img = torch.randn((n, c) + tuple(shape), generator=gen,
                               device=device)
             g = torch.randn(n, c, grid.shape[1], generator=gen, device=device)
-            for mode in zs.MODES:
-                for padding in zs.PADDING_MODES:
+            for mode in mod.MODES:
+                for padding in mod.PADDING_MODES:
                     for align in (True, False):
                         args = (padding, align, mode)
                         with torch.no_grad():
-                            out = zs.zband_grid_sample_fwd(img, grid, *args)
-                            ref = zs.zband_grid_sample_fwd_plain(img, grid,
-                                                                 *args)
-                            r_img, r_grid = zs.zband_grid_sample_bwd_plain(
-                                g, img, grid, *args)
-                            d_img, d_grid = zs.zband_grid_sample_bwd(
-                                g, img, grid, *args)
+                            out = kern["fwd"](img, grid, *args)
+                            ref = kern["fwd_plain"](img, grid, *args)
+                            r_img, r_grid = kern["bwd_plain"](g, img, grid,
+                                                              *args)
+                            d_img, d_grid = kern["bwd"](g, img, grid, *args)
                         e_fwd = float((out - ref).abs().max())
                         s_img = float(r_img.abs().max())
                         s_grid = float(r_grid.abs().max())
@@ -1218,8 +1249,8 @@ def check_grid_kernels(n, shape, device, channels=(1, 3, 5)):
                         ok = e_fwd <= TOL_GRID_FWD
                         if mode == "nearest":
                             ok = ok and float(d_grid.abs().max()) == 0.0
-                        label = (f"{name:13s} C={c} {mode:8s} {padding:10s} "
-                                 f"align={int(align)}")
+                        label = (f"{fam} {name:13s} C={c} {mode:8s} "
+                                 f"{padding:10s} align={int(align)}")
                         print(f"[grid] {label}: fwd {e_fwd:.3e} d_img "
                               f"{e_img:.3e} (max {s_img:.3e}) d_grid "
                               f"{e_grid:.3e} (max {s_grid:.3e})", flush=True)
@@ -1227,8 +1258,8 @@ def check_grid_kernels(n, shape, device, channels=(1, 3, 5)):
                               and e_grid <= TOL_DFLOW_REL * s_grid)
                         if not ok:
                             raise AssertionError(
-                                f"the fused z-band pair disagrees with its "
-                                f"plain versions: {label} fwd {e_fwd} d_img "
+                                f"the {fam} pair disagrees with its plain "
+                                f"versions: {label} fwd {e_fwd} d_img "
                                 f"{e_img} d_grid {e_grid}")
                         worst["fwd"] = max(worst["fwd"], e_fwd)
                         worst["bwd"] = max(worst["bwd"], e_img, e_grid)
@@ -1260,41 +1291,45 @@ def count_calls(modules, names):
 
 
 def time_grid_kernels(n, shape, device, channels=(1, 3, 5)):
-    """Phase 9: the fused pair alone beside its plain versions and
-    ``F.grid_sample`` on each of :func:`sample_grids` (trilinear), and in
-    nearest mode on the rotation at C=1.  Bytes: the forward reads img and
-    the grid and writes out, the backward reads g, img and the grid and
-    writes d_img and d_grid (its zeroing of d_img is one more write, not
-    counted); operations: the corner arithmetic per (point, channel) and
+    """Phases 5 and 9: the grid-level pair of ``len(shape)`` dims alone
+    beside its plain versions and ``F.grid_sample`` on each of
+    :func:`sample_grids` (bilinear or trilinear), and in nearest mode on
+    the rotation at C=1.  Bytes: the forward reads img and the grid and
+    writes out, the backward reads g, img and the grid and writes d_img and
+    d_grid (its zeroing of d_img is one more write, not counted);
+    operations: the corner arithmetic per (point, channel) and
     GRID_PREP_OPS per point.  Rows as :func:`time_kernels`'."""
     import torch
     import torch.nn.functional as F
-    from advchain_tpu_torch.kernels import zband_sample as zs
+    dims = len(shape)
+    fam, mod = grid_module(dims)
+    fn = {f"{kind}{plain}": getattr(mod, f"{fam}_sample_{kind}{plain}")
+          for kind in ("fwd", "bwd") for plain in ("", "_plain")}
+    prep = GRID_PREP_OPS[dims]
     s = math.prod(shape)
     rows = []
-    cases = [(name, padding, grid5, c, "bilinear")
-             for name, padding, grid5 in sample_grids(n, shape, device)
+    cases = [(name, padding, gridd, c, "bilinear")
+             for name, padding, gridd in sample_grids(n, shape, device)
              for c in channels]
     rot_name, rot_pad, rot = sample_grids(n, shape, device)[0]
     cases.append((rot_name, rot_pad, rot, 1, "nearest"))
-    for name, padding, grid5, c, mode in cases:
-        grid = grid5.reshape(n, -1, 3).contiguous()
+    for name, padding, gridd, c, mode in cases:
+        grid = gridd.reshape(n, -1, dims).contiguous()
         p = grid.shape[1]
         gen = torch.Generator(device=device).manual_seed(c)
         img = torch.randn((n, c) + tuple(shape), generator=gen,
                           device=device)
         g = torch.randn(n, c, p, generator=gen, device=device)
-        taps = 1 if mode == "nearest" else 8
-        fwd_bound = bound_ms(4 * (n * c * s + 3 * n * p + n * c * p),
-                             (2 * taps - 1) * n * c * p
-                             + GRID_PREP_OPS["fwd"] * n * p)
-        bwd_bound = bound_ms(4 * (n * c * p + 2 * n * c * s + 6 * n * p),
-                             4 * taps * n * c * p
-                             + GRID_PREP_OPS["bwd"] * n * p)
+        taps = 1 if mode == "nearest" else 2 ** dims
+        fwd_bound = bound_ms(4 * (n * c * s + dims * n * p + n * c * p),
+                             (2 * taps - 1) * n * c * p + prep["fwd"] * n * p)
+        bwd_bound = bound_ms(4 * (n * c * p + 2 * n * c * s
+                                  + 2 * dims * n * p),
+                             4 * taps * n * c * p + prep["bwd"] * n * p)
         args = (padding, True, mode)
         img_g = img.clone().requires_grad_(True)
-        grid_g = grid5.clone().requires_grad_(True)
-        g_lib = g.reshape((n, c) + tuple(grid5.shape[1:4]))
+        grid_g = gridd.clone().requires_grad_(True)
+        g_lib = g.reshape((n, c) + tuple(gridd.shape[1:-1]))
 
         def lib_bwd():
             out = F.grid_sample(img_g, grid_g, mode=mode,
@@ -1303,20 +1338,18 @@ def time_grid_kernels(n, shape, device, channels=(1, 3, 5)):
 
         with torch.no_grad():
             row = {
-                "kernel": "zband_grid", "mode": mode, "case": name,
+                "kernel": fam, "mode": mode, "case": name,
                 "padding": padding, "C": c,
-                "fwd_ms": time_ms(lambda: zs.zband_grid_sample_fwd(
-                    img, grid, *args)),
-                "fwd_plain_ms": time_ms(lambda: zs.zband_grid_sample_fwd_plain(
-                    img, grid, *args)),
+                "fwd_ms": time_ms(lambda: fn["fwd"](img, grid, *args)),
+                "fwd_plain_ms": time_ms(lambda: fn["fwd_plain"](img, grid,
+                                                                *args)),
                 "fwd_library_ms": time_ms(lambda: F.grid_sample(
-                    img, grid5, mode=mode, padding_mode=padding,
+                    img, gridd, mode=mode, padding_mode=padding,
                     align_corners=True)),
                 "fwd_bound_ms": fwd_bound[0],
-                "bwd_ms": time_ms(lambda: zs.zband_grid_sample_bwd(
-                    g, img, grid, *args)),
-                "bwd_plain_ms": time_ms(lambda: zs.zband_grid_sample_bwd_plain(
-                    g, img, grid, *args)),
+                "bwd_ms": time_ms(lambda: fn["bwd"](g, img, grid, *args)),
+                "bwd_plain_ms": time_ms(lambda: fn["bwd_plain"](g, img, grid,
+                                                                *args)),
                 "bwd_bound_ms": bwd_bound[0],
             }
         row["bwd_library_ms"] = time_ms(lib_bwd)
@@ -1339,33 +1372,41 @@ def wall_ms(fn, iters=20):
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def time_grid_routes(n, shape, device, c=3):
-    """Phase 9: one whole trilinear 3D sample at the compositions' case
-    (near-identity, border, C channels), forward and forward+backward
-    (gradients to the image and the grid), three ways in turns (a b c c b
-    a): (a) the pre-fusion route, ``corner_weights_3d`` (autograd over the
-    host-side fold) and the corner-level ``ZBandSample``; (b) the fused
-    ``ZBandGridSample``; (c) ``F.grid_sample`` on 5-D input, the yardstick
-    the port never calls.  Each as wall ms (:func:`wall_ms`) and device ms
-    (:func:`time_ms`), the mean of its two turns."""
+def time_grid_routes(n, shape, device, c=3, case=1):
+    """Phases 5 and 9: one whole bilinear (2D) or trilinear (3D) sample on
+    :func:`sample_grids`' ``case`` (2D: the rotation, zeros, the image
+    warps' call; 3D: near-identity, border, the compositions'), C
+    channels, forward and forward+backward (gradients to the image and the
+    grid), three ways in turns (a b c c b a): (a) the pre-fusion route,
+    the host-side fold (``corner_weights`` / ``corner_weights_3d``,
+    autograd over it) and the corner-level pair; (b) the grid-level pair;
+    (c) ``F.grid_sample``, the yardstick the port never calls.  Each as
+    wall ms (:func:`wall_ms`) and device ms (:func:`time_ms`), the mean of
+    its two turns."""
     import torch
     import torch.nn.functional as F
+    from advchain_tpu_torch.kernels import _coords
+    from advchain_tpu_torch.kernels.band_sample import (BandGridSample,
+                                                        BandSample)
     from advchain_tpu_torch.kernels.zband_sample import (ZBandGridSample,
                                                          ZBandSample)
-    from advchain_tpu_torch.ops.grid_sample import corner_weights_3d
-    _, padding, grid5 = sample_grids(n, shape, device)[1]
+    dims = len(shape)
+    fold, corner_level, grid_level = (
+        (_coords.corner_weights, BandSample, BandGridSample) if dims == 2
+        else (_coords.corner_weights_3d, ZBandSample, ZBandGridSample))
+    case_name, padding, gridd = sample_grids(n, shape, device)[case]
     gen = torch.Generator(device=device).manual_seed(c)
     img = torch.randn((n, c) + tuple(shape), generator=gen, device=device)
-    cot = torch.randn((n, c) + tuple(grid5.shape[1:4]), generator=gen,
+    cot = torch.randn((n, c) + tuple(gridd.shape[1:-1]), generator=gen,
                       device=device)
 
     def pre_fusion(x, gr):
-        *idx, wts = corner_weights_3d(gr, *shape, padding, True)
-        return ZBandSample.apply(x, *idx, wts)
+        *idx, wts = fold(gr, *shape, padding, True)
+        return corner_level.apply(x, *idx, wts)
 
-    def fused(x, gr):  # what grid_sample_3d runs
-        return ZBandGridSample.apply(x, gr.reshape(n, -1, 3).contiguous(),
-                                     padding, True, "bilinear")
+    def fused(x, gr):  # what grid_sample_2d / grid_sample_3d run
+        return grid_level.apply(x, gr.reshape(n, -1, dims).contiguous(),
+                                padding, True, "bilinear")
 
     def library(x, gr):
         return F.grid_sample(x, gr, mode="bilinear", padding_mode=padding,
@@ -1373,11 +1414,11 @@ def time_grid_routes(n, shape, device, c=3):
 
     routes = {"pre_fusion": pre_fusion, "fused": fused, "library": library}
     x = img.clone().requires_grad_(True)
-    gr = grid5.clone().requires_grad_(True)
+    gr = gridd.clone().requires_grad_(True)
 
     def fwd(route):
         with torch.no_grad():
-            route(img, grid5)
+            route(img, gridd)
 
     def fwd_bwd(route):
         out = route(x, gr)
@@ -1394,9 +1435,24 @@ def time_grid_routes(n, shape, device, c=3):
                 time_ms(fn))
     result = {name: {key: statistics.mean(v) for key, v in t.items()}
               for name, t in times.items()}
-    print(f"[routes] a 3D sample, N={n} C={c} {'x'.join(map(str, shape))} "
-          f"near-identity {padding}: {json.dumps(result)}", flush=True)
+    print(f"[routes] a {dims}D sample, N={n} C={c} "
+          f"{'x'.join(map(str, shape))} {case_name} {padding}: "
+          f"{json.dumps(result)}", flush=True)
     return result
+
+
+def assert_grid_only(label, dims, launches, expected, folds):
+    """Raise unless a run sampled through the grid-level pair alone: its
+    launches equal ``expected``, the corner-level pair never launched, and
+    no host-side fold was called (``folds``, from :func:`count_calls`)."""
+    fam = DEFAULT_FAMILY[dims]
+    if launches[fam] != expected \
+            or any(launches[CORNER_LEVEL[dims]].values()) \
+            or any(folds.values()):
+        raise AssertionError(
+            f"the {label} did not sample through the {fam} pair alone "
+            f"({expected['fwd']} / {expected['bwd']} launches, no "
+            f"{CORNER_LEVEL[dims]} launch, no fold): {launches}, {folds}")
 
 
 def card_line():
@@ -1456,21 +1512,33 @@ def main(argv=None):
     print(f"[build] {' + '.join(n + '.cu' for n in BUILD)} "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 2D: the headline episode
+    # the host-side folds' callers: the ops routes and the plain versions
+    fold_modules = [importlib.import_module(f"advchain_tpu_torch.{name}")
+                    for name in ("ops.grid_sample", "kernels._coords")]
+
+    # 2D: the headline episode, its bilinear samples on the band grid pair
     worst2 = check_kernels(BATCH, SHAPE, device)
+    worst_b = check_grid_kernels(BATCH, SHAPE, device, channels=(1, 2, 4, 5))
     check_episode_against_cpu(device)
-    launches2, sec, times, loss, peak, _ = run_episode(device, BATCH, SHAPE)
+    with count_calls(fold_modules, FOLDS) as folds2:
+        launches2, sec, times, loss, peak, _ = run_episode(device, BATCH,
+                                                           SHAPE)
     print(f"[episode] batch {BATCH} {SHAPE[0]}x{SHAPE[1]}: loss {loss:.6e}, "
-          f"launches band fwd {launches2['band']['fwd']} bwd "
-          f"{launches2['band']['bwd']}, stencil fwd "
+          f"launches band_grid fwd {launches2['band_grid']['fwd']} bwd "
+          f"{launches2['band_grid']['bwd']}, stencil fwd "
           f"{launches2['stencil']['fwd']} bwd "
-          f"{launches2['stencil']['bwd']}, median {sec * 1e3:.1f} ms "
+          f"{launches2['stencil']['bwd']}, host-side fold calls over 7 "
+          f"episodes {json.dumps(folds2)}, median {sec * 1e3:.1f} ms "
           f"({BATCH / sec:.2f} img/s) over "
           f"{[round(t * 1e3, 1) for t in times]} ms, peak "
           f"{peak / 1e9:.2f} GB on {card}", flush=True)
+    assert_grid_only("2D episode", 2, launches2, GRID_LAUNCHES["episode2d"],
+                     folds2)
     if args.profile:
         profile_episode(device, BATCH, SHAPE, args.profile)
     rows2 = time_kernels(BATCH, SHAPE, device)
+    rows_b = time_grid_kernels(BATCH, SHAPE, device, channels=(1, 4))
+    time_grid_routes(BATCH, SHAPE, device, c=1, case=0)
 
     # 3D: the volume episode, its trilinear and nearest samples on the
     # fused z-band pair
@@ -1478,11 +1546,7 @@ def main(argv=None):
     worst_g = check_grid_kernels(BATCH3D, SHAPE3D, device)
     check_nearest(device)
     check_episode_against_cpu(device, 2, (8, 32, 32))
-    # the fold's callers: the ops routes and the z-band plain versions
-    fold_modules = [importlib.import_module(f"advchain_tpu_torch.{name}")
-                    for name in ("ops.grid_sample", "kernels._coords")]
-    with count_calls(fold_modules, ("corner_weights_3d",
-                                    "nearest_weights")) as folds:
+    with count_calls(fold_modules, FOLDS) as folds:
         launches3, sec3, times3, loss3, peak3, steps = run_episode(
             device, BATCH3D, SHAPE3D)
     print(f"[episode3d] batch {BATCH3D} 1x{'x'.join(map(str, SHAPE3D))}: "
@@ -1492,11 +1556,8 @@ def main(argv=None):
           f"vol/s), reps {[round(t * 1e3, 1) for t in times3]} ms (spread "
           f"{(max(times3) - min(times3)) * 1e3:.1f} ms), peak "
           f"{peak3 / 1e9:.2f} GB on {card}", flush=True)
-    if launches3["zband_grid"] != {"fwd": 44, "bwd": 22} \
-            or any(folds.values()):
-        raise AssertionError(f"the 3D episode did not sample through the "
-                             f"fused pair alone (44 / 22 launches, no fold): "
-                             f"{launches3}, {folds}")
+    assert_grid_only("3D episode", 3, launches3, GRID_LAUNCHES["episode3d"],
+                     folds)
     if args.profile3d:
         prof3 = profile_episode(device, BATCH3D, SHAPE3D, args.profile3d)
         print(f"[profile] 3D episode: device busy "
@@ -1513,16 +1574,21 @@ def main(argv=None):
     # stencil kernels
     worst_s = check_stencil(BATCH, SHAPE, device)
     check_train_step_against_cpu(device)
-    launches_t, sec_t, times_t, first_t, peak_t = run_train_step(
-        device, BATCH, SHAPE)
+    with count_calls(fold_modules, FOLDS) as folds_t:
+        launches_t, sec_t, times_t, first_t, peak_t = run_train_step(
+            device, BATCH, SHAPE)
     print(f"[train] adversarial step, batch {BATCH} {SHAPE[0]}x{SHAPE[1]}: "
           f"losses {first_t}, launches stencil fwd "
           f"{launches_t['stencil']['fwd']} bwd "
-          f"{launches_t['stencil']['bwd']}, band fwd "
-          f"{launches_t['band']['fwd']} bwd {launches_t['band']['bwd']}, "
-          f"median {sec_t * 1e3:.1f} ms ({BATCH / sec_t:.2f} img/s) over "
+          f"{launches_t['stencil']['bwd']}, band_grid fwd "
+          f"{launches_t['band_grid']['fwd']} bwd "
+          f"{launches_t['band_grid']['bwd']}, host-side fold calls over 7 "
+          f"steps {json.dumps(folds_t)}, median {sec_t * 1e3:.1f} ms "
+          f"({BATCH / sec_t:.2f} img/s) over "
           f"{[round(t * 1e3, 1) for t in times_t]} ms, peak "
           f"{peak_t / 1e9:.2f} GB on {card}", flush=True)
+    assert_grid_only("train step", 2, launches_t, GRID_LAUNCHES["train"],
+                     folds_t)
     _, sec_s, times_s, first_s, peak_s = run_train_step(
         device, BATCH, SHAPE, supervised=True)
     print(f"[train] supervised step, batch {BATCH}: loss {first_s}, median "
@@ -1545,7 +1611,7 @@ def main(argv=None):
     worst_c = check_flat_kernels(BATCH, SHAPE, device, (1, 2, 5), (1, 4))
     worst_p = check_flat_kernels(BATCH3D, SHAPE3D, device, (1, 3, 5), (2, 4))
     launches_c = run_legacy_episode(device, BATCH, SHAPE, card)[0]
-    if not (launches_c["corner"] == launches2["band"]
+    if not (launches_c["corner"] == launches2["band_grid"]
             and launches_c["stencil"] == launches2["stencil"]):
         raise AssertionError(f"the corner route's launches {launches_c} "
                              f"differ from the band route's {launches2}")
@@ -1557,6 +1623,8 @@ def main(argv=None):
     shape3 = f"N={BATCH3D} {'x'.join(map(str, SHAPE3D))}"
     kernels = (kernel_records("band", launches2, worst2, rows2, "rot30", 1,
                               shape2)
+               + kernel_records("band_grid", launches2, worst_b, rows_b,
+                                "rot30", 1, shape2)
                + kernel_records("zband", launches3, worst3, rows3,
                                 "near_identity", 3, shape3)
                + kernel_records("zband_grid", launches3, worst_g, rows_g,

@@ -1,0 +1,96 @@
+#!/usr/bin/env python3
+"""Time the headline 2D episode, the headline adversarial train step, the
+supervised step and the 3D volume episode of several checkouts of the port
+on one GPU, in turns, so that the trees are compared on one card under one
+power limit.
+
+    python3 scripts/compare_trees.py --out PATH TREE [TREE ...]
+        [--order 0,1,1,0] [--reps 5]
+
+Each TREE is the root of a checkout (for instance a ``git archive`` of
+another commit unpacked under ``build/``).  Every turn runs in a fresh
+process from the root of its tree, so that tree's ``advchain_tpu_torch``
+and ``chip_smoke`` are the ones imported and its kernels are built from
+its own sources; the turn times ``chip_smoke.run_episode`` and
+``chip_smoke.run_train_step`` (2 warm-ups, ``--reps`` timed, each ending in
+a synchronize) at batch 128, 192x192, the supervised step alike, and
+``run_episode`` on the 3D volume episode (batch 2, 1x12x192x192).
+``--order`` lists the trees' indices in turn order (default: each tree
+forward, then backward).  Prints one JSON line per turn and writes them
+all to PATH.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+CHILD = r"""
+import json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from advchain_tpu_torch.kernels import _build
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+_build.build(cs.BUILD)
+reps = int(sys.argv[1])
+ep = cs.run_episode("cuda", cs.BATCH, cs.SHAPE, reps=reps)
+tr = cs.run_train_step("cuda", cs.BATCH, cs.SHAPE, reps=reps)
+su = cs.run_train_step("cuda", cs.BATCH, cs.SHAPE, supervised=True,
+                       reps=reps)
+e3 = cs.run_episode("cuda", cs.BATCH3D, cs.SHAPE3D, reps=reps)
+
+
+def rec(r, n, loss_key):
+    return {"median_ms": r[1] * 1e3, "per_s": n / r[1],
+            "reps_ms": [t * 1e3 for t in r[2]], loss_key: r[3],
+            "peak_gb": r[4] / 1e9}
+
+
+print(json.dumps({"card": cs.card_line(),
+                  "episode": rec(ep, cs.BATCH, "loss"),
+                  "train_step": rec(tr, cs.BATCH, "metrics"),
+                  "supervised_step": rec(su, cs.BATCH, "metrics"),
+                  "episode3d": rec(e3, cs.BATCH3D, "loss")}))
+"""
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("trees", nargs="+")
+    parser.add_argument("--out", required=True)
+    parser.add_argument("--order")
+    parser.add_argument("--reps", type=int, default=5)
+    args = parser.parse_args(argv)
+    n = len(args.trees)
+    order = ([int(i) for i in args.order.split(",")] if args.order
+             else list(range(n)) + list(reversed(range(n))))
+    turns = []
+    for i in order:
+        tree = os.path.abspath(args.trees[i])
+        proc = subprocess.run([sys.executable, "-c", CHILD, str(args.reps)],
+                              cwd=tree, capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"turn on {args.trees[i]} failed "
+                               f"(exit {proc.returncode})")
+        result = json.loads(proc.stdout.strip().splitlines()[-1])
+        result["tree"] = args.trees[i]
+        turns.append(result)
+        print(json.dumps(
+            {"tree": args.trees[i], "card": result["card"],
+             **{f"{key}_per_s": result[key]["per_s"] for key in
+                ("episode", "train_step", "supervised_step", "episode3d")},
+             **{f"{key}_peak_gb": result[key]["peak_gb"] for key in
+                ("episode", "train_step", "episode3d")}}), flush=True)
+    with open(args.out, "w") as f:
+        json.dump(turns, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

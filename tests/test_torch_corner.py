@@ -209,13 +209,14 @@ def _spy_jax(monkeypatch, name):
 
 
 def _no_band(monkeypatch):
-    """The port's legacy route must not touch the band kernels."""
+    """The port's legacy route must not touch the band kernels (the default
+    route's grid-level pair)."""
     class Refuse:
         @staticmethod
         def apply(*args):
             raise AssertionError("the corner route took the band kernels")
 
-    monkeypatch.setattr(tgs, "BandSample", Refuse)
+    monkeypatch.setattr(tgs, "BandGridSample", Refuse)
 
 
 def _both_routes(img, grid, cot, padding, align, mode, jax_env, monkeypatch):

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (band, z-band corner-level and fused, corner and
-plane samplers, the stencil warp) on the card, against their plain twins
-and the CPU path.
+"""The port's CUDA kernels (band and z-band, corner-level and grid-level,
+corner and plane samplers, the stencil warp) on the card, against their
+plain twins and the CPU path.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 
@@ -90,6 +90,112 @@ def test_cuda_tensor_never_takes_the_twin(cuda):
         bs.band_sample_fwd(img.double(), y, x, wts)
 
 
+def _band_grid_inputs(device, kind, c=3, n=2, shape=(37, 45), seed=0):
+    """img, grid (N, P, 2) on the image's own raster and a cotangent.
+    ``near_identity``: an identity grid jittered by up to 1.5 px per axis
+    (neighbouring points' atomics land on shared corners); ``near_pm1``:
+    the same with 5% of its entries on exactly +-1; ``spread``: uniform
+    over 1.2 times the image (samples past the border)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    img = torch.randn((n, c) + shape, generator=gen, device=device)
+    axes = [torch.linspace(-1, 1, s, device=device) for s in shape]
+    yy, xx = torch.meshgrid(*axes, indexing="ij")
+    ident = torch.stack([xx, yy], -1).reshape(1, -1, 2).expand(n, -1, 2)
+    jitter = 2 * torch.rand(ident.shape, generator=gen, device=device) - 1
+    if kind == "spread":
+        grid = jitter * 1.2
+    else:
+        px = torch.tensor([1.5 * 2 / (s - 1) for s in reversed(shape)],
+                          device=device)
+        grid = ident + jitter * px
+        if kind == "near_pm1":
+            pick = torch.rand(grid.shape, generator=gen, device=device) < 0.05
+            sign = torch.where(torch.rand(grid.shape, generator=gen,
+                                          device=device) < 0.5, -1.0, 1.0)
+            grid = torch.where(pick, sign, grid)
+    g = torch.randn(n, c, grid.shape[1], generator=gen, device=device)
+    return img, grid.contiguous(), g
+
+
+@pytest.mark.parametrize("padding", ["zeros", "border", "reflection"])
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+@pytest.mark.parametrize("grid_kind", ["near_identity", "near_pm1",
+                                       "spread"])
+def test_band_grid_kernels_match_plain(cuda, grid_kind, mode, padding):
+    """The grid-level band pair against its plain versions: the forward
+    equal bit for bit (it repeats the plain fold's roundings), d_img and
+    d_grid within 1e-5 of their largest entries (atomics and the channel
+    sum reassociate), nearest's d_grid zero, one launch each way."""
+    from advchain_tpu_torch.kernels import band_sample as bs
+    img, grid, g = _band_grid_inputs(cuda, grid_kind)
+    for align in (True, False):
+        args = (padding, align, mode)
+        before = (bs.GRID_FWD_LAUNCHES, bs.GRID_BWD_LAUNCHES)
+        out = bs.band_grid_sample_fwd(img, grid, *args)
+        assert torch.equal(out, bs.band_grid_sample_fwd_plain(img, grid,
+                                                              *args))
+        r_img, r_grid = bs.band_grid_sample_bwd_plain(g, img, grid, *args)
+        d_img, d_grid = bs.band_grid_sample_bwd(g, img, grid, *args)
+        for ours, ref in ((d_img, r_img), (d_grid, r_grid)):
+            scale = float(ref.abs().max())
+            assert float((ours - ref).abs().max()) <= 1e-5 * scale
+        if mode == "nearest":
+            assert not bool(d_grid.any())
+        assert (bs.GRID_FWD_LAUNCHES, bs.GRID_BWD_LAUNCHES) == \
+            (before[0] + 1, before[1] + 1)
+
+
+def test_grid_sample_2d_takes_the_grid_pair(cuda, monkeypatch):
+    """grid_sample_2d on CUDA tensors: one grid-level launch each way, none
+    of the corner-level or corner-route pairs, and no call of the
+    host-side fold or of a plain twin."""
+    import chip_smoke
+    from advchain_tpu_torch.kernels import band_sample as bs
+    from advchain_tpu_torch.kernels import _coords
+    from advchain_tpu_torch.ops import grid_sample_2d
+    gs = sys.modules["advchain_tpu_torch.ops.grid_sample"]
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CUDA route took a host-side fold or twin")
+
+    for module, name in ((gs, "corner_weights"), (gs, "nearest_weights"),
+                         (_coords, "corner_weights"),
+                         (_coords, "nearest_weights"),
+                         (bs, "band_grid_sample_fwd_plain"),
+                         (bs, "band_grid_sample_bwd_plain")):
+        monkeypatch.setattr(module, name, refuse)
+    img, grid, _ = _band_grid_inputs(cuda, "spread", shape=(19, 23))
+    for mode in ("bilinear", "nearest"):
+        x = img.clone().requires_grad_(True)
+        gr = grid.reshape(2, 19, 23, 2).clone().requires_grad_(True)
+        chip_smoke.reset_launch_counts()
+        grid_sample_2d(x, gr, mode=mode,
+                       padding_mode="border").sum().backward()
+        counts = chip_smoke.launch_counts()
+        assert counts["band_grid"] == {"fwd": 1, "bwd": 1}
+        assert counts["band"] == counts["corner"] == {"fwd": 0, "bwd": 0}
+        assert gr.grad is not None
+        assert bool(gr.grad.abs().sum() > 0) == (mode == "bilinear")
+
+
+def test_cuda_tensor_never_takes_the_band_grid_twin(cuda, monkeypatch):
+    from advchain_tpu_torch.kernels import band_sample as bs
+    img, grid, g = _band_grid_inputs(cuda, "spread", shape=(9, 11))
+    with pytest.raises(TypeError):
+        bs.band_grid_sample_fwd(img, grid.double())
+    with pytest.raises(TypeError):
+        bs.band_grid_sample_bwd(g, img.double(), grid)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor took the plain version")
+
+    monkeypatch.setattr(bs, "band_grid_sample_fwd_plain", refuse)
+    monkeypatch.setattr(bs, "band_grid_sample_bwd_plain", refuse)
+    bs.band_grid_sample_fwd(img, grid)
+    bs.band_grid_sample_bwd(g, img, grid)
+    torch.cuda.synchronize()
+
+
 def _zband_inputs(device, n=2, c=3, d=7, h=13, w=17, seed=0):
     gen = torch.Generator(device=device).manual_seed(seed)
     img = torch.randn(n, c, d, h, w, generator=gen, device=device)
@@ -154,9 +260,9 @@ def test_nearest_matches_the_cpu(cuda, dims):
     img = torch.randn((2, 2) + spatial, generator=gen)
     grid = torch.rand((2,) + spatial + (dims,), generator=gen) * 2.4 - 1.2
     cot = torch.randn(img.shape, generator=gen)
-    # 2D on the band pair, 3D on the fused z-band pair
-    mod, fwd, bwd = ((bs, "FWD_LAUNCHES", "BWD_LAUNCHES") if dims == 2 else
-                     (zs, "GRID_FWD_LAUNCHES", "GRID_BWD_LAUNCHES"))
+    # 2D on the band grid pair, 3D on the fused z-band pair
+    mod, fwd, bwd = (bs if dims == 2 else zs, "GRID_FWD_LAUNCHES",
+                     "GRID_BWD_LAUNCHES")
     results = []
     for dev in ("cpu", cuda):
         before = (getattr(mod, fwd), getattr(mod, bwd))
@@ -366,8 +472,8 @@ def test_plane_sample_kernels_match_twins(cuda, route, k):
 @pytest.mark.parametrize("dims", [2, 3])
 def test_legacy_routes_match_the_cpu(cuda, dims, padding, monkeypatch):
     """ADVCHAIN_BAND_KERNEL=0 / ADVCHAIN_ZBAND=0 on the card: the corner or
-    plane kernels launch (the band or z-band ones do not), and the sample
-    and its gradients equal the CPU's."""
+    plane kernels launch (the default route's band or z-band grid pair
+    does not), and the sample and its gradients equal the CPU's."""
     import chip_smoke
     from advchain_tpu_torch.ops.grid_sample import grid_sample
     monkeypatch.setenv("ADVCHAIN_BAND_KERNEL", "0")
@@ -378,7 +484,8 @@ def test_legacy_routes_match_the_cpu(cuda, dims, padding, monkeypatch):
     grid = torch.rand((2, 5, 9, 10)[:dims + 1] + (dims,),
                       generator=gen) * 2.4 - 1.2
     cot = torch.randn((2, 3) + tuple(grid.shape[1:-1]), generator=gen)
-    route, old = ("corner", "band") if dims == 2 else ("plane", "zband")
+    route, old = (("corner", "band_grid") if dims == 2
+                  else ("plane", "zband_grid"))
     results = []
     for dev in ("cpu", cuda):
         chip_smoke.reset_launch_counts()
