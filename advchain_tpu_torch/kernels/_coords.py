@@ -68,25 +68,33 @@ def _reflect(coord, size: int, align_corners: bool, slope=None):
     return x + low, slope
 
 
-def _clip_slope(v, lo: float, hi: float, edge: bool = False):
-    """The factor ``clip(v, lo, hi)`` passes: 0.5 at each exact bound, as
-    ``jnp.clip``'s subgradient; with ``edge``, 1 at the lower bound (the
-    edge-padded stencil's one-sided difference)."""
-    a = torch.where(v > lo, 1.0,
-                    torch.where(v == lo, 1.0 if edge else 0.5, 0.0))
+def _lower(lower_slope):
+    """The ``edge`` padding's slope at an exact lower bound: 1 (the
+    edge-padded stencil's one-sided difference) for None, else the first
+    value of the tensor (the flow compositions' dispatch slope)."""
+    return 1.0 if lower_slope is None else lower_slope.reshape(-1)[0]
+
+
+def _clip_slope(v, lo: float, hi: float, lo_tie=0.5):
+    """The factor ``clip(v, lo, hi)`` passes: ``lo_tie`` at an exact lower
+    bound (``jnp.clip``'s subgradient, 0.5, unless given) and 0.5 at the
+    upper."""
+    a = torch.where(v > lo, 1.0, torch.where(v == lo, lo_tie, 0.0))
     m = torch.clamp(v, min=lo)
     return a * torch.where(m < hi, 1.0, torch.where(m == hi, 0.5, 0.0))
 
 
 def prep_coord(g, size: int, align_corners: bool, padding_mode: str,
-                with_slope: bool = False):
+                with_slope: bool = False, lower_slope=None):
     """Pixel-space coordinate, transformed per padding mode.  With
     ``with_slope``, also d coordinate / d unnormalised coordinate: the
     reflection's signs times the clip's factor (a power of two or 0), as
     the grid kernels carry it.  ``padding_mode="edge"`` is border padding
-    whose slope at the lower bound is whole (the edge-padded stencil's
-    one-sided difference, which the 3D flow compositions take, as the 2D
-    stencil kernel does); its coordinate is border padding's."""
+    whose slope at an exact lower bound is ``lower_slope`` (a one-element
+    tensor; None for 1, the edge-padded stencil's one-sided difference):
+    the 3D flow compositions pass the JAX package's dispatch slope, 1 where
+    it takes its stencil and 0.5 where it takes its sampler.  Its
+    coordinate is border padding's; autograd passes the same slope."""
     hi = float(size - 1)
     ix = _unnormalize(g, size, align_corners)
     slope = torch.ones_like(ix) if with_slope else None
@@ -95,13 +103,15 @@ def prep_coord(g, size: int, align_corners: bool, padding_mode: str,
     elif padding_mode not in ("border", "zeros", "edge"):
         raise ValueError(f"unknown padding_mode {padding_mode!r}")
     if padding_mode != "zeros":
+        lo_tie = _lower(lower_slope) if padding_mode == "edge" else 0.5
         if with_slope:
-            slope = slope * _clip_slope(ix, 0.0, hi, padding_mode == "edge")
+            slope = slope * _clip_slope(ix, 0.0, hi, lo_tie)
         if padding_mode == "edge":
-            # the clip's value; autograd passes the whole slope at 0
-            ix = torch.where(ix >= 0, torch.minimum(
+            # the clip's value; autograd passes lo_tie at 0 (lo_tie * 0 is
+            # the value there)
+            ix = torch.where(ix > 0, torch.minimum(
                 ix, torch.as_tensor(hi, dtype=ix.dtype, device=ix.device)),
-                torch.zeros_like(ix))
+                torch.where(ix == 0, ix * lo_tie, torch.zeros_like(ix)))
         else:
             ix = clip(ix, 0.0, hi)
     return (ix, slope) if with_slope else ix
@@ -116,14 +126,15 @@ class AxisTerms(NamedTuple):
     scale: float    # S - 1 (align_corners) or S
 
 
-def axis_terms(g, size: int, align_corners: bool, padding_mode: str):
+def axis_terms(g, size: int, align_corners: bool, padding_mode: str,
+               lower_slope=None):
     """One axis of the grid kernels' ``axis_prep``, elementwise, for the
     plain closed-form backwards: the padded coordinate and its slope from
     :func:`prep_coord` (the forward's operations, so the same floor), then
     the hat weights, the collapse indicator and the zeros-padding masks."""
     hi = float(size - 1)
     c, slope = prep_coord(g, size, align_corners, padding_mode,
-                          with_slope=True)
+                          with_slope=True, lower_slope=lower_slope)
     x0 = torch.floor(c)
     x1 = x0 + 1
     f = c - x0

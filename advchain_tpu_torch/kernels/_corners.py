@@ -20,8 +20,9 @@ import torch
 
 PADDING_MODES = ("zeros", "border", "reflection")
 # the grid kernels' padding codes: PADDING_MODES and "edge", border padding
-# with the edge-padded stencil's one-sided slope at the lower bound (the 3D
-# flow compositions)
+# whose slope at an exact lower bound is a runtime ``lower_slope`` (the 3D
+# flow compositions: the edge-padded stencil's one-sided slope, 1, or the
+# sampler's clip, 0.5, as the JAX package's dispatch picks)
 KERNEL_PADDING = PADDING_MODES + ("edge",)
 MODES = ("bilinear", "nearest")
 
@@ -131,10 +132,12 @@ def check(name: str, img, idx, w, g=None, taps=None) -> bool:
     return True
 
 
-def check_grid(name: str, img, grid, padding_mode, mode, g=None) -> bool:
+def check_grid(name: str, img, grid, padding_mode, mode, g=None,
+               lower_slope=None) -> bool:
     """Validate a grid-contract call with d = ``grid.shape[2]`` spatial
-    axes.  False: CPU tensors, which take the plain twin; True: CUDA
-    tensors the kernel takes; anything else raises."""
+    axes (``lower_slope``: a one-element tensor on the image's device).
+    False: CPU tensors, which take the plain twin; True: CUDA tensors the
+    kernel takes; anything else raises."""
     if padding_mode not in KERNEL_PADDING:
         raise ValueError(f"unknown padding_mode {padding_mode!r}")
     if mode not in MODES:
@@ -150,7 +153,9 @@ def check_grid(name: str, img, grid, padding_mode, mode, g=None) -> bool:
     if g is not None and tuple(g.shape) != (n, c, grid.shape[1]):
         raise ValueError(f"{name}: g must be {(n, c, grid.shape[1])}, got "
                          f"{tuple(g.shape)}")
-    tensors = [img, grid] + ([g] if g is not None else [])
+    if lower_slope is not None and lower_slope.numel() < 1:
+        raise ValueError(f"{name}: lower_slope must hold one value")
+    tensors = [t for t in (img, grid, g, lower_slope) if t is not None]
     if any(t.device != img.device for t in tensors):
         raise ValueError(f"{name} tensors must share one device")
     if img.device.type == "cpu":

@@ -15,16 +15,17 @@
 
 namespace grid_coords {
 
-// kEdge: border padding whose slope at the lower bound is the edge-padded
-// stencil's one-sided difference (the 3D flow compositions, as the 2D
-// stencil kernel's); its values are border padding's.
+// kEdge: border padding whose slope at an exact lower bound is a runtime
+// `edge_slope` (the 3D flow compositions: 1, the edge-padded stencil's
+// one-sided difference, or 0.5, the sampler's clip, as JAX's dispatch
+// picks); its values are border padding's.
 enum Padding { kZeros = 0, kBorder = 1, kReflection = 2, kEdge = 3 };
 
-// jnp.clip's subgradient: the factor minimum(maximum(v, lo), hi) passes;
-// with `edge`, the whole slope at v == lo
+// jnp.clip's subgradient: the factor minimum(maximum(v, lo), hi) passes,
+// `lo_tie` (jnp.clip's 0.5) at v == lo
 __device__ __forceinline__ float clip_slope(float v, float lo, float hi,
-                                            bool edge = false) {
-  const float a = v > lo ? 1.f : (v == lo ? (edge ? 1.f : 0.5f) : 0.f);
+                                            float lo_tie = 0.5f) {
+  const float a = v > lo ? 1.f : (v == lo ? lo_tie : 0.f);
   const float m = fmaxf(v, lo);
   return a * (m < hi ? 1.f : (m == hi ? 0.5f : 0.f));
 }
@@ -39,7 +40,8 @@ struct Axis {
 };
 
 __device__ __forceinline__ Axis axis_prep(float g, int size, bool align,
-                                          int padding, bool nearest) {
+                                          int padding, bool nearest,
+                                          float edge_slope = 1.f) {
   Axis a;
   const float hi = (float)(size - 1);
   // _unnormalize, each step rounded as the plain version's
@@ -75,7 +77,7 @@ __device__ __forceinline__ Axis axis_prep(float g, int size, bool align,
     }
   }
   if (padding != kZeros) {
-    a.slope *= clip_slope(c, 0.f, hi, padding == kEdge);
+    a.slope *= clip_slope(c, 0.f, hi, padding == kEdge ? edge_slope : 0.5f);
     c = fminf(fmaxf(c, 0.f), hi);
   }
   if (nearest) {

@@ -38,7 +38,8 @@
 //   the chain rule through the same steps: the fold passes d_w of a corner
 //   to each raw tap folded onto it, d_f = d_w1 - d_w0 per axis, floor and
 //   the collapse indicators pass nothing, clip passes half its gradient at
-//   an exact bound (jnp.clip's subgradient), the reflection flips its sign
+//   an exact bound (jnp.clip's subgradient; padding 3, edge, passes a
+//   runtime edge_slope at the lower one), the reflection flips its sign
 //   where it mirrors, and the unnormalisation scales by (S-1)/2 or S/2.
 //   Nearest mode: d_grid is zero.
 // The arithmetic is written with __fmul_rn / __fadd_rn so that nvcc does not
@@ -145,10 +146,11 @@ struct Point {
 
 __device__ __forceinline__ void point_prep(Point& pt, const float* gxyz,
                                            int d, int h, int w, bool align,
-                                           int padding, bool nearest) {
-  pt.ax = axis_prep(gxyz[0], w, align, padding, nearest);
-  pt.ay = axis_prep(gxyz[1], h, align, padding, nearest);
-  pt.az = axis_prep(gxyz[2], d, align, padding, nearest);
+                                           int padding, bool nearest,
+                                           float edge_slope = 1.f) {
+  pt.ax = axis_prep(gxyz[0], w, align, padding, nearest, edge_slope);
+  pt.ay = axis_prep(gxyz[1], h, align, padding, nearest, edge_slope);
+  pt.az = axis_prep(gxyz[2], d, align, padding, nearest, edge_slope);
   pt.tap = corner_taps(pt.az.i0, pt.ay.i0, pt.ax.i0, d, h, w);
   pt.mask = (pt.az.m << 2) | (pt.ay.m << 1) | pt.ax.m;
   if (nearest) {
@@ -292,8 +294,9 @@ zband_grid_bwd_kernel(const float* __restrict__ g,
                       const float* __restrict__ img,
                       const float* __restrict__ grid,
                       float* __restrict__ d_img, float* __restrict__ d_grid,
-                      int n, int c, int d, int h, int w, int p, int padding,
-                      bool align, bool nearest) {
+                      const float* __restrict__ edge_slope, int n, int c,
+                      int d, int h, int w, int p, int padding, bool align,
+                      bool nearest) {
   __shared__ __align__(16) float sgrid[kThreads * 3];
   const int tiles = (p + kThreads - 1) / kThreads;
   const int ni = blockIdx.x / tiles;
@@ -308,7 +311,8 @@ zband_grid_bwd_kernel(const float* __restrict__ g,
     const float* src = img + (int64_t)ni * c * dhw;
     float* dsrc = d_img + (int64_t)ni * c * dhw;
     Point pt;
-    point_prep(pt, sgrid + 3 * q, d, h, w, align, padding, nearest);
+    point_prep(pt, sgrid + 3 * q, d, h, w, align, padding, nearest,
+               edge_slope ? __ldg(edge_slope) : 1.f);
     const float* gp = g + ((int64_t)ni * c) * p + p0 + q;
     float dw[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     const int taps = nearest ? 1 : 8;
@@ -455,17 +459,20 @@ int advchain_zband_grid_sample_fwd(const float* img, const float* grid,
   return (int)cudaGetLastError();
 }
 
-// d_img must be zeroed by the caller; d_grid is fully written.
+// d_img must be zeroed by the caller; d_grid is fully written.  padding 3
+// (edge) is border padding whose grid slope at an exact lower bound is
+// *edge_slope (one float on the device; null for 1).
 int advchain_zband_grid_sample_bwd(const float* g, const float* img,
                                    const float* grid, float* d_img,
-                                   float* d_grid, int n, int c, int d, int h,
-                                   int wd, int p, int padding, int align,
-                                   int nearest, void* stream) {
+                                   float* d_grid, const float* edge_slope,
+                                   int n, int c, int d, int h, int wd, int p,
+                                   int padding, int align, int nearest,
+                                   void* stream) {
   if ((int64_t)n * p > 0) {
     const int blocks = n * ((p + kThreads - 1) / kThreads);
     zband_grid_bwd_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        g, img, grid, d_img, d_grid, n, c, d, h, wd, p, padding, align != 0,
-        nearest != 0);
+        g, img, grid, d_img, d_grid, edge_slope, n, c, d, h, wd, p, padding,
+        align != 0, nearest != 0);
   }
   return (int)cudaGetLastError();
 }

@@ -11,9 +11,12 @@ built by ``_build`` on first use.
 
 Grid contract (``zband_grid_sample_*``, ``ZBandGridSample``, the default 3D
 route): ``img`` (N, C, D, H, W), ``grid`` (N, P, 3) normalised (x, y, z);
-``padding_mode`` in {zeros, border, reflection}, ``align_corners``, ``mode``
-in {bilinear, nearest}; ``out`` (N, C, P), and from a cotangent ``g``
-(N, C, P) the gradients ``d_img`` and ``d_grid`` (zero in nearest mode).
+``padding_mode`` in {zeros, border, reflection, edge}, ``align_corners``,
+``mode`` in {bilinear, nearest}; ``out`` (N, C, P), and from a cotangent
+``g`` (N, C, P) the gradients ``d_img`` and ``d_grid`` (zero in nearest
+mode).  ``edge`` is border padding whose grid slope at an exact lower bound
+is ``lower_slope`` (a one-element f32 tensor on the image's device, the
+flow compositions' dispatch slope; None for 1), read by the backward.
 The kernels fold the corner weights in registers; the plain forward is
 ``_coords.corner_weights_3d`` (or ``nearest_weights``) followed by the
 corner contract's plain forward, and the plain backward is the closed form
@@ -85,7 +88,7 @@ def _lib():
     lib.advchain_zband_sample_bwd.restype = i32
     lib.advchain_zband_grid_sample_fwd.argtypes = [ptr] * 3 + [i32] * 9 + [ptr]
     lib.advchain_zband_grid_sample_fwd.restype = i32
-    lib.advchain_zband_grid_sample_bwd.argtypes = [ptr] * 5 + [i32] * 9 + [ptr]
+    lib.advchain_zband_grid_sample_bwd.argtypes = [ptr] * 6 + [i32] * 9 + [ptr]
     lib.advchain_zband_grid_sample_bwd.restype = i32
     return lib
 
@@ -173,14 +176,17 @@ def zband_grid_sample_fwd_plain(img, grid, padding_mode="zeros",
 
 
 def zband_grid_sample_bwd_plain(g, img, grid, padding_mode="zeros",
-                                align_corners=True, mode="bilinear"):
+                                align_corners=True, mode="bilinear",
+                                lower_slope=None):
     """Plain PyTorch backward: ``(d_img (N, C, D, H, W), d_grid (N, P,
     3))``.  ``d_img`` and the folded weights' gradient ``d_w`` come from the
     corner contract's plain backward; ``d_grid`` is the closed form of the
     backward kernel's ``grid_grad``, in its order: each raw tap takes the
     ``d_w`` of the corner it folds onto (zero where zeros padding masks
     it), ``d_f = d_w1 - d_w0`` per axis through ``raw = ((wz * wy) * wx)``,
-    then the axis slope and ``scale / 2``.  Zero in nearest mode."""
+    then the axis slope and ``scale / 2``.  Zero in nearest mode.
+    ``lower_slope``: the ``edge`` padding's slope at an exact lower bound
+    (None: 1)."""
     zidx, yidx, xidx, w = _corner_inputs(img, grid, padding_mode,
                                          align_corners, mode)
     d_img, d_w = zband_sample_bwd_plain(g, img, zidx, yidx, xidx, w)
@@ -188,7 +194,7 @@ def zband_grid_sample_bwd_plain(g, img, grid, padding_mode="zeros",
         return d_img, torch.zeros_like(grid)
     d, h, wd = img.shape[2:]
     ax, ay, az = (_coords.axis_terms(grid[..., i], size, align_corners,
-                                     padding_mode)
+                                     padding_mode, lower_slope)
                   for i, size in enumerate((wd, h, d)))
     mask = (az.m << 2) | (ay.m << 1) | ax.m
     dwx, dwy, dwz = [0, 0], [0, 0], [0, 0]
@@ -231,21 +237,24 @@ def zband_grid_sample_fwd(img, grid, padding_mode="zeros",
 
 
 def zband_grid_sample_bwd(g, img, grid, padding_mode="zeros",
-                          align_corners=True, mode="bilinear"):
+                          align_corners=True, mode="bilinear",
+                          lower_slope=None):
     """Backward: ``(d_img (N, C, D, H, W), d_grid (N, P, 3))`` in one
     launch.  CPU tensors take the plain twin."""
     global GRID_BWD_LAUNCHES
     if not _corners.check_grid("zband_grid_sample", img, grid, padding_mode,
-                               mode, g):
+                               mode, g, lower_slope):
         return zband_grid_sample_bwd_plain(g, img, grid, padding_mode,
-                                           align_corners, mode)
+                                           align_corners, mode, lower_slope)
     (n, c, d, h, w), p = img.shape, grid.shape[1]
     d_img = torch.zeros_like(img)
     d_grid = torch.empty_like(grid)
     with torch.cuda.device(img.device):
         err = _lib().advchain_zband_grid_sample_bwd(
             g.data_ptr(), img.data_ptr(), grid.data_ptr(), d_img.data_ptr(),
-            d_grid.data_ptr(), n, c, d, h, w, p,
+            d_grid.data_ptr(),
+            None if lower_slope is None else lower_slope.data_ptr(),
+            n, c, d, h, w, p,
             *_corners.grid_flags(padding_mode, align_corners, mode),
             torch.cuda.current_stream().cuda_stream)
     if err:
@@ -258,13 +267,17 @@ def zband_grid_sample_bwd(g, img, grid, padding_mode="zeros",
 class ZBandGridSample(torch.autograd.Function):
     """``out = zband_grid_sample_fwd(img, grid, padding_mode, align_corners,
     mode)`` with gradients to ``img`` and ``grid`` from one
-    ``zband_grid_sample_bwd`` launch.  Saves only ``(img, grid)``: no
-    folded weights or their intermediates."""
+    ``zband_grid_sample_bwd`` launch (``lower_slope``: the ``edge``
+    padding's slope at an exact lower bound, None for 1).  Saves only
+    ``(img, grid)`` and the slope: no folded weights or their
+    intermediates."""
 
     @staticmethod
-    def forward(ctx, img, grid, padding_mode, align_corners, mode):
+    def forward(ctx, img, grid, padding_mode, align_corners, mode,
+                lower_slope=None):
         ctx.save_for_backward(img, grid)
         ctx.opts = (padding_mode, align_corners, mode)
+        ctx.lower_slope = lower_slope
         return zband_grid_sample_fwd(img, grid, *ctx.opts)
 
     @staticmethod
@@ -272,5 +285,5 @@ class ZBandGridSample(torch.autograd.Function):
     def backward(ctx, g):
         img, grid = ctx.saved_tensors
         d_img, d_grid = zband_grid_sample_bwd(g.contiguous(), img, grid,
-                                              *ctx.opts)
-        return d_img, d_grid, None, None, None
+                                              *ctx.opts, ctx.lower_slope)
+        return d_img, d_grid, None, None, None, None

@@ -51,25 +51,24 @@ __all__ = ["grid_sample", "grid_sample_2d", "grid_sample_3d",
 
 
 def plane_weights(grid, d: int, h: int, w: int, padding_mode: str = "zeros",
-                  align_corners: bool = True):
+                  align_corners: bool = True, lower_slope=None):
     """The plane-sample inputs for ``grid`` (N, Do, Ho, Wo, 3) over a
     D x H x W volume, in the channel-packed formulation of
     ``_grid_sample_3d_pallas_packed`` (:1790-1863): for each z tap dz in
     (0, 1) its clipped plane ``zidx[dz]`` (N, P) int32 and folded in-plane
     weights ``weights[dz]`` (N, 4, P) f32 for offsets (0, 1, w, w+1), both
     z taps sharing the in-plane base ``yxidx = y0c * w + x0c`` (N, P) int32.
-    Differentiable with respect to the grid."""
+    Differentiable with respect to the grid (``lower_slope``: the ``edge``
+    padding's slope at an exact lower bound, :func:`prep_coord`)."""
     n = grid.shape[0]
     if grid.dim() != 5 or grid.shape[-1] != 3:
         raise ValueError(f"grid must be (N, Do, Ho, Wo, 3), got "
                          f"{tuple(grid.shape)}")
     p = grid[0, ..., 0].numel()
-    ix = prep_coord(grid[..., 0].reshape(n, p), w, align_corners,
-                    padding_mode)
-    iy = prep_coord(grid[..., 1].reshape(n, p), h, align_corners,
-                    padding_mode)
-    iz = prep_coord(grid[..., 2].reshape(n, p), d, align_corners,
-                    padding_mode)
+    ix, iy, iz = (prep_coord(grid[..., i].reshape(n, p), size,
+                             align_corners, padding_mode,
+                             lower_slope=lower_slope)
+                  for i, size in enumerate((w, h, d)))
     x0 = torch.floor(ix)
     y0 = torch.floor(iy)
     z0 = torch.floor(iz)
@@ -153,11 +152,13 @@ def grid_sample_2d(x, grid, mode: str = "bilinear",
 
 def grid_sample_3d(x, grid, mode: str = "bilinear",
                    padding_mode: str = "zeros", align_corners: bool = True,
-                   tile_order: str = "rows"):
+                   tile_order: str = "rows", lower_slope=None):
     """Sample ``x`` (N, C, D, H, W) at ``grid`` (N, Do, Ho, Wo, 3);
     ``grid[..., 0]`` indexes W, ``[..., 1]`` H and ``[..., 2]`` D
     (``mode="bilinear"`` is trilinear, as in torch).  ``tile_order`` is
-    accepted and ignored."""
+    accepted and ignored.  ``padding_mode="edge"`` is border padding whose
+    grid gradient at an exact lower bound is ``lower_slope`` (a one-element
+    tensor on ``x``'s device; None for 1): the flow compositions'."""
     del tile_order
     n, c, d, h, w = x.shape
     if grid.shape[0] != n:
@@ -168,7 +169,7 @@ def grid_sample_3d(x, grid, mode: str = "bilinear",
         # when all channels' K=2 stack fits the TPU's VMEM budget, differs
         # from it only by f32 reassociation (:1997-2012).
         zidx, yxidx, weights = plane_weights(grid, d, h, w, padding_mode,
-                                             align_corners)
+                                             align_corners, lower_slope)
         xf = x.float().contiguous().reshape(n, c, d, h * w)
         offsets = (0, 1, w, w + 1)
         out = PlaneSample.apply(xf, zidx[0], yxidx, weights[0], offsets)
@@ -180,11 +181,13 @@ def grid_sample_3d(x, grid, mode: str = "bilinear",
     # one launch each way: the kernels read the grid and fold in registers
     out = ZBandGridSample.apply(x.float().contiguous(),
                                 grid.float().reshape(n, -1, 3).contiguous(),
-                                padding_mode, align_corners, mode)
+                                padding_mode, align_corners, mode,
+                                lower_slope)
     return out.reshape((n, c) + tuple(grid.shape[1:4])).to(x.dtype)
 
 
-def stencil_warp_2d(img, grid, radius: int = 2, grid_layout: str = "last"):
+def stencil_warp_2d(img, grid, radius: int = 2, grid_layout: str = "last",
+                    lower_slope=None):
     """Bilinear warp of ``img`` (N, C, H, W) with border padding and
     align_corners=True at a grid on the image's own H x W raster (port of
     advchain_tpu/ops/grid_sample.py::stencil_warp_2d, :197-392).
@@ -195,8 +198,11 @@ def stencil_warp_2d(img, grid, radius: int = 2, grid_layout: str = "last"):
     ignored: the JAX stencil sums (2R+1)^2 taps of an R-pixel edge-padded
     frame, so its caller must keep every sample within R pixels, whereas
     the kernel reads clamped taps and is exact for any displacement.
-    Gradients reach the image and the grid through one backward kernel
-    (the JAX analytic VJP); autograd saves only ``(img, grid)``."""
+    Gradients reach the image and the grid through the backward kernel
+    (the JAX analytic VJP); autograd saves only ``(img, grid)``.  The grid
+    gradient at an exact lower bound (an entry on -1) is the stencil's
+    whole one-sided slope, as JAX's; ``lower_slope`` (a one-element tensor
+    on the image's device, what ``compose_flow`` passes) scales it."""
     del radius
     if grid_layout == "last":
         grid = torch.movedim(grid, -1, 1)
@@ -204,7 +210,7 @@ def stencil_warp_2d(img, grid, radius: int = 2, grid_layout: str = "last"):
         raise ValueError(f"grid_layout must be 'last' or 'first', got "
                          f"{grid_layout!r}")
     out = StencilWarp.apply(img.float().contiguous(),
-                            grid.float().contiguous())
+                            grid.float().contiguous(), lower_slope)
     return out.to(img.dtype)
 
 

@@ -2,17 +2,21 @@
 composition, 2D and 3D (port of advchain_tpu/ops/integrate.py).
 
 Every 2D composition of two same-shape flows goes through
-``stencil_warp_2d``, which reads the channel-first flow directly.  The JAX
-package picks, per composition, between its stencil (displacement under 2
-px) and the sampler with a ``lax.cond``, because its TPU stencil holds only
-R pixels of halo; the port's stencil kernel reads clamped taps and is exact
-for any displacement, so there is no predicate and no host read.  Both
-agree with the sampler except at an exact border (a grid entry on +-1),
-where the stencil's one-sided slope is what JAX's default dispatch takes.
-3D compositions (and 2D ones of differing shapes) go through
-``grid_sample_3d`` / ``grid_sample_2d``; a same-shape 3D composition takes
-the stencil's slope at an exact lower border too (``padding_mode="edge"``),
-so 2D and 3D share one convention.
+``stencil_warp_2d``, which reads the channel-first flow directly; 3D ones
+(and 2D ones of differing shapes) go through ``grid_sample_3d`` /
+``grid_sample_2d``.  The JAX package picks, per composition, between its
+stencil (largest displacement under R = 2 px in 2D, 1 voxel in 3D) and the
+sampler with a ``lax.cond``, because its TPU stencil holds only R pixels of
+halo.  The port's kernels are exact for any displacement, so the two
+branches agree in value and in the image gradient; they differ only in the
+grid gradient at an entry exactly on -1, where the stencil passes the whole
+one-sided slope and the sampler's ``jnp.clip`` half of it.  So each
+same-shape composition whose sampling grid carries a gradient computes
+JAX's predicate on the device (``kernels.stencil_warp.dispatch_slope``, no
+host read) and hands the slope to the backward kernels: the 2D stencil's,
+and in 3D the z-band pair's with ``padding_mode="edge"`` (border padding
+with that slope at the lower bound).  A composition whose grid takes no
+gradient skips the predicate, which nothing else reads.
 
 The adaptive 3D step count depends on the whole batch's velocity norm.  It
 is read to the host once per exponentiation (one sync), and the squarings
@@ -28,6 +32,8 @@ import math
 
 import torch
 
+from advchain_tpu_torch.kernels.stencil_warp import dispatch_slope
+
 from .affine import linspace
 from .grid_sample import grid_sample_2d, grid_sample_3d, stencil_warp_2d
 
@@ -36,6 +42,9 @@ __all__ = ["base_grid", "compose_flow", "exponentiate_flow",
 
 # the JAX package's static bound on extra squarings (integrate.py:32)
 _MAX_EXTRA_STEPS = 8
+# the JAX package's stencil radius per dimension: its compositions take the
+# stencil below R - 1e-3 px of displacement (integrate.py:101, 133)
+_STENCIL_RADIUS = {2: 2, 3: 1}
 
 # step counts of the latest adaptive exponentiations, newest last
 ADAPTIVE_STEPS: collections.deque = collections.deque(maxlen=64)
@@ -56,19 +65,24 @@ def base_grid(batch_size: int, spatial_shape, dtype=torch.float32,
 def compose_flow(flow1, flow2):
     """h = f(g(x)): sample ``flow1`` at the positions given by ``flow2``
     (both (N, d, *spatial) grids in [-1, 1], d = 2 or 3), border padding,
-    align_corners=True."""
-    if flow1.shape[1] == 2 and flow1.shape == flow2.shape:
-        return stencil_warp_2d(flow1, flow2, grid_layout="first")
-    grid = torch.movedim(flow2, 1, -1)
-    if flow1.shape[1] == 3:
-        # a same-shape composition takes the edge-padded stencil's slope at
-        # the lower bound, as the 2D stencil kernel does (JAX's sub-voxel
-        # dispatch, integrate.py:126-153); its values are border padding's
-        padding = "edge" if flow1.shape == flow2.shape else "border"
-        return grid_sample_3d(flow1, grid, mode="bilinear",
-                              padding_mode=padding, align_corners=True)
-    return grid_sample_2d(flow1, grid, mode="bilinear", padding_mode="border",
-                          align_corners=True)
+    align_corners=True, with the grid gradient of JAX's default dispatch at
+    an exact lower bound."""
+    dims = flow1.shape[1]
+    if flow1.shape != flow2.shape:
+        grid = torch.movedim(flow2, 1, -1)
+        sample = grid_sample_3d if dims == 3 else grid_sample_2d
+        return sample(flow1, grid, mode="bilinear", padding_mode="border",
+                      align_corners=True)
+    slope = None  # read only by the grid's gradient
+    if torch.is_grad_enabled() and flow2.requires_grad:
+        slope = dispatch_slope(flow2.detach().float().contiguous(),
+                               _STENCIL_RADIUS[dims])
+    if dims == 2:
+        return stencil_warp_2d(flow1, flow2, grid_layout="first",
+                               lower_slope=slope)
+    return grid_sample_3d(flow1, torch.movedim(flow2, 1, -1),
+                          mode="bilinear", padding_mode="edge",
+                          align_corners=True, lower_slope=slope)
 
 
 def adaptive_step_count(duv, nb_steps: int) -> int:

@@ -21,10 +21,13 @@ Phases (any failure raises and the script exits non-zero):
      batch 128 at 192x192, UNet_16 with 4 classes and seeded random
      weights, mse + contour, n_iter=1, smart power iteration), count the
      kernel launches of one episode (12 / 6 on the band grid pair, none on
-     the corner-level pair, no call of a host-side fold) and time 5
-     episodes after 2 warm-ups;
+     the corner-level pair, no call of a host-side fold; 32 / 16 on the
+     stencil pair and 16 dispatch predicates, one per composition whose
+     grid takes a gradient) and time 5 episodes after 2 warm-ups;
   5. time each 2D kernel, its twin and ``F.grid_sample`` (the library
-     yardstick, never used by the port), and a whole 2D sample three ways
+     yardstick, never used by the port; a backward row times the library's
+     backward alone, its graph built before the timed window, and its
+     forward and backward together), and a whole 2D sample three ways
      in turns: the pre-fusion route (the host-side fold and the
      corner-level pair), the band grid pair, and ``F.grid_sample``;
   6. hold the corner-level z-band kernels against their twins at the 3D
@@ -42,8 +45,9 @@ Phases (any failure raises and the script exits non-zero):
      affine -> morph in 3D, batch 2 at 1x12x192x192, PseudoConv3dModel
      with 4 classes, dropout 0.1 and seeded random weights, mse,
      n_iter=1), count its kernel launches (44 / 22 on the fused pair, none
-     on the corner-level pair, no call of the host-side fold), print its
-     adaptive step counts and time 5 episodes after 2 warm-ups;
+     on the corner-level pair, no call of the host-side fold, one dispatch
+     predicate per squaring of the PGD step's two exponentiations), print
+     its adaptive step counts and time 5 episodes after 2 warm-ups;
   9. time the corner-level and fused z-band kernels, their twins and
      ``F.grid_sample`` on 5-D input, nearest sampling on both pairs, and a
      whole 3D sample three ways in turns: the pre-fusion route (the
@@ -51,18 +55,27 @@ Phases (any failure raises and the script exits non-zero):
      ``F.grid_sample``;
  10. hold the stencil-warp kernels (every 2D flow composition) against
      their twins at the compositions' shapes (N=128, 192x192, C in
-     {1, 2, 5}; near-identity flows under 2 px, and flows of up to 20 px
-     that run past the border with entries on exactly +-1);
+     {1, 2, 5}; near-identity flows under 2 px, the same with its border
+     exactly on +-1, flows of up to 20 px that run past the border with
+     entries on exactly +-1, and the 8 squaring inputs of a seeded headline
+     morph) and at an odd shape (N=3, 17x23), the backward with both
+     dispatch slopes; show that two backward runs on the near-identity flow
+     give the same d_img bit for bit; hold the dispatch predicate's kernel
+     against its twin in 2D and 3D;
  11. check a small adversarial train step (batch 2, 32x32, UNet_16, the
      same weights and transform draws, 2 steps) against the CPU;
  12. run the headline fused adversarial train step of bench.py:408-447
      (batch 128 at 192x192, UNet_16, Adam 1e-4, n_iter=1, smart power
      iteration, mse + contour, seeded random weights and labels), count
      the kernel launches of one step (12 / 8 on the band grid pair, none on
-     the corner-level pair, no call of a host-side fold) and time 5 steps
-     after 2 warm-ups; then time the supervised step the same way;
- 13. time the stencil kernels, their twins and ``F.grid_sample`` at the
-     composition shape (N=128, C=2, 192x192);
+     the corner-level pair, no call of a host-side fold; 32 / 16 on the
+     stencil pair and 16 dispatch predicates) and time 5 steps after 2
+     warm-ups; then time the supervised step the same way;
+ 13. time the stencil kernels, their twins and ``F.grid_sample`` (the
+     backward alone) at the composition shape (N=128, C=2, 192x192), the
+     backward summed over the 8 squaring inputs of a seeded headline morph
+     with each one's share of taps outside the gather's window, and the
+     dispatch predicate;
  14. hold the flat-index corner kernels (the 2D route under
      ADVCHAIN_BAND_KERNEL=0) against their twins at the 2D episode's
      shapes (N=128, 192x192, C in {1, 2, 5}, K in {1, 4}) and the plane
@@ -79,7 +92,7 @@ Phases (any failure raises and the script exits non-zero):
  16. the same for the 3D volume episode with ADVCHAIN_ZBAND=0 (plane
      launches, z-band 0);
  17. time the corner and plane kernels, their twins and ``F.grid_sample``,
-     then print the ``kernels`` line for all fourteen kernels.
+     then print the ``kernels`` line for all fifteen kernels.
 The last line of standard output is the device record.  ``--profile PATH``
 / ``--profile3d PATH`` / ``--profile-train PATH`` additionally write a
 torch.profiler summary of one 2D episode / 3D episode / train step to PATH.
@@ -113,7 +126,7 @@ SM_CLOCK_HZ = 1.98e9         # H100 SXM peak SM clock
 TOL_FWD = 1e-5
 TOL_GRID_FWD = 1e-6          # the fused forward repeats its plain fold
 TOL_DW = 1e-5
-TOL_DIMG_REL = 1e-5          # of max|d_img|: atomics sum in no fixed order
+TOL_DIMG_REL = 1e-5          # of max|d_img|: sums reassociate (atomics)
 TOL_DFLOW_REL = 1e-5         # of max|d_flow|
 TOL_ROUTES = 1e-4            # episode loss, legacy route vs default route
 LR = 1e-4                    # the headline train step's Adam rate
@@ -123,6 +136,7 @@ KERNEL_SOURCES = {"band": _CSRC + "band_sample.cu",
                   "zband": _CSRC + "zband_sample.cu",
                   "zband_grid": _CSRC + "zband_sample.cu",
                   "stencil": _CSRC + "stencil_warp.cu",
+                  "slope": _CSRC + "stencil_warp.cu",
                   # one kernel pair serves the corner (2D) and plane (3D)
                   # routes
                   "corner": _CSRC + "plane_sample.cu",
@@ -130,8 +144,8 @@ KERNEL_SOURCES = {"band": _CSRC + "band_sample.cu",
 KERNEL_NAMES = {"band": "band_sample", "band_grid": "band_grid_sample",
                 "zband": "zband_sample",
                 "zband_grid": "zband_grid_sample",
-                "stencil": "stencil_warp", "corner": "corner_sample",
-                "plane": "plane_sample"}
+                "stencil": "stencil_warp", "slope": "dispatch_slope",
+                "corner": "corner_sample", "plane": "plane_sample"}
 # the sources to build, one nvcc each
 BUILD = sorted({src.rsplit("/", 1)[1][:-3] for src in KERNEL_SOURCES.values()})
 # the TPU kernels each pair replaces
@@ -142,12 +156,13 @@ REPLACES = {"band": {"fwd": f"{_GM}:839", "bwd": f"{_GM}:923"},
             "zband_grid": {"fwd": f"{_GM}:1081", "bwd": f"{_GM}:1230"},
             "stencil": {"fwd": "advchain_tpu/kernels/stencil.py:132",
                         "bwd": "advchain_tpu/kernels/stencil.py:172"},
+            # not a Pallas kernel: the lax.cond predicate of compose_flow
+            "slope": {"fwd": "advchain_tpu/ops/integrate.py:103"},
             "corner": {"fwd": f"{_GM}:134", "bwd": f"{_GM}:283"},
             "plane": {"fwd": f"{_GM}:466", "bwd": f"{_GM}:603"}}
 # substrings of the port's CUDA kernel names (the profiler's rows)
 PORT_KERNEL_NAMES = ("band_sample", "band_grid", "zband_grid",
-                     "stencil_warp",
-                     "plane_sample")
+                     "stencil_warp", "dispatch_slope", "plane_sample")
 # the switches that send 2D / 3D sampling to the corner / plane kernels
 LEGACY_SWITCH = {2: "ADVCHAIN_BAND_KERNEL", 3: "ADVCHAIN_ZBAND"}
 # the family the default route sends bilinear sampling to
@@ -159,6 +174,9 @@ CORNER_LEVEL = {2: "band", 3: "zband"}
 GRID_LAUNCHES = {"episode2d": {"fwd": 12, "bwd": 6},
                  "train": {"fwd": 12, "bwd": 8},
                  "episode3d": {"fwd": 44, "bwd": 22}}
+# the stencil pair's launches (fwd, bwd) in one 2D episode and one train
+# step: 4 exponentiations of 8 squarings, 2 of them differentiated
+STENCIL_LAUNCHES = {"fwd": 32, "bwd": 16}
 # the host-side folds that no default route calls
 FOLDS = ("corner_weights", "corner_weights_3d", "nearest_weights")
 
@@ -280,8 +298,9 @@ def reset_launch_counts():
 
 def launch_counts():
     """Launches per family: band and zband (the corner-level pairs),
-    band_grid and zband_grid (the grid-level pairs), stencil, and corner
-    and plane (the two routes of one kernel pair, counted apart)."""
+    band_grid and zband_grid (the grid-level pairs), stencil, the dispatch
+    predicate (slope), and corner and plane (the two routes of one kernel
+    pair, counted apart)."""
     from advchain_tpu_torch.kernels import (band_sample, plane_sample,
                                             zband_sample)
     counts = {fam: {"fwd": mod.FWD_LAUNCHES, "bwd": mod.BWD_LAUNCHES}
@@ -290,6 +309,8 @@ def launch_counts():
                             "bwd": zband_sample.GRID_BWD_LAUNCHES}
     counts["band_grid"] = {"fwd": band_sample.GRID_FWD_LAUNCHES,
                            "bwd": band_sample.GRID_BWD_LAUNCHES}
+    # the dispatch predicate: one launch per same-shape composition
+    counts["slope"] = {"fwd": _kernel_modules()["stencil"].SLOPE_LAUNCHES}
     counts.update({route: dict(c) for route, c in
                    plane_sample.LAUNCHES.items()})
     return counts
@@ -544,6 +565,18 @@ def run_episode(device, batch, shape, warm=2, reps=5):
         if not (launches[used]["fwd"] > 0 and launches[used]["bwd"] > 0):
             raise AssertionError(f"the {dims}D episode did not launch both "
                                  f"{used} kernels: {launches}")
+    # one dispatch predicate per composition whose grid takes a gradient:
+    # in 2D one per stencil backward; in 3D one per squaring of the PGD
+    # step's two exponentiations (the forward and the inverse morph; the
+    # final pass's two take none)
+    compositions = launches["stencil"]["bwd"] if dims == 2 \
+        else sum(steps[:2])
+    if len(steps) != (0 if dims == 2 else 4) \
+            or launches["slope"]["fwd"] != compositions:
+        raise AssertionError(f"the {dims}D episode launched "
+                             f"{launches['slope']['fwd']} dispatch predicates "
+                             f"for {compositions} differentiated "
+                             f"compositions (adaptive steps {steps})")
     # a legacy route replaces the default family's bilinear launches (the
     # episodes sample nothing with nearest); no route takes the
     # corner-level band or z-band pair since the grid-level pairs
@@ -581,6 +614,20 @@ def time_ms(fn, iters=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def library_bwd_ms(fn, inputs, cot):
+    """The row entries of the library's backward alone and of its forward
+    and backward together: ``fn()`` computes the library call's output
+    from ``inputs``; its graph is built before the first timed window,
+    which times only ``torch.autograd.grad`` of it with ``cot`` (retaining
+    the graph)."""
+    import torch
+    out = fn()
+    alone = time_ms(lambda: torch.autograd.grad(out, inputs, cot,
+                                                retain_graph=True))
+    both = time_ms(lambda: torch.autograd.grad(fn(), inputs, cot))
+    return {"bwd_library_ms": alone, "fwd_bwd_library_ms": both}
 
 
 def bound_ms(nbytes, flops):
@@ -622,10 +669,9 @@ def time_kernels(n, shape, device, channels=(1, 2, 5)):
             grid_g = grid.clone().requires_grad_(True)
             g_img = g.reshape(img.shape)
 
-            def lib_bwd():
-                out = F.grid_sample(img_g, grid_g, mode="bilinear",
-                                    padding_mode=padding, align_corners=True)
-                torch.autograd.grad(out, (img_g, grid_g), g_img)
+            def lib():
+                return F.grid_sample(img_g, grid_g, mode="bilinear",
+                                     padding_mode=padding, align_corners=True)
 
             with torch.no_grad():
                 row = {
@@ -642,7 +688,7 @@ def time_kernels(n, shape, device, channels=(1, 2, 5)):
                                                               wts)),
                     "bwd_bound_ms": bwd_bound[0],
                 }
-            row["bwd_library_ms"] = time_ms(lib_bwd)
+            row.update(library_bwd_ms(lib, (img_g, grid_g), g_img))
             row["bound_by"] = [fwd_bound[1], bwd_bound[1]]
             rows.append(row)
             print("[timing] " + json.dumps(row), flush=True)
@@ -676,10 +722,9 @@ def time_nearest(device, cases=((BATCH, SHAPE), (BATCH3D, SHAPE3D))):
         img_g = img.clone().requires_grad_(True)
         g_img = g.reshape((n, 1) + tuple(grid.shape[1:-1]))
 
-        def lib_bwd():
-            out = F.grid_sample(img_g, grid, mode="nearest",
-                                padding_mode=padding, align_corners=True)
-            torch.autograd.grad(out, img_g, g_img)
+        def lib():
+            return F.grid_sample(img_g, grid, mode="nearest",
+                                 padding_mode=padding, align_corners=True)
 
         with torch.no_grad():
             row = {
@@ -699,7 +744,7 @@ def time_nearest(device, cases=((BATCH, SHAPE), (BATCH3D, SHAPE3D))):
                     mod, f"{fam}_sample_bwd_plain")(g, img, *idx, wts)),
                 "bwd_bound_ms": bwd_bound[0],
             }
-        row["bwd_library_ms"] = time_ms(lib_bwd)
+        row.update(library_bwd_ms(lib, img_g, g_img))
         row["bound_by"] = [fwd_bound[1], bwd_bound[1]]
         rows.append(row)
         print("[timing] " + json.dumps(row), flush=True)
@@ -759,7 +804,9 @@ def profile_run(label, fn, path):
 def stencil_flows(n, shape, device, seed=0):
     """(name, flow) pairs (N, 2, H, W) for the stencil kernels: a
     near-identity flow of up to 1.9 px (the early scaling-and-squaring
-    compositions), and one of up to 20 px whose top rows run past the
+    compositions), the same with its border rows and columns reset to the
+    base grid (exactly +-1: the lower bound's slope, taps within the
+    gather's window), and one of up to 20 px whose top rows run past the
     border, with 5% of its entries set to exactly +-1."""
     import torch
     from advchain_tpu_torch.ops.integrate import base_grid
@@ -779,8 +826,41 @@ def stencil_flows(n, shape, device, seed=0):
     sign = torch.where(torch.rand(far.shape, generator=gen, device=device)
                        < 0.5, -1.0, 1.0)
     far = torch.where(pick, sign, far)
-    return [("near_identity", jitter(1.9).contiguous()),
+    near = jitter(1.9)
+    border = torch.where(base.abs() == 1, base, near)
+    return [("near_identity", near.contiguous()),
+            ("near_border_pm1", border.contiguous()),
             ("far_bounds", far.contiguous())]
+
+
+def morph_squarings(device, batch=BATCH, shape=SHAPE, seed=0):
+    """The 8 squaring inputs (N, 2, H, W) of one seeded headline morph
+    (``AdvMorph`` with the headline config, parameters from a seeded
+    generator, scaled by epsilon): each composition's flow, captured from
+    ``compose_flow`` as the exponentiation calls it."""
+    import torch
+    from advchain_tpu_torch.augmentor import AdvMorph
+    from advchain_tpu_torch.ops import integrate
+    morph = AdvMorph(spatial_dims=2,
+                     config_dict=chain_configs(batch, shape)["morph"])
+    params = morph.init_params(torch.Generator().manual_seed(seed)).to(
+        device)
+    flows, real = [], integrate.compose_flow
+
+    def capture(flow1, flow2):
+        flows.append(flow2.detach().clone())
+        return real(flow1, flow2)
+
+    integrate.compose_flow = capture
+    try:
+        with torch.no_grad():
+            morph.demons_compose(morph._duv(params, training=False))
+    finally:
+        integrate.compose_flow = real
+    if len(flows) != 8:
+        raise AssertionError(f"the headline morph composed {len(flows)} "
+                             f"times, not 8")
+    return flows
 
 
 def stencil_inputs(n, c, flow, seed=0):
@@ -791,38 +871,116 @@ def stencil_inputs(n, c, flow, seed=0):
             torch.randn(shape, generator=gen, device=flow.device))
 
 
-def check_stencil(n, shape, device, channels=(1, 2, 5)):
-    """Phase 10: the stencil kernels against their twins.  Forward within
-    TOL_FWD absolute; ``d_flow`` within TOL_DFLOW_REL and ``d_img`` within
-    TOL_DIMG_REL of their largest entries (the atomics sum in no fixed
-    order).  Returns the largest absolute errors."""
-    import torch
-    from advchain_tpu_torch.kernels import stencil_warp as sw
-    worst = {"fwd": 0.0, "bwd": 0.0}
+def stencil_cases(n, shape, device, channels=(1, 2, 5)):
+    """Phase 10's cases, (label, img, flow, g): :func:`stencil_flows` at
+    each channel count, and at the main path's shape the 8 squaring inputs
+    of :func:`morph_squarings`, each warping itself (C=2), as the
+    exponentiation does."""
+    cases = []
     for name, flow in stencil_flows(n, shape, device):
         for c in channels:
             img, g = stencil_inputs(n, c, flow)
+            cases.append((f"{name} C={c}", img, flow, g))
+    if (n, tuple(shape)) == (BATCH, SHAPE):
+        for k, flow in enumerate(morph_squarings(device)):
+            cases.append((f"squaring {k} C=2", flow, flow,
+                          stencil_inputs(n, 2, flow, seed=k)[1]))
+    return cases
+
+
+def check_stencil(n, shape, device, channels=(1, 2, 5)):
+    """Phase 10: the stencil kernels against their twins on
+    :func:`stencil_cases`, the backward with both dispatch slopes (1, the
+    stencil's, and 0.5, the sampler's).  Forward within TOL_FWD absolute;
+    ``d_flow`` within TOL_DFLOW_REL and ``d_img`` within TOL_DIMG_REL of
+    their largest entries (channel sums, and the atomics of taps outside
+    the gather's window, reassociate); the count of those taps equal to its
+    plain version's.  Returns the largest absolute errors."""
+    import torch
+    from advchain_tpu_torch.kernels import stencil_warp as sw
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    slopes = [torch.tensor([s], device=device) for s in (1.0, 0.5)]
+    for label, img, flow, g in stencil_cases(n, shape, device, channels):
+        with torch.no_grad():
+            out = sw.stencil_warp_fwd(img, flow)
+            ref = sw.stencil_warp_fwd_plain(img, flow)
+        sync(device)
+        e_fwd = float((out - ref).abs().max())
+        msg = [f"fwd {e_fwd:.3e}"]
+        ok = e_fwd <= TOL_FWD
+        for slope in slopes:
             with torch.no_grad():
-                out = sw.stencil_warp_fwd(img, flow)
-                ref = sw.stencil_warp_fwd_plain(img, flow)
-                d_img, d_flow = sw.stencil_warp_bwd(g, img, flow)
-                r_img, r_flow = sw.stencil_warp_bwd_plain(g, img, flow)
+                d_img, d_flow = sw.stencil_warp_bwd(g, img, flow, slope)
+                r_img, r_flow = sw.stencil_warp_bwd_plain(g, img, flow,
+                                                          slope)
             sync(device)
-            e_fwd = float((out - ref).abs().max())
             e_flow = float((d_flow - r_flow).abs().max())
             e_img = float((d_img - r_img).abs().max())
             s_flow = float(r_flow.abs().max())
             s_img = float(r_img.abs().max())
-            print(f"[stencil] {name:13s} C={c}: fwd {e_fwd:.3e} d_flow "
-                  f"{e_flow:.3e} (max {s_flow:.3e}) d_img {e_img:.3e} "
-                  f"(max {s_img:.3e})", flush=True)
-            if not (e_fwd <= TOL_FWD and e_flow <= TOL_DFLOW_REL * s_flow
-                    and e_img <= TOL_DIMG_REL * s_img):
-                raise AssertionError(
-                    f"stencil kernel disagrees with its twin: {name} C={c} "
-                    f"fwd {e_fwd} d_flow {e_flow} d_img {e_img}")
-            worst["fwd"] = max(worst["fwd"], e_fwd)
+            msg.append(f"slope {float(slope):.1f}: d_flow {e_flow:.3e} "
+                       f"(max {s_flow:.3e}) d_img {e_img:.3e} (max "
+                       f"{s_img:.3e})")
+            ok = (ok and e_flow <= TOL_DFLOW_REL * s_flow
+                  and e_img <= TOL_DIMG_REL * s_img)
             worst["bwd"] = max(worst["bwd"], e_flow, e_img)
+        outside = int(sw.LAST_OUT_OF_WINDOW) if device != "cpu" else None
+        expect = sw.out_of_window_plain(flow)
+        msg.append(f"taps outside the window {outside} (plain {expect})")
+        print(f"[stencil] {label}: " + "; ".join(msg), flush=True)
+        if not ok or (outside is not None and outside != expect):
+            raise AssertionError(f"stencil kernel disagrees with its twin: "
+                                 f"{label}: " + "; ".join(msg))
+        worst["fwd"] = max(worst["fwd"], e_fwd)
+    return worst
+
+
+def check_stencil_determinism(n, shape, device):
+    """Phase 10: two backward runs on the near-identity flow (every tap in
+    the gather's window) give the same ``d_img`` bit for bit."""
+    import torch
+    from advchain_tpu_torch.kernels import stencil_warp as sw
+    _, flow = stencil_flows(n, shape, device)[0]
+    img, g = stencil_inputs(n, 2, flow)
+    with torch.no_grad():
+        runs = [sw.stencil_warp_bwd(g, img, flow) for _ in range(2)]
+    sync(device)
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    print(f"[stencil] near_identity: two backward runs bit-identical "
+          f"{same}", flush=True)
+    if not same:
+        raise AssertionError("the stencil backward is not deterministic on "
+                             "the near-identity flow")
+
+
+def check_dispatch_slope(device):
+    """Phase 10: the dispatch predicate's kernel against its twin, equal
+    ``[slope, dpx]``, on phase 10's 2D flows and the 3D episode's
+    near-identity grid at half, once and twice its displacement, below and
+    past each radius.  Returns the largest |kernel - twin|."""
+    import torch
+    from advchain_tpu_torch.kernels import stencil_warp as sw
+    from advchain_tpu_torch.ops.integrate import base_grid
+    flows = [(name, 2, f) for name, f in stencil_flows(BATCH, SHAPE, device)]
+    near3 = sample_grids(BATCH3D, SHAPE3D, device)[1][2].movedim(-1, 1)
+    base3 = base_grid(BATCH3D, SHAPE3D, device=device)
+    flows += [(f"{name}_3d", 1, (base3 + k * (near3 - base3)).contiguous())
+              for name, k in (("half", 0.5), ("near_identity", 1.0),
+                              ("twice", 2.0))]
+    sides, worst = set(), 0.0
+    for name, radius, flow in flows:
+        out = sw.dispatch_slope(flow, radius)
+        ref = sw.dispatch_slope_plain(flow, radius)
+        sync(device)
+        print(f"[slope] {name}: [slope, dpx] {out.tolist()} (plain "
+              f"{ref.tolist()})", flush=True)
+        if not torch.equal(out, ref):
+            raise AssertionError(f"the dispatch predicate disagrees with its "
+                                 f"twin on {name}")
+        worst = max(worst, float((out - ref).abs().max()))
+        sides.add(float(ref[0]))
+    if sides != {0.5, 1.0}:
+        raise AssertionError(f"the predicate's cases took one side: {sides}")
     return worst
 
 
@@ -930,18 +1088,26 @@ def run_train_step(device, batch, shape, supervised=False, warm=2, reps=5):
             if not (launches[fam]["fwd"] > 0 and launches[fam]["bwd"] > 0):
                 raise AssertionError(f"the train step did not launch both "
                                      f"{fam} kernels: {launches}")
+        if launches["slope"]["fwd"] != launches["stencil"]["bwd"]:
+            raise AssertionError(f"the train step did not launch one "
+                                 f"dispatch predicate per differentiated "
+                                 f"composition: {launches}")
     peak = torch.cuda.max_memory_allocated() if data["image"].is_cuda else 0
     return launches, statistics.median(times), times, first, peak
 
 
 def time_stencil(n, shape, device, channels=(2,)):
     """Phase 13: kernel, twin and ``F.grid_sample`` (bilinear, border,
-    align_corners=True) times on the near-identity flow, with the bounds.
-    The library's channel-last grid is copied before the timed window.
-    Bytes: forward reads img and flow and writes out; backward reads g,
-    img and flow and writes d_img and d_flow (its zeroing pass is one more
-    write of d_img, not counted).  Operations: 9 per (pixel, channel) and
-    12 per pixel forward, 24 and 22 backward."""
+    align_corners=True) times on the near-identity flow, with the bounds;
+    the backward on each of the 8 squaring inputs of a seeded headline
+    morph (each warping itself), with its share of taps outside the
+    gather's window; the dispatch predicate.  The library's channel-last
+    grid is copied before the timed window.  Bytes: forward reads img and
+    flow and writes out; backward reads g, img and flow and writes d_img
+    and d_flow (on a squaring img is flow: read once); the predicate reads
+    the flow.  Operations: 9 per (pixel,
+    channel) and 12 per pixel forward, 24 and 22 backward, 8 per pixel for
+    the predicate."""
     import torch
     import torch.nn.functional as F
     from advchain_tpu_torch.kernels import stencil_warp as sw
@@ -956,10 +1122,9 @@ def time_stencil(n, shape, device, channels=(2,)):
         img_g = img.clone().requires_grad_(True)
         grid_g = grid.clone().requires_grad_(True)
 
-        def lib_bwd():
-            out = F.grid_sample(img_g, grid_g, mode="bilinear",
-                                padding_mode="border", align_corners=True)
-            torch.autograd.grad(out, (img_g, grid_g), g)
+        def lib():
+            return F.grid_sample(img_g, grid_g, mode="bilinear",
+                                 padding_mode="border", align_corners=True)
 
         with torch.no_grad():
             row = {
@@ -977,11 +1142,40 @@ def time_stencil(n, shape, device, channels=(2,)):
                     lambda: sw.stencil_warp_bwd_plain(g, img, flow)),
                 "bwd_bound_ms": bwd_bound[0],
             }
-        row["bwd_library_ms"] = time_ms(lib_bwd)
+        row.update(library_bwd_ms(lib, (img_g, grid_g), g))
         row["bound_by"] = [fwd_bound[1], bwd_bound[1]]
         rows.append(row)
         print("[timing] " + json.dumps(row), flush=True)
-    return rows
+    squarings = []
+    for k, phi in enumerate(morph_squarings(device)):
+        g = stencil_inputs(n, 2, phi, seed=k)[1]
+        with torch.no_grad():
+            ms = time_ms(lambda: sw.stencil_warp_bwd(g, phi, phi))
+        squarings.append({
+            "squaring": k, "bwd_ms": ms,
+            "dpx": float(sw.dispatch_slope(phi, 2)[1]),
+            "out_of_window_share": int(sw.LAST_OUT_OF_WINDOW) / (4 * n * p)})
+    # g, the flow (also the image) and d_img: 2 planes each; d_flow 2
+    total = {"kernel": "stencil", "case": "headline morph squarings",
+             "bwd_ms": sum(r["bwd_ms"] for r in squarings),
+             "bwd_bound_ms": len(squarings) * bound_ms(
+                 4 * n * p * (2 + 2 + 2 + 2), n * p * (24 * 2 + 22))[0],
+             "squarings": squarings}
+    print("[timing] " + json.dumps(total), flush=True)
+    print("[stencil] out-of-window share per squaring: " + json.dumps(
+        [round(r["out_of_window_share"], 6) for r in squarings]), flush=True)
+    rows[0]["squarings_bwd_ms"] = total["bwd_ms"]
+    rows[0]["squarings_bwd_bound_ms"] = total["bwd_bound_ms"]
+    slope_bound = bound_ms(4 * n * p * 2, 8 * n * p)
+    with torch.no_grad():
+        slope_row = {
+            "kernel": "slope", "case": "near_identity", "padding": "border",
+            "C": 2, "fwd_ms": time_ms(lambda: sw.dispatch_slope(flow, 2)),
+            "fwd_plain_ms": time_ms(lambda: sw.dispatch_slope_plain(flow, 2)),
+            "fwd_bound_ms": slope_bound[0], "bound_by": [slope_bound[1]],
+            "fwd_library_ms": None}
+    print("[timing] " + json.dumps(slope_row), flush=True)
+    return rows, slope_row
 
 
 # ---------------------------------------------------------------- slice 4
@@ -1155,10 +1349,9 @@ def time_flat_kernels(n, shape, device, c, k=4):
     grid_g = grid.clone().requires_grad_(True)
     g_full = g.reshape((n, c) + tuple(grid.shape[1:-1]))
 
-    def lib_bwd():
-        out = F.grid_sample(img_g, grid_g, mode="bilinear",
-                            padding_mode=padding, align_corners=True)
-        torch.autograd.grad(out, (img_g, grid_g), g_full)
+    def lib():
+        return F.grid_sample(img_g, grid_g, mode="bilinear",
+                             padding_mode=padding, align_corners=True)
 
     with torch.no_grad():
         row = {
@@ -1180,7 +1373,7 @@ def time_flat_kernels(n, shape, device, c, k=4):
             "sample_bwd_ms": time_ms(lambda: [bwd(g, img, *i, w, offs)
                                               for i, w in calls]),
         }
-    row["bwd_library_ms"] = time_ms(lib_bwd)
+    row.update(library_bwd_ms(lib, (img_g, grid_g), g_full))
     row["bound_by"] = [fwd_bound[1], bwd_bound[1]]
     print("[timing] " + json.dumps(row), flush=True)
     return [row]
@@ -1215,7 +1408,8 @@ def grid_module(dims):
 def check_grid_kernels(n, shape, device, channels=(1, 3, 5)):
     """Phases 2 and 6: the grid-level pair of ``len(shape)`` dims against
     its plain versions on each of :func:`grid_cases`, for each channel
-    count, mode, padding and align_corners.  Forward within TOL_GRID_FWD
+    count, mode, padding (in 3D also ``edge`` with both dispatch slopes)
+    and align_corners.  Forward within TOL_GRID_FWD
     absolute (it repeats its plain fold: 0 in every case so far),
     ``d_img`` and ``d_grid`` within TOL_DIMG_REL and TOL_DFLOW_REL of their
     largest entries (atomics and the channel sum reassociate); nearest
@@ -1224,6 +1418,11 @@ def check_grid_kernels(n, shape, device, channels=(1, 3, 5)):
     fam, mod = grid_module(len(shape))
     kern = {f"{kind}{plain}": getattr(mod, f"{fam}_sample_{kind}{plain}")
             for kind in ("fwd", "bwd") for plain in ("", "_plain")}
+    paddings = [(padding, None) for padding in mod.PADDING_MODES]
+    if len(shape) == 3:
+        # the 3D compositions' edge padding with both dispatch slopes
+        paddings += [("edge", torch.tensor([s], device=device))
+                     for s in (1.0, 0.5)]
     worst = {"fwd": 0.0, "bwd": 0.0}
     for name, grid in grid_cases(n, shape, device):
         for c in channels:
@@ -1232,15 +1431,17 @@ def check_grid_kernels(n, shape, device, channels=(1, 3, 5)):
                               device=device)
             g = torch.randn(n, c, grid.shape[1], generator=gen, device=device)
             for mode in mod.MODES:
-                for padding in mod.PADDING_MODES:
+                for padding, slope in paddings:
                     for align in (True, False):
                         args = (padding, align, mode)
+                        kw = {} if slope is None else {"lower_slope": slope}
                         with torch.no_grad():
                             out = kern["fwd"](img, grid, *args)
                             ref = kern["fwd_plain"](img, grid, *args)
                             r_img, r_grid = kern["bwd_plain"](g, img, grid,
-                                                              *args)
-                            d_img, d_grid = kern["bwd"](g, img, grid, *args)
+                                                              *args, **kw)
+                            d_img, d_grid = kern["bwd"](g, img, grid, *args,
+                                                        **kw)
                         e_fwd = float((out - ref).abs().max())
                         s_img = float(r_img.abs().max())
                         s_grid = float(r_grid.abs().max())
@@ -1249,8 +1450,10 @@ def check_grid_kernels(n, shape, device, channels=(1, 3, 5)):
                         ok = e_fwd <= TOL_GRID_FWD
                         if mode == "nearest":
                             ok = ok and float(d_grid.abs().max()) == 0.0
+                        pad = padding if slope is None else \
+                            f"{padding}:{float(slope):.1f}"
                         label = (f"{fam} {name:13s} C={c} {mode:8s} "
-                                 f"{padding:10s} align={int(align)}")
+                                 f"{pad:10s} align={int(align)}")
                         print(f"[grid] {label}: fwd {e_fwd:.3e} d_img "
                               f"{e_img:.3e} (max {s_img:.3e}) d_grid "
                               f"{e_grid:.3e} (max {s_grid:.3e})", flush=True)
@@ -1331,10 +1534,9 @@ def time_grid_kernels(n, shape, device, channels=(1, 3, 5)):
         grid_g = gridd.clone().requires_grad_(True)
         g_lib = g.reshape((n, c) + tuple(gridd.shape[1:-1]))
 
-        def lib_bwd():
-            out = F.grid_sample(img_g, grid_g, mode=mode,
-                                padding_mode=padding, align_corners=True)
-            torch.autograd.grad(out, (img_g, grid_g), g_lib)
+        def lib():
+            return F.grid_sample(img_g, grid_g, mode=mode,
+                                 padding_mode=padding, align_corners=True)
 
         with torch.no_grad():
             row = {
@@ -1352,7 +1554,7 @@ def time_grid_kernels(n, shape, device, channels=(1, 3, 5)):
                                                                 *args)),
                 "bwd_bound_ms": bwd_bound[0],
             }
-        row["bwd_library_ms"] = time_ms(lib_bwd)
+        row.update(library_bwd_ms(lib, (img_g, grid_g), g_lib))
         row["bound_by"] = [fwd_bound[1], bwd_bound[1]]
         rows.append(row)
         print("[timing] " + json.dumps(row), flush=True)
@@ -1455,6 +1657,33 @@ def assert_grid_only(label, dims, launches, expected, folds):
             f"{CORNER_LEVEL[dims]} launch, no fold): {launches}, {folds}")
 
 
+def assert_stencil_launches(label, launches):
+    """Raise unless a 2D episode or train step launched the stencil pair
+    STENCIL_LAUNCHES times and one dispatch predicate per differentiated
+    composition."""
+    if launches["stencil"] != STENCIL_LAUNCHES \
+            or launches["slope"]["fwd"] != STENCIL_LAUNCHES["bwd"]:
+        raise AssertionError(
+            f"the {label} did not launch the stencil pair "
+            f"{STENCIL_LAUNCHES['fwd']} / {STENCIL_LAUNCHES['bwd']} times "
+            f"with one dispatch predicate per differentiated composition: "
+            f"{launches}")
+
+
+def slope_record(launches, row, err, shape_note):
+    """The ``kernels`` line's entry of the dispatch predicate, which has
+    no library call (``F.grid_sample`` computes no predicate) and no
+    backward; ``err``: the largest |kernel - twin| of phase 10."""
+    return {
+        "name": KERNEL_NAMES["slope"], "route": "cuda",
+        "source": KERNEL_SOURCES["slope"],
+        "replaces": REPLACES["slope"]["fwd"],
+        "launches": launches["slope"]["fwd"], "max_abs_err": err,
+        "ms": row["fwd_ms"], "plain_ms": row["fwd_plain_ms"],
+        "bound_ms": row["fwd_bound_ms"], "bound_by": row["bound_by"][0],
+        "library_ms": None, "shape": f"{shape_note} flow near_identity"}
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1482,6 +1711,11 @@ def kernel_records(fam, launches, worst, rows, case, c_head, shape_note):
             # the launches of one sampler call, the work library_ms times
             # (a 3D sample is two plane launches)
             rec["sample_ms"] = head[f"sample_{kind}_ms"]
+    # library_ms of a backward times the library's backward alone
+    records[1]["library_fwd_bwd_ms"] = head["fwd_bwd_library_ms"]
+    if "squarings_bwd_ms" in head:  # the stencil backward (phase 13)
+        records[1].update(squarings_ms=head["squarings_bwd_ms"],
+                          squarings_bound_ms=head["squarings_bwd_bound_ms"])
     return records
 
 
@@ -1527,13 +1761,15 @@ def main(argv=None):
           f"launches band_grid fwd {launches2['band_grid']['fwd']} bwd "
           f"{launches2['band_grid']['bwd']}, stencil fwd "
           f"{launches2['stencil']['fwd']} bwd "
-          f"{launches2['stencil']['bwd']}, host-side fold calls over 7 "
+          f"{launches2['stencil']['bwd']}, dispatch predicates "
+          f"{launches2['slope']['fwd']}, host-side fold calls over 7 "
           f"episodes {json.dumps(folds2)}, median {sec * 1e3:.1f} ms "
           f"({BATCH / sec:.2f} img/s) over "
           f"{[round(t * 1e3, 1) for t in times]} ms, peak "
           f"{peak / 1e9:.2f} GB on {card}", flush=True)
     assert_grid_only("2D episode", 2, launches2, GRID_LAUNCHES["episode2d"],
                      folds2)
+    assert_stencil_launches("2D episode", launches2)
     if args.profile:
         profile_episode(device, BATCH, SHAPE, args.profile)
     rows2 = time_kernels(BATCH, SHAPE, device)
@@ -1573,6 +1809,10 @@ def main(argv=None):
     # the fused adversarial train step, with every 2D composition on the
     # stencil kernels
     worst_s = check_stencil(BATCH, SHAPE, device)
+    odd = check_stencil(3, (17, 23), device)
+    worst_s = {k: max(worst_s[k], odd[k]) for k in worst_s}
+    check_stencil_determinism(BATCH, SHAPE, device)
+    worst_slope = check_dispatch_slope(device)
     check_train_step_against_cpu(device)
     with count_calls(fold_modules, FOLDS) as folds_t:
         launches_t, sec_t, times_t, first_t, peak_t = run_train_step(
@@ -1582,13 +1822,15 @@ def main(argv=None):
           f"{launches_t['stencil']['fwd']} bwd "
           f"{launches_t['stencil']['bwd']}, band_grid fwd "
           f"{launches_t['band_grid']['fwd']} bwd "
-          f"{launches_t['band_grid']['bwd']}, host-side fold calls over 7 "
+          f"{launches_t['band_grid']['bwd']}, dispatch predicates "
+          f"{launches_t['slope']['fwd']}, host-side fold calls over 7 "
           f"steps {json.dumps(folds_t)}, median {sec_t * 1e3:.1f} ms "
           f"({BATCH / sec_t:.2f} img/s) over "
           f"{[round(t * 1e3, 1) for t in times_t]} ms, peak "
           f"{peak_t / 1e9:.2f} GB on {card}", flush=True)
     assert_grid_only("train step", 2, launches_t, GRID_LAUNCHES["train"],
                      folds_t)
+    assert_stencil_launches("train step", launches_t)
     _, sec_s, times_s, first_s, peak_s = run_train_step(
         device, BATCH, SHAPE, supervised=True)
     print(f"[train] supervised step, batch {BATCH}: loss {first_s}, median "
@@ -1604,7 +1846,7 @@ def main(argv=None):
             sync(device)
 
         profile_run("train step", one_step, args.profile_train)
-    rows_s = time_stencil(BATCH, SHAPE, device)
+    rows_s, slope_row = time_stencil(BATCH, SHAPE, device)
 
     # the legacy flat-index routes: corner kernels (2D) and plane kernels
     # (3D), selected by the JAX package's switches
@@ -1634,7 +1876,8 @@ def main(argv=None):
                + kernel_records("corner", launches_c, worst_c, rows_c,
                                 "rot30", 1, shape2 + " K=4")
                + kernel_records("plane", launches_p, worst_p, rows_p,
-                                "near_identity", 3, shape3 + " K=4"))
+                                "near_identity", 3, shape3 + " K=4")
+               + [slope_record(launches_t, slope_row, worst_slope, shape2)])
     print(f"[episode] {BATCH / sec:.2f} img/s (2D), {BATCH3D / sec3:.3f} "
           f"vol/s (3D), train step {BATCH / sec_t:.2f} img/s (supervised "
           f"{BATCH / sec_s:.2f}) on {card}", flush=True)

@@ -5,15 +5,15 @@ dispatch (``ADVCHAIN_STENCIL`` unset), at grids with entries exactly on
 JAX sends a 3D composition whose largest displacement is under one voxel
 to its XLA stencil (``stencil_warp_3d``, R=1, edge-padded frame) and the
 others to the sampler, under a ``lax.cond`` (advchain_tpu/ops/integrate.py:
-126-153).  The port sends every same-shape 3D composition to the z-band
-grid pair with the edge-padded stencil's slope at the lower border
-(``padding_mode="edge"``), the convention its 2D stencil kernel has for
-every 2D composition.  So on sub-voxel compositions the two agree, exact
-+-1 entries included; on compositions past one voxel they agree everywhere
-except the grid gradient at entries exactly on -1, where JAX's sampler
-passes half the one-sided slope (``jnp.clip``'s subgradient) and the port
-the whole (ROADMAP.md, section 3).  JAX reads its switches at trace time,
-so every JAX call here runs after ``jax.clear_caches()``.
+126-153).  The two agree except in the grid gradient at entries exactly on
+-1, where the stencil passes the whole one-sided slope and the sampler's
+``jnp.clip`` half of it.  The port computes the same predicate on the
+device (``kernels.stencil_warp.dispatch_slope``) and samples every
+same-shape 3D composition with the z-band grid pair and
+``padding_mode="edge"``, border padding whose slope at the lower bound is
+the predicate's: so it matches JAX on both sides of the predicate, exact
++-1 entries included.  JAX reads its switches at trace time, so every JAX
+call here runs after ``jax.clear_caches()``.
 """
 
 import numpy as np
@@ -103,13 +103,13 @@ def test_compose_flow_3d_sub_voxel_matches_the_default_dispatch(
 
 
 @pytest.mark.parametrize("seed", [3, 4])
-def test_compose_flow_3d_past_a_voxel_matches_but_for_the_lower_bound(
+def test_compose_flow_3d_past_a_voxel_matches_the_default_dispatch(
         seed, monkeypatch):
     """Flow2 up to 3 voxels off the identity with 5% exact +-1 entries: JAX
-    takes its sampler.  Output and d_flow1 within 1e-6 of their largest
-    entries; d_flow2 too, except at entries exactly on -1, where the
-    port's (the stencil's) slope is twice JAX's (the recorded
-    deviation)."""
+    takes its sampler, and the port's predicate hands the z-band backward
+    the sampler's half slope.  Output and both gradients within 1e-6 of
+    their largest entries, the entries exactly on -1 included (where the
+    stencil's slope would be twice JAX's)."""
     f1, f2, cot = _flows(seed, 3.0)
     u = np.abs(f2 - np.asarray(jint.base_grid(2, SHAPE))) / _voxel(SHAPE)
     assert u.max() > 1
@@ -117,14 +117,23 @@ def test_compose_flow_3d_past_a_voxel_matches_but_for_the_lower_bound(
     assert 0.01 < lower.mean() < 0.05
     ref = _jax_compose(f1, f2, cot, monkeypatch)
     ours = _port_compose(f1, f2, cot)
-    _within(ours[0], ref[0], 1e-6)
-    _within(ours[1], ref[1], 1e-6)
-    scale = np.abs(ref[2]).max()
-    np.testing.assert_allclose(ours[2][~lower], ref[2][~lower], rtol=0,
-                               atol=1e-6 * scale)
-    np.testing.assert_allclose(ours[2][lower], 2 * ref[2][lower], rtol=0,
-                               atol=1e-6 * scale)
-    assert np.abs(ref[2][lower]).max() > 1e-3 * scale
+    for a, b in zip(ours, ref):
+        _within(a, b, 1e-6)
+    assert np.abs(ref[2][lower]).max() > 1e-3 * np.abs(ref[2]).max()
+
+
+def test_dispatch_slope_takes_jax_predicate():
+    """The predicate the port computes on the device, here on its plain
+    twin: JAX's ``dpx`` (the largest displacement in voxels) and the slope
+    on each side of R - 1e-3 = 0.999."""
+    from advchain_tpu_torch.kernels.stencil_warp import dispatch_slope
+    base = np.asarray(jint.base_grid(2, SHAPE))
+    for voxels, slope in ((0.998, 1.0), (0.9995, 0.5), (3.0, 0.5)):
+        flow = base.copy()
+        flow[1, 2, 2, 3, 4] += voxels * _voxel(SHAPE)[0, 2, 0, 0, 0]
+        out = dispatch_slope(torch.from_numpy(flow.astype(np.float32)), 1)
+        np.testing.assert_allclose(float(out[1]), voxels, rtol=1e-5)
+        assert float(out[0]) == slope
 
 
 def _exponentiate_pair(duv, monkeypatch):
@@ -180,3 +189,25 @@ def test_exponentiate_flow_3d_with_pinned_borders(monkeypatch):
     (ref_f, ref_g), (f, g) = _exponentiate_pair(duv, monkeypatch)
     np.testing.assert_allclose(f, ref_f, rtol=0, atol=2e-5)
     np.testing.assert_allclose(g, ref_g, rtol=0, atol=5e-5)
+
+
+def test_exponentiate_flow_3d_with_pinned_borders_past_a_voxel(monkeypatch):
+    """A quarter of the border entries of a norm-40 velocity set to 0, so
+    exact +-1 entries survive every squaring, the last of which pass a
+    voxel (JAX's sampler there, its stencil before): the case whose
+    gradient the whole lower-bound slope moved by 7.4e-2 of its 2.48
+    maximum.  Field within 2e-5 and the gradient within 2e-5 of max(1, its
+    largest entry), as the unpinned norm-40 case."""
+    r = np.random.RandomState(8)
+    shape = (4, 6, 5)
+    duv = r.uniform(-1, 1, (2, 3) + shape)
+    duv = duv * 40.0 / np.linalg.norm(duv)
+    base = np.asarray(jint.base_grid(2, shape))
+    pinned = (np.abs(base) == 1) & (r.rand(*duv.shape) < 0.25)
+    duv = np.where(pinned, 0.0, duv).astype(np.float32)
+    assert pinned.mean() > 0.05
+    (ref_f, ref_g), (f, g) = _exponentiate_pair(duv, monkeypatch)
+    assert tint.ADAPTIVE_STEPS[-1] == 7
+    np.testing.assert_allclose(f, ref_f, rtol=0, atol=2e-5)
+    np.testing.assert_allclose(g, ref_g, rtol=0,
+                               atol=2e-5 * max(1.0, np.abs(ref_g).max()))

@@ -367,27 +367,190 @@ def test_cuda_tensor_never_takes_the_zband_twin(cuda):
         zs.zband_grid_sample_fwd(img, grid.double())
 
 
+def _hold_stencil_bwd(g, img, flow, slope):
+    """The CUDA backward against its twin: d_img and d_flow within 1e-5 of
+    their largest entries (channel sums, and the atomics of taps outside
+    the gather's window, reassociate), and its count of those taps equal
+    to the plain count."""
+    from advchain_tpu_torch.kernels import stencil_warp as sw
+    before = sw.BWD_LAUNCHES
+    d_img, d_flow = sw.stencil_warp_bwd(g, img, flow, slope)
+    torch.cuda.synchronize()
+    assert sw.BWD_LAUNCHES == before + 1
+    r_img, r_flow = sw.stencil_warp_bwd_plain(g, img, flow, slope)
+    for ours, ref in ((d_img, r_img), (d_flow, r_flow)):
+        scale = float(ref.abs().max())
+        assert float((ours - ref).abs().max()) <= 1e-5 * scale
+    assert int(sw.LAST_OUT_OF_WINDOW) == sw.out_of_window_plain(flow)
+
+
 @pytest.mark.parametrize("c", [1, 2, 5])
 def test_stencil_kernels_match_twins(cuda, c):
     """chip_smoke.py phase 10's cases: N=128, 192x192, a near-identity flow
-    and one of up to 20 px past the border with entries on exactly +-1."""
+    (also with its border on exactly +-1) and one of up to 20 px past the
+    border with entries on exactly +-1; the backward with both dispatch
+    slopes."""
     import chip_smoke
     from advchain_tpu_torch.kernels import stencil_warp as sw
     for _, flow in chip_smoke.stencil_flows(128, (192, 192), cuda):
         img, g = chip_smoke.stencil_inputs(128, c, flow)
-        before = (sw.FWD_LAUNCHES, sw.BWD_LAUNCHES)
+        before = sw.FWD_LAUNCHES
         out = sw.stencil_warp_fwd(img, flow)
-        d_img, d_flow = sw.stencil_warp_bwd(g, img, flow)
         torch.cuda.synchronize()
-        assert (sw.FWD_LAUNCHES, sw.BWD_LAUNCHES) == \
-            (before[0] + 1, before[1] + 1)
+        assert sw.FWD_LAUNCHES == before + 1
         torch.testing.assert_close(out, sw.stencil_warp_fwd_plain(img, flow),
                                    atol=1e-5, rtol=0)
-        r_img, r_flow = sw.stencil_warp_bwd_plain(g, img, flow)
-        # atomics sum in no fixed order; channel sums reassociate
-        for ours, ref in ((d_img, r_img), (d_flow, r_flow)):
-            scale = float(ref.abs().max())
-            assert float((ours - ref).abs().max()) <= 1e-5 * scale
+        for slope in (1.0, 0.5):
+            _hold_stencil_bwd(g, img, flow,
+                              torch.tensor([slope], device=cuda))
+
+
+def test_stencil_bwd_on_the_headline_squarings(cuda):
+    """The 8 squaring inputs of a seeded headline morph, each warping
+    itself, with both dispatch slopes; the last squarings pass the
+    gather's window."""
+    import chip_smoke
+    flows = chip_smoke.morph_squarings(cuda)
+    for k, flow in enumerate(flows):
+        g = chip_smoke.stencil_inputs(128, 2, flow, seed=k)[1]
+        for slope in (1.0, 0.5):
+            _hold_stencil_bwd(g, flow, flow,
+                              torch.tensor([slope], device=cuda))
+
+
+@pytest.mark.parametrize("c", [1, 2, 5])
+def test_stencil_bwd_at_an_odd_shape(cuda, c):
+    """N=3, 17x23: tiles of 32 x 8 that the image fills unevenly."""
+    import chip_smoke
+    for _, flow in chip_smoke.stencil_flows(3, (17, 23), cuda):
+        img, g = chip_smoke.stencil_inputs(3, c, flow)
+        for slope in (1.0, 0.5):
+            _hold_stencil_bwd(g, img, flow, torch.tensor([slope], device=cuda))
+
+
+def test_stencil_bwd_is_deterministic_in_window(cuda):
+    """Every tap of the near-identity flow lies within the gather's window,
+    so the gather alone writes d_img, and two runs agree bit for bit."""
+    import chip_smoke
+    from advchain_tpu_torch.kernels import stencil_warp as sw
+    _, flow = chip_smoke.stencil_flows(128, (192, 192), cuda)[0]
+    img, g = chip_smoke.stencil_inputs(128, 2, flow)
+    first = sw.stencil_warp_bwd(g, img, flow)
+    assert int(sw.LAST_OUT_OF_WINDOW) == 0
+    second = sw.stencil_warp_bwd(g, img, flow)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_dispatch_slope_matches_plain(cuda, dims):
+    """The predicate's kernel equals its twin, [slope, dpx], below and past
+    the radius (2 px in 2D, 1 voxel in 3D), and with a NaN (the sampler's
+    side, as JAX's comparison)."""
+    from advchain_tpu_torch.kernels import stencil_warp as sw
+    from advchain_tpu_torch.ops.integrate import base_grid
+    shape = (9, 13, 11)[3 - dims:]
+    radius = {2: 2, 3: 1}[dims]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    base = base_grid(3, shape, device=cuda)
+    vox = torch.tensor([2.0 / (s - 1) for s in reversed(shape)],
+                       device=cuda).reshape((1, dims) + (1,) * dims)
+    noise = 2 * torch.rand(base.shape, generator=gen, device=cuda) - 1
+    sides = []
+    for k in (0.5, 0.99, 1.5, 4.0):
+        flow = (base + k * radius * vox * noise).contiguous()
+        out = sw.dispatch_slope(flow, radius)
+        assert torch.equal(out, sw.dispatch_slope_plain(flow, radius))
+        sides.append(float(out[0]))
+    assert sides[0] == 1.0 and sides[-1] == 0.5
+    flow.view(-1)[7] = float("nan")
+    assert float(sw.dispatch_slope(flow, radius)[0]) == 0.5
+
+
+def test_dispatch_slope_calls_on_two_streams_keep_apart(cuda):
+    """Each call reduces into words of its own: predicates queued at once
+    on two streams, one below the radius and one past it, each return
+    their own flow's ``[slope, dpx]``."""
+    from advchain_tpu_torch.kernels import stencil_warp as sw
+    from advchain_tpu_torch.ops.integrate import base_grid
+    base = base_grid(64, (192, 192), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    noise = 2 * torch.rand(base.shape, generator=gen, device=cuda) - 1
+    flows = [(base + k * noise * (2.0 / 191)).contiguous()
+             for k in (0.5, 8.0)]
+    refs = [sw.dispatch_slope_plain(f, 2) for f in flows]
+    streams = [torch.cuda.Stream() for _ in flows]
+    torch.cuda.synchronize()
+    outs = [[] for _ in flows]
+    for _ in range(20):
+        for i, (flow, stream) in enumerate(zip(flows, streams)):
+            with torch.cuda.stream(stream):
+                outs[i].append(sw.dispatch_slope(flow, 2))
+    torch.cuda.synchronize()
+    for got, ref in zip(outs, refs):
+        assert all(torch.equal(o, ref) for o in got)
+    assert [float(r[0]) for r in refs] == [1.0, 0.5]
+
+
+def test_compose_flow_without_a_grid_gradient_skips_the_predicate(cuda):
+    """Under ``no_grad`` a composition launches the stencil forward and no
+    predicate; with a gradient, one predicate."""
+    from advchain_tpu_torch.kernels import stencil_warp as sw
+    from advchain_tpu_torch.ops.integrate import base_grid, compose_flow
+    flow = base_grid(2, (17, 23), device=cuda) + 0.05 * torch.randn(
+        2, 2, 17, 23, device=cuda)
+    before = (sw.FWD_LAUNCHES, sw.SLOPE_LAUNCHES)
+    with torch.no_grad():
+        compose_flow(flow, flow)
+    assert (sw.FWD_LAUNCHES, sw.SLOPE_LAUNCHES) == \
+        (before[0] + 1, before[1])
+    f = flow.clone().requires_grad_(True)
+    compose_flow(f, f)
+    assert (sw.FWD_LAUNCHES, sw.SLOPE_LAUNCHES) == \
+        (before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.parametrize("slope", [1.0, 0.5])
+def test_zband_edge_padding_takes_the_runtime_slope(cuda, slope):
+    """The z-band grid backward with edge padding reads the slope at an
+    exact lower bound from the device, as its plain version."""
+    from advchain_tpu_torch.kernels import zband_sample as zs
+    img, grid, g = _zband_grid_inputs(cuda, 1.0)
+    grid[:, ::7] = -1.0  # whole points on the lower bound
+    s = torch.tensor([slope], device=cuda)
+    d_img, d_grid = zs.zband_grid_sample_bwd(g, img, grid, "edge", True,
+                                             "bilinear", s)
+    torch.cuda.synchronize()
+    r_img, r_grid = zs.zband_grid_sample_bwd_plain(g, img, grid, "edge",
+                                                   True, "bilinear", s)
+    for ours, ref in ((d_img, r_img), (d_grid, r_grid)):
+        scale = float(ref.abs().max())
+        assert float((ours - ref).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_compose_flow_past_the_radius_matches_the_cpu(cuda, dims):
+    """A composition past the stencil radius with 5% of its entries on
+    exactly +-1: the card's predicate takes the sampler's half slope, as
+    the CPU's; output and both gradients agree."""
+    from advchain_tpu_torch.ops.integrate import base_grid, compose_flow
+    shape = (5, 17, 23)[3 - dims:]
+    gen = torch.Generator().manual_seed(6)
+    base = base_grid(2, shape)
+    flow = base + 0.3 * torch.randn(base.shape, generator=gen)
+    pick = torch.rand(base.shape, generator=gen) < 0.05
+    flow = torch.where(pick, torch.where(flow >= 0, 1.0, -1.0), flow)
+    cot = torch.randn(base.shape, generator=gen)
+    results = []
+    for dev in ("cpu", cuda):
+        f1 = flow.to(dev).clone().requires_grad_(True)
+        f2 = flow.to(dev).clone().requires_grad_(True)
+        out = compose_flow(f1, f2)
+        (out * cot.to(dev)).sum().backward()
+        results.append([t.detach().cpu() for t in (out, f1.grad, f2.grad)])
+    for a, b in zip(*results):
+        scale = float(a.abs().max())
+        assert float((a - b).abs().max()) <= 1e-5 * max(scale, 1.0)
 
 
 def test_compose_flow_takes_the_stencil_kernels(cuda):
@@ -399,13 +562,13 @@ def test_compose_flow_takes_the_stencil_kernels(cuda):
     cot = torch.randn(flow.shape, generator=gen)
     results = []
     for dev in ("cpu", cuda):
-        before = (sw.FWD_LAUNCHES, sw.BWD_LAUNCHES)
+        before = (sw.FWD_LAUNCHES, sw.BWD_LAUNCHES, sw.SLOPE_LAUNCHES)
         f = flow.to(dev).clone().requires_grad_(True)
         out = compose_flow(f, f)
         (out * cot.to(dev)).sum().backward()
         if dev != "cpu":
-            assert (sw.FWD_LAUNCHES, sw.BWD_LAUNCHES) == \
-                (before[0] + 1, before[1] + 1)
+            assert (sw.FWD_LAUNCHES, sw.BWD_LAUNCHES, sw.SLOPE_LAUNCHES) == \
+                tuple(b + 1 for b in before)
         results.append([t.detach().cpu() for t in (out, f.grad)])
     for a, b in zip(*results):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-5)

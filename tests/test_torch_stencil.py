@@ -216,6 +216,96 @@ def test_compose_flow_matches_jax_default_dispatch(disp2):
     _assert_match([t.detach().numpy() for t in (mine, t1.grad, t2.grad)], ref)
 
 
+def _with_exact_bounds(flow, seed, radius_px=None):
+    """``flow`` with about 5% of its entries set exactly to +-1 (the bound
+    on the entry's side of 0); with ``radius_px``, only entries whose base
+    lies within 0.9 ``radius_px`` of that bound, so every sample stays
+    within the radius."""
+    r = np.random.RandomState(seed)
+    n, _, h, w = flow.shape
+    base = np.asarray(jint.base_grid(n, (h, w)))
+    bound = np.where(flow >= 0, 1.0, -1.0)
+    pick = r.rand(*flow.shape) < 0.05
+    if radius_px is not None:
+        px = np.array([2.0 / (w - 1), 2.0 / (h - 1)]).reshape(1, 2, 1, 1)
+        near = np.abs(bound - base) < 0.9 * radius_px * px
+        pick = (r.rand(*flow.shape) < 0.05 / near.mean()) & near
+    return np.where(pick, bound, flow).astype(np.float32)
+
+
+@pytest.mark.parametrize("disp2", [0.8, 3.0])
+def test_compose_flow_with_exact_bounds_matches_jax_default_dispatch(disp2):
+    """``flow2`` with 5% of its entries exactly on +-1: JAX takes its
+    stencil at 0.8 px (the whole one-sided slope at -1) and its sampler at
+    3 px (``jnp.clip``'s half); the port's predicate hands the stencil
+    kernel the same slope, so the grid gradient matches at the entries on
+    -1 too."""
+    f1 = _flow(17, 3.0)
+    f2 = _with_exact_bounds(_flow(18, disp2), 19,
+                            radius_px=2 if disp2 < 2 else None)
+    lower = f2 == -1
+    assert 0.01 < lower.mean() < 0.05
+    _, cot = _inputs(20, f1)
+    cot = cot[:, :2]
+    out, vjp = jax.vjp(jint.compose_flow, jnp.asarray(f1), jnp.asarray(f2))
+    ref = [np.asarray(a) for a in (out, *vjp(jnp.asarray(cot)))]
+    t1 = torch.from_numpy(f1).requires_grad_(True)
+    t2 = torch.from_numpy(f2).requires_grad_(True)
+    mine = tint.compose_flow(t1, t2)
+    mine.backward(torch.from_numpy(cot))
+    _assert_match([t.detach().numpy() for t in (mine, t1.grad, t2.grad)], ref)
+    assert np.abs(ref[2][lower]).max() > 1e-2 * np.abs(ref[2]).max()
+
+
+def test_dispatch_slope_takes_jax_predicate():
+    """The port's predicate (here its plain twin): JAX's ``dpx``, the
+    largest displacement in pixels, and the slope on each side of
+    R - 1e-3 = 1.999."""
+    base = np.asarray(jint.base_grid(N, (H, W)))
+    for px, slope in ((1.998, 1.0), (1.9995, 0.5), (3.0, 0.5)):
+        flow = base.copy()
+        flow[1, 0, 5, 7] += px * 2.0 / (W - 1)
+        out = tsw.dispatch_slope(torch.from_numpy(flow.astype(np.float32)),
+                                 2)
+        np.testing.assert_allclose(float(out[1]), px, rtol=1e-5)
+        assert float(out[0]) == slope
+
+
+@pytest.mark.parametrize("grad", ["flow2", "flow1_only", "no_grad"])
+def test_compose_flow_takes_the_predicate_only_for_a_grid_gradient(
+        grad, monkeypatch):
+    """The slope is read by the grid's gradient alone: a composition whose
+    ``flow2`` takes no gradient (under ``no_grad``, or only ``flow1``
+    differentiated) computes no predicate, with the same output and
+    ``flow1`` gradient as one that does."""
+    calls = []
+
+    def counted(flow, radius):
+        calls.append(radius)
+        return tsw.dispatch_slope(flow, radius)
+
+    monkeypatch.setattr(tint, "dispatch_slope", counted)
+    f1 = _with_exact_bounds(_flow(21, 3.0), 22)
+    f2 = _with_exact_bounds(_flow(23, 3.0), 24)
+    _, cot = _inputs(25, f1)
+    t1 = torch.from_numpy(f1).requires_grad_(True)
+    t2 = torch.from_numpy(f2).requires_grad_(True)
+    ref = tint.compose_flow(t1, t2)
+    ref.backward(torch.from_numpy(cot[:, :2]))
+    assert calls == [2]
+    calls.clear()
+    u1 = torch.from_numpy(f1).requires_grad_(grad == "flow1_only")
+    u2 = torch.from_numpy(f2).requires_grad_(grad == "flow2")
+    with torch.set_grad_enabled(grad != "no_grad"):
+        out = tint.compose_flow(u1, u2)
+    assert calls == ([2] if grad == "flow2" else [])
+    assert torch.equal(out.detach(), ref.detach())
+    if grad != "no_grad":
+        out.backward(torch.from_numpy(cot[:, :2]))
+        done = u2 if grad == "flow2" else u1
+        assert torch.equal(done.grad, (t2 if grad == "flow2" else t1).grad)
+
+
 @pytest.fixture
 def jax_base_grid(monkeypatch):
     """Give the port JAX's base grid.  ``jnp.linspace`` differs from the
@@ -270,6 +360,26 @@ def test_exponentiate_tiny_velocity_sits_on_the_bounds(jax_base_grid):
     cot = r.randn(N, 2, H, W).astype(np.float32)
     phi0 = np.asarray(jint.base_grid(N, (H, W))) + duv / 2.0 ** 8
     assert np.abs(phi0).max() == 1.0
+    ours, ref = _exponentiate(duv, 8, cot)
+    assert float(np.abs(ours[0] - ref[0]).max()) <= 1e-4
+    scale = float(np.abs(ref[1]).max())
+    assert float(np.abs(ours[1] - ref[1]).max()) <= 1e-3 * scale
+
+
+def test_exponentiate_with_pinned_borders_past_the_radius(jax_base_grid):
+    """A velocity of up to 10 px whose component along each axis is 0 on
+    the border rows or columns that axis meets, so the border stays exactly
+    on +-1 through all 8 squarings; the last ones pass 2 px, where JAX's
+    default dispatch takes its sampler (half the slope at -1; the whole
+    slope there puts the gradient 0.63 of its maximum off), and the early
+    ones its stencil.  Tolerances of 8 squarings as above (measured 1.3e-5
+    and 1.7e-5)."""
+    r = np.random.RandomState(21)
+    px = np.array([2.0 / (W - 1), 2.0 / (H - 1)]).reshape(1, 2, 1, 1)
+    duv = r.uniform(-10.0, 10.0, (N, 2, H, W)) * px
+    base = np.asarray(jint.base_grid(N, (H, W)))
+    duv = np.where(np.abs(base) == 1, 0.0, duv).astype(np.float32)
+    cot = r.randn(N, 2, H, W).astype(np.float32)
     ours, ref = _exponentiate(duv, 8, cot)
     assert float(np.abs(ours[0] - ref[0]).max()) <= 1e-4
     scale = float(np.abs(ref[1]).max())
