@@ -6,16 +6,12 @@ from advchain_tpu_torch.kernels.band_sample import (BandSample,
                                                     band_sample_bwd_plain,
                                                     band_sample_fwd,
                                                     band_sample_fwd_plain)
-from advchain_tpu_torch.kernels.plane_sample import (CornerSample,
-                                                     PlaneSample,
-                                                     corner_sample_bwd,
-                                                     corner_sample_bwd_plain,
-                                                     corner_sample_fwd,
-                                                     corner_sample_fwd_plain,
-                                                     plane_sample_bwd,
-                                                     plane_sample_bwd_plain,
-                                                     plane_sample_fwd,
-                                                     plane_sample_fwd_plain)
+from advchain_tpu_torch.kernels.plane_sample import (
+    CornerSample, PlaneGridSample, PlaneSample, corner_sample_bwd,
+    corner_sample_bwd_plain, corner_sample_fwd, corner_sample_fwd_plain,
+    plane_grid_sample_bwd, plane_grid_sample_bwd_plain,
+    plane_grid_sample_fwd, plane_grid_sample_fwd_plain, plane_sample_bwd,
+    plane_sample_bwd_plain, plane_sample_fwd, plane_sample_fwd_plain)
 from advchain_tpu_torch.kernels.stencil_warp import (StencilWarp,
                                                      stencil_warp_bwd,
                                                      stencil_warp_bwd_plain,
@@ -38,4 +34,6 @@ __all__ = ["BandSample", "band_sample_fwd", "band_sample_bwd",
            "CornerSample", "corner_sample_fwd", "corner_sample_bwd",
            "corner_sample_fwd_plain", "corner_sample_bwd_plain",
            "PlaneSample", "plane_sample_fwd", "plane_sample_bwd",
-           "plane_sample_fwd_plain", "plane_sample_bwd_plain"]
+           "plane_sample_fwd_plain", "plane_sample_bwd_plain",
+           "PlaneGridSample", "plane_grid_sample_fwd", "plane_grid_sample_bwd",
+           "plane_grid_sample_fwd_plain", "plane_grid_sample_bwd_plain"]

@@ -3,14 +3,16 @@ PyTorch: the arithmetic that the grid-level kernels
 (``csrc/grid_coords.cuh``'s ``axis_prep``, ``point_prep`` in
 ``csrc/band_sample.cu`` and ``csrc/zband_sample.cu``) do in registers, the
 body of their plain versions in ``band_sample`` and ``zband_sample``, and
-the per-axis terms of their closed-form backward.  The legacy routes that
-still fold on the host (the 2D corner route, the 3D plane route) share the
-same coordinate prep and folds.
+the per-axis terms of their closed-form backward: also of the 3D plane
+pair's (``plane_sample``, the packed formulation's two z planes with
+their in-plane folds, :func:`plane_weights`).  The 2D corner route, which
+still folds on the host, shares the same coordinate prep and fold.
 
 Port of the coordinate and weight preparation in
 advchain_tpu/kernels/gather_matmul.py: ``grid_sample_2d_pallas``
-(:1584-1648), ``_grid_sample_3d_zband`` (:1866-1952) and the nearest
-wrappers (:1653-1754).
+(:1584-1648), ``_grid_sample_3d_pallas_packed`` (:1790-1863),
+``_grid_sample_3d_zband`` (:1866-1952) and the nearest wrappers
+(:1653-1754).
 
 Clips are written ``minimum(maximum(x, lo), hi)``: at an exact bound that
 passes half the gradient, as ``jnp.clip`` does, where ``torch.clamp``
@@ -24,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["clip", "prep_coord", "axis_terms", "corner_weights", "fold_2d",
-           "corner_weights_3d", "nearest_weights"]
+           "corner_weights_3d", "nearest_weights", "plane_weights"]
 
 
 def clip(x, lo, hi):
@@ -306,3 +308,53 @@ def nearest_weights(grid, sizes, padding_mode: str = "zeros",
     zero = torch.zeros_like(w0)
     weights = torch.stack([w0] + [zero] * (2 ** dims - 1), dim=1)
     return bases, weights.contiguous()
+
+
+def plane_weights(grid, d: int, h: int, w: int, padding_mode: str = "zeros",
+                  align_corners: bool = True, lower_slope=None):
+    """The plane-sample inputs for ``grid`` (N, Do, Ho, Wo, 3) over a
+    D x H x W volume, in the channel-packed formulation of
+    ``_grid_sample_3d_pallas_packed`` (:1790-1863): for each z tap dz in
+    (0, 1) its clipped plane ``zidx[dz]`` (N, P) int32 and folded in-plane
+    weights ``weights[dz]`` (N, 4, P) f32 (float64 for a float64 grid) for
+    offsets (0, 1, w, w+1), both z taps sharing the in-plane base
+    ``yxidx = y0c * w + x0c`` (N, P) int32.  Differentiable with respect to
+    the grid (``lower_slope``: the ``edge`` padding's slope at an exact
+    lower bound, :func:`prep_coord`).  The body of the plane grid pair's
+    plain versions (``plane_sample.plane_grid_sample_*_plain``)."""
+    n = grid.shape[0]
+    if grid.dim() != 5 or grid.shape[-1] != 3:
+        raise ValueError(f"grid must be (N, Do, Ho, Wo, 3), got "
+                         f"{tuple(grid.shape)}")
+    p = grid[0, ..., 0].numel()
+    ix, iy, iz = (prep_coord(grid[..., i].reshape(n, p), size,
+                             align_corners, padding_mode,
+                             lower_slope=lower_slope)
+                  for i, size in enumerate((w, h, d)))
+    x0 = torch.floor(ix)
+    y0 = torch.floor(iy)
+    z0 = torch.floor(iz)
+    fx, fy, fz = ix - x0, iy - y0, iz - z0
+
+    def inb(xi, yi, zi):
+        if padding_mode == "zeros":
+            return ((xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+                    & (zi >= 0) & (zi <= d - 1)).to(fx.dtype)
+        return torch.ones_like(fx)
+
+    x0c = clip(x0, 0, w - 1)
+    y0c = clip(y0, 0, h - 1)
+    dxf = clip(x0 + 1, 0, w - 1) - x0c  # 0.0 or 1.0
+    dyf = clip(y0 + 1, 0, h - 1) - y0c
+    # integer index arithmetic: a float combine loses exactness above 2^24
+    yxidx = (y0c.to(torch.int32) * w + x0c.to(torch.int32)).contiguous()
+    zidx, weights = [], []
+    for dz in (0, 1):
+        wz = fz if dz else (1.0 - fz)
+        w00 = (1 - fx) * (1 - fy) * wz * inb(x0, y0, z0 + dz)
+        w01 = fx * (1 - fy) * wz * inb(x0 + 1, y0, z0 + dz)
+        w10 = (1 - fx) * fy * wz * inb(x0, y0 + 1, z0 + dz)
+        w11 = fx * fy * wz * inb(x0 + 1, y0 + 1, z0 + dz)
+        zidx.append(clip(z0 + dz, 0, d - 1).to(torch.int32).contiguous())
+        weights.append(fold_2d(w00, w01, w10, w11, dxf, dyf))
+    return zidx, yxidx, weights

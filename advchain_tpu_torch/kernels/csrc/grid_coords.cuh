@@ -1,17 +1,20 @@
 // The sampling grid's per-axis coordinate prep, shared by the grid-level
-// samplers (band_sample.cu in 2D, zband_sample.cu in 3D): unnormalise a
-// normalised coordinate (torch grid_sample convention), reflect and clip it
-// per padding mode, and floor it to the clipped base corner, the hat
-// weights, the collapse indicator and the zeros-padding masks; the slope
-// and scale carry d coordinate / d grid for the closed-form backward.
+// samplers (band_sample.cu in 2D; zband_sample.cu and plane_sample.cu's
+// plane pair in 3D): unnormalise a normalised coordinate (torch grid_sample
+// convention), reflect and clip it per padding mode, and floor it to the
+// clipped base corner, the hat weights, the collapse indicator and the
+// zeros-padding masks; the slope and scale carry d coordinate / d grid for
+// the closed-form backward.
 // Each step is rounded as the plain PyTorch version's
 // (kernels/_coords.py::prep_coord) with __fmul_rn / __fadd_rn, so nvcc does
 // not contract it into FMAs: a coordinate that rounds differently can flip
-// floor() to another tap.
+// floor() to another tap.  Also the 3D pairs' staging of a block's grid
+// triples and grid gradients through shared memory (stage_in / stage_out).
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace grid_coords {
 
@@ -103,6 +106,38 @@ __device__ __forceinline__ Axis axis_prep(float g, int size, bool align,
   a.in[0] = padding != kZeros || (x0 >= 0.f && x0 <= hi);
   a.in[1] = padding != kZeros || (x1 >= 0.f && x1 <= hi);
   return a;
+}
+
+// Copy `count` floats from global to shared memory, 16 bytes a thread where
+// the source is aligned.  `dst` is 16-byte aligned.
+__device__ __forceinline__ void stage_in(float* dst,
+                                         const float* __restrict__ src,
+                                         int count) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int n4 = count >> 2;
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (int i = threadIdx.x; i < n4; i += blockDim.x) d4[i] = __ldg(s4 + i);
+    done = n4 << 2;
+  }
+  for (int i = done + threadIdx.x; i < count; i += blockDim.x) {
+    dst[i] = __ldg(src + i);
+  }
+}
+
+// The reverse of stage_in.
+__device__ __forceinline__ void stage_out(float* __restrict__ dst,
+                                          const float* src, int count) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    const int n4 = count >> 2;
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (int i = threadIdx.x; i < n4; i += blockDim.x) d4[i] = s4[i];
+    done = n4 << 2;
+  }
+  for (int i = done + threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
 }
 
 }  // namespace grid_coords

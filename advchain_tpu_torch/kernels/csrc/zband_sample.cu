@@ -223,38 +223,6 @@ __device__ __forceinline__ void grid_grad(const Point& pt, const float dw[8],
                                pt.az.scale), 0.5f);
 }
 
-// Copy `count` floats from global to shared memory, 16 bytes a thread where
-// the source is aligned.  `dst` is 16-byte aligned.
-__device__ __forceinline__ void stage_in(float* dst,
-                                         const float* __restrict__ src,
-                                         int count) {
-  int done = 0;
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int n4 = count >> 2;
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    for (int i = threadIdx.x; i < n4; i += blockDim.x) d4[i] = __ldg(s4 + i);
-    done = n4 << 2;
-  }
-  for (int i = done + threadIdx.x; i < count; i += blockDim.x) {
-    dst[i] = __ldg(src + i);
-  }
-}
-
-// The reverse of stage_in.
-__device__ __forceinline__ void stage_out(float* __restrict__ dst,
-                                          const float* src, int count) {
-  int done = 0;
-  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
-    const int n4 = count >> 2;
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    for (int i = threadIdx.x; i < n4; i += blockDim.x) d4[i] = s4[i];
-    done = n4 << 2;
-  }
-  for (int i = done + threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
-}
-
 // ---------------------------------------------- grid-level kernels
 __global__ void __launch_bounds__(kThreads)
 zband_grid_fwd_kernel(const float* __restrict__ img,

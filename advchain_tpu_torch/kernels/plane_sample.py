@@ -1,5 +1,5 @@
-"""Flat-index corner and plane samplers: the CUDA kernel pair, their plain
-twins, and the autograd wrappers.
+"""Plane samplers: the CUDA kernels, their plain twins and the autograd
+wrappers, on two contracts.
 
 Replaces advchain_tpu/kernels/gather_matmul.py::corner_gather (:134, with
 ``_corner_gather_streamed`` :208), ::corner_scatter (:283, with
@@ -7,24 +7,43 @@ Replaces advchain_tpu/kernels/gather_matmul.py::corner_gather (:134, with
 :373), ::plane_gather (:466) and ::plane_scatter (:603, with
 ``_plane_scatter_streamed`` :690), wired there by
 ``_weighted_corner_sample`` (:1466) and ``_weighted_plane_sample``
-(:1435).  The corner pair is the plane pair with one plane, so one kernel
-pair (``csrc/plane_sample.cu``, which carries the design and bound note)
-serves both; it is built by ``_build`` on first use.
+(:1435), and the coordinate prep and in-plane fold of
+``_grid_sample_3d_pallas_packed`` (:1790-1863).  The kernels live in
+``csrc/plane_sample.cu`` (which carries the design and bound note) and are
+built by ``_build`` on first use.
 
-Contract: ``img`` (N, C, S) for the corner pair or (N, C, D, HW) for the
-plane pair, ``idx`` / ``yxidx`` and ``zidx`` (N, P) int32, ``w`` (N, K, P)
-and ``offsets`` K <= 4 non-negative ints;
+Grid contract (``plane_grid_sample_*``, ``PlaneGridSample``, the 3D
+trilinear route under ``ADVCHAIN_ZBAND=0``): ``img`` (N, C, D, H, W),
+``grid`` (N, P, 3) normalised (x, y, z); ``padding_mode`` in {zeros,
+border, reflection, edge}, ``align_corners``; ``out`` (N, C, P), and from
+a cotangent ``g`` (N, C, P) the gradients ``d_img`` and ``d_grid``.  The
+packed formulation: two clipped z planes, each with four folded in-plane
+weights on offsets (0, 1, w, w+1), summed dz = 0 then 1.  ``edge`` is
+border padding whose grid slope at an exact lower bound is ``lower_slope``
+(a one-element f32 tensor on the image's device; None for 1), read by the
+backward.  The kernels build the planes and fold the weights in registers,
+one launch each way; the plain forward is ``_coords.plane_weights``
+followed by the flat contract's plain forward per z tap, and the plain
+backward is the closed form the backward kernel computes.
+
+Flat contract (``corner_sample_*`` / ``plane_sample_*``, ``CornerSample``,
+``PlaneSample``): ``img`` (N, C, S) for the corner pair or (N, C, D, HW)
+for the plane pair, ``idx`` / ``yxidx`` and ``zidx`` (N, P) int32, ``w``
+(N, K, P) and ``offsets`` K <= 4 non-negative ints;
 ``out[n,c,p] = sum_k w[n,k,p] * img[n, c, (z,) idx + offsets[k]]``, where
 a tap at or past the flat end (S, or HW within its plane) or on a plane
 outside [0, D) reads zero and receives no gradient.  Unlike the band
 contract this does not zero a tap that leaves its row: at the last column
 the +1 tap is the next row's first pixel (the samplers give it weight 0,
-so only the kernel-level ``d_w`` shows it).
+so only the kernel-level ``d_w`` shows it).  The corner pair is the plane
+pair with one plane, so one kernel pair serves both.  The 2D route under
+``ADVCHAIN_BAND_KERNEL=0`` takes the corner pair; the flat plane pair is
+the kernel-level counterpart of ``plane_gather`` / ``plane_scatter``.
 
 Dispatch: a CPU tensor takes the plain twin; a CUDA tensor launches the
-kernel or raises.  ``LAUNCHES["corner"|"plane"]["fwd"|"bwd"]`` count
-kernel launches (and nothing else) per route, so a run can show which
-route it went through.
+kernel or raises.  ``LAUNCHES["corner"|"plane"|"plane_grid"]["fwd"|"bwd"]``
+count kernel launches (and nothing else) per route, so a run can show
+which route it went through.
 """
 
 from __future__ import annotations
@@ -34,16 +53,19 @@ import functools
 
 import torch
 
-from advchain_tpu_torch.kernels import _build, _corners
+from advchain_tpu_torch.kernels import _build, _coords, _corners
 
 __all__ = ["CornerSample", "PlaneSample", "corner_sample_fwd",
            "corner_sample_bwd", "corner_sample_fwd_plain",
            "corner_sample_bwd_plain", "plane_sample_fwd", "plane_sample_bwd",
            "plane_sample_fwd_plain", "plane_sample_bwd_plain",
-           "reset_launch_counts"]
+           "PlaneGridSample", "plane_grid_sample_fwd",
+           "plane_grid_sample_bwd", "plane_grid_sample_fwd_plain",
+           "plane_grid_sample_bwd_plain", "reset_launch_counts"]
 
 MAX_TAPS = 4
-LAUNCHES = {"corner": {"fwd": 0, "bwd": 0}, "plane": {"fwd": 0, "bwd": 0}}
+LAUNCHES = {"corner": {"fwd": 0, "bwd": 0}, "plane": {"fwd": 0, "bwd": 0},
+            "plane_grid": {"fwd": 0, "bwd": 0}}
 
 
 def reset_launch_counts() -> None:
@@ -112,6 +134,11 @@ def _lib():
     lib.advchain_plane_sample_bwd.argtypes = ([ptr] * 7 + [i32] * 10
                                               + [ptr])
     lib.advchain_plane_sample_bwd.restype = i32
+    lib.advchain_plane_grid_sample_fwd.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
+    lib.advchain_plane_grid_sample_fwd.restype = i32
+    lib.advchain_plane_grid_sample_bwd.argtypes = ([ptr] * 6 + [i32] * 8
+                                                   + [ptr])
+    lib.advchain_plane_grid_sample_bwd.restype = i32
     return lib
 
 
@@ -233,3 +260,143 @@ class PlaneSample(torch.autograd.Function):
         d_img, d_w = plane_sample_bwd(g.contiguous(), img, zidx, yxidx, w,
                                       ctx.offsets)
         return d_img, None, None, d_w, None
+
+
+# ------------------------------------------------- grid contract: twins
+def _plane_inputs(img, grid, padding_mode, align_corners):
+    """The flat plane pair's ``(zidx, yxidx, weights, offsets)`` for
+    ``grid`` (N, P, 3), and ``img`` viewed (N, C, D, HW)."""
+    n, c, d, h, w = img.shape
+    zidx, yxidx, weights = _coords.plane_weights(
+        grid.reshape(n, grid.shape[1], 1, 1, 3), d, h, w, padding_mode,
+        align_corners)
+    return (img.reshape(n, c, d, h * w), zidx, yxidx, weights,
+            (0, 1, w, w + 1))
+
+
+def plane_grid_sample_fwd_plain(img, grid, padding_mode="zeros",
+                                align_corners=True):
+    """Plain PyTorch forward (any device, any float dtype):
+    ``_coords.plane_weights``, then the flat plane forward of each z tap,
+    summed dz = 0 then 1.  ``out`` (N, C, P)."""
+    flat, zidx, yxidx, weights, offsets = _plane_inputs(
+        img, grid, padding_mode, align_corners)
+    return (plane_sample_fwd_plain(flat, zidx[0], yxidx, weights[0], offsets)
+            + plane_sample_fwd_plain(flat, zidx[1], yxidx, weights[1],
+                                     offsets))
+
+
+def plane_grid_sample_bwd_plain(g, img, grid, padding_mode="zeros",
+                                align_corners=True, lower_slope=None):
+    """Plain PyTorch backward: ``(d_img (N, C, D, H, W), d_grid (N, P,
+    3))``.  ``d_img`` and the folded weights' gradient ``d_w`` of each z tap
+    come from the flat plane backward; ``d_grid`` is the closed form of the
+    backward kernel's ``plane_grid_grad``, in its order: each raw in-plane
+    tap takes the ``d_w`` of the tap it folds onto (zero where zeros
+    padding masks it), ``d_f = d_w1 - d_w0`` per axis through
+    ``raw = ((wx * wy) * wz)``, then the axis slope and ``scale / 2``.
+    ``lower_slope``: the ``edge`` padding's slope at an exact lower bound
+    (None: 1)."""
+    flat, zidx, yxidx, weights, offsets = _plane_inputs(
+        img, grid, padding_mode, align_corners)
+    d_img, d_w = 0, []
+    for dz in (0, 1):
+        d_img_dz, d_w_dz = plane_sample_bwd_plain(g, flat, zidx[dz], yxidx,
+                                                  weights[dz], offsets)
+        d_img = d_img + d_img_dz
+        d_w.append(d_w_dz)
+    d, h, w = img.shape[2:]
+    ax, ay, az = (_coords.axis_terms(grid[..., i], size, align_corners,
+                                     padding_mode, lower_slope)
+                  for i, size in enumerate((w, h, d)))
+    mask = (ay.m << 1) | ax.m
+    dwx, dwy, dwz = [0, 0], [0, 0], [0, 0]
+    for dz in (0, 1):
+        for j in range(4):
+            dy, dx = j >> 1, j & 1
+            dr = torch.gather(d_w[dz], 1, (j & mask)[:, None])[:, 0]
+            dr = torch.where(az.ins[dz] & ay.ins[dy] & ax.ins[dx], dr, 0.0)
+            dwz[dz] = dwz[dz] + dr * (ax.w[dx] * ay.w[dy])
+            drz = dr * az.w[dz]
+            dwx[dx] = dwx[dx] + drz * ay.w[dy]
+            dwy[dy] = dwy[dy] + drz * ax.w[dx]
+    d_grid = torch.stack([(dw[1] - dw[0]) * a.slope * a.scale * 0.5
+                          for dw, a in ((dwx, ax), (dwy, ay), (dwz, az))],
+                         dim=-1)
+    return d_img.reshape(img.shape), d_grid.to(grid.dtype)
+
+
+# ----------------------------------------------- grid contract: kernels
+def plane_grid_sample_fwd(img, grid, padding_mode="zeros",
+                          align_corners=True):
+    """Forward: ``out`` (N, C, P) in one launch.  CPU tensors take the plain
+    twin."""
+    if not _corners.check_grid("plane_grid_sample", img, grid, padding_mode,
+                               "bilinear"):
+        return plane_grid_sample_fwd_plain(img, grid, padding_mode,
+                                           align_corners)
+    (n, c, d, h, w), p = img.shape, grid.shape[1]
+    out = torch.empty(n, c, p, dtype=img.dtype, device=img.device)
+    padding, align, _ = _corners.grid_flags(padding_mode, align_corners,
+                                            "bilinear")
+    with torch.cuda.device(img.device):
+        err = _lib().advchain_plane_grid_sample_fwd(
+            img.data_ptr(), grid.data_ptr(), out.data_ptr(), n, c, d, h, w,
+            p, padding, align, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"plane_grid_sample_fwd launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["plane_grid"]["fwd"] += 1
+    return out
+
+
+def plane_grid_sample_bwd(g, img, grid, padding_mode="zeros",
+                          align_corners=True, lower_slope=None):
+    """Backward: ``(d_img (N, C, D, H, W), d_grid (N, P, 3))`` in one
+    launch, after one zero fill.  CPU tensors take the plain twin."""
+    if not _corners.check_grid("plane_grid_sample", img, grid, padding_mode,
+                               "bilinear", g, lower_slope):
+        return plane_grid_sample_bwd_plain(g, img, grid, padding_mode,
+                                           align_corners, lower_slope)
+    (n, c, d, h, w), p = img.shape, grid.shape[1]
+    d_img = torch.zeros_like(img)
+    d_grid = torch.empty_like(grid)
+    padding, align, _ = _corners.grid_flags(padding_mode, align_corners,
+                                            "bilinear")
+    with torch.cuda.device(img.device):
+        err = _lib().advchain_plane_grid_sample_bwd(
+            g.data_ptr(), img.data_ptr(), grid.data_ptr(), d_img.data_ptr(),
+            d_grid.data_ptr(),
+            None if lower_slope is None else lower_slope.data_ptr(),
+            n, c, d, h, w, p, padding, align,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"plane_grid_sample_bwd launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["plane_grid"]["bwd"] += 1
+    return d_img, d_grid
+
+
+class PlaneGridSample(torch.autograd.Function):
+    """``out = plane_grid_sample_fwd(img, grid, padding_mode,
+    align_corners)`` with gradients to ``img`` and ``grid`` from one
+    ``plane_grid_sample_bwd`` launch (``lower_slope``: the ``edge``
+    padding's slope at an exact lower bound, None for 1).  Saves only
+    ``(img, grid)`` and the slope: no planes, weights or their
+    intermediates."""
+
+    @staticmethod
+    def forward(ctx, img, grid, padding_mode, align_corners,
+                lower_slope=None):
+        ctx.save_for_backward(img, grid)
+        ctx.opts = (padding_mode, align_corners)
+        ctx.lower_slope = lower_slope
+        return plane_grid_sample_fwd(img, grid, *ctx.opts)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        img, grid = ctx.saved_tensors
+        d_img, d_grid = plane_grid_sample_bwd(g.contiguous(), img, grid,
+                                              *ctx.opts, ctx.lower_slope)
+        return d_img, d_grid, None, None, None

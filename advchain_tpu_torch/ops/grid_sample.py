@@ -2,11 +2,11 @@
 2D bilinear on the band grid kernel pair, 3D trilinear on the z-band grid
 kernel pair, and nearest in both on the same kernels; and the 2D stencil
 warp (bilinear, border padding, channel-first grid) on its own kernel pair.
-The JAX package's switches select its legacy flat-index kernels, read here
-at call time: ``ADVCHAIN_BAND_KERNEL=0`` sends 2D sampling (bilinear and
-nearest) to the corner kernels, ``ADVCHAIN_ZBAND=0`` sends 3D trilinear
-sampling to the plane kernels (3D nearest stays on the z-band kernels, as
-in JAX).
+The JAX package's switches select its legacy kernels, read here at call
+time: ``ADVCHAIN_BAND_KERNEL=0`` sends 2D sampling (bilinear and nearest)
+to the flat-index corner kernels, ``ADVCHAIN_ZBAND=0`` sends 3D trilinear
+sampling to the plane grid kernels, JAX's packed formulation (3D nearest
+stays on the z-band kernels, as in JAX).
 
 Port of advchain_tpu/ops/grid_sample.py and of the coordinate and weight
 preparation in kernels/gather_matmul.py: ``grid_sample_2d_pallas``
@@ -16,11 +16,12 @@ preparation in kernels/gather_matmul.py: ``grid_sample_2d_pallas``
 hand the grid to the band and z-band grid kernels, which unnormalize, pad
 and fold the corner weights in registers and return the grid's gradient
 from their backward; the coordinate prep and the folds
-(``corner_weights``, ``corner_weights_3d``, ``nearest_weights``) live
-beside those kernels in ``kernels._coords``, the body of their plain
-versions, and are re-exported here.  The legacy corner (2D) and plane (3D)
-routes still unnormalize and pad in PyTorch, fold the corner weights onto
-the clipped base corner, and run the gather and its transpose in
+(``corner_weights``, ``corner_weights_3d``, ``plane_weights``,
+``nearest_weights``) live beside those kernels in ``kernels._coords``, the
+body of their plain versions, and are re-exported here.  The 3D plane route
+hands the grid to the plane grid kernels alike.  The legacy corner route
+(2D) still unnormalizes and pads in PyTorch, folds the corner weights onto
+the clipped base corner, and runs the gather and its transpose in
 ``kernels``, with the grid's gradient from autograd over the weight math,
 as XLA differentiates it in JAX.  Nearest sampling gives the grid a zero
 gradient.
@@ -38,64 +39,18 @@ import os
 import torch
 
 from advchain_tpu_torch.kernels._coords import (clip, corner_weights,
-                                                corner_weights_3d, fold_2d,
-                                                nearest_weights, prep_coord)
+                                                corner_weights_3d,
+                                                nearest_weights,
+                                                plane_weights)
 from advchain_tpu_torch.kernels.band_sample import BandGridSample
-from advchain_tpu_torch.kernels.plane_sample import CornerSample, PlaneSample
+from advchain_tpu_torch.kernels.plane_sample import (CornerSample,
+                                                     PlaneGridSample)
 from advchain_tpu_torch.kernels.stencil_warp import StencilWarp
 from advchain_tpu_torch.kernels.zband_sample import ZBandGridSample
 
 __all__ = ["grid_sample", "grid_sample_2d", "grid_sample_3d",
            "stencil_warp_2d", "corner_weights", "corner_weights_3d",
            "plane_weights", "nearest_weights", "clip"]
-
-
-def plane_weights(grid, d: int, h: int, w: int, padding_mode: str = "zeros",
-                  align_corners: bool = True, lower_slope=None):
-    """The plane-sample inputs for ``grid`` (N, Do, Ho, Wo, 3) over a
-    D x H x W volume, in the channel-packed formulation of
-    ``_grid_sample_3d_pallas_packed`` (:1790-1863): for each z tap dz in
-    (0, 1) its clipped plane ``zidx[dz]`` (N, P) int32 and folded in-plane
-    weights ``weights[dz]`` (N, 4, P) f32 for offsets (0, 1, w, w+1), both
-    z taps sharing the in-plane base ``yxidx = y0c * w + x0c`` (N, P) int32.
-    Differentiable with respect to the grid (``lower_slope``: the ``edge``
-    padding's slope at an exact lower bound, :func:`prep_coord`)."""
-    n = grid.shape[0]
-    if grid.dim() != 5 or grid.shape[-1] != 3:
-        raise ValueError(f"grid must be (N, Do, Ho, Wo, 3), got "
-                         f"{tuple(grid.shape)}")
-    p = grid[0, ..., 0].numel()
-    ix, iy, iz = (prep_coord(grid[..., i].reshape(n, p), size,
-                             align_corners, padding_mode,
-                             lower_slope=lower_slope)
-                  for i, size in enumerate((w, h, d)))
-    x0 = torch.floor(ix)
-    y0 = torch.floor(iy)
-    z0 = torch.floor(iz)
-    fx, fy, fz = ix - x0, iy - y0, iz - z0
-
-    def inb(xi, yi, zi):
-        if padding_mode == "zeros":
-            return ((xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
-                    & (zi >= 0) & (zi <= d - 1)).to(fx.dtype)
-        return torch.ones_like(fx)
-
-    x0c = clip(x0, 0, w - 1)
-    y0c = clip(y0, 0, h - 1)
-    dxf = clip(x0 + 1, 0, w - 1) - x0c  # 0.0 or 1.0
-    dyf = clip(y0 + 1, 0, h - 1) - y0c
-    # integer index arithmetic: a float combine loses exactness above 2^24
-    yxidx = (y0c.to(torch.int32) * w + x0c.to(torch.int32)).contiguous()
-    zidx, weights = [], []
-    for dz in (0, 1):
-        wz = fz if dz else (1.0 - fz)
-        w00 = (1 - fx) * (1 - fy) * wz * inb(x0, y0, z0 + dz)
-        w01 = fx * (1 - fy) * wz * inb(x0 + 1, y0, z0 + dz)
-        w10 = (1 - fx) * fy * wz * inb(x0, y0 + 1, z0 + dz)
-        w11 = fx * fy * wz * inb(x0 + 1, y0 + 1, z0 + dz)
-        zidx.append(clip(z0 + dz, 0, d - 1).to(torch.int32).contiguous())
-        weights.append(fold_2d(w00, w01, w10, w11, dxf, dyf).float())
-    return zidx, yxidx, weights
 
 
 def _band_enabled() -> bool:
@@ -107,7 +62,8 @@ def _band_enabled() -> bool:
 
 def _zband_enabled() -> bool:
     """False when ``ADVCHAIN_ZBAND=0``: 3D trilinear sampling then takes
-    the plane kernels (gather_matmul.py:1992-1996, read at call time)."""
+    the plane grid kernels (gather_matmul.py:1992-1996, read at call
+    time)."""
     return os.environ.get("ADVCHAIN_ZBAND") != "0"
 
 
@@ -164,17 +120,14 @@ def grid_sample_3d(x, grid, mode: str = "bilinear",
     if grid.shape[0] != n:
         raise ValueError(f"grid batch {grid.shape[0]} != image batch {n}")
     if mode == "bilinear" and not _zband_enabled():
-        # JAX's packed formulation for every C: two plane launches, one
-        # per z tap, summed dz = 0 then 1.  Its 4-base formulation, taken
+        # JAX's packed formulation for every C: both z taps' planes, summed
+        # dz = 0 then 1, one launch each way.  Its 4-base formulation, taken
         # when all channels' K=2 stack fits the TPU's VMEM budget, differs
         # from it only by f32 reassociation (:1997-2012).
-        zidx, yxidx, weights = plane_weights(grid, d, h, w, padding_mode,
-                                             align_corners, lower_slope)
-        xf = x.float().contiguous().reshape(n, c, d, h * w)
-        offsets = (0, 1, w, w + 1)
-        out = PlaneSample.apply(xf, zidx[0], yxidx, weights[0], offsets)
-        out = out + PlaneSample.apply(xf, zidx[1], yxidx, weights[1],
-                                      offsets)
+        out = PlaneGridSample.apply(
+            x.float().contiguous(),
+            grid.float().reshape(n, -1, 3).contiguous(), padding_mode,
+            align_corners, lower_slope)
         return out.reshape((n, c) + tuple(grid.shape[1:4])).to(x.dtype)
     if mode not in ("bilinear", "nearest"):
         raise NotImplementedError(f"mode={mode!r}")

@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (advchain_tpu_torch) once on one GPU.
 
     python3 chip_smoke.py [--profile PATH] [--profile3d PATH]
-                          [--profile-train PATH]
+                          [--profile-train PATH] [--profile3d-legacy PATH]
 
 Phases (any failure raises and the script exits non-zero):
   1. print the card's name and power limit, build the CUDA kernels from
@@ -78,24 +78,35 @@ Phases (any failure raises and the script exits non-zero):
      dispatch predicate;
  14. hold the flat-index corner kernels (the 2D route under
      ADVCHAIN_BAND_KERNEL=0) against their twins at the 2D episode's
-     shapes (N=128, 192x192, C in {1, 2, 5}, K in {1, 4}) and the plane
-     kernels (the 3D route under ADVCHAIN_ZBAND=0) at the 3D episode's
-     (N=2, 12x192x192, C in {1, 3, 5}, K in {2, 4}), on phase 2's and 6's
-     grids with 5% of the near-identity entries on exactly +-1 (bases on
-     the last column, row and plane: the 2D wrap and the plane edge);
+     shapes (N=128, 192x192, C in {1, 2, 5}, K in {1, 4}) and the flat
+     plane kernels at the 3D episode's (N=2, 12x192x192, C in {1, 3, 5},
+     K in {2, 4}), on phase 2's and 6's grids with 5% of the
+     near-identity entries on exactly +-1 (bases on the last column, row
+     and plane: the 2D wrap and the plane edge); and the plane grid pair
+     (the 3D route under ADVCHAIN_ZBAND=0) against its plain versions as
+     phase 6 holds the z-band grid pair (C in {1, 3, 5}, three grids,
+     zeros / border / reflection and edge with both dispatch slopes, both
+     align_corners);
  15. run the headline episode with ADVCHAIN_BAND_KERNEL=0 (set inside a
      try/finally that restores the environment): its loss against the
      band route's with the same weights and injected transform
      parameters (within 1e-4 relative), its launches (corner as many as
      the band grid pair on the default route, the band pairs 0, stencil
      unchanged) and 3 timed episodes after 2 warm-ups;
- 16. the same for the 3D volume episode with ADVCHAIN_ZBAND=0 (plane
-     launches, z-band 0);
- 17. time the corner and plane kernels, their twins and ``F.grid_sample``,
-     then print the ``kernels`` line for all fifteen kernels.
+ 16. the same for the 3D volume episode with ADVCHAIN_ZBAND=0: the plane
+     grid pair launched as often as the default route's z-band grid pair
+     (44 / 22), the flat plane pair and the z-band pairs 0 times, no call
+     of a host-side fold (``plane_weights`` included);
+ 17. time the corner and flat plane kernels (the plane pair per launch and
+     per sample, two launches), the plane grid pair, their twins and
+     ``F.grid_sample``, and a whole 3D sample on the plane route three ways
+     in turns (``plane_weights`` with two flat launches, the plane grid
+     pair, ``F.grid_sample``); then print the ``kernels`` line for all
+     seventeen kernel records.
 The last line of standard output is the device record.  ``--profile PATH``
-/ ``--profile3d PATH`` / ``--profile-train PATH`` additionally write a
-torch.profiler summary of one 2D episode / 3D episode / train step to PATH.
+/ ``--profile3d PATH`` / ``--profile-train PATH`` / ``--profile3d-legacy
+PATH`` additionally write a torch.profiler summary of one 2D episode / 3D
+episode / train step / 3D episode with ADVCHAIN_ZBAND=0 to PATH.
 
 Convolutions and matmuls run in full f32 (TF32 off): morph's 8 or more
 self-compositions amplify rounding.
@@ -137,15 +148,17 @@ KERNEL_SOURCES = {"band": _CSRC + "band_sample.cu",
                   "zband_grid": _CSRC + "zband_sample.cu",
                   "stencil": _CSRC + "stencil_warp.cu",
                   "slope": _CSRC + "stencil_warp.cu",
-                  # one kernel pair serves the corner (2D) and plane (3D)
-                  # routes
+                  # one flat kernel pair serves the corner (2D) and plane
+                  # (3D) contracts; the plane grid pair is the 3D route
                   "corner": _CSRC + "plane_sample.cu",
-                  "plane": _CSRC + "plane_sample.cu"}
+                  "plane": _CSRC + "plane_sample.cu",
+                  "plane_grid": _CSRC + "plane_sample.cu"}
 KERNEL_NAMES = {"band": "band_sample", "band_grid": "band_grid_sample",
                 "zband": "zband_sample",
                 "zband_grid": "zband_grid_sample",
                 "stencil": "stencil_warp", "slope": "dispatch_slope",
-                "corner": "corner_sample", "plane": "plane_sample"}
+                "corner": "corner_sample", "plane": "plane_sample",
+                "plane_grid": "plane_grid_sample"}
 # the sources to build, one nvcc each
 BUILD = sorted({src.rsplit("/", 1)[1][:-3] for src in KERNEL_SOURCES.values()})
 # the TPU kernels each pair replaces
@@ -159,14 +172,18 @@ REPLACES = {"band": {"fwd": f"{_GM}:839", "bwd": f"{_GM}:923"},
             # not a Pallas kernel: the lax.cond predicate of compose_flow
             "slope": {"fwd": "advchain_tpu/ops/integrate.py:103"},
             "corner": {"fwd": f"{_GM}:134", "bwd": f"{_GM}:283"},
-            "plane": {"fwd": f"{_GM}:466", "bwd": f"{_GM}:603"}}
+            "plane": {"fwd": f"{_GM}:466", "bwd": f"{_GM}:603"},
+            "plane_grid": {"fwd": f"{_GM}:466", "bwd": f"{_GM}:603"}}
 # substrings of the port's CUDA kernel names (the profiler's rows)
 PORT_KERNEL_NAMES = ("band_sample", "band_grid", "zband_grid",
-                     "stencil_warp", "dispatch_slope", "plane_sample")
+                     "stencil_warp", "dispatch_slope", "plane_sample",
+                     "plane_grid")
 # the switches that send 2D / 3D sampling to the corner / plane kernels
 LEGACY_SWITCH = {2: "ADVCHAIN_BAND_KERNEL", 3: "ADVCHAIN_ZBAND"}
-# the family the default route sends bilinear sampling to
+# the family the default route sends bilinear sampling to, and the one
+# LEGACY_SWITCH sends it to
 DEFAULT_FAMILY = {2: "band_grid", 3: "zband_grid"}
+LEGACY_FAMILY = {2: "corner", 3: "plane_grid"}
 # the corner-level pairs no default route takes since the grid-level pairs
 CORNER_LEVEL = {2: "band", 3: "zband"}
 # the grid-level pair's launches (fwd, bwd) in one 2D episode, one 2D train
@@ -177,8 +194,12 @@ GRID_LAUNCHES = {"episode2d": {"fwd": 12, "bwd": 6},
 # the stencil pair's launches (fwd, bwd) in one 2D episode and one train
 # step: 4 exponentiations of 8 squarings, 2 of them differentiated
 STENCIL_LAUNCHES = {"fwd": 32, "bwd": 16}
-# the host-side folds that no default route calls
-FOLDS = ("corner_weights", "corner_weights_3d", "nearest_weights")
+# the host-side folds that no default route, nor the 3D plane route, calls
+FOLDS = ("corner_weights", "corner_weights_3d", "nearest_weights",
+         "plane_weights")
+# each grid-level pair's module
+GRID_MODULES = {"band_grid": "band_sample", "zband_grid": "zband_sample",
+                "plane_grid": "plane_sample"}
 
 
 def chain_configs(batch, shape):
@@ -330,10 +351,10 @@ def sampler(dims):
 
 def route_family(dims):
     """The kernel family this process's switches send bilinear sampling
-    to: band / zband_grid, or corner / plane under
+    to: band / zband_grid, or corner / plane_grid under
     ``LEGACY_SWITCH[dims]=0``."""
     if os.environ.get(LEGACY_SWITCH[dims]) == "0":
-        return {2: "corner", 3: "plane"}[dims]
+        return LEGACY_FAMILY[dims]
     return DEFAULT_FAMILY[dims]
 
 
@@ -1297,7 +1318,7 @@ def run_legacy_episode(device, batch, shape, card):
     dims = len(shape)
     loss_d, loss_l = compare_routes(device, batch, shape)
     rel = abs(loss_l - loss_d) / abs(loss_d)
-    fam = {2: "corner", 3: "plane"}[dims]
+    fam = LEGACY_FAMILY[dims]
     print(f"[legacy] {dims}D {fam} route: loss {loss_l:.8e} vs default "
           f"route {loss_d:.8e} (relative {rel:.3e})", flush=True)
     if not rel <= TOL_ROUTES:
@@ -1398,27 +1419,36 @@ def grid_cases(n, shape, device):
                             (rot_name, rot))]
 
 
-def grid_module(dims):
-    """(family, module) of the grid-level pair for 2D / 3D."""
-    from advchain_tpu_torch.kernels import band_sample, zband_sample
-    return (("band_grid", band_sample) if dims == 2
-            else ("zband_grid", zband_sample))
+def grid_pair(fam):
+    """A grid-level pair's kernels and plain versions by kind ("fwd",
+    "fwd_plain", "bwd", "bwd_plain"), its modes, and the call arguments
+    after ``(img, grid)`` for a padding, align_corners and mode (the plane
+    pair samples trilinear only and takes no mode)."""
+    mod = importlib.import_module(
+        f"advchain_tpu_torch.kernels.{GRID_MODULES[fam]}")
+    fn = {f"{kind}{plain}": getattr(mod, f"{fam}_sample_{kind}{plain}")
+          for kind in ("fwd", "bwd") for plain in ("", "_plain")}
+    if fam == "plane_grid":
+        return fn, ("bilinear",), lambda padding, align, mode: (padding,
+                                                                 align)
+    return fn, mod.MODES, lambda padding, align, mode: (padding, align, mode)
 
 
-def check_grid_kernels(n, shape, device, channels=(1, 3, 5)):
-    """Phases 2 and 6: the grid-level pair of ``len(shape)`` dims against
-    its plain versions on each of :func:`grid_cases`, for each channel
-    count, mode, padding (in 3D also ``edge`` with both dispatch slopes)
-    and align_corners.  Forward within TOL_GRID_FWD
-    absolute (it repeats its plain fold: 0 in every case so far),
-    ``d_img`` and ``d_grid`` within TOL_DIMG_REL and TOL_DFLOW_REL of their
-    largest entries (atomics and the channel sum reassociate); nearest
-    mode's ``d_grid`` exactly zero.  Returns the largest errors."""
+def check_grid_kernels(n, shape, device, channels=(1, 3, 5), fam=None):
+    """Phases 2, 6 and 14: the grid-level pair ``fam`` (default: the
+    default route's of ``len(shape)`` dims) against its plain versions on
+    each of :func:`grid_cases`, for each channel count, mode, padding (in
+    3D also ``edge`` with both dispatch slopes) and align_corners.  Forward
+    within TOL_GRID_FWD absolute (it repeats its plain fold: 0 in every
+    case so far), ``d_img`` and ``d_grid`` within TOL_DIMG_REL and
+    TOL_DFLOW_REL of their largest entries (atomics and the channel sum
+    reassociate); nearest mode's ``d_grid`` exactly zero.  Returns the
+    largest errors."""
     import torch
-    fam, mod = grid_module(len(shape))
-    kern = {f"{kind}{plain}": getattr(mod, f"{fam}_sample_{kind}{plain}")
-            for kind in ("fwd", "bwd") for plain in ("", "_plain")}
-    paddings = [(padding, None) for padding in mod.PADDING_MODES]
+    from advchain_tpu_torch.kernels._corners import PADDING_MODES
+    fam = fam or DEFAULT_FAMILY[len(shape)]
+    kern, modes, call_args = grid_pair(fam)
+    paddings = [(padding, None) for padding in PADDING_MODES]
     if len(shape) == 3:
         # the 3D compositions' edge padding with both dispatch slopes
         paddings += [("edge", torch.tensor([s], device=device))
@@ -1430,10 +1460,10 @@ def check_grid_kernels(n, shape, device, channels=(1, 3, 5)):
             img = torch.randn((n, c) + tuple(shape), generator=gen,
                               device=device)
             g = torch.randn(n, c, grid.shape[1], generator=gen, device=device)
-            for mode in mod.MODES:
+            for mode in modes:
                 for padding, slope in paddings:
                     for align in (True, False):
-                        args = (padding, align, mode)
+                        args = call_args(padding, align, mode)
                         kw = {} if slope is None else {"lower_slope": slope}
                         with torch.no_grad():
                             out = kern["fwd"](img, grid, *args)
@@ -1493,29 +1523,30 @@ def count_calls(modules, names):
             setattr(module, name, fn)
 
 
-def time_grid_kernels(n, shape, device, channels=(1, 3, 5)):
-    """Phases 5 and 9: the grid-level pair of ``len(shape)`` dims alone
-    beside its plain versions and ``F.grid_sample`` on each of
-    :func:`sample_grids` (bilinear or trilinear), and in nearest mode on
-    the rotation at C=1.  Bytes: the forward reads img and the grid and
-    writes out, the backward reads g, img and the grid and writes d_img and
-    d_grid (its zeroing of d_img is one more write, not counted);
-    operations: the corner arithmetic per (point, channel) and
+def time_grid_kernels(n, shape, device, channels=(1, 3, 5), fam=None):
+    """Phases 5, 9 and 17: the grid-level pair ``fam`` (default: the
+    default route's of ``len(shape)`` dims) alone beside its plain
+    versions and ``F.grid_sample`` on each of :func:`sample_grids`
+    (bilinear or trilinear), and, where the pair has a nearest mode, in
+    nearest mode on the rotation at C=1.  Bytes: the forward reads img and
+    the grid and writes out, the backward reads g, img and the grid and
+    writes d_img and d_grid (its zeroing of d_img is one more write, not
+    counted); operations: the corner arithmetic per (point, channel) and
     GRID_PREP_OPS per point.  Rows as :func:`time_kernels`'."""
     import torch
     import torch.nn.functional as F
     dims = len(shape)
-    fam, mod = grid_module(dims)
-    fn = {f"{kind}{plain}": getattr(mod, f"{fam}_sample_{kind}{plain}")
-          for kind in ("fwd", "bwd") for plain in ("", "_plain")}
+    fam = fam or DEFAULT_FAMILY[dims]
+    fn, modes, call_args = grid_pair(fam)
     prep = GRID_PREP_OPS[dims]
     s = math.prod(shape)
     rows = []
     cases = [(name, padding, gridd, c, "bilinear")
              for name, padding, gridd in sample_grids(n, shape, device)
              for c in channels]
-    rot_name, rot_pad, rot = sample_grids(n, shape, device)[0]
-    cases.append((rot_name, rot_pad, rot, 1, "nearest"))
+    if "nearest" in modes:
+        rot_name, rot_pad, rot = sample_grids(n, shape, device)[0]
+        cases.append((rot_name, rot_pad, rot, 1, "nearest"))
     for name, padding, gridd, c, mode in cases:
         grid = gridd.reshape(n, -1, dims).contiguous()
         p = grid.shape[1]
@@ -1529,7 +1560,7 @@ def time_grid_kernels(n, shape, device, channels=(1, 3, 5)):
         bwd_bound = bound_ms(4 * (n * c * p + 2 * n * c * s
                                   + 2 * dims * n * p),
                              4 * taps * n * c * p + prep["bwd"] * n * p)
-        args = (padding, True, mode)
+        args = call_args(padding, True, mode)
         img_g = img.clone().requires_grad_(True)
         grid_g = gridd.clone().requires_grad_(True)
         g_lib = g.reshape((n, c) + tuple(gridd.shape[1:-1]))
@@ -1574,22 +1605,26 @@ def wall_ms(fn, iters=20):
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def time_grid_routes(n, shape, device, c=3, case=1):
-    """Phases 5 and 9: one whole bilinear (2D) or trilinear (3D) sample on
-    :func:`sample_grids`' ``case`` (2D: the rotation, zeros, the image
+def time_grid_routes(n, shape, device, c=3, case=1, legacy=False):
+    """Phases 5, 9 and 17: one whole bilinear (2D) or trilinear (3D) sample
+    on :func:`sample_grids`' ``case`` (2D: the rotation, zeros, the image
     warps' call; 3D: near-identity, border, the compositions'), C
     channels, forward and forward+backward (gradients to the image and the
     grid), three ways in turns (a b c c b a): (a) the pre-fusion route,
     the host-side fold (``corner_weights`` / ``corner_weights_3d``,
-    autograd over it) and the corner-level pair; (b) the grid-level pair;
-    (c) ``F.grid_sample``, the yardstick the port never calls.  Each as
-    wall ms (:func:`wall_ms`) and device ms (:func:`time_ms`), the mean of
-    its two turns."""
+    autograd over it) and the corner-level pair, or with ``legacy`` (3D)
+    ``plane_weights`` and one flat plane launch per z tap, summed; (b) the
+    grid-level pair (with ``legacy`` the plane grid pair); (c)
+    ``F.grid_sample``, the yardstick the port never calls.  Each as wall ms
+    (:func:`wall_ms`) and device ms (:func:`time_ms`), the mean of its two
+    turns."""
     import torch
     import torch.nn.functional as F
     from advchain_tpu_torch.kernels import _coords
     from advchain_tpu_torch.kernels.band_sample import (BandGridSample,
                                                         BandSample)
+    from advchain_tpu_torch.kernels.plane_sample import (PlaneGridSample,
+                                                         PlaneSample)
     from advchain_tpu_torch.kernels.zband_sample import (ZBandGridSample,
                                                          ZBandSample)
     dims = len(shape)
@@ -1603,12 +1638,21 @@ def time_grid_routes(n, shape, device, c=3, case=1):
                       device=device)
 
     def pre_fusion(x, gr):
+        if legacy:
+            zidx, yxidx, wts = _coords.plane_weights(gr, *shape, padding,
+                                                     True)
+            flat = x.reshape(n, c, shape[0], -1)
+            offs = (0, 1, shape[2], shape[2] + 1)
+            return (PlaneSample.apply(flat, zidx[0], yxidx, wts[0], offs)
+                    + PlaneSample.apply(flat, zidx[1], yxidx, wts[1], offs))
         *idx, wts = fold(gr, *shape, padding, True)
         return corner_level.apply(x, *idx, wts)
 
     def fused(x, gr):  # what grid_sample_2d / grid_sample_3d run
-        return grid_level.apply(x, gr.reshape(n, -1, dims).contiguous(),
-                                padding, True, "bilinear")
+        gr = gr.reshape(n, -1, dims).contiguous()
+        if legacy:
+            return PlaneGridSample.apply(x, gr, padding, True)
+        return grid_level.apply(x, gr, padding, True, "bilinear")
 
     def library(x, gr):
         return F.grid_sample(x, gr, mode="bilinear", padding_mode=padding,
@@ -1637,7 +1681,8 @@ def time_grid_routes(n, shape, device, c=3, case=1):
                 time_ms(fn))
     result = {name: {key: statistics.mean(v) for key, v in t.items()}
               for name, t in times.items()}
-    print(f"[routes] a {dims}D sample, N={n} C={c} "
+    print(f"[routes] a {dims}D sample{' (plane route)' if legacy else ''}, "
+          f"N={n} C={c} "
           f"{'x'.join(map(str, shape))} {case_name} {padding}: "
           f"{json.dumps(result)}", flush=True)
     return result
@@ -1684,6 +1729,19 @@ def slope_record(launches, row, err, shape_note):
         "library_ms": None, "shape": f"{shape_note} flow near_identity"}
 
 
+def profile_3d(device, path, median_s):
+    """Profile one 3D episode on this process's route (:func:`profile_run`)
+    and print its device busy time against the unprofiled median
+    ``median_s``: the idle share."""
+    prof = profile_episode(device, BATCH3D, SHAPE3D, path)
+    print(f"[profile] 3D episode on the {route_family(3)} route: device "
+          f"busy {prof['device_busy_ms']:.1f} ms of the unprofiled median "
+          f"{median_s * 1e3:.1f} ms, idle share "
+          f"{1 - prof['device_busy_ms'] / (median_s * 1e3):.3f}, "
+          f"{prof['device_launches']} kernel launches", flush=True)
+    return prof
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1728,6 +1786,9 @@ def main(argv=None):
     parser.add_argument("--profile-train", metavar="PATH",
                         help="also write a profile of one headline train "
                              "step to PATH")
+    parser.add_argument("--profile3d-legacy", metavar="PATH",
+                        help="also write a profile of one 3D episode on the "
+                             "plane route (ADVCHAIN_ZBAND=0) to PATH")
     args = parser.parse_args(argv)
 
     import torch
@@ -1795,12 +1856,7 @@ def main(argv=None):
     assert_grid_only("3D episode", 3, launches3, GRID_LAUNCHES["episode3d"],
                      folds)
     if args.profile3d:
-        prof3 = profile_episode(device, BATCH3D, SHAPE3D, args.profile3d)
-        print(f"[profile] 3D episode: device busy "
-              f"{prof3['device_busy_ms']:.1f} ms of the unprofiled median "
-              f"{sec3 * 1e3:.1f} ms, idle share "
-              f"{1 - prof3['device_busy_ms'] / (sec3 * 1e3):.3f}, "
-              f"{prof3['device_launches']} kernel launches", flush=True)
+        profile_3d(device, args.profile3d, sec3)
     rows3 = time_kernels(BATCH3D, SHAPE3D, device, channels=(1, 3, 5))
     rows_g = time_grid_kernels(BATCH3D, SHAPE3D, device)
     time_nearest(device)
@@ -1848,18 +1904,39 @@ def main(argv=None):
         profile_run("train step", one_step, args.profile_train)
     rows_s, slope_row = time_stencil(BATCH, SHAPE, device)
 
-    # the legacy flat-index routes: corner kernels (2D) and plane kernels
-    # (3D), selected by the JAX package's switches
+    # the legacy routes, selected by the JAX package's switches: the
+    # flat-index corner kernels (2D) and the plane grid kernels (3D); the
+    # flat plane kernels are the TPU plane kernels' kernel-level
+    # counterpart
     worst_c = check_flat_kernels(BATCH, SHAPE, device, (1, 2, 5), (1, 4))
     worst_p = check_flat_kernels(BATCH3D, SHAPE3D, device, (1, 3, 5), (2, 4))
+    worst_pg = check_grid_kernels(BATCH3D, SHAPE3D, device, fam="plane_grid")
     launches_c = run_legacy_episode(device, BATCH, SHAPE, card)[0]
     if not (launches_c["corner"] == launches2["band_grid"]
             and launches_c["stencil"] == launches2["stencil"]):
         raise AssertionError(f"the corner route's launches {launches_c} "
                              f"differ from the band route's {launches2}")
-    launches_p = run_legacy_episode(device, BATCH3D, SHAPE3D, card)[0]
+    with count_calls(fold_modules, FOLDS) as folds_p:
+        launches_p, sec_p = run_legacy_episode(device, BATCH3D, SHAPE3D,
+                                               card)[:2]
+    print(f"[legacy] 3D plane route: plane_grid {launches_p['plane_grid']}, "
+          f"flat plane {launches_p['plane']}, host-side fold calls "
+          f"{json.dumps(folds_p)}", flush=True)
+    if not (launches_p["plane_grid"] == launches3["zband_grid"]
+            and not any(launches_p["plane"].values())
+            and not any(folds_p.values())):
+        raise AssertionError(
+            f"the 3D plane route did not sample through the plane grid pair "
+            f"alone ({launches3['zband_grid']} launches, no flat plane "
+            f"launch, no fold): {launches_p}, {folds_p}")
+    if args.profile3d_legacy:
+        with legacy_route(3):
+            profile_3d(device, args.profile3d_legacy, sec_p)
     rows_c = time_flat_kernels(BATCH, SHAPE, device, 1)
     rows_p = time_flat_kernels(BATCH3D, SHAPE3D, device, 3)
+    rows_pg = time_grid_kernels(BATCH3D, SHAPE3D, device, channels=(3,),
+                                fam="plane_grid")
+    time_grid_routes(BATCH3D, SHAPE3D, device, legacy=True)
 
     shape2 = f"N={BATCH} {SHAPE[0]}x{SHAPE[1]}"
     shape3 = f"N={BATCH3D} {'x'.join(map(str, SHAPE3D))}"
@@ -1877,6 +1954,8 @@ def main(argv=None):
                                 "rot30", 1, shape2 + " K=4")
                + kernel_records("plane", launches_p, worst_p, rows_p,
                                 "near_identity", 3, shape3 + " K=4")
+               + kernel_records("plane_grid", launches_p, worst_pg, rows_pg,
+                                "near_identity", 3, shape3)
                + [slope_record(launches_t, slope_row, worst_slope, shape2)])
     print(f"[episode] {BATCH / sec:.2f} img/s (2D), {BATCH3D / sec3:.3f} "
           f"vol/s (3D), train step {BATCH / sec_t:.2f} img/s (supervised "

@@ -5,7 +5,7 @@ on one GPU, in turns, so that the trees are compared on one card under one
 power limit.
 
     python3 scripts/compare_trees.py --out PATH TREE [TREE ...]
-        [--order 0,1,1,0] [--reps 5]
+        [--order 0,1,1,0] [--reps 5] [--legacy3d]
 
 Each TREE is the root of a checkout (for instance a ``git archive`` of
 another commit unpacked under ``build/``).  Every turn runs in a fresh
@@ -14,10 +14,15 @@ and ``chip_smoke`` are the ones imported and its kernels are built from
 its own sources; the turn times ``chip_smoke.run_episode`` and
 ``chip_smoke.run_train_step`` (2 warm-ups, ``--reps`` timed, each ending in
 a synchronize) at batch 128, 192x192, the supervised step alike, and
-``run_episode`` on the 3D volume episode (batch 2, 1x12x192x192).
-``--order`` lists the trees' indices in turn order (default: each tree
-forward, then backward).  Prints one JSON line per turn and writes them
-all to PATH.
+``run_episode`` on the 3D volume episode (batch 2, 1x12x192x192).  With
+``--legacy3d`` a turn also times the 3D volume episode with
+``ADVCHAIN_ZBAND=0`` (``chip_smoke.legacy_route(3)``: the 3D trilinear
+samples on the tree's plane route) and profiles one such episode
+(``chip_smoke.profile_episode``, written to PATH.legacy3d.<turn>.json):
+its device busy time, kernel launches and idle share against the timed
+median.  ``--order`` lists the trees' indices in turn order (default: each
+tree forward, then backward).  Prints one JSON line per turn and writes
+them all to PATH.
 """
 
 from __future__ import annotations
@@ -43,6 +48,17 @@ tr = cs.run_train_step("cuda", cs.BATCH, cs.SHAPE, reps=reps)
 su = cs.run_train_step("cuda", cs.BATCH, cs.SHAPE, supervised=True,
                        reps=reps)
 e3 = cs.run_episode("cuda", cs.BATCH3D, cs.SHAPE3D, reps=reps)
+legacy = {}
+if sys.argv[2]:
+    with cs.legacy_route(3):
+        l3 = cs.run_episode("cuda", cs.BATCH3D, cs.SHAPE3D, reps=reps)
+        prof = cs.profile_episode("cuda", cs.BATCH3D, cs.SHAPE3D,
+                                  sys.argv[2])
+    legacy = {"episode3d_legacy": dict(
+        median_ms=l3[1] * 1e3, per_s=cs.BATCH3D / l3[1],
+        reps_ms=[t * 1e3 for t in l3[2]], loss=l3[3], peak_gb=l3[4] / 1e9,
+        launches=l3[0], profile=prof,
+        idle_share=1 - prof["device_busy_ms"] / (l3[1] * 1e3))}
 
 
 def rec(r, n, loss_key):
@@ -55,7 +71,7 @@ print(json.dumps({"card": cs.card_line(),
                   "episode": rec(ep, cs.BATCH, "loss"),
                   "train_step": rec(tr, cs.BATCH, "metrics"),
                   "supervised_step": rec(su, cs.BATCH, "metrics"),
-                  "episode3d": rec(e3, cs.BATCH3D, "loss")}))
+                  "episode3d": rec(e3, cs.BATCH3D, "loss"), **legacy}))
 """
 
 
@@ -65,14 +81,20 @@ def main(argv=None):
     parser.add_argument("--out", required=True)
     parser.add_argument("--order")
     parser.add_argument("--reps", type=int, default=5)
+    parser.add_argument("--legacy3d", action="store_true",
+                        help="also time and profile the 3D episode with "
+                             "ADVCHAIN_ZBAND=0")
     args = parser.parse_args(argv)
     n = len(args.trees)
     order = ([int(i) for i in args.order.split(",")] if args.order
              else list(range(n)) + list(reversed(range(n))))
     turns = []
-    for i in order:
+    for turn, i in enumerate(order):
         tree = os.path.abspath(args.trees[i])
-        proc = subprocess.run([sys.executable, "-c", CHILD, str(args.reps)],
+        profile = (os.path.abspath(f"{args.out}.legacy3d.{turn}.json")
+                   if args.legacy3d else "")
+        proc = subprocess.run([sys.executable, "-c", CHILD, str(args.reps),
+                               profile],
                               cwd=tree, capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
@@ -81,12 +103,21 @@ def main(argv=None):
         result = json.loads(proc.stdout.strip().splitlines()[-1])
         result["tree"] = args.trees[i]
         turns.append(result)
+        legacy = result.get("episode3d_legacy")
         print(json.dumps(
             {"tree": args.trees[i], "card": result["card"],
              **{f"{key}_per_s": result[key]["per_s"] for key in
                 ("episode", "train_step", "supervised_step", "episode3d")},
              **{f"{key}_peak_gb": result[key]["peak_gb"] for key in
-                ("episode", "train_step", "episode3d")}}), flush=True)
+                ("episode", "train_step", "episode3d")},
+             **({} if legacy is None else {
+                 "episode3d_legacy_per_s": legacy["per_s"],
+                 "episode3d_legacy_median_ms": legacy["median_ms"],
+                 "episode3d_legacy_idle_share": legacy["idle_share"],
+                 "episode3d_legacy_launches":
+                     legacy["profile"]["device_launches"],
+                 "episode3d_legacy_busy_ms":
+                     legacy["profile"]["device_busy_ms"]})}), flush=True)
     with open(args.out, "w") as f:
         json.dump(turns, f, indent=1)
     return 0

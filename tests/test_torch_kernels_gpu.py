@@ -635,8 +635,9 @@ def test_plane_sample_kernels_match_twins(cuda, route, k):
 @pytest.mark.parametrize("dims", [2, 3])
 def test_legacy_routes_match_the_cpu(cuda, dims, padding, monkeypatch):
     """ADVCHAIN_BAND_KERNEL=0 / ADVCHAIN_ZBAND=0 on the card: the corner or
-    plane kernels launch (the default route's band or z-band grid pair
-    does not), and the sample and its gradients equal the CPU's."""
+    plane grid kernels launch (the default route's band or z-band grid
+    pair does not, nor the flat plane pair), and the sample and its
+    gradients equal the CPU's."""
     import chip_smoke
     from advchain_tpu_torch.ops.grid_sample import grid_sample
     monkeypatch.setenv("ADVCHAIN_BAND_KERNEL", "0")
@@ -648,7 +649,7 @@ def test_legacy_routes_match_the_cpu(cuda, dims, padding, monkeypatch):
                       generator=gen) * 2.4 - 1.2
     cot = torch.randn((2, 3) + tuple(grid.shape[1:-1]), generator=gen)
     route, old = (("corner", "band_grid") if dims == 2
-                  else ("plane", "zband_grid"))
+                  else ("plane_grid", "zband_grid"))
     results = []
     for dev in ("cpu", cuda):
         chip_smoke.reset_launch_counts()
@@ -658,9 +659,11 @@ def test_legacy_routes_match_the_cpu(cuda, dims, padding, monkeypatch):
         (out * cot.to(dev)).sum().backward()
         counts = chip_smoke.launch_counts()
         if dev != "cpu":
-            launches = 1 if dims == 2 else 2  # one plane launch per z tap
-            assert counts[route] == {"fwd": launches, "bwd": launches}
+            # one launch each way: the corner pair, or the plane grid pair
+            # over both z taps (no flat plane launch)
+            assert counts[route] == {"fwd": 1, "bwd": 1}
             assert counts[old] == {"fwd": 0, "bwd": 0}
+            assert counts["plane"] == {"fwd": 0, "bwd": 0}
         results.append([t.detach().cpu() for t in (out, x.grad, gr.grad)])
     for a, b in zip(*results):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-5)
@@ -674,3 +677,91 @@ def test_cuda_tensor_never_takes_the_plane_twin(cuda):
     with pytest.raises(TypeError):
         ps.corner_sample_fwd(img[:, :, 0].contiguous(), yx.long(), wts,
                              offsets)
+
+
+def _plane_grid_inputs(device, n=3, c=4, shape=(13, 17, 19), seed=0):
+    """img, grid (N, P, 3) and a cotangent at an odd shape: a grid spread
+    over 1.2 times the volume with 10% of its entries exactly +-1 (points
+    on the volume's edge planes, rows and columns, where taps collapse or
+    fall past a plane's flat end)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    img = torch.randn((n, c) + shape, generator=gen, device=device)
+    p = 3000
+    grid = (2 * torch.rand(n, p, 3, generator=gen, device=device) - 1) * 1.2
+    pick = torch.rand(n, p, 3, generator=gen, device=device) < 0.1
+    grid = torch.where(pick, torch.where(grid >= 0, 1.0, -1.0), grid)
+    g = torch.randn(n, c, p, generator=gen, device=device)
+    return img, grid.contiguous(), g
+
+
+@pytest.mark.parametrize("padding,slope", [("zeros", None), ("border", None),
+                                           ("reflection", None),
+                                           ("edge", 1.0), ("edge", 0.5)])
+def test_plane_grid_kernels_match_plain(cuda, padding, slope):
+    """The plane grid pair against its plain versions at an odd shape:
+    forward within 1e-6, d_img and d_grid within 1e-5 of their largest
+    entries, one launch each way."""
+    from advchain_tpu_torch.kernels import plane_sample as ps
+    img, grid, g = _plane_grid_inputs(cuda)
+    s = None if slope is None else torch.tensor([slope], device=cuda)
+    for align in (True, False):
+        before = dict(ps.LAUNCHES["plane_grid"])
+        out = ps.plane_grid_sample_fwd(img, grid, padding, align)
+        torch.testing.assert_close(
+            out, ps.plane_grid_sample_fwd_plain(img, grid, padding, align),
+            atol=1e-6, rtol=0)
+        d_img, d_grid = ps.plane_grid_sample_bwd(g, img, grid, padding,
+                                                 align, s)
+        r_img, r_grid = ps.plane_grid_sample_bwd_plain(g, img, grid,
+                                                       padding, align, s)
+        for ours, ref in ((d_img, r_img), (d_grid, r_grid)):
+            scale = float(ref.abs().max())
+            assert float((ours - ref).abs().max()) <= 1e-5 * scale
+        assert ps.LAUNCHES["plane_grid"] == {"fwd": before["fwd"] + 1,
+                                             "bwd": before["bwd"] + 1}
+
+
+def test_grid_sample_3d_takes_the_plane_grid_pair(cuda, monkeypatch):
+    """grid_sample_3d with ADVCHAIN_ZBAND=0 on CUDA tensors: one plane grid
+    launch each way, no flat plane or z-band launch, and no call of the
+    host-side fold or of a plain twin."""
+    import chip_smoke
+    from advchain_tpu_torch.kernels import plane_sample as ps
+    from advchain_tpu_torch.kernels import _coords
+    from advchain_tpu_torch.ops import grid_sample_3d
+    monkeypatch.setenv("ADVCHAIN_ZBAND", "0")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CUDA route took a host-side fold or twin")
+
+    for module, name in ((_coords, "plane_weights"),
+                         (ps, "plane_grid_sample_fwd_plain"),
+                         (ps, "plane_grid_sample_bwd_plain")):
+        monkeypatch.setattr(module, name, refuse)
+    img, grid, _ = _plane_grid_inputs(cuda, n=2, c=3, shape=(5, 9, 11))
+    grid = grid[:, :5 * 9 * 11].reshape(2, 5, 9, 11, 3)
+    x = img.clone().requires_grad_(True)
+    gr = grid.clone().requires_grad_(True)
+    chip_smoke.reset_launch_counts()
+    grid_sample_3d(x, gr, padding_mode="border").sum().backward()
+    counts = chip_smoke.launch_counts()
+    assert counts["plane_grid"] == {"fwd": 1, "bwd": 1}
+    assert counts["plane"] == counts["zband_grid"] == {"fwd": 0, "bwd": 0}
+    assert gr.grad is not None and bool(gr.grad.abs().sum() > 0)
+
+
+def test_cuda_tensor_never_takes_the_plane_grid_twin(cuda, monkeypatch):
+    from advchain_tpu_torch.kernels import plane_sample as ps
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor took the plain twin")
+
+    monkeypatch.setattr(ps, "plane_grid_sample_fwd_plain", refuse)
+    monkeypatch.setattr(ps, "plane_grid_sample_bwd_plain", refuse)
+    img, grid, g = _plane_grid_inputs(cuda, seed=4)
+    with pytest.raises(TypeError):
+        ps.plane_grid_sample_fwd(img.double(), grid.double())
+    with pytest.raises(TypeError):
+        ps.plane_grid_sample_bwd(g.half(), img, grid)
+    with pytest.raises(ValueError):
+        ps.plane_grid_sample_fwd(img, grid[:, :, :2].contiguous())
