@@ -11,7 +11,10 @@
 //    the weight gradient, for K <= 4 static non-negative tap offsets, on
 //    indices and weights built by the caller.  The 2D route under
 //    ADVCHAIN_BAND_KERNEL=0, and the kernel-level counterpart of the TPU
-//    plane kernels.
+//    plane kernels.  The 2D route's bilinear backward, K = 4 at the tap
+//    square (0, 1, W, W+1), takes the corner tile backward
+//    (corner_tile_sample_bwd), which sums coincident taps in shared memory
+//    before its global atomics.
 //
 // Replaces the TPU kernels advchain_tpu/kernels/gather_matmul.py::
 // corner_gather (with _corner_gather_streamed), ::corner_scatter (with
@@ -67,7 +70,7 @@
 // All arithmetic is written with __fmul_rn / __fadd_rn, so nvcc does not
 // contract it into FMAs: the forwards equal their plain versions bit for bit.
 //
-// Bound: all four kernels move bytes, not operations.  The grid-level pair
+// Bound: every kernel here moves bytes, not operations.  The grid-level pair
 // at the 3D episode's flow compositions (N=2, C=3, 12x192x192, P = D*H*W):
 // the forward must read img + grid and write out, 10.6 + 10.6 + 10.6 MB =
 // 31.9 MB, 0.0095 ms at 3.35 TB/s; the backward reads g, img and grid and
@@ -108,7 +111,34 @@
 // tensor; d_w needs no atomics (one writer per point), d_img is zeroed by
 // the caller and filled by atomicAdd, skipping zero contributions, so its
 // sum order is not fixed.
+//
+// The corner tile backward (corner_tile_sample_bwd): the corner backward
+// the 2D route's bilinear calls make, K = 4 at the tap square (0, 1, W,
+// W+1), with the output raster's width.  At the image warps' call (N=128,
+// C=1, 192x192, a 30-degree rotation) the flat backward must move 226 MB
+// (0.068 ms at 3.35 TB/s; w and d_w are 151 MB of it, fixed by the
+// contract), but it issues one scattered global atomic per nonzero tap,
+// 3.4 a point on the rotation and 4.0 on a near-identity warp, and those
+// took 0.116 of its 0.197 ms on an H100 (scripts/corner_bwd_bench.py,
+// PERF.md).  Points that share a source pixel must add before L2: a block
+// takes an 8 x 32 tile of the output raster (a small rotated rectangle in
+// the source), sums every tap into a shared box of the tile's source
+// rectangle, and flushes each nonzero cell with one global atomic, a warp
+// to a box row, so neighbouring lanes add to neighbouring addresses: 1.02
+// global atomics a point on the rotation, 1.29 on the near-identity warp
+// (16 x 16 tiles need 0.98 and 1.23, but their half-warp rows load and
+// store more slowly).
+// Hopper's f32 (and int64) atomicAdd in shared memory compiles to a
+// compare-and-swap loop and its int32 add is native, so the box holds
+// fixed point: each tap adds two int32 parts of its contribution scaled to
+// the block's largest, exact to 2^-38 of it and independent of the order
+// of the adds.  The merge plan (each point's box cell and tap validity)
+// depends on idx alone and serves every channel; d_w stays one writer a
+// point, from the same tap loads.  K=1 (nearest) and other offsets take
+// the flat backward.  The flushes of neighbouring tiles meet in L2 in no
+// fixed order, so d_img matches its plain version to f32 reassociation.
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -419,6 +449,194 @@ plane_sample_bwd_kernel(const float* __restrict__ g,
   }
 }
 
+// ----------------------------------------------- corner tile backward
+constexpr int kWarps = kThreads / 32;
+constexpr int kBoxCells = 1024;  // cells of a block's shared source box
+// a tap's contribution in units of 2^-kFixBits of the block's largest
+// contribution bound, split at bit kLoBits into two int32 adds: a block
+// adds at most 4 * kThreads taps to a cell, so neither sum overflows
+constexpr int kFixBits = 38;
+constexpr int kLoBits = 19;
+
+// x * 2^e for e in [-90, 186], as two exact power-of-two products
+__device__ __forceinline__ float scale_pow2(float x, int e) {
+  const int e1 = e >> 1, e2 = e - e1;
+  return __fmul_rn(__fmul_rn(x, __int_as_float((127 + e1) << 23)),
+                   __int_as_float((127 + e2) << 23));
+}
+
+// The flat backward at the bilinear tap square off = (0, 1, stride,
+// stride + 1), over a raster of width wo (p = ho * wo).  A block owns a
+// th x tw tile of the raster (th * tw = kThreads, tw = 2^tw_log2, 8 x 32
+// unless the raster is narrower or one row) of one batch element, one
+// point a thread, so a warp's loads and d_w stores cover one raster row.  The
+// merge plan, once per point: its base split into image row and column
+// (floor division by stride) and its tap validity.  The block's box is the
+// least (row, column) rectangle that holds every tap of every point with a
+// valid tap.  A tap's cell is its (row, column) in the box, so the +1 tap
+// of a last-column base sits one column past the image and flushes to the
+// next row's first pixel, as the flat contract says.  Per channel, where
+// the box fits in kBoxCells and the block's contributions are finite, each
+// tap adds its contribution in fixed point, scaled by 2^kFixBits over the
+// block's largest |contribution| rounded up to a power of two, as two
+// int32 shared atomics (the high part, floor(y / 2^kLoBits), and the low
+// part in [0, 2^kLoBits]): Hopper adds int32 in shared memory natively,
+// where a float or int64 add is a compare-and-swap loop.  The sums are
+// exact integers, so the order of the adds does not matter; each nonzero
+// cell is then scaled back to f32 and flushed with one global atomic, a
+// warp to a box row, and reset to zero for the next channel.  Otherwise
+// the block adds each tap with a global atomic.  Capped at 40 registers
+// (six blocks an SM), which spills nothing.  d_img must be zeroed by the
+// caller; d_w is fully written.
+__global__ void __launch_bounds__(kThreads, 6)
+corner_tile_bwd_kernel(const float* __restrict__ g,
+                       const float* __restrict__ img,
+                       const int* __restrict__ idx,
+                       const float* __restrict__ wts,
+                       float* __restrict__ d_img, float* __restrict__ d_w,
+                       int c, int s, int p, int wo, int stride, int tw_log2,
+                       int tiles_x, int tiles) {
+  __shared__ __align__(16) int box_hi[kBoxCells];
+  __shared__ __align__(16) unsigned box_lo[kBoxCells];
+  // per warp: the bounds, then each channel's largest |contribution| in
+  // slot 4 + (channel & 1), so that no channel overwrites the slot the
+  // last one is still reading
+  __shared__ int warp_bounds[kWarps][6];
+  const int ni = blockIdx.x / tiles;
+  const int tile = blockIdx.x - ni * tiles;
+  const int ty = tile / tiles_x;
+  const int tx = tile - ty * tiles_x;
+  const int ho = p / wo;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the whole box, in 16-byte stores (zeroing only the box's own cells
+  // after the bounds costs registers: it spilled under the cap and was
+  // slower); each flush resets the cells it reads
+  for (int j = threadIdx.x; j < kBoxCells / 4; j += kThreads) {
+    reinterpret_cast<int4*>(box_hi)[j] = make_int4(0, 0, 0, 0);
+    reinterpret_cast<int4*>(box_lo)[j] = make_int4(0, 0, 0, 0);
+  }
+
+  const int th = kThreads >> tw_log2;
+  const int r = ty * th + (threadIdx.x >> tw_log2);
+  const int col = (tx << tw_log2) + (threadIdx.x & ((1 << tw_log2) - 1));
+  const int pt = r < ho && col < wo ? r * wo + col : -1;
+  int b = 0, rb = 0, cb = 0;
+  unsigned ok = 0u;
+  float wk[4] = {0.f, 0.f, 0.f, 0.f};
+  if (pt >= 0) {
+    b = __ldg(idx + (int64_t)ni * p + pt);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int64_t f = (int64_t)b + (k >> 1) * (int64_t)stride + (k & 1);
+      if (f >= 0 && f < s) ok |= 1u << k;
+      wk[k] = __ldg(wts + ((int64_t)ni * 4 + k) * p + pt);
+    }
+    rb = b / stride;
+    if (rb * stride > b) --rb;  // floor, for negative bases too
+    cb = b - rb * stride;
+  }
+  const bool live = ok != 0u;
+  int bounds[4] = {live ? rb : INT_MAX, live ? -rb : INT_MAX,
+                   live ? cb : INT_MAX, live ? -cb : INT_MAX};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    bounds[j] = __reduce_min_sync(0xffffffffu, bounds[j]);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) warp_bounds[warp][j] = bounds[j];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bounds[j] = min(bounds[j], warp_bounds[w][j]);
+  }
+  // taps reach one row and one column past the bases
+  const int64_t box_h = -(int64_t)bounds[1] - bounds[0] + 2;
+  const int64_t box_w = -(int64_t)bounds[3] - bounds[2] + 2;
+  const bool fits = bounds[0] != INT_MAX && box_h * box_w <= kBoxCells;
+  const int bw = fits ? (int)box_w : 0;
+  const int cell = fits && live ? (rb - bounds[0]) * bw + (cb - bounds[2])
+                                : 0;
+
+  float dw[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int ci = 0; ci < c; ++ci) {
+    const int64_t chan = (int64_t)ni * c + ci;
+    const float* sp = img + chan * s;
+    float* dp = d_img + chan * s;
+    const float gv = live ? __ldg(g + chan * p + pt) : 0.f;
+    float contrib[4];
+    float most = 0.f;  // the largest |contrib|; NaN and inf order above
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const bool valid = (ok >> k) & 1u;
+      if (valid) {
+        const int f = b + (k >> 1) * stride + (k & 1);
+        dw[k] = __fadd_rn(dw[k], __fmul_rn(gv, __ldg(sp + f)));
+      }
+      contrib[k] = valid ? __fmul_rn(wk[k], gv) : 0.f;
+      most = __uint_as_float(max(__float_as_uint(most),
+                                 __float_as_uint(fabsf(contrib[k]))));
+    }
+    const unsigned most_bits = __reduce_max_sync(0xffffffffu,
+                                                 __float_as_uint(most));
+    const int slot = 4 + (ci & 1);
+    if (lane == 0) warp_bounds[warp][slot] = (int)most_bits;
+    // also: the last channel's flush has read and reset the box
+    __syncthreads();
+    unsigned block_most = 0u;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      block_most = max(block_most, (unsigned)warp_bounds[w][slot]);
+    }
+    if (block_most == 0u) continue;  // nothing to add
+    const bool use_box = fits && block_most < 0x7f800000u;
+    int ex = 0;
+    frexpf(__uint_as_float(block_most), &ex);  // |contrib| < 2^ex
+    const int up = kFixBits - ex;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (contrib[k] == 0.f) continue;  // and so the tap is valid
+      if (use_box) {
+        const float y = scale_pow2(contrib[k], up);  // |y| < 2^kFixBits
+        const float hi = floorf(__fmul_rn(y, 1.f / (1 << kLoBits)));
+        const int at = cell + (k >> 1) * bw + (k & 1);
+        atomicAdd(box_hi + at, (int)hi);
+        atomicAdd(box_lo + at, __float2uint_rn(
+            __fsub_rn(y, __fmul_rn(hi, (float)(1 << kLoBits)))));
+      } else {
+        atomicAdd(dp + b + (k >> 1) * stride + (k & 1), contrib[k]);
+      }
+    }
+    if (!use_box) continue;
+    __syncthreads();
+    // one global atomic per nonzero cell; a cell that received nothing is
+    // zero, one that received a tap lies in [0, s)
+    for (int rr = warp; rr < (int)box_h; rr += kWarps) {
+      const int64_t row0 = (int64_t)(bounds[0] + rr) * stride + bounds[2];
+      for (int j = lane; j < bw; j += 32) {
+        const int at = rr * bw + j;
+        const int hi = box_hi[at];
+        const unsigned lo = box_lo[at];
+        if (hi == 0 && lo == 0u) continue;
+        box_hi[at] = 0;
+        box_lo[at] = 0u;
+        const int64_t sum = (int64_t)hi * (1 << kLoBits) + lo;
+        if (sum != 0) {
+          atomicAdd(dp + row0 + j, scale_pow2(__ll2float_rn(sum), -up));
+        }
+      }
+    }
+  }
+  if (pt >= 0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      d_w[((int64_t)ni * 4 + k) * p + pt] = dw[k];
+    }
+  }
+}
+
 int blocks_for(int n, int p) {
   return (int)(((int64_t)n * p + kThreads - 1) / kThreads);
 }
@@ -460,6 +678,35 @@ int advchain_plane_sample_bwd(const float* g, const float* img,
                               (cudaStream_t)stream>>>(g, img, zidx, yxidx, w,
                                                       d_img, d_w, n, c, d, hw,
                                                       p, k, offs);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The corner backward at the tap square (0, 1, stride, stride + 1) over a
+// raster of width wo, which must divide p; img (N, C, S).  d_img must be
+// zeroed by the caller; d_w is fully written.
+int advchain_corner_tile_sample_bwd(const float* g, const float* img,
+                                    const int* idx, const float* w,
+                                    float* d_img, float* d_w, int n, int c,
+                                    int s, int p, int wo, int stride,
+                                    void* stream) {
+  if (wo < 1 || p % wo != 0 || stride < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if ((int64_t)n * p > 0) {
+    // a tile of 8 x 32 points, or of one row when the raster is one row
+    const int ho = p / wo, cap = ho == 1 ? 8 : 5;
+    int tw_log2 = 0;
+    while ((1 << tw_log2) < wo && tw_log2 < cap) ++tw_log2;
+    const int th = kThreads >> tw_log2;
+    const int tiles_x = (wo + (1 << tw_log2) - 1) >> tw_log2;
+    const int64_t tiles = (int64_t)tiles_x * ((ho + th - 1) / th);
+    if (tiles * n > INT_MAX) return (int)cudaErrorInvalidValue;
+    corner_tile_bwd_kernel<<<(int)(n * tiles), kThreads, 0,
+                             (cudaStream_t)stream>>>(g, img, idx, w, d_img,
+                                                     d_w, c, s, p, wo,
+                                                     stride, tw_log2,
+                                                     tiles_x, (int)tiles);
   }
   return (int)cudaGetLastError();
 }

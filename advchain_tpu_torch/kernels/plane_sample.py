@@ -40,10 +40,19 @@ pair with one plane, so one kernel pair serves both.  The 2D route under
 ``ADVCHAIN_BAND_KERNEL=0`` takes the corner pair; the flat plane pair is
 the kernel-level counterpart of ``plane_gather`` / ``plane_scatter``.
 
+The corner backward takes the raster width of its P points (``width``,
+which must divide P; None: one row of P).  Its CUDA launch is chosen by
+contract: K = 4 at the tap square ``(0, 1, o, o + 1)``, the 2D route's
+bilinear calls, takes the corner tile kernel, which sums the taps of a
+tile's points in shared memory before its global atomics; K < 4 (nearest's
+one tap) and other offsets take the flat kernel.  Both are hand-written;
+the width changes the tiling, not the result.
+
 Dispatch: a CPU tensor takes the plain twin; a CUDA tensor launches the
 kernel or raises.  ``LAUNCHES["corner"|"plane"|"plane_grid"]["fwd"|"bwd"]``
-count kernel launches (and nothing else) per route, so a run can show
-which route it went through.
+count kernel launches (and nothing else) per route, and
+``LAUNCHES["corner_tile"]["bwd"]`` the corner tile kernel's, so a run can
+show which route and kernel it went through.
 """
 
 from __future__ import annotations
@@ -61,16 +70,18 @@ __all__ = ["CornerSample", "PlaneSample", "corner_sample_fwd",
            "plane_sample_fwd_plain", "plane_sample_bwd_plain",
            "PlaneGridSample", "plane_grid_sample_fwd",
            "plane_grid_sample_bwd", "plane_grid_sample_fwd_plain",
-           "plane_grid_sample_bwd_plain", "reset_launch_counts"]
+           "plane_grid_sample_bwd_plain", "reset_launch_counts",
+           "tile_offsets"]
 
 MAX_TAPS = 4
 LAUNCHES = {"corner": {"fwd": 0, "bwd": 0}, "plane": {"fwd": 0, "bwd": 0},
-            "plane_grid": {"fwd": 0, "bwd": 0}}
+            "plane_grid": {"fwd": 0, "bwd": 0}, "corner_tile": {"bwd": 0}}
 
 
 def reset_launch_counts() -> None:
     for counts in LAUNCHES.values():
-        counts["fwd"] = counts["bwd"] = 0
+        for kind in counts:
+            counts[kind] = 0
 
 
 def _check_offsets(name: str, offsets, w):
@@ -80,6 +91,20 @@ def _check_offsets(name: str, offsets, w):
     if any(int(o) != o or not 0 <= o < 2 ** 31 for o in offsets):
         raise ValueError(f"{name}: offsets must be non-negative ints below "
                          f"2^31, got {tuple(offsets)}")
+
+
+def _check_width(width, p: int):
+    if width is not None and (int(width) != width or width < 1
+                              or p % width):
+        raise ValueError(f"corner_sample: width must be a positive int that "
+                         f"divides P={p}, got {width!r}")
+
+
+def tile_offsets(offsets) -> bool:
+    """True for the bilinear tap square ``(0, 1, o, o + 1)``, o >= 1, which
+    the corner tile backward takes."""
+    return (len(offsets) == 4 and tuple(offsets[:2]) == (0, 1)
+            and offsets[2] >= 1 and offsets[3] == offsets[2] + 1)
 
 
 def _taps(zidx, yxidx, offsets, d: int, hw: int):
@@ -139,6 +164,9 @@ def _lib():
     lib.advchain_plane_grid_sample_bwd.argtypes = ([ptr] * 6 + [i32] * 8
                                                    + [ptr])
     lib.advchain_plane_grid_sample_bwd.restype = i32
+    lib.advchain_corner_tile_sample_bwd.argtypes = ([ptr] * 6 + [i32] * 6
+                                                    + [ptr])
+    lib.advchain_corner_tile_sample_bwd.restype = i32
     return lib
 
 
@@ -183,6 +211,24 @@ def _bwd(route, g, img, zidx, yxidx, w, offsets):
     return d_img, d_w
 
 
+def _tile_bwd(g, img, idx, w, offsets, width):
+    d_img = torch.zeros_like(img)
+    d_w = torch.empty_like(w)
+    n, c, s = img.shape
+    p = idx.shape[1]
+    with torch.cuda.device(img.device):
+        err = _lib().advchain_corner_tile_sample_bwd(
+            g.data_ptr(), img.data_ptr(), idx.data_ptr(), w.data_ptr(),
+            d_img.data_ptr(), d_w.data_ptr(), n, c, s, p,
+            max(p, 1) if width is None else int(width), int(offsets[2]),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"corner_tile_sample_bwd launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES["corner_tile"]["bwd"] += 1
+    return d_img, d_w
+
+
 def corner_sample_fwd(img, idx, w, offsets):
     """Forward: ``out`` (N, C, P).  CPU tensors take the plain twin."""
     _check_offsets("corner_sample", offsets, w)
@@ -192,13 +238,19 @@ def corner_sample_fwd(img, idx, w, offsets):
     return _fwd("corner", img, None, idx, w, offsets)
 
 
-def corner_sample_bwd(g, img, idx, w, offsets):
-    """Backward: ``(d_img (N, C, S), d_w (N, K, P))`` in one launch.  CPU
-    tensors take the plain twin."""
+def corner_sample_bwd(g, img, idx, w, offsets, width=None):
+    """Backward: ``(d_img (N, C, S), d_w (N, K, P))`` in one launch, after
+    one zero fill: the corner tile kernel at the tap square (see
+    :func:`tile_offsets`), else the flat kernel.  ``width``: the raster
+    width of the P points (None: one row).  CPU tensors take the plain
+    twin."""
     _check_offsets("corner_sample", offsets, w)
+    _check_width(width, idx.shape[-1])
     if not _corners.check("corner_sample", img, (idx,), w, g,
                           taps=len(offsets)):
         return corner_sample_bwd_plain(g, img, idx, w, offsets)
+    if tile_offsets(offsets):
+        return _tile_bwd(g, img, idx, w, offsets, width)
     return _bwd("corner", g, img, None, idx, w, offsets)
 
 
@@ -224,13 +276,16 @@ def plane_sample_bwd(g, img, zidx, yxidx, w, offsets):
 class CornerSample(torch.autograd.Function):
     """``out = corner_sample_fwd(img, idx, w, offsets)`` with gradients to
     ``img`` and ``w`` from one ``corner_sample_bwd`` launch (the JAX
-    ``_weighted_corner_sample`` custom VJP).  The indices get no
-    gradient."""
+    ``_weighted_corner_sample`` custom VJP); ``width``: the raster width of
+    the P points, handed to the backward (None: one row).  The indices get
+    no gradient."""
 
     @staticmethod
-    def forward(ctx, img, idx, w, offsets):
+    def forward(ctx, img, idx, w, offsets, width=None):
+        _check_width(width, idx.shape[-1])
         ctx.save_for_backward(img, idx, w)
         ctx.offsets = tuple(offsets)
+        ctx.width = width
         return corner_sample_fwd(img, idx, w, ctx.offsets)
 
     @staticmethod
@@ -238,8 +293,8 @@ class CornerSample(torch.autograd.Function):
     def backward(ctx, g):
         img, idx, w = ctx.saved_tensors
         d_img, d_w = corner_sample_bwd(g.contiguous(), img, idx, w,
-                                       ctx.offsets)
-        return d_img, None, d_w, None
+                                       ctx.offsets, ctx.width)
+        return d_img, None, d_w, None, None
 
 
 class PlaneSample(torch.autograd.Function):

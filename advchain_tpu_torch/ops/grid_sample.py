@@ -100,9 +100,10 @@ def grid_sample_2d(x, grid, mode: str = "bilinear",
         offsets = (0,)  # one unit-weight tap (gather_matmul.py:1697-1704)
     # int32 index arithmetic, as JAX's (:1607); the wrapper rejects images
     # of 2^31 elements or more
+    # the raster width lets the backward tile the points in 2D
     out = CornerSample.apply(xf.reshape(n, c, h * w), yidx * w + xidx,
                              weights[:, :len(offsets)].float().contiguous(),
-                             offsets)
+                             offsets, grid.shape[2])
     return out.reshape(n, c, grid.shape[1], grid.shape[2]).to(x.dtype)
 
 

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--profile PATH] [--profile3d PATH]
                           [--profile-train PATH] [--profile3d-legacy PATH]
+                          [--profile-legacy2d PATH]
 
 Phases (any failure raises and the script exits non-zero):
   1. print the card's name and power limit, build the CUDA kernels from
@@ -86,13 +87,19 @@ Phases (any failure raises and the script exits non-zero):
      (the 3D route under ADVCHAIN_ZBAND=0) against its plain versions as
      phase 6 holds the z-band grid pair (C in {1, 3, 5}, three grids,
      zeros / border / reflection and edge with both dispatch slopes, both
-     align_corners);
+     align_corners); and the corner backward on the cases of
+     ``corner_bwd_cases`` (the tile kernel at the tap square, the flat
+     kernel at other K and offsets; every point on one pixel, rows right to
+     left, a permutation with no coincident taps, rasters no multiple of
+     the tile, of one point and under one block), d_img and d_w within
+     1e-5 of their largest entries, one launch of the expected kernel each;
  15. run the headline episode with ADVCHAIN_BAND_KERNEL=0 (set inside a
      try/finally that restores the environment): its loss against the
      band route's with the same weights and injected transform
      parameters (within 1e-4 relative), its launches (corner as many as
-     the band grid pair on the default route, the band pairs 0, stencil
-     unchanged) and 3 timed episodes after 2 warm-ups;
+     the band grid pair on the default route, every backward on the
+     corner tile kernel, the band pairs 0, stencil unchanged) and 3 timed
+     episodes after 2 warm-ups;
  16. the same for the 3D volume episode with ADVCHAIN_ZBAND=0: the plane
      grid pair launched as often as the default route's z-band grid pair
      (44 / 22), the flat plane pair and the z-band pairs 0 times, no call
@@ -101,12 +108,18 @@ Phases (any failure raises and the script exits non-zero):
      per sample, two launches), the plane grid pair, their twins and
      ``F.grid_sample``, and a whole 3D sample on the plane route three ways
      in turns (``plane_weights`` with two flat launches, the plane grid
-     pair, ``F.grid_sample``); then print the ``kernels`` line for all
-     seventeen kernel records.
+     pair, ``F.grid_sample``); time the corner tile backward and the kept
+     flat backward in turns at the image warps' call (N=128, C=1, 192x192,
+     the rotation, zeros), at C=4, on the near-identity grid, and the flat
+     one at K=1, with the global atomics per point reckoned from the
+     indices; then print the ``kernels`` line for all eighteen kernel
+     records.
 The last line of standard output is the device record.  ``--profile PATH``
 / ``--profile3d PATH`` / ``--profile-train PATH`` / ``--profile3d-legacy
-PATH`` additionally write a torch.profiler summary of one 2D episode / 3D
-episode / train step / 3D episode with ADVCHAIN_ZBAND=0 to PATH.
+PATH`` / ``--profile-legacy2d PATH`` additionally write a torch.profiler
+summary of one 2D episode / 3D episode / train step / 3D episode with
+ADVCHAIN_ZBAND=0 / 2D episode with ADVCHAIN_BAND_KERNEL=0 (with the
+channels and padding of each of its corner backward calls) to PATH.
 
 Convolutions and matmuls run in full f32 (TF32 off): morph's 8 or more
 self-compositions amplify rounding.
@@ -151,13 +164,16 @@ KERNEL_SOURCES = {"band": _CSRC + "band_sample.cu",
                   # one flat kernel pair serves the corner (2D) and plane
                   # (3D) contracts; the plane grid pair is the 3D route
                   "corner": _CSRC + "plane_sample.cu",
+                  # the corner route's bilinear backward (K = 4)
+                  "corner_tile": _CSRC + "plane_sample.cu",
                   "plane": _CSRC + "plane_sample.cu",
                   "plane_grid": _CSRC + "plane_sample.cu"}
 KERNEL_NAMES = {"band": "band_sample", "band_grid": "band_grid_sample",
                 "zband": "zband_sample",
                 "zband_grid": "zband_grid_sample",
                 "stencil": "stencil_warp", "slope": "dispatch_slope",
-                "corner": "corner_sample", "plane": "plane_sample",
+                "corner": "corner_sample",
+                "corner_tile": "corner_tile_sample", "plane": "plane_sample",
                 "plane_grid": "plane_grid_sample"}
 # the sources to build, one nvcc each
 BUILD = sorted({src.rsplit("/", 1)[1][:-3] for src in KERNEL_SOURCES.values()})
@@ -172,12 +188,13 @@ REPLACES = {"band": {"fwd": f"{_GM}:839", "bwd": f"{_GM}:923"},
             # not a Pallas kernel: the lax.cond predicate of compose_flow
             "slope": {"fwd": "advchain_tpu/ops/integrate.py:103"},
             "corner": {"fwd": f"{_GM}:134", "bwd": f"{_GM}:283"},
+            "corner_tile": {"bwd": f"{_GM}:283"},
             "plane": {"fwd": f"{_GM}:466", "bwd": f"{_GM}:603"},
             "plane_grid": {"fwd": f"{_GM}:466", "bwd": f"{_GM}:603"}}
 # substrings of the port's CUDA kernel names (the profiler's rows)
 PORT_KERNEL_NAMES = ("band_sample", "band_grid", "zband_grid",
                      "stencil_warp", "dispatch_slope", "plane_sample",
-                     "plane_grid")
+                     "plane_grid", "corner_tile")
 # the switches that send 2D / 3D sampling to the corner / plane kernels
 LEGACY_SWITCH = {2: "ADVCHAIN_BAND_KERNEL", 3: "ADVCHAIN_ZBAND"}
 # the family the default route sends bilinear sampling to, and the one
@@ -583,7 +600,8 @@ def run_episode(device, batch, shape, warm=2, reps=5):
                                      f"the wrong shape (loss {loss})")
     fam = route_family(dims)
     for used in [fam] + (["stencil"] if dims == 2 else []):
-        if not (launches[used]["fwd"] > 0 and launches[used]["bwd"] > 0):
+        counts = family_launches(launches, used)
+        if not (counts["fwd"] > 0 and counts["bwd"] > 0):
             raise AssertionError(f"the {dims}D episode did not launch both "
                                  f"{used} kernels: {launches}")
     # one dispatch predicate per composition whose grid takes a gradient:
@@ -1354,6 +1372,9 @@ def time_flat_kernels(n, shape, device, c, k=4):
                                                 k, device)
     fwd, bwd = (getattr(ps, f"{route}_sample_fwd"),
                 getattr(ps, f"{route}_sample_bwd"))
+    if dims == 2:  # the flat kernel, which the tap square no longer takes
+        def bwd(g, img, idx, w, offsets):
+            return ps._bwd("corner", g, img, None, idx, w, offsets)
     fwd_plain, bwd_plain = (getattr(ps, f"{route}_sample_fwd_plain"),
                             getattr(ps, f"{route}_sample_bwd_plain"))
     calls = [(idx, wts)]
@@ -1688,6 +1709,305 @@ def time_grid_routes(n, shape, device, c=3, case=1, legacy=False):
     return result
 
 
+# ---------------------------------------------------------------- slice 9
+def corner_bwd_cases(n, shape, device):
+    """Phase 14's corner backward cases, (label, img (N, C, S), idx, w, g,
+    offsets, raster width, family), where the family is the kernel the
+    wrapper must launch: ``corner_tile`` at the tap square (0, 1, W, W+1),
+    else ``corner`` (the flat kernel).  On :func:`flat_grids` (5% of
+    near-identity bases on exact +-1: the last column's wrap) at C in {1,
+    2, 4, 5} with the raster width and at C=1 without it (one row); K in
+    {1, 2, 3} at the square's leading offsets and K in {1, 2, 3, 4} at
+    irregular ones; inputs that stress the merge, at C in {1, 4} with
+    ``min(n, 4)`` samples: every point on one pixel, each raster row's
+    bases right to left, a random permutation of bases two pixels apart
+    (no coincident taps); and rasters of 37 x 45 points (no multiple of
+    the 8 x 32 tile), of one point, and of 2 x 10 x 10 points (fewer than
+    one block's)."""
+    import torch
+    from advchain_tpu_torch.kernels.plane_sample import tile_offsets
+    from advchain_tpu_torch.ops.grid_sample import corner_weights
+    h, w = shape
+    s = h * w
+    square = (0, 1, w, w + 1)
+    irregular = (0, 2, w + 3, 2 * w + 1)
+    gen = torch.Generator(device=device).manual_seed(9)
+
+    def rand(*size):
+        return torch.rand(size, generator=gen, device=device)
+
+    def case(label, idx, wts, c, offsets, width):
+        nb, p = idx.shape
+        img = torch.randn(nb, c, s, generator=gen, device=device)
+        g = torch.randn(nb, c, p, generator=gen, device=device)
+        return (label, img, idx.int().contiguous(), wts.contiguous(), g,
+                offsets, width, "corner_tile" if tile_offsets(offsets)
+                else "corner")
+
+    cases = []
+    for name, padding, grid in flat_grids(n, shape, device):
+        yidx, xidx, wts = corner_weights(grid, h, w, padding, True)
+        idx, wo, p = yidx * w + xidx, grid.shape[2], yidx.shape[1]
+        for c in (1, 2, 4, 5):
+            cases.append(case(f"{name} C={c}", idx, wts, c, square, wo))
+        cases.append(case(f"{name} C=1 one row", idx, wts, 1, square, None))
+        for k in (1, 2, 3):
+            cases.append(case(f"{name} K={k}", idx, wts[:, :k], 2,
+                              square[:k], wo))
+        for k in (1, 2, 3, 4):
+            cases.append(case(f"{name} K={k} irregular", idx,
+                              rand(n, k, p), 2, irregular[:k], wo))
+    ns = min(n, 4)
+    rows = torch.arange(h, device=device)[:, None]
+    cols = torch.arange(w, device=device)[None, :]
+    evens = (rows[::2] * w + cols[:, ::2]).reshape(-1)
+    order = torch.argsort(rand(ns, evens.numel()), dim=1)
+    ry = torch.arange(37, device=device)[:, None] * (h - 1) // 36
+    rx = torch.arange(45, device=device)[None, :] * (w - 1) // 44
+    stress = [
+        ("one pixel", torch.full((ns, s), (h // 2) * w + w // 2,
+                                 device=device), w),
+        ("rows right to left", (rows * w + (w - 1 - cols)).reshape(1, -1)
+         .expand(ns, s), w),
+        ("permutation", evens[order], (w + 1) // 2),
+        ("raster 37x45", (ry * w + rx).reshape(1, -1).expand(ns, -1), 45),
+        ("one point", torch.full((ns, 1), s - 1, device=device), 1),
+        ("2x10x10", (rand(2, 100) * s).long(), 10),
+    ]
+    for name, idx, wo in stress:
+        for c in (1, 4):
+            cases.append(case(f"{name} C={c}", idx,
+                              rand(idx.shape[0], 4, idx.shape[1]), c, square,
+                              wo))
+    return cases
+
+
+def check_corner_bwd(n, shape, device):
+    """Phase 14: the corner backward on each of :func:`corner_bwd_cases`
+    against its plain version, ``d_img`` and ``d_w`` within TOL_DIMG_REL
+    of their largest entries; on the card each call must launch its
+    family's kernel once.  Returns the largest absolute errors per
+    family."""
+    import torch
+    from advchain_tpu_torch.kernels import plane_sample as ps
+    worst = {"corner": 0.0, "corner_tile": 0.0}
+    for label, img, idx, wts, g, offs, width, fam in corner_bwd_cases(
+            n, shape, device):
+        before = ps.LAUNCHES[fam]["bwd"]
+        with torch.no_grad():
+            d_img, d_w = ps.corner_sample_bwd(g, img, idx, wts, offs, width)
+            r_img, r_w = ps.corner_sample_bwd_plain(g, img, idx, wts, offs)
+        sync(device)
+        launched = ps.LAUNCHES[fam]["bwd"] - before
+        errs = [float((a - b).abs().max()) for a, b in ((d_img, r_img),
+                                                         (d_w, r_w))]
+        scales = [float(b.abs().max()) for b in (r_img, r_w)]
+        print(f"[corner bwd] {fam:11s} {label:28s} K={len(offs)}: d_img "
+              f"{errs[0]:.3e} (max {scales[0]:.3e}) d_w {errs[1]:.3e} (max "
+              f"{scales[1]:.3e})", flush=True)
+        if torch.device(device).type == "cuda" and launched != 1:
+            raise AssertionError(f"corner backward {label}: {launched} "
+                                 f"{fam} launches, expected 1")
+        if not all(e <= TOL_DIMG_REL * sc for e, sc in zip(errs, scales)):
+            raise AssertionError(f"corner backward {label} disagrees with "
+                                 f"its plain version: {errs} (limits "
+                                 f"{[TOL_DIMG_REL * sc for sc in scales]})")
+        worst[fam] = max(worst[fam], *errs)
+    return worst
+
+
+def tile_blocks(n, p, wo, device, tile_w=32):
+    """The corner tile kernel's mapping of a batch of ho x wo rasters
+    (advchain_corner_tile_sample_bwd): tiles of 256 points ``tile_w``
+    wide (8 x 32 as built), or of one row, one point a thread.  Returns
+    each point's block (N, P) and its thread in the block (P,)."""
+    import torch
+    ho, tw = p // wo, 1
+    while tw < wo and tw < (256 if ho == 1 else tile_w):
+        tw *= 2
+    th = 256 // tw
+    r = torch.arange(p, device=device) // wo
+    col = torch.arange(p, device=device) % wo
+    tiles_x = -(-wo // tw)
+    tile = (r // th) * tiles_x + col // tw
+    per_sample = tiles_x * -(-ho // th)
+    block = torch.arange(n, device=device)[:, None] * per_sample + tile
+    return block, (r % th) * tw + col % tw
+
+
+def corner_atomics(idx, wts, offsets, s, wo, tile_w=32):
+    """Global atomics per point that a corner backward at these inputs
+    issues, reckoned from idx and w alone: one per valid tap of nonzero
+    weight (``point``, the flat kernel; a lane of the tile kernel owns one
+    point, so this is also its lane's count), and one per distinct tap
+    address among a warp's points (``warp``) and a block's (``block``, the
+    corner tile kernel where every block's box fits) under
+    :func:`tile_blocks` with ``tile_w``."""
+    import torch
+    n, p = idx.shape
+    off = torch.tensor(offsets, device=idx.device)
+    f = idx.long()[:, None, :] + off[None, :, None]        # (N, K, P)
+    live = (f >= 0) & (f < s) & (wts != 0)
+    block, thread = tile_blocks(n, p, wo, idx.device, tile_w)
+    counts = {"point": float(live.sum()) / (n * p)}
+    for name, gid in (("warp", block * 8 + thread // 32), ("block", block)):
+        key = (gid[:, None, :].expand_as(f) * (s + 1) + f)[live]
+        counts[name] = torch.unique(key).numel() / (n * p)
+    return counts
+
+
+def time_corner_bwd(n, shape, device):
+    """Phase 17: the corner tile backward and the kept flat backward (the
+    "was" figure) in turns (tile, flat, flat, tile), each with its zero
+    fill, at the image warps' call (the rotation, zeros, C=1), at C=4 (the
+    warp-back of predictions) and on the near-identity grid with border
+    padding, all K=4 with the raster width; the flat backward alone at K=1
+    (nearest, which it keeps); beside the bound, the twin, the atomics per
+    point (:func:`corner_atomics`) and ``F.grid_sample``'s backward."""
+    import torch
+    import torch.nn.functional as F
+    from advchain_tpu_torch.kernels import plane_sample as ps
+    grids = sample_grids(n, shape, device)
+    rows = []
+    for gi, c, k in ((0, 1, 4), (0, 4, 4), (1, 1, 4), (0, 1, 1)):
+        name, padding, grid = grids[gi]
+        _, img, (idx,), wts, g, offs = flat_inputs(n, c, shape, grid,
+                                                   padding, k, device)
+        wo, p, s = grid.shape[2], idx.shape[1], img.shape[2]
+        bound = bound_ms(4 * (n * c * p + 2 * n * c * s + n * p
+                              + 2 * k * n * p), 4 * k * n * c * p)
+        fns = {"tile": lambda: ps.corner_sample_bwd(g, img, idx, wts, offs,
+                                                    wo),
+               "flat": lambda: ps._bwd("corner", g, img, None, idx, wts,
+                                       offs)}
+        order = ["tile", "flat", "flat", "tile"] if k == 4 else ["flat"]
+        times = {}
+        with torch.no_grad():
+            for form in order:
+                times.setdefault(form, []).append(time_ms(fns[form]))
+            plain = time_ms(lambda: ps.corner_sample_bwd_plain(
+                g, img, idx, wts, offs))
+        mode = "bilinear" if k == 4 else "nearest"
+        img_g = img.reshape((n, c) + tuple(shape)).clone().requires_grad_()
+        grid_g = grid.clone().requires_grad_(k == 4)
+
+        def lib():
+            return F.grid_sample(img_g, grid_g, mode=mode,
+                                 padding_mode=padding, align_corners=True)
+
+        row = {"kernel": "corner_tile" if k == 4 else "corner",
+               "case": name, "padding": padding, "C": c, "K": k,
+               **{f"{form}_ms": statistics.mean(t)
+                  for form, t in times.items()},
+               "turns_ms": times, "plain_ms": plain, "bound_ms": bound[0],
+               "bound_by": bound[1],
+               "atomics_per_point": corner_atomics(idx, wts, offs, s, wo)}
+        row.update(library_bwd_ms(
+            lib, (img_g, grid_g) if k == 4 else img_g,
+            g.reshape((n, c) + tuple(grid.shape[1:-1]))))
+        rows.append(row)
+        print("[timing] " + json.dumps(row), flush=True)
+    return rows
+
+
+def tile_record(launches, worst, rows, shape_note):
+    """The ``kernels`` line's entry of the corner tile backward, timed at
+    the image warps' call (the rotation, C=1) with its zero fill; the kept
+    flat backward's time in the same turns is ``flat_ms``."""
+    head = rows[0]
+    return {
+        "name": f"{KERNEL_NAMES['corner_tile']}_bwd", "route": "cuda",
+        "source": KERNEL_SOURCES["corner_tile"],
+        "replaces": REPLACES["corner_tile"]["bwd"],
+        "launches": launches["corner_tile"]["bwd"],
+        "max_abs_err": worst["corner_tile"], "ms": head["tile_ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["bwd_library_ms"],
+        "library_fwd_bwd_ms": head["fwd_bwd_library_ms"],
+        "flat_ms": head["flat_ms"],
+        "shape": f"{shape_note} C={head['C']} {head['case']} "
+                 f"{head['padding']}"}
+
+
+def family_launches(launches, fam):
+    """A route family's launches each way; the corner route's backward
+    counts both its kernels (the tile kernel takes its bilinear calls)."""
+    counts = dict(launches[fam])
+    if fam == "corner":
+        counts["bwd"] += launches["corner_tile"]["bwd"]
+    return counts
+
+
+@contextlib.contextmanager
+def corner_calls():
+    """Record each corner sample of the 2D route made inside the block:
+    its channels, padding (from the fold that built its weights), taps,
+    and whether its backward ran; restored after it."""
+    gs = importlib.import_module("advchain_tpu_torch.ops.grid_sample")
+    real = {name: getattr(gs, name)
+            for name in ("corner_weights", "nearest_weights", "CornerSample")}
+    calls, last = [], {}
+
+    def fold(name, pos):
+        def wrapper(grid, *args, **kwargs):
+            last["padding"] = args[pos]
+            return real[name](grid, *args, **kwargs)
+        return wrapper
+
+    class Recorded:
+        @staticmethod
+        def apply(img, idx, w, offsets, width=None):
+            out = real["CornerSample"].apply(img, idx, w, offsets, width)
+            rec = {"C": img.shape[1], "padding": last.get("padding"),
+                   "K": len(offsets), "backward": False}
+            calls.append(rec)
+            if out.requires_grad:
+                out.register_hook(lambda grad: rec.update(backward=True))
+            return out
+
+    gs.corner_weights = fold("corner_weights", 2)
+    gs.nearest_weights = fold("nearest_weights", 1)
+    gs.CornerSample = Recorded
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(gs, name, fn)
+
+
+def profile_legacy_2d(device, path, median_s, peak):
+    """The 2D headline episode with ADVCHAIN_BAND_KERNEL=0: the (C,
+    padding) of each corner sample whose backward runs, from one recorded
+    episode, then :func:`profile_episode`; prints and writes to ``path``
+    the busy time, launches and idle share against the unprofiled median
+    ``median_s``, and the peak device bytes ``peak`` of the timed run."""
+    import torch
+    with legacy_route(2):
+        solver = build_solver(BATCH, SHAPE)
+        model = build_model(device)
+        data = torch.as_tensor(make_input(BATCH, SHAPE), device=device)
+        with corner_calls() as calls:
+            episode_once(solver, model, data, POWER_ITERATION[2])
+        prof = profile_episode(device, BATCH, SHAPE, path)
+    bwd = [(c["C"], c["padding"]) for c in calls if c["backward"]]
+    idle = 1 - prof["device_busy_ms"] / (median_s * 1e3)
+    extra = {"median_ms": median_s * 1e3, "idle_share": idle,
+             "peak_gb": peak / 1e9, "corner_calls": calls,
+             "corner_bwd_calls": bwd}
+    with open(path) as f:
+        summary = json.load(f)
+    with open(path, "w") as f:
+        json.dump(dict(summary, **extra), f, indent=1)
+    print(f"[profile] 2D episode on the corner route: device busy "
+          f"{prof['device_busy_ms']:.1f} ms of the unprofiled median "
+          f"{median_s * 1e3:.1f} ms, idle share {idle:.3f}, "
+          f"{prof['device_launches']} kernel launches, peak "
+          f"{peak / 1e9:.2f} GB; corner backward calls (C, padding): {bwd} "
+          f"of {len(calls)} corner samples", flush=True)
+    return dict(prof, **extra)
+
+
 def assert_grid_only(label, dims, launches, expected, folds):
     """Raise unless a run sampled through the grid-level pair alone: its
     launches equal ``expected``, the corner-level pair never launched, and
@@ -1789,6 +2109,9 @@ def main(argv=None):
     parser.add_argument("--profile3d-legacy", metavar="PATH",
                         help="also write a profile of one 3D episode on the "
                              "plane route (ADVCHAIN_ZBAND=0) to PATH")
+    parser.add_argument("--profile-legacy2d", metavar="PATH",
+                        help="also write a profile of one 2D episode on the "
+                             "corner route (ADVCHAIN_BAND_KERNEL=0) to PATH")
     args = parser.parse_args(argv)
 
     import torch
@@ -1909,13 +2232,23 @@ def main(argv=None):
     # flat plane kernels are the TPU plane kernels' kernel-level
     # counterpart
     worst_c = check_flat_kernels(BATCH, SHAPE, device, (1, 2, 5), (1, 4))
+    worst_ct = check_corner_bwd(BATCH, SHAPE, device)
+    # the flat corner backward's record: its own cases (K=4 at the tap
+    # square takes the tile kernel)
+    worst_c["bwd"] = worst_ct["corner"]
     worst_p = check_flat_kernels(BATCH3D, SHAPE3D, device, (1, 3, 5), (2, 4))
     worst_pg = check_grid_kernels(BATCH3D, SHAPE3D, device, fam="plane_grid")
-    launches_c = run_legacy_episode(device, BATCH, SHAPE, card)[0]
-    if not (launches_c["corner"] == launches2["band_grid"]
+    launches_c, sec_c, _, _, peak_c, _ = run_legacy_episode(device, BATCH,
+                                                            SHAPE, card)
+    # every bilinear backward of the route on the tile kernel
+    if not (family_launches(launches_c, "corner") == launches2["band_grid"]
+            and launches_c["corner_tile"]["bwd"]
+            == launches2["band_grid"]["bwd"]
             and launches_c["stencil"] == launches2["stencil"]):
         raise AssertionError(f"the corner route's launches {launches_c} "
                              f"differ from the band route's {launches2}")
+    if args.profile_legacy2d:
+        profile_legacy_2d(device, args.profile_legacy2d, sec_c, peak_c)
     with count_calls(fold_modules, FOLDS) as folds_p:
         launches_p, sec_p = run_legacy_episode(device, BATCH3D, SHAPE3D,
                                                card)[:2]
@@ -1933,6 +2266,7 @@ def main(argv=None):
         with legacy_route(3):
             profile_3d(device, args.profile3d_legacy, sec_p)
     rows_c = time_flat_kernels(BATCH, SHAPE, device, 1)
+    rows_ct = time_corner_bwd(BATCH, SHAPE, device)
     rows_p = time_flat_kernels(BATCH3D, SHAPE3D, device, 3)
     rows_pg = time_grid_kernels(BATCH3D, SHAPE3D, device, channels=(3,),
                                 fam="plane_grid")
@@ -1952,6 +2286,8 @@ def main(argv=None):
                                 "near_identity", 2, shape2)
                + kernel_records("corner", launches_c, worst_c, rows_c,
                                 "rot30", 1, shape2 + " K=4")
+               + [tile_record(launches_c, worst_ct, rows_ct,
+                              shape2 + " K=4")]
                + kernel_records("plane", launches_p, worst_p, rows_p,
                                 "near_identity", 3, shape3 + " K=4")
                + kernel_records("plane_grid", launches_p, worst_pg, rows_pg,

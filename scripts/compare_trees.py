@@ -5,7 +5,7 @@ on one GPU, in turns, so that the trees are compared on one card under one
 power limit.
 
     python3 scripts/compare_trees.py --out PATH TREE [TREE ...]
-        [--order 0,1,1,0] [--reps 5] [--legacy3d]
+        [--order 0,1,1,0] [--reps 5] [--legacy3d] [--legacy2d]
 
 Each TREE is the root of a checkout (for instance a ``git archive`` of
 another commit unpacked under ``build/``).  Every turn runs in a fresh
@@ -20,7 +20,9 @@ a synchronize) at batch 128, 192x192, the supervised step alike, and
 samples on the tree's plane route) and profiles one such episode
 (``chip_smoke.profile_episode``, written to PATH.legacy3d.<turn>.json):
 its device busy time, kernel launches and idle share against the timed
-median.  ``--order`` lists the trees' indices in turn order (default: each
+median; ``--legacy2d`` does the same for the headline 2D episode with
+``ADVCHAIN_BAND_KERNEL=0`` (``chip_smoke.legacy_route(2)``: the 2D samples
+on the tree's corner route; PATH.legacy2d.<turn>.json).  ``--order`` lists the trees' indices in turn order (default: each
 tree forward, then backward).  Prints one JSON line per turn and writes
 them all to PATH.
 """
@@ -49,16 +51,19 @@ su = cs.run_train_step("cuda", cs.BATCH, cs.SHAPE, supervised=True,
                        reps=reps)
 e3 = cs.run_episode("cuda", cs.BATCH3D, cs.SHAPE3D, reps=reps)
 legacy = {}
-if sys.argv[2]:
-    with cs.legacy_route(3):
-        l3 = cs.run_episode("cuda", cs.BATCH3D, cs.SHAPE3D, reps=reps)
-        prof = cs.profile_episode("cuda", cs.BATCH3D, cs.SHAPE3D,
-                                  sys.argv[2])
-    legacy = {"episode3d_legacy": dict(
-        median_ms=l3[1] * 1e3, per_s=cs.BATCH3D / l3[1],
-        reps_ms=[t * 1e3 for t in l3[2]], loss=l3[3], peak_gb=l3[4] / 1e9,
-        launches=l3[0], profile=prof,
-        idle_share=1 - prof["device_busy_ms"] / (l3[1] * 1e3))}
+for key, dims, n, shape, path in (
+        ("episode3d_legacy", 3, cs.BATCH3D, cs.SHAPE3D, sys.argv[2]),
+        ("episode_legacy2d", 2, cs.BATCH, cs.SHAPE, sys.argv[3])):
+    if not path:
+        continue
+    with cs.legacy_route(dims):
+        lr = cs.run_episode("cuda", n, shape, reps=reps)
+        prof = cs.profile_episode("cuda", n, shape, path)
+    legacy[key] = dict(
+        median_ms=lr[1] * 1e3, per_s=n / lr[1],
+        reps_ms=[t * 1e3 for t in lr[2]], loss=lr[3], peak_gb=lr[4] / 1e9,
+        launches=lr[0], profile=prof,
+        idle_share=1 - prof["device_busy_ms"] / (lr[1] * 1e3))
 
 
 def rec(r, n, loss_key):
@@ -84,6 +89,9 @@ def main(argv=None):
     parser.add_argument("--legacy3d", action="store_true",
                         help="also time and profile the 3D episode with "
                              "ADVCHAIN_ZBAND=0")
+    parser.add_argument("--legacy2d", action="store_true",
+                        help="also time and profile the 2D episode with "
+                             "ADVCHAIN_BAND_KERNEL=0")
     args = parser.parse_args(argv)
     n = len(args.trees)
     order = ([int(i) for i in args.order.split(",")] if args.order
@@ -91,10 +99,11 @@ def main(argv=None):
     turns = []
     for turn, i in enumerate(order):
         tree = os.path.abspath(args.trees[i])
-        profile = (os.path.abspath(f"{args.out}.legacy3d.{turn}.json")
-                   if args.legacy3d else "")
+        profiles = [os.path.abspath(f"{args.out}.legacy{d}.{turn}.json")
+                    if wanted else "" for d, wanted in
+                    (("3d", args.legacy3d), ("2d", args.legacy2d))]
         proc = subprocess.run([sys.executable, "-c", CHILD, str(args.reps),
-                               profile],
+                               *profiles],
                               cwd=tree, capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
@@ -103,21 +112,23 @@ def main(argv=None):
         result = json.loads(proc.stdout.strip().splitlines()[-1])
         result["tree"] = args.trees[i]
         turns.append(result)
-        legacy = result.get("episode3d_legacy")
-        print(json.dumps(
-            {"tree": args.trees[i], "card": result["card"],
-             **{f"{key}_per_s": result[key]["per_s"] for key in
-                ("episode", "train_step", "supervised_step", "episode3d")},
-             **{f"{key}_peak_gb": result[key]["peak_gb"] for key in
-                ("episode", "train_step", "episode3d")},
-             **({} if legacy is None else {
-                 "episode3d_legacy_per_s": legacy["per_s"],
-                 "episode3d_legacy_median_ms": legacy["median_ms"],
-                 "episode3d_legacy_idle_share": legacy["idle_share"],
-                 "episode3d_legacy_launches":
-                     legacy["profile"]["device_launches"],
-                 "episode3d_legacy_busy_ms":
-                     legacy["profile"]["device_busy_ms"]})}), flush=True)
+        line = {"tree": args.trees[i], "card": result["card"],
+                **{f"{key}_per_s": result[key]["per_s"] for key in
+                   ("episode", "train_step", "supervised_step",
+                    "episode3d")},
+                **{f"{key}_peak_gb": result[key]["peak_gb"] for key in
+                   ("episode", "train_step", "episode3d")}}
+        for key in ("episode3d_legacy", "episode_legacy2d"):
+            legacy = result.get(key)
+            if legacy is not None:
+                line.update({
+                    f"{key}_per_s": legacy["per_s"],
+                    f"{key}_median_ms": legacy["median_ms"],
+                    f"{key}_idle_share": legacy["idle_share"],
+                    f"{key}_launches": legacy["profile"]["device_launches"],
+                    f"{key}_busy_ms": legacy["profile"]["device_busy_ms"],
+                    f"{key}_peak_gb": legacy["peak_gb"]})
+        print(json.dumps(line), flush=True)
     with open(args.out, "w") as f:
         json.dump(turns, f, indent=1)
     return 0

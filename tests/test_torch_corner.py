@@ -116,6 +116,91 @@ def test_twin_bwd_matches_pallas_corner_scatter(k, variant, jax_env):
     np.testing.assert_allclose(d_w.numpy(), np.asarray(ref_w), atol=1e-5)
 
 
+def _stress_inputs(kind, c=2, seed=20):
+    """Corner inputs on the H x W raster that stress a backward which sums
+    coincident taps before adding them: every point on one pixel, each
+    raster row's bases right to left (the first column's bases on the last
+    image column, whose +1 tap wraps), or a random permutation of bases two
+    pixels apart (no two points share a tap).  Returns the inputs and the
+    raster width."""
+    r = np.random.RandomState(seed)
+    rows, cols = np.arange(H)[:, None], np.arange(W)[None, :]
+    if kind == "one_pixel":
+        idx, width = np.full((2, S), (H // 2) * W + W // 2), W
+    elif kind == "right_to_left":
+        idx, width = np.tile((rows * W + W - 1 - cols).reshape(1, -1),
+                             (2, 1)), W
+    else:
+        evens = (rows[::2] * W + cols[:, ::2]).reshape(-1)
+        idx = np.stack([r.permutation(evens) for _ in range(2)])
+        width = (W + 1) // 2
+    idx = idx.astype(np.int32)
+    p = idx.shape[1]
+    img = r.randn(2, c, S).astype(np.float32)
+    wts = r.rand(2, 4, p).astype(np.float32)
+    g = r.randn(2, c, p).astype(np.float32)
+    return img, idx, wts, g, (0, 1, W, W + 1), width
+
+
+STRESS = ["one_pixel", "right_to_left", "permutation"]
+
+
+@pytest.mark.parametrize("variant", ["resident", "chunk_major"])
+@pytest.mark.parametrize("kind", STRESS)
+def test_twin_bwd_matches_pallas_corner_scatter_under_stress(kind, variant,
+                                                            jax_env):
+    """The plain backward against JAX's ``corner_scatter`` and
+    ``_wcs_bwd``'s ``d_weights`` on inputs that stress a merging
+    backward."""
+    img, idx, wts, g, offsets, _ = _stress_inputs(kind)
+    env = {"ADVCHAIN_SCATTER_SPLIT": "3"}
+    if variant == "chunk_major":
+        env["ADVCHAIN_VMEM_IMG_BUDGET"] = "1024"
+    jax_env(**env)
+
+    def f(im, ww):
+        return gm._weighted_corner_sample(im, (jnp.asarray(idx), ww),
+                                          offsets, S)
+
+    _, vjp = jax.vjp(f, jnp.asarray(img), jnp.asarray(wts))
+    ref_img, ref_w = vjp(jnp.asarray(g))
+    d_img, d_w = corner_sample_bwd_plain(*_t(g, img, idx, wts), offsets)
+    scale = float(np.abs(np.asarray(ref_img)).max())
+    np.testing.assert_allclose(d_img.numpy(), np.asarray(ref_img),
+                               atol=1e-6 * scale)
+    np.testing.assert_allclose(d_w.numpy(), np.asarray(ref_w), atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", STRESS + ["scattered"])
+def test_corner_sample_with_and_without_the_raster_width(kind):
+    """The raster width only tiles the CUDA backward: on the CPU the
+    forward and both gradients are the same with and without it."""
+    if kind == "scattered":
+        img, idx, wts, g, offsets = _corner_inputs(21, 4)
+        width = 30  # P = 300
+    else:
+        img, idx, wts, g, offsets, width = _stress_inputs(kind)
+    idx_t, g_t = _t(idx, g)
+    results = []
+    for w in (None, width):
+        x, ww = (torch.from_numpy(a).requires_grad_(True) for a in (img, wts))
+        out = CornerSample.apply(x, idx_t, ww, offsets, w)
+        (out * g_t).sum().backward()
+        results.append((out.detach(), x.grad, ww.grad))
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("width", [7, 0, -30, 2.5, 600])
+def test_wrapper_rejects_a_width_that_does_not_divide_p(width):
+    img, idx, wts, g, offsets = _corner_inputs(22, 4)  # P = 300
+    img, idx, wts, g = _t(img, idx, wts, g)
+    with pytest.raises(ValueError):
+        corner_sample_bwd(g, img, idx, wts, offsets, width)
+    with pytest.raises(ValueError):
+        CornerSample.apply(img, idx, wts, offsets, width)
+
+
 def test_flat_contract_wraps_the_last_column(jax_env):
     """At x = w-1 the +1 tap is the next row's first pixel: the kernel
     level ``d_w`` of that corner is g times that pixel, as JAX's

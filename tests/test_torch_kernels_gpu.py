@@ -174,6 +174,7 @@ def test_grid_sample_2d_takes_the_grid_pair(cuda, monkeypatch):
         counts = chip_smoke.launch_counts()
         assert counts["band_grid"] == {"fwd": 1, "bwd": 1}
         assert counts["band"] == counts["corner"] == {"fwd": 0, "bwd": 0}
+        assert counts["corner_tile"] == {"bwd": 0}
         assert gr.grad is not None
         assert bool(gr.grad.abs().sum() > 0) == (mode == "bilinear")
 
@@ -614,12 +615,17 @@ def test_plane_sample_kernels_match_twins(cuda, route, k):
     idx = (yx,) if route == "corner" else (z, yx)
     fwd = getattr(ps, f"{route}_sample_fwd")
     bwd = getattr(ps, f"{route}_sample_bwd")
-    before = dict(ps.LAUNCHES[route])
+    # the corner backward at the tap square launches the tile kernel
+    bwd_fam = ("corner_tile" if route == "corner" and ps.tile_offsets(offsets)
+               else route)
+    before = {"fwd": ps.LAUNCHES[route]["fwd"],
+              "bwd": ps.LAUNCHES[bwd_fam]["bwd"]}
     out = fwd(img, *idx, wts, offsets)
     d_img, d_w = bwd(g, img, *idx, wts, offsets)
     torch.cuda.synchronize()
-    assert ps.LAUNCHES[route] == {"fwd": before["fwd"] + 1,
-                                  "bwd": before["bwd"] + 1}
+    assert {"fwd": ps.LAUNCHES[route]["fwd"],
+            "bwd": ps.LAUNCHES[bwd_fam]["bwd"]} == {
+                "fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
     # the forward sums in the twin's order with rounded products: equal
     assert torch.equal(out, getattr(ps, f"{route}_sample_fwd_plain")(
         img, *idx, wts, offsets))
@@ -659,14 +665,59 @@ def test_legacy_routes_match_the_cpu(cuda, dims, padding, monkeypatch):
         (out * cot.to(dev)).sum().backward()
         counts = chip_smoke.launch_counts()
         if dev != "cpu":
-            # one launch each way: the corner pair, or the plane grid pair
-            # over both z taps (no flat plane launch)
-            assert counts[route] == {"fwd": 1, "bwd": 1}
+            # one launch each way: the corner pair (its backward on the
+            # tile kernel), or the plane grid pair over both z taps (no
+            # flat plane launch)
+            assert chip_smoke.family_launches(counts, route) == {"fwd": 1,
+                                                                 "bwd": 1}
+            if dims == 2:
+                assert counts["corner_tile"] == {"bwd": 1}
             assert counts[old] == {"fwd": 0, "bwd": 0}
             assert counts["plane"] == {"fwd": 0, "bwd": 0}
         results.append([t.detach().cpu() for t in (out, x.grad, gr.grad)])
     for a, b in zip(*results):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(40, 50), (9, 13)])
+def test_corner_bwd_kernels_match_plain(cuda, shape):
+    """chip_smoke's phase-14 corner backward cases at a small size: the
+    tile kernel at the tap square (with and without the raster width, on
+    inputs that stress its merge: all points on one pixel, rows right to
+    left, bases with no coincident taps, rasters no multiple of its tile,
+    of one point and under one block) and the flat kernel at other K and
+    offsets, each launched once, d_img and d_w within 1e-5 of their
+    largest entries."""
+    import chip_smoke
+    worst = chip_smoke.check_corner_bwd(3, shape, cuda)
+    assert set(worst) == {"corner", "corner_tile"}
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+def test_corner_route_takes_the_tile_kernel(cuda, mode, monkeypatch):
+    """ADVCHAIN_BAND_KERNEL=0 on CUDA tensors: a bilinear sample's
+    backward launches the corner tile kernel, a nearest one's (one tap) the
+    flat kernel, and neither calls the plain backward."""
+    import chip_smoke
+    from advchain_tpu_torch.kernels import plane_sample as ps
+    from advchain_tpu_torch.ops import grid_sample_2d
+    monkeypatch.setenv("ADVCHAIN_BAND_KERNEL", "0")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor took the plain backward")
+
+    monkeypatch.setattr(ps, "corner_sample_bwd_plain", refuse)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(2, 3, 33, 47, generator=gen,
+                    device=cuda).requires_grad_(True)
+    grid = torch.rand(2, 35, 41, 2, generator=gen, device=cuda) * 2.2 - 1.1
+    chip_smoke.reset_launch_counts()
+    grid_sample_2d(x, grid, mode=mode).sum().backward()
+    counts = chip_smoke.launch_counts()
+    tile = int(mode == "bilinear")
+    assert counts["corner"] == {"fwd": 1, "bwd": 1 - tile}
+    assert counts["corner_tile"] == {"bwd": tile}
+    assert bool(x.grad.abs().sum() > 0)
 
 
 def test_cuda_tensor_never_takes_the_plane_twin(cuda):
