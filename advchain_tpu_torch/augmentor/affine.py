@@ -149,6 +149,7 @@ class AdvAffine(AdvTransformBase):
 
     def apply_precomputed(self, aux, params, data, training: bool = False,
                           interp=None, padding_mode=None):
+        self._stash("affine_matrix", aux[0])
         return self.transform(data, aux[0],
                               interp=interp or self.forward_interp)
 
@@ -166,14 +167,32 @@ class AdvAffine(AdvTransformBase):
 
     def apply(self, params, data, training: bool = False, interp=None,
               padding_mode=None):
-        return self.transform(data, self._matrix(params, training),
-                              interp=interp or self.forward_interp)
+        m = self._matrix(params, training)
+        self._stash("affine_matrix", m)
+        return self.transform(data, m, interp=interp or self.forward_interp)
 
     def inverse(self, params, data, training: bool = False, interp=None,
                 padding_mode=None):
         inv = invert_affine_matrix(self._matrix(params, training))
         return self.transform(data, inv,
                               interp=interp or self.backward_interp)
+
+    def predict_forward_fn(self, params, pred, training: bool = False,
+                           interp=None, padding_mode=None):
+        return self.apply(params, pred, training=training, interp=interp,
+                          padding_mode=padding_mode)
+
+    def predict_backward_fn(self, params, pred, training: bool = False,
+                            interp=None, padding_mode=None):
+        return self.inverse(params, pred, training=training, interp=interp,
+                            padding_mode=padding_mode)
+
+    def get_inverse_matrix(self, affine_matrix):
+        return invert_affine_matrix(affine_matrix)
+
+    def _record_diff(self, data, out):
+        # the reference records data - transformed
+        return data - out
 
     def update(self, params, grad, step_size):
         g = torch.sign(grad)

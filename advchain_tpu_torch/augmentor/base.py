@@ -1,19 +1,33 @@
 """Transform contract: a functional core over explicit parameter tensors
 (what the solver's PGD step differentiates) plus the reference's stateful
-parameter accessors (port of advchain_tpu/augmentor/base.py).
+object API (port of advchain_tpu/augmentor/base.py).
 
 Functional core:
     init_params(generator, device)   -> params     (random draw)
     precompute(params, training)     -> aux        (shared per evaluation)
     apply / apply_precomputed        -> x'         (image forward)
     inverse / inverse_precomputed    -> x          (image backward)
+    predict_forward_fn / _backward_fn              (prediction warps)
     update(params, grad, step_size)  -> params'    (PGD / power iteration)
     project(params)                  -> params'    (epsilon ball)
     prepare_train(params)            -> params'    (pre-loop renorm)
+
+Stateful API (the reference's names): init_parameters / set_parameters /
+get_parameters / train / eval / forward / backward / predict_forward /
+predict_backward / optimize_parameters / rescale_parameters /
+set_step_size / get_step_size.  ``forward`` and ``predict_forward`` draw
+missing parameters on the data's device.
+
+Debug stashes (``diff``, ``bias_field``, ``affine_matrix``,
+``displacement``) hold detached tensors.  They are recorded by the
+stateful ``forward`` / ``predict_forward`` (always, with ``debug``), never
+for a value that carries a gradient: the solver's episodes and PGD steps
+record none, as the JAX package's jitted paths record none.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 from typing import Optional
 
@@ -51,6 +65,11 @@ class AdvTransformBase:
         self.debug = debug
         self.device = device
         self.param = None
+        self.diff = None
+        self.grad = None
+        self.is_training = False
+        self.step_size = 1.0
+        self._recording = False
         self._generator = torch.Generator().manual_seed(
             next(_seed_counter) if seed is None else int(seed))
         self.init_config(self.config_dict)
@@ -84,19 +103,33 @@ class AdvTransformBase:
         geometric)."""
         return data
 
+    def predict_forward_fn(self, params, pred, training: bool = False,
+                           interp=None, padding_mode=None):
+        """Transform a prediction (identity unless geometric)."""
+        return pred
+
+    def predict_backward_fn(self, params, pred, training: bool = False,
+                            interp=None, padding_mode=None):
+        return pred
+
     def update(self, params, grad, step_size):
         raise NotImplementedError
 
     def project(self, params):
-        raise NotImplementedError
+        """Default: l2 renorm of each batch row into the epsilon ball."""
+        return norms.renorm_l2(params, self.epsilon)
 
     def prepare_train(self, params):
         return params
 
-    # ------------------------------------------------- stateful accessors
-    def init_parameters(self):
-        self.param = self.init_params(self._generator,
-                                      resolve_device(self.device))
+    # ------------------------------------------------------- stateful API
+    def init_parameters(self, device=None):
+        """Draw parameters from the transform's own generator onto
+        ``device`` (None: the constructor's ``device``, where None means
+        the GPU)."""
+        self.param = self.init_params(
+            self._generator,
+            resolve_device(self.device if device is None else device))
         return self.param
 
     def set_parameters(self, param):
@@ -105,8 +138,99 @@ class AdvTransformBase:
     def get_parameters(self):
         return self.param
 
+    def set_step_size(self, step_size=1.0):
+        self.step_size = step_size
+
+    def get_step_size(self):
+        return self.step_size
+
+    def train(self):
+        if self.param is None:
+            self.init_parameters()
+        self.param = self.prepare_train(self.param)
+        self.is_training = True
+
+    def eval(self):
+        if self.is_training:
+            self.param = self.param.detach()
+            self.is_training = False
+
+    def forward(self, data, interp=None, padding_mode=None, **kwargs):
+        if self.param is None:
+            self.init_parameters(data.device)
+        with self._stashing():
+            out = self.apply(self.param, data, training=self.is_training,
+                             interp=interp, padding_mode=padding_mode)
+        diff = self._record_diff(data, out)
+        self.diff = None if diff is None else diff.detach()
+        return out
+
+    def backward(self, data, interp=None, padding_mode=None, **kwargs):
+        return self.inverse(self.param, data, training=self.is_training,
+                            interp=interp, padding_mode=padding_mode)
+
+    def predict_forward(self, data, interp=None, padding_mode=None,
+                        **kwargs):
+        if self.param is None:
+            self.init_parameters(data.device)
+        with self._stashing():
+            return self.predict_forward_fn(self.param, data,
+                                           training=self.is_training,
+                                           interp=interp,
+                                           padding_mode=padding_mode)
+
+    def predict_backward(self, data, interp=None, padding_mode=None,
+                         **kwargs):
+        return self.predict_backward_fn(self.param, data,
+                                        training=self.is_training,
+                                        interp=interp,
+                                        padding_mode=padding_mode)
+
+    def optimize_parameters(self, step_size=None, grad=None):
+        """One ascent step with ``grad``, or with the gradient the solver's
+        ``compute_transform_grads`` stashed as ``self.grad``."""
+        if step_size is None:
+            step_size = self.step_size
+        if grad is None:
+            grad = self.grad
+        if grad is None:
+            raise ValueError(
+                "optimize_parameters needs a gradient: pass grad= or let the "
+                "solver stash transform.grad")
+        self.param = self.update(self.param, grad, step_size).detach()
+        return self.param
+
+    def rescale_parameters(self):
+        self.param = self.project(self.param)
+        return self.param
+
+    def _record_diff(self, data, out):
+        return out - data
+
+    @contextlib.contextmanager
+    def _stashing(self):
+        """Record the debug stashes inside the block."""
+        self._recording = True
+        try:
+            yield
+        finally:
+            self._recording = False
+
+    def _stashes(self, value):
+        """Whether ``value`` is recorded: inside :meth:`_stashing` or with
+        ``debug``, and only when it carries no gradient."""
+        return (self._recording or self.debug) and not value.requires_grad
+
+    def _stash(self, name, value):
+        """Record a debug artifact, detached (see :meth:`_stashes`)."""
+        if self._stashes(value):
+            setattr(self, name, value.detach())
+
     def unit_normalize(self, d, p_type: str = "l2"):
         return norms.unit_normalize(d, p_type)
+
+    def rescale_intensity(self, data, new_min=0.0, new_max=1.0, eps=1e-20):
+        return norms.rescale_intensity(data, new_min, new_max, eps)
 
     def init_config(self, config_dict):
         raise NotImplementedError

@@ -74,11 +74,17 @@ class AdvBias(AdvTransformBase):
             return torch.zeros(self.cp_grid, device=device)
         raise NotImplementedError(f"init_mode {self.init_mode!r}")
 
+    def compute_smoothed_bias(self, cpoint):
+        """Control points -> full-resolution bias field (N, 1, *image)."""
+        return evaluate_bspline_field(cpoint, self.spec,
+                                      log_space=self.use_log)
+
     def precompute(self, params, training: bool = False):
         scale = self.xi if (self.power_iteration and training) else 1.0
-        field = evaluate_bspline_field(scale * params, self.spec,
-                                       log_space=self.use_log)
-        return clip_bias(field, self.magnitude)
+        field = clip_bias(self.compute_smoothed_bias(scale * params),
+                          self.magnitude)
+        self._stash("bias_field", field)
+        return field
 
     def apply_precomputed(self, aux, params, data, training: bool = False,
                           interp=None, padding_mode=None):
@@ -106,6 +112,10 @@ class AdvBias(AdvTransformBase):
         if self.power_iteration:
             return self.unit_normalize(params)
         return params
+
+    def _record_diff(self, data, out):
+        # the reference records the bias field as the diff
+        return getattr(self, "bias_field", None)
 
     def get_name(self):
         return "bias"

@@ -97,6 +97,21 @@ class AdvMorph(AdvTransformBase):
                                        iters=1) + grid
         return clip(composed, -1.0, 1.0)
 
+    def _displacement(self, dxy):
+        """Deformation grid -> displacement, channel-last."""
+        grid = base_grid(dxy.shape[0], self.image_spatial, dxy.dtype,
+                         dxy.device)
+        return torch.movedim(dxy - grid, 1, -1)
+
+    def get_deformation_displacement_field(self, duv):
+        """(deformation grid (N, d, *spatial), displacement channel-last)."""
+        dxy = self.demons_compose(duv, smooth=True)
+        return dxy, self._displacement(dxy)
+
+    def _stash_displacement(self, dxy):
+        if self._stashes(dxy):
+            self._stash("displacement", self._displacement(dxy))
+
     def _duv(self, params, training: bool, negate: bool = False):
         scale = self.xi if (self.power_iteration and training) \
             else self.epsilon
@@ -111,9 +126,10 @@ class AdvMorph(AdvTransformBase):
             else padding_mode)
 
     def precompute(self, params, training: bool = False):
-        return (self.demons_compose(self._duv(params, training)),
-                self.demons_compose(self._duv(params, training,
-                                              negate=True)))
+        dxy = self.demons_compose(self._duv(params, training))
+        self._stash_displacement(dxy)
+        return (dxy, self.demons_compose(self._duv(params, training,
+                                                   negate=True)))
 
     def apply_precomputed(self, aux, params, data, training: bool = False,
                           interp=None, padding_mode=None):
@@ -130,6 +146,7 @@ class AdvMorph(AdvTransformBase):
     def apply(self, params, data, training: bool = False, interp=None,
               padding_mode=None):
         dxy = self.demons_compose(self._duv(params, training))
+        self._stash_displacement(dxy)
         return self.transform(data, dxy, interp=interp or self.forward_interp,
                               padding_mode=padding_mode)
 
@@ -139,6 +156,16 @@ class AdvMorph(AdvTransformBase):
         return self.transform(data, dxy,
                               interp=interp or self.backward_interp,
                               padding_mode=padding_mode)
+
+    def predict_forward_fn(self, params, pred, training: bool = False,
+                           interp=None, padding_mode=None):
+        return self.apply(params, pred, training=training, interp=interp,
+                          padding_mode=padding_mode)
+
+    def predict_backward_fn(self, params, pred, training: bool = False,
+                            interp=None, padding_mode=None):
+        return self.inverse(params, pred, training=training, interp=interp,
+                            padding_mode=padding_mode)
 
     def update(self, params, grad, step_size):
         g = self.unit_normalize(grad)

@@ -21,8 +21,10 @@ import torch.nn.functional as F
 
 from advchain_tpu_torch.ops.conv import conv_same
 
-__all__ = ["calc_segmentation_consistency", "contour_loss", "kl_divergence",
-           "one_hot", "cross_entropy_2d", "cross_entropy"]
+__all__ = ["calc_segmentation_consistency",
+           "calc_segmentation_mse_consistency",
+           "calc_segmentation_kl_consistency", "contour_loss",
+           "kl_divergence", "one_hot", "cross_entropy_2d", "cross_entropy"]
 
 
 @functools.lru_cache(maxsize=8)
@@ -160,6 +162,18 @@ def calc_segmentation_consistency(output, reference,
                     f"divergence type {divergence_type!r}")
             dist = dist + 2 ** scale * (d_weight * loss)
     return dist / (1.0 * len(scales))
+
+
+def calc_segmentation_mse_consistency(input, target):
+    return calc_segmentation_consistency(
+        output=input, reference=target, divergence_types=["mse"],
+        divergence_weights=[1.0], class_weights=None, mask=None)
+
+
+def calc_segmentation_kl_consistency(input, target):
+    return calc_segmentation_consistency(
+        output=input, reference=target, divergence_types=["kl"],
+        divergence_weights=[1.0], class_weights=None, mask=None)
 
 
 def cross_entropy_2d(input, target, weight=None, size_average: bool = True):

@@ -9,8 +9,9 @@ from .resize import interpolate, interp_matrix
 from .conv import conv_same, conv_transpose, gaussian_smooth
 from .bspline import bspline_kernel, BSplineFieldSpec, \
     make_bspline_field_spec, evaluate_bspline_field, clip_bias
-from .integrate import base_grid, compose_flow, exponentiate_flow
-from .norms import unit_normalize
+from .integrate import base_grid, compose_flow, exponentiate_flow, \
+    jacobian_determinant_2d
+from .norms import renorm_l2, rescale_intensity, unit_normalize
 
 __all__ = [
     "grid_sample", "grid_sample_2d", "grid_sample_3d", "stencil_warp_2d",
@@ -21,5 +22,6 @@ __all__ = [
     "bspline_kernel", "BSplineFieldSpec", "make_bspline_field_spec",
     "evaluate_bspline_field", "clip_bias",
     "base_grid", "compose_flow", "exponentiate_flow",
-    "unit_normalize",
+    "jacobian_determinant_2d",
+    "unit_normalize", "rescale_intensity", "renorm_l2",
 ]

@@ -38,7 +38,8 @@ from .affine import linspace
 from .grid_sample import grid_sample_2d, grid_sample_3d, stencil_warp_2d
 
 __all__ = ["base_grid", "compose_flow", "exponentiate_flow",
-           "adaptive_step_count", "ADAPTIVE_STEPS"]
+           "adaptive_step_count", "jacobian_determinant_2d",
+           "ADAPTIVE_STEPS"]
 
 # the JAX package's static bound on extra squarings (integrate.py:32)
 _MAX_EXTRA_STEPS = 8
@@ -97,25 +98,58 @@ def adaptive_step_count(duv, nb_steps: int) -> int:
 
 def exponentiate_flow(duv, nb_steps: int = 8, method: str = "ss",
                       adaptive: bool = False):
-    """Scaling-and-squaring exponentiation of a velocity field
-    (N, d, *spatial); returns the integrated offset field.  With
-    ``adaptive=True`` (the 3D path) the step count grows until
-    ``||duv / 2^n||_F <= 0.5`` (:func:`adaptive_step_count`).
+    """Exponentiation of a velocity field (N, d, *spatial); returns the
+    integrated offset field.
+
+    ``method="ss"``: scaling and squaring; with ``adaptive=True`` (the 3D
+    path) the step count grows until ``||duv / 2^n||_F <= 0.5``
+    (:func:`adaptive_step_count`).  ``method="euler"``: ``nb_steps``
+    compositions of the interval flow with the running one in 2D and
+    ``int(2 ** nb_steps)`` in 3D (the reference's 3D loop,
+    ``range(2.0 ** n)``, cannot run; ``adaptive`` is ignored).
 
     Reference quirk kept: the base grid is mutated in place to
-    ``grid + duv / 2^n`` before the squarings, so the returned offset is
+    ``grid + duv / 2^n`` before the loop, so the returned offset is
     ``phi - phi0`` rather than ``phi - grid``.
     """
-    if method != "ss":
-        raise NotImplementedError(f"integration method {method!r} is not "
-                                  f"ported yet")
+    if method not in ("ss", "euler"):
+        raise NotImplementedError(f"integration method {method!r}")
     steps = nb_steps
-    if adaptive:
+    if adaptive and method == "ss":
         steps = adaptive_step_count(duv, nb_steps)
         ADAPTIVE_STEPS.append(steps)
     grid = base_grid(duv.shape[0], duv.shape[2:], duv.dtype, duv.device)
     phi0 = grid + duv * math.ldexp(1.0, -steps)
     phi = phi0
-    for _ in range(steps):
-        phi = compose_flow(phi, phi)
+    if method == "euler":
+        count = nb_steps if duv.shape[1] == 2 else int(2 ** nb_steps)
+        for _ in range(count):
+            phi = compose_flow(phi0, phi)
+    else:
+        for _ in range(steps):
+            phi = compose_flow(phi, phi)
     return phi - phi0
+
+
+def _central_diff(images, dim: int):
+    """Central difference along ``dim``, one-sided at the two borders."""
+    n = images.shape[dim]
+    fwd = images.narrow(dim, 1, n - 1) - images.narrow(dim, 0, n - 1)
+    mid = 0.5 * (images.narrow(dim, 2, n - 2) - images.narrow(dim, 0, n - 2))
+    return torch.cat([fwd.narrow(dim, 0, 1), mid, fwd.narrow(dim, n - 2, 1)],
+                     dim=dim)
+
+
+def jacobian_determinant_2d(displacement):
+    """det J of a batch of 2D displacement fields (N, 2, H, W) ->
+    (N, 1, H, W): ``(1 + dxx)(1 + dyy) - dxy * dyx``."""
+    if displacement.dim() != 4 or displacement.shape[1] != 2:
+        raise ValueError(f"expected (N, 2, H, W), got "
+                         f"{tuple(displacement.shape)}")
+    dx = displacement[:, 0:1]
+    dy = displacement[:, 1:2]
+    dxx = _central_diff(dx, 3)
+    dxy = _central_diff(dx, 2)
+    dyx = _central_diff(dy, 3)
+    dyy = _central_diff(dy, 2)
+    return (1.0 + dxx) * (1.0 + dyy) - dxy * dyx

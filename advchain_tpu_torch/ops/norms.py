@@ -1,11 +1,11 @@
-"""Batch-vector normalisation (port of advchain_tpu/ops/norms.py,
-``unit_normalize``)."""
+"""Batch-vector normalisation, intensity rescaling and the l2 renorm
+projection (port of advchain_tpu/ops/norms.py)."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["unit_normalize"]
+__all__ = ["unit_normalize", "rescale_intensity", "renorm_l2"]
 
 
 def unit_normalize(d, p_type: str = "l2"):
@@ -28,3 +28,27 @@ def unit_normalize(d, p_type: str = "l2"):
         raise ValueError(f"unknown p_type {p_type!r}")
     return flat.reshape(d.shape)
 
+
+def rescale_intensity(data, new_min: float = 0.0, new_max: float = 1.0,
+                      eps: float = 1e-20, per_channel: bool = True):
+    """Min-max rescale per (N, C) slice, or per sample with
+    ``per_channel=False`` (the solver's variant)."""
+    shape = data.shape
+    lead = shape[0] * shape[1] if per_channel else shape[0]
+    flat = data.reshape(lead, -1)
+    old_max = torch.amax(flat, dim=1, keepdim=True)
+    old_min = torch.amin(flat, dim=1, keepdim=True)
+    new = (flat - old_min + eps) / (old_max - old_min + eps) \
+        * (new_max - new_min) + new_min
+    return new.reshape(shape)
+
+
+def renorm_l2(param, maxnorm: float):
+    """``Tensor.renorm(p=2, dim=0, maxnorm)``: scale each batch row so its
+    l2 norm is at most ``maxnorm`` (``maxnorm / (norm + 1e-7)``)."""
+    n = param.shape[0]
+    flat = param.reshape(n, -1)
+    norms = torch.linalg.vector_norm(flat, dim=1, keepdim=True)
+    scale = torch.where(norms > maxnorm, maxnorm / (norms + 1e-7),
+                        torch.ones_like(norms))
+    return (flat * scale).reshape(param.shape)

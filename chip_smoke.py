@@ -4,6 +4,8 @@
     python3 chip_smoke.py [--profile PATH] [--profile3d PATH]
                           [--profile-train PATH] [--profile3d-legacy PATH]
                           [--profile-legacy2d PATH]
+                          [--profile-constrained PATH]
+                          [--profile-random-chain PATH]
 
 Phases (any failure raises and the script exits non-zero):
   1. print the card's name and power limit, build the CUDA kernels from
@@ -112,14 +114,43 @@ Phases (any failure raises and the script exits non-zero):
      flat backward in turns at the image warps' call (N=128, C=1, 192x192,
      the rotation, zeros), at C=4, on the near-identity grid, and the flat
      one at K=1, with the global atomics per point reckoned from the
-     indices; then print the ``kernels`` line for all eighteen kernel
-     records.
+     indices;
+ 18. run one constrained solve (config #3 of bench.py:294-346: noise ->
+     bias -> affine -> morph with "lowest" padding on the affine and the
+     morph, batch 4 at 192x192, UNet_16, mse + contour, n_iter=3, the
+     anatomy ellipse of bench.py:317-321, penalty weight 50, volume
+     tolerance 5e-4) with every band grid and stencil wrapper call logged,
+     and hold rows 1-4 against their plain versions at N=4, 192x192 at
+     the logged channel counts, paddings, align_corners and modes (C in
+     {1, 2, 5, 6} for the band grid pair, 2 for the stencil), on phase
+     2's grids and phase 10's flows;
+ 19. the constrained solve at batch 2, 64x64 on the card against the CPU
+     with the same weights and injected parameters (the full chain
+     without PGD: dist and the volume score; the morph-free chain with one
+     penalised step on the noise: its direction and dist), and the
+     README's manual loop (``compute_transform_grads``, then
+     ``optimize_parameters()`` with no argument) at step 1.0 on the card
+     against the CPU from the same parameters, and at a small step on
+     the card alone: the divergence ascends);
+ 20. config #2 of bench.py:245-291, the random chain (batch 128,
+     192x192): each call ``init_random_transformation()`` then
+     ``forward(data)``; time 5 calls after 2 warm-ups, count one call's
+     launches and assert that every 2D sample launched the band grid
+     pair and every composition the stencil, with no host-side fold;
+ 21. config #3 timed: 5 solves after 2 warm-ups, the share that preserve
+     the volume, each solve's launches (the same assertion, and a
+     differentiated sample and composition in each) and the peak memory;
+     then print the ``kernels`` line for all eighteen kernel records, with
+     each record's launches in one random-chain call and one constrained
+     solve beside the main paths'.
 The last line of standard output is the device record.  ``--profile PATH``
 / ``--profile3d PATH`` / ``--profile-train PATH`` / ``--profile3d-legacy
-PATH`` / ``--profile-legacy2d PATH`` additionally write a torch.profiler
+PATH`` / ``--profile-legacy2d PATH`` / ``--profile-constrained PATH`` /
+``--profile-random-chain PATH`` additionally write a torch.profiler
 summary of one 2D episode / 3D episode / train step / 3D episode with
 ADVCHAIN_ZBAND=0 / 2D episode with ADVCHAIN_BAND_KERNEL=0 (with the
-channels and padding of each of its corner backward calls) to PATH.
+channels and padding of each of its corner backward calls) / constrained
+solve / random-chain call to PATH.
 
 Convolutions and matmuls run in full f32 (TF32 off): morph's 8 or more
 self-compositions amplify rounding.
@@ -1477,47 +1508,52 @@ def check_grid_kernels(n, shape, device, channels=(1, 3, 5), fam=None):
     worst = {"fwd": 0.0, "bwd": 0.0}
     for name, grid in grid_cases(n, shape, device):
         for c in channels:
-            gen = torch.Generator(device=device).manual_seed(c)
-            img = torch.randn((n, c) + tuple(shape), generator=gen,
-                              device=device)
-            g = torch.randn(n, c, grid.shape[1], generator=gen, device=device)
             for mode in modes:
                 for padding, slope in paddings:
                     for align in (True, False):
-                        args = call_args(padding, align, mode)
-                        kw = {} if slope is None else {"lower_slope": slope}
-                        with torch.no_grad():
-                            out = kern["fwd"](img, grid, *args)
-                            ref = kern["fwd_plain"](img, grid, *args)
-                            r_img, r_grid = kern["bwd_plain"](g, img, grid,
-                                                              *args, **kw)
-                            d_img, d_grid = kern["bwd"](g, img, grid, *args,
-                                                        **kw)
-                        e_fwd = float((out - ref).abs().max())
-                        s_img = float(r_img.abs().max())
-                        s_grid = float(r_grid.abs().max())
-                        e_img = float((d_img - r_img).abs().max())
-                        e_grid = float((d_grid - r_grid).abs().max())
-                        ok = e_fwd <= TOL_GRID_FWD
-                        if mode == "nearest":
-                            ok = ok and float(d_grid.abs().max()) == 0.0
-                        pad = padding if slope is None else \
-                            f"{padding}:{float(slope):.1f}"
-                        label = (f"{fam} {name:13s} C={c} {mode:8s} "
-                                 f"{pad:10s} align={int(align)}")
-                        print(f"[grid] {label}: fwd {e_fwd:.3e} d_img "
-                              f"{e_img:.3e} (max {s_img:.3e}) d_grid "
-                              f"{e_grid:.3e} (max {s_grid:.3e})", flush=True)
-                        ok = (ok and e_img <= TOL_DIMG_REL * s_img
-                              and e_grid <= TOL_DFLOW_REL * s_grid)
-                        if not ok:
-                            raise AssertionError(
-                                f"the {fam} pair disagrees with its plain "
-                                f"versions: {label} fwd {e_fwd} d_img "
-                                f"{e_img} d_grid {e_grid}")
-                        worst["fwd"] = max(worst["fwd"], e_fwd)
-                        worst["bwd"] = max(worst["bwd"], e_img, e_grid)
+                        hold_grid_case(fam, kern, call_args, name, grid,
+                                       shape, c, mode, padding, align, slope,
+                                       worst)
     return worst
+
+
+def hold_grid_case(fam, kern, call_args, name, grid, shape, c, mode,
+                   padding, align, slope, worst):
+    """One case of :func:`check_grid_kernels`: the pair and its plain
+    versions on a seeded image of ``c`` channels and spatial ``shape`` at
+    ``grid`` (N, P, d); raises on a disagreement, updates ``worst``."""
+    import torch
+    n, device = grid.shape[0], grid.device
+    gen = torch.Generator(device=device).manual_seed(c)
+    img = torch.randn((n, c) + tuple(shape), generator=gen, device=device)
+    g = torch.randn(n, c, grid.shape[1], generator=gen, device=device)
+    args = call_args(padding, align, mode)
+    kw = {} if slope is None else {"lower_slope": slope}
+    with torch.no_grad():
+        out = kern["fwd"](img, grid, *args)
+        ref = kern["fwd_plain"](img, grid, *args)
+        r_img, r_grid = kern["bwd_plain"](g, img, grid, *args, **kw)
+        d_img, d_grid = kern["bwd"](g, img, grid, *args, **kw)
+    e_fwd = float((out - ref).abs().max())
+    s_img = float(r_img.abs().max())
+    s_grid = float(r_grid.abs().max())
+    e_img = float((d_img - r_img).abs().max())
+    e_grid = float((d_grid - r_grid).abs().max())
+    ok = e_fwd <= TOL_GRID_FWD
+    if mode == "nearest":
+        ok = ok and float(d_grid.abs().max()) == 0.0
+    pad = padding if slope is None else f"{padding}:{float(slope):.1f}"
+    label = f"{fam} {name:13s} C={c} {mode:8s} {pad:10s} align={int(align)}"
+    print(f"[grid] {label}: fwd {e_fwd:.3e} d_img {e_img:.3e} (max "
+          f"{s_img:.3e}) d_grid {e_grid:.3e} (max {s_grid:.3e})", flush=True)
+    ok = (ok and e_img <= TOL_DIMG_REL * s_img
+          and e_grid <= TOL_DFLOW_REL * s_grid)
+    if not ok:
+        raise AssertionError(
+            f"the {fam} pair disagrees with its plain versions: {label} fwd "
+            f"{e_fwd} d_img {e_img} d_grid {e_grid}")
+    worst["fwd"] = max(worst["fwd"], e_fwd)
+    worst["bwd"] = max(worst["bwd"], e_img, e_grid)
 
 
 @contextlib.contextmanager
@@ -2062,6 +2098,406 @@ def profile_3d(device, path, median_s):
     return prof
 
 
+# --------------------------------------------------------------- slice 10
+# config #3, the constrained solve (bench.py:294-346)
+CONSTRAINED_BATCH = 4
+CONSTRAINED_N_ITER = 3
+ANATOMY_WEIGHT = 50.0
+VOLUME_TOL = 5e-4
+
+
+def make_anatomy(batch, shape):
+    """bench.py:317-321's ellipse (radii 40 x 34 px at 192x192, centred),
+    scaled with the image."""
+    h, w = shape
+    ii, jj = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    mask = (((ii - h / 2) / (40.0 * h / 192)) ** 2
+            + ((jj - w / 2) / (34.0 * w / 192)) ** 2) < 1.0
+    return np.broadcast_to(mask, (batch, 1) + tuple(shape)).astype(
+        np.float32)
+
+
+def build_constrained_solver(batch, shape, names=("noise", "bias", "affine",
+                                                  "morph"), device=None):
+    """Config #3's solver: the headline chain with "lowest" padding on the
+    affine and the morph, mse + contour; ``device`` is where the
+    transforms' own draws go (None: the GPU)."""
+    from advchain_tpu_torch.augmentor import (
+        AdvAffine, AdvBias, AdvMorph, AdvNoise,
+        ComposeAdversarialTransformSolver)
+    cls = {"noise": AdvNoise, "bias": AdvBias, "affine": AdvAffine,
+           "morph": AdvMorph}
+    cfg = chain_configs(batch, shape)
+    chain = []
+    for i, n in enumerate(names):
+        pad = {"image_padding_mode": "lowest"} \
+            if n in ("affine", "morph") else {}
+        chain.append(cls[n](config_dict=cfg[n], seed=i, device=device,
+                            **pad))
+    return ComposeAdversarialTransformSolver(
+        chain_of_transforms=chain, divergence_types=["mse", "contour"],
+        divergence_weights=[1.0, 0.5])
+
+
+def constrained_solve(solver, model, data, anatomy, n_iter=CONSTRAINED_N_ITER,
+                      tol=VOLUME_TOL, **kw):
+    dist = solver.adversarial_training(
+        data=data, model=model, n_iter=n_iter, anatomy_mask_images=anatomy,
+        anatomy_reg_weight=ANATOMY_WEIGHT, volume_preserve_tolerance=tol,
+        step_sizes=1.0, **kw)
+    sync(data.device)
+    return dist
+
+
+@contextlib.contextmanager
+def sampler_calls():
+    """Record each band grid and stencil wrapper call made inside the
+    block: ("band_grid", kind, C, padding, align_corners, mode) or
+    ("stencil", kind, C); restored after it."""
+    from advchain_tpu_torch.kernels import band_sample, stencil_warp
+    calls = []
+    real = {}
+
+    def logged(mod, name, key):
+        fn = getattr(mod, name)
+        real[(mod, name)] = fn
+
+        def wrapper(*args, **kwargs):
+            calls.append(key(*args, **kwargs))
+            return fn(*args, **kwargs)
+        setattr(mod, name, wrapper)
+
+    def band(kind):
+        def key(*args, **kwargs):
+            img = args[0] if kind == "fwd" else args[1]
+            rest = list(args[2:] if kind == "fwd" else args[3:])
+            opts = dict(zip(("padding_mode", "align_corners", "mode"), rest))
+            opts.update(kwargs)
+            return ("band_grid", kind, img.shape[1],
+                    opts.get("padding_mode", "zeros"),
+                    bool(opts.get("align_corners", True)),
+                    opts.get("mode", "bilinear"))
+        return key
+
+    def stencil(kind):
+        return lambda *args, **kwargs: (
+            "stencil", kind, (args[0] if kind == "fwd" else args[1]).shape[1])
+
+    for kind in ("fwd", "bwd"):
+        logged(band_sample, f"band_grid_sample_{kind}", band(kind))
+        logged(stencil_warp, f"stencil_warp_{kind}", stencil(kind))
+    try:
+        yield calls
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+
+
+def check_constrained_calls(calls, n, shape, device):
+    """Phase 18: rows 1-4 against their plain versions at ``n`` x
+    ``shape`` with the channel counts, paddings, align_corners and modes
+    that the constrained solve called them with (``calls``, from
+    :func:`sampler_calls`), on phase 2's grids and phase 10's flows.
+    Returns the largest errors by family."""
+    band = sorted({c[2:] for c in calls if c[0] == "band_grid"},
+                  key=str)
+    stencil = sorted({c[2] for c in calls if c[0] == "stencil"})
+    print(f"[constrained] band grid calls (C, padding, align, mode): "
+          f"{band}; stencil channels {stencil}", flush=True)
+    kern, _, call_args = grid_pair("band_grid")
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for name, grid in grid_cases(n, shape, device):
+        for c, padding, align, mode in band:
+            hold_grid_case("band_grid", kern, call_args, name, grid, shape,
+                           c, mode, padding, align, None, worst)
+    worst_s = check_stencil(n, shape, device, channels=tuple(stencil))
+    return {"band_grid": worst, "stencil": worst_s}
+
+
+@contextlib.contextmanager
+def counted_samples():
+    """Count the kernels' callers inside the block: 2D samples
+    (``grid_sample_2d``; every one should launch the band grid forward)
+    and flow compositions (``compose_flow``; every one the stencil
+    forward).  The dict is filled when the block ends."""
+    gs = importlib.import_module("advchain_tpu_torch.ops.grid_sample")
+    integ = importlib.import_module("advchain_tpu_torch.ops.integrate")
+    calls = {}
+    with count_calls([gs, integ], ("grid_sample_2d",)) as samples, \
+            count_calls([integ], ("compose_flow",)) as compositions:
+        try:
+            yield calls
+        finally:
+            calls.update(samples, **compositions)
+
+
+def assert_on_kernels(label, launches, calls, folds):
+    """Raise unless every 2D sample of a run launched the band grid
+    forward, every flow composition the stencil forward, each
+    differentiated composition one dispatch predicate, and no run took
+    the corner-level pair or a host-side fold."""
+    if (launches["band_grid"]["fwd"] != calls["grid_sample_2d"]
+            or launches["stencil"]["fwd"] != calls["compose_flow"]
+            or launches["slope"]["fwd"] != launches["stencil"]["bwd"]
+            or any(launches["band"].values()) or any(folds.values())):
+        raise AssertionError(
+            f"the {label} did not run every sample on the band grid pair "
+            f"and every composition on the stencil: launches {launches}, "
+            f"calls {calls}, folds {folds}")
+
+
+def check_constrained_against_cpu(device, batch=2, shape=(64, 64)):
+    """Phase 19: the constrained solve on ``device`` and on the CPU from
+    the same weights and injected parameters (``lazy_load=True``, a
+    tolerance of 1.0, so no redraw depends on the device).  The full chain
+    without PGD: dist within 1e-3 absolute and the volume score equal up
+    to k / numel (k: the roundtrip's pixels within 1e-5 of 0.5); the
+    morph-free chain with one penalised PGD step on the noise: the new
+    noise's direction to cosine 0.999 and dist to 1e-2 relative, as phase
+    3 holds the episode."""
+    import torch
+    model_d, model_c = build_model(device), build_model("cpu")
+    model_c.module.load_state_dict(model_d.module.state_dict())
+    data = torch.as_tensor(make_image(batch, shape))
+    anatomy = torch.as_tensor(make_anatomy(batch, shape))
+    for names, n_iter, flags in (
+            (("noise", "bias", "affine", "morph"), 0, None),
+            (("noise", "bias", "affine"), 1, [True, False, False])):
+        solvers = [build_constrained_solver(batch, shape, names, device=d)
+                   for d in (device, "cpu")]
+        gen = torch.Generator().manual_seed(7)
+        params = [t.init_params(gen) for t in solvers[0].chain_of_transforms]
+        dists, scores = [], []
+        for solver, model, dev in ((solvers[0], model_d, device),
+                                   (solvers[1], model_c, "cpu")):
+            solver.set_transformation(params)
+            dists.append(float(constrained_solve(
+                solver, model, data.to(dev), anatomy.to(dev), n_iter=n_iter,
+                tol=1.0, lazy_load=True, optimize_flags=flags)))
+            scores.append(float(solver.compute_anatomy_misoverlapping_loss(
+                anatomy.to(dev))))
+        with torch.no_grad():
+            rec = solvers[1].predict_backward(solvers[1].predict_forward(
+                anatomy))
+        k = int(((rec - 0.5).abs() <= 1e-5).sum())
+        diff = abs(dists[0] - dists[1])
+        noise = [s.chain_of_transforms[0].param.cpu().reshape(batch, -1)
+                 for s in solvers]
+        cos = float(torch.nn.functional.cosine_similarity(*noise).min())
+        key = "+".join(names) + f" n_iter={n_iter}"
+        print(f"[constrained-ref] {key}: dist {dists[0]:.6e} vs cpu "
+              f"{dists[1]:.6e} (abs {diff:.2e}), volume score {scores[0]:.6e}"
+              f" vs {scores[1]:.6e} (k={k}), noise cosine {cos:.7f}",
+              flush=True)
+        ok = abs(scores[0] - scores[1]) <= k / anatomy.numel() + 1e-7
+        if n_iter == 0:
+            ok = ok and diff < 1e-3
+        else:
+            ok = ok and diff < 1e-2 * abs(dists[1]) and cos > 0.999
+        if not ok:
+            raise AssertionError(f"constrained solve disagrees with the CPU "
+                                 f"run: {key}")
+
+
+def manual_step(solver, model, data, init_output, flags, step=None):
+    """One round of the README's manual loop: ``compute_transform_grads``
+    (stashing each flagged transform's gradient), then for each flagged
+    transform ``optimize_parameters()`` with no argument (after
+    ``set_step_size(step)`` when given), ``rescale_parameters()`` and
+    ``eval()``.  Returns (the divergence before the step, the gradients)."""
+    import torch
+    before, grads = solver.compute_transform_grads(data, model, init_output,
+                                                   optimize_flags=flags)
+    for t, f, g in zip(solver.chain_of_transforms, flags, grads):
+        if (g is None) == f or t.grad is not g:
+            raise AssertionError(f"compute_transform_grads stashed no "
+                                 f"gradient on the flagged {t.get_name()}")
+        if f:
+            if step is not None:
+                t.set_step_size(step)
+            want = t.update(t.param, g, t.get_step_size())
+            if not torch.equal(t.optimize_parameters(), want):
+                raise AssertionError("optimize_parameters() did not take "
+                                     "the stashed gradient's step")
+            t.rescale_parameters()
+            t.eval()
+    return float(before), grads
+
+
+def divergence(solver, model, data, init_output, flags):
+    return float(solver.compute_transform_grads(data, model, init_output,
+                                                optimize_flags=flags)[0])
+
+
+def check_manual_loop(device, batch=2, shape=(64, 64), step=0.02):
+    """Phase 19: the README's manual loop (:func:`manual_step`).
+
+    The recipe as written (every transform flagged, the default step 1.0)
+    on ``device`` and on the CPU from the same weights and injected
+    parameters: the divergence before the step within 1e-3 absolute (as
+    phase 3 holds the full chain); the noise's, bias's and morph's
+    gradients to cosine 0.999; the affine's sign-of-gradient step equal
+    on every entry whose CPU gradient exceeds 1e-3 of its largest; the
+    divergence after the card's step within 1e-3 of the CPU's on the
+    card's stepped parameters; and where the CPU's own step moves the
+    divergence by more than 2e-3, the card's moves it the same way.  A
+    step of 1.0 is not first order, so the recipe need not ascend.
+
+    Then on ``device`` alone, from fresh random parameters, the noise,
+    bias and morph take a step of ``step``, small enough for the
+    first-order gain to show: the divergence ascends."""
+    import torch
+    names = ("noise", "bias", "affine", "morph")
+    models = {device: build_model(device), "cpu": build_model("cpu")}
+    models["cpu"].module.load_state_dict(models[device].module.state_dict())
+    data = torch.as_tensor(make_image(batch, shape))
+    flags = [True] * len(names)
+    solvers = {d: build_constrained_solver(batch, shape, device=d)
+               for d in (device, "cpu")}
+    gen = torch.Generator().manual_seed(7)
+    params = [t.init_params(gen) for t in solvers["cpu"].chain_of_transforms]
+    res = {}
+    for d, solver in solvers.items():
+        solver.set_transformation([p.to(d) for p in params])
+        init = solver.get_init_output(models[d], data.to(d))
+        before, grads = manual_step(solver, models[d], data.to(d), init,
+                                    flags)
+        after = divergence(solver, models[d], data.to(d), init, flags)
+        res[d] = (before, [g.cpu() for g in grads], after, init)
+    stepped = [t.param.cpu() for t in solvers[device].chain_of_transforms]
+    solvers["cpu"].set_transformation(stepped)
+    same = divergence(solvers["cpu"], models["cpu"], data, res["cpu"][3],
+                      flags)
+    (b_d, g_d, a_d, _), (b_c, g_c, a_c, _) = res[device], res["cpu"]
+    cos = {n: float(torch.nn.functional.cosine_similarity(
+        x.reshape(1, -1), y.reshape(1, -1))) for n, x, y in
+        zip(names, g_d, g_c) if n != "affine"}
+    ga, gb = g_d[names.index("affine")], g_c[names.index("affine")]
+    big = gb.abs() > 1e-3 * gb.abs().max()
+    signs = bool((torch.sign(ga) == torch.sign(gb))[big].all())
+    print(f"[manual-loop] recipe at step 1.0: {device} {b_d:.6e} -> "
+          f"{a_d:.6e} (cpu on its step {a_c:.6e}, on the card's "
+          f"{same:.6e}); cpu before {b_c:.6e}; gradient cosines "
+          + ", ".join(f"{n} {c:.7f}" for n, c in cos.items())
+          + f"; affine signs agree on {int(big.sum())} of {big.numel()} "
+          f"entries: {signs}", flush=True)
+    gain_d, gain_c = a_d - b_d, a_c - b_c
+    if not (abs(b_d - b_c) < 1e-3 and min(cos.values()) > 0.999 and signs
+            and abs(a_d - same) < 1e-3
+            and (abs(gain_c) <= 2e-3 or gain_d * gain_c > 0)):
+        raise AssertionError("the manual loop on the card disagrees with "
+                             "the CPU's")
+    solver = build_constrained_solver(batch, shape, device=device)
+    data = data.to(device)
+    flags = [n != "affine" for n in names]
+    solver.init_random_transformation()
+    init = solver.get_init_output(models[device], data)
+    before, _ = manual_step(solver, models[device], data, init, flags, step)
+    after = divergence(solver, models[device], data, init, flags)
+    print(f"[manual-loop] {device}, noise, bias and morph at step {step}: "
+          f"divergence {before:.6e} -> {after:.6e}", flush=True)
+    if not after > before:
+        raise AssertionError("the manual loop's step did not ascend")
+
+
+def run_random_chain(device, batch, shape, warm=2, reps=5):
+    """Phase 20, config #2 (bench.py:245-291): each call draws the chain's
+    parameters (``init_random_transformation``) and applies it
+    (``forward``), ending in a synchronize.  Returns (launches of one
+    call, the sample counts of that call, host-side fold calls, median
+    seconds, rep times, peak bytes)."""
+    import torch
+    solver = build_solver(batch, shape)
+    for t in solver.chain_of_transforms:
+        t.device = device
+    data = torch.as_tensor(make_image(batch, shape), device=device)
+
+    def once():
+        solver.init_random_transformation()
+        out = solver.forward(data)
+        sync(device)
+        return out
+
+    for _ in range(warm):
+        once()
+    if data.is_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    times = []
+    fold_modules = [importlib.import_module(f"advchain_tpu_torch.{name}")
+                    for name in ("ops.grid_sample", "kernels._coords")]
+    for i in range(reps):
+        reset_launch_counts()
+        with counted_samples() as calls, \
+                count_calls(fold_modules, FOLDS) as folds:
+            t0 = time.perf_counter()
+            out = once()
+            times.append(time.perf_counter() - t0)
+        if i == 0:
+            launches, first_calls, first_folds = (launch_counts(),
+                                                  dict(calls), dict(folds))
+            if not (tuple(out.shape) == (batch, 1) + tuple(shape)
+                    and bool(torch.isfinite(out).all())
+                    and len(solver.diffs) == len(solver.chain_of_transforms)):
+                raise AssertionError("the random chain's output is not "
+                                     "finite or has the wrong shape")
+    peak = torch.cuda.max_memory_allocated() if data.is_cuda else 0
+    return (launches, first_calls, first_folds, statistics.median(times),
+            times, peak)
+
+
+def run_constrained(device, batch, shape, warm=2, reps=5):
+    """Phase 21, config #3: ``reps`` solves after ``warm``, each one
+    ``adversarial_training`` with the anatomy mask (a fresh
+    rejection-sampled init, ``n_iter`` penalised PGD steps, the volume
+    check, the ladder when it fails), ending in a synchronize; after each,
+    untimed, the volume score against the tolerance.  Returns (launches
+    and sample counts of each solve, median seconds, rep times, the share
+    of solves that preserve the volume, losses, peak bytes)."""
+    import torch
+    solver = build_constrained_solver(batch, shape)
+    model = build_model(device)
+    data = torch.as_tensor(make_image(batch, shape), device=device)
+    anatomy = torch.as_tensor(make_anatomy(batch, shape), device=device)
+    for _ in range(warm):
+        constrained_solve(solver, model, data, anatomy)
+    if data.is_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    fold_modules = [importlib.import_module(f"advchain_tpu_torch.{name}")
+                    for name in ("ops.grid_sample", "kernels._coords")]
+    times, runs, losses, passed = [], [], [], 0
+    for _ in range(reps):
+        reset_launch_counts()
+        with counted_samples() as calls, \
+                count_calls(fold_modules, FOLDS) as folds:
+            t0 = time.perf_counter()
+            dist = constrained_solve(solver, model, data, anatomy)
+            times.append(time.perf_counter() - t0)
+        runs.append((launch_counts(), dict(calls), dict(folds)))
+        losses.append(float(dist))
+        warped = solver.warped_back_adv_output
+        if not (math.isfinite(losses[-1])
+                and tuple(warped.shape) == (batch, 4) + tuple(shape)
+                and bool(torch.isfinite(warped).all())):
+            raise AssertionError(f"constrained solve output is not finite "
+                                 f"or has the wrong shape ({losses[-1]})")
+        passed += float(solver.compute_anatomy_misoverlapping_loss(
+            anatomy)) <= VOLUME_TOL
+    peak = torch.cuda.max_memory_allocated() if data.is_cuda else 0
+    return (runs, statistics.median(times), times, passed / reps, losses,
+            peak)
+
+
+def kernel_launches(launches):
+    """Launches by kernel record name (the ``kernels`` line's names)."""
+    out = {f"{KERNEL_NAMES[fam]}_{kind}": launches[fam][kind]
+           for fam in ("band", "band_grid", "zband", "zband_grid",
+                       "stencil", "corner", "plane", "plane_grid")
+           for kind in ("fwd", "bwd")}
+    out[f"{KERNEL_NAMES['corner_tile']}_bwd"] = launches["corner_tile"]["bwd"]
+    out[KERNEL_NAMES["slope"]] = launches["slope"]["fwd"]
+    return out
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2112,6 +2548,12 @@ def main(argv=None):
     parser.add_argument("--profile-legacy2d", metavar="PATH",
                         help="also write a profile of one 2D episode on the "
                              "corner route (ADVCHAIN_BAND_KERNEL=0) to PATH")
+    parser.add_argument("--profile-constrained", metavar="PATH",
+                        help="also write a profile of one constrained solve "
+                             "(config #3) to PATH")
+    parser.add_argument("--profile-random-chain", metavar="PATH",
+                        help="also write a profile of one random-chain call "
+                             "(config #2) to PATH")
     args = parser.parse_args(argv)
 
     import torch
@@ -2272,6 +2714,78 @@ def main(argv=None):
                                 fam="plane_grid")
     time_grid_routes(BATCH3D, SHAPE3D, device, legacy=True)
 
+    # slice 10: the solver's host API through bench.py's configs #2 and
+    # #3; the constrained solve's kernel calls, logged on one solve, then
+    # held against the plain versions at those settings
+    solver_c = build_constrained_solver(CONSTRAINED_BATCH, SHAPE)
+    model_c = build_model(device)
+    data_c = torch.as_tensor(make_image(CONSTRAINED_BATCH, SHAPE),
+                             device=device)
+    anatomy_c = torch.as_tensor(make_anatomy(CONSTRAINED_BATCH, SHAPE),
+                                device=device)
+    with sampler_calls() as logged:
+        constrained_solve(solver_c, model_c, data_c, anatomy_c)
+    worst_cs = check_constrained_calls(logged, CONSTRAINED_BATCH, SHAPE,
+                                       device)
+    check_constrained_against_cpu(device)
+    check_manual_loop(device)
+    launches_rc, calls_rc, folds_rc, sec_rc, times_rc, peak_rc = \
+        run_random_chain(device, BATCH, SHAPE)
+    print(f"[random-chain] config #2, batch {BATCH} {SHAPE[0]}x{SHAPE[1]}: "
+          f"median {sec_rc * 1e3:.2f} ms ({BATCH / sec_rc:.2f} img/s) over "
+          f"{[round(t * 1e3, 2) for t in times_rc]} ms, launches band_grid "
+          f"{launches_rc['band_grid']}, stencil {launches_rc['stencil']}, "
+          f"samples {calls_rc}, host-side folds {folds_rc}, peak "
+          f"{peak_rc / 1e9:.2f} GB on {card}", flush=True)
+    assert_on_kernels("random chain", launches_rc, calls_rc, folds_rc)
+    if not (launches_rc["band_grid"]["fwd"] and launches_rc["stencil"]["fwd"]):
+        raise AssertionError(f"the random chain launched no band grid or "
+                             f"stencil forward: {launches_rc}")
+    if args.profile_random_chain:
+        solver_rc = build_solver(BATCH, SHAPE)
+        data_rc = torch.as_tensor(make_image(BATCH, SHAPE), device=device)
+
+        def random_chain_call():
+            solver_rc.init_random_transformation()
+            solver_rc.forward(data_rc)
+            sync(device)
+
+        prof_rc = profile_run("random chain", random_chain_call,
+                              args.profile_random_chain)
+        print(f"[profile] random chain: device busy "
+              f"{prof_rc['device_busy_ms']:.2f} ms of the unprofiled median "
+              f"{sec_rc * 1e3:.2f} ms, idle share "
+              f"{1 - prof_rc['device_busy_ms'] / (sec_rc * 1e3):.3f}",
+              flush=True)
+    runs_cs, sec_cs, times_cs, share_cs, losses_cs, peak_cs = \
+        run_constrained(device, CONSTRAINED_BATCH, SHAPE)
+    per_solve = [sum(sum(v.values()) for v in run[0].values())
+                 for run in runs_cs]
+    print(f"[constrained] config #3, batch {CONSTRAINED_BATCH} "
+          f"{SHAPE[0]}x{SHAPE[1]}, n_iter={CONSTRAINED_N_ITER}: median "
+          f"{sec_cs * 1e3:.2f} ms per solve over "
+          f"{[round(t * 1e3, 2) for t in times_cs]} ms, volume preserved in "
+          f"{share_cs:.2f} of {len(runs_cs)} solves (tolerance "
+          f"{VOLUME_TOL}), losses {losses_cs}, the port's kernel launches "
+          f"per solve {per_solve} (first: band_grid "
+          f"{runs_cs[0][0]['band_grid']}, stencil {runs_cs[0][0]['stencil']},"
+          f" dispatch predicates {runs_cs[0][0]['slope']['fwd']}), samples "
+          f"{[r[1] for r in runs_cs]}, peak {peak_cs / 1e9:.2f} GB on {card}",
+          flush=True)
+    for launches, calls, folds in runs_cs:
+        assert_on_kernels("constrained solve", launches, calls, folds)
+        if not (launches["band_grid"]["bwd"] and launches["stencil"]["bwd"]):
+            raise AssertionError(f"a constrained solve ran no differentiated "
+                                 f"sample or composition: {launches}")
+    if args.profile_constrained:
+        prof_cs = profile_run("constrained solve", lambda: constrained_solve(
+            solver_c, model_c, data_c, anatomy_c), args.profile_constrained)
+        print(f"[profile] constrained solve: device busy "
+              f"{prof_cs['device_busy_ms']:.2f} ms of the unprofiled median "
+              f"{sec_cs * 1e3:.2f} ms, idle share "
+              f"{1 - prof_cs['device_busy_ms'] / (sec_cs * 1e3):.3f}",
+              flush=True)
+
     shape2 = f"N={BATCH} {SHAPE[0]}x{SHAPE[1]}"
     shape3 = f"N={BATCH3D} {'x'.join(map(str, SHAPE3D))}"
     kernels = (kernel_records("band", launches2, worst2, rows2, "rot30", 1,
@@ -2293,9 +2807,22 @@ def main(argv=None):
                + kernel_records("plane_grid", launches_p, worst_pg, rows_pg,
                                 "near_identity", 3, shape3)
                + [slope_record(launches_t, slope_row, worst_slope, shape2)])
+    by_name = (kernel_launches(launches_rc),
+               kernel_launches(runs_cs[0][0]))
+    for rec in kernels:
+        rec["launches_random_chain"] = by_name[0][rec["name"]]
+        rec["launches_constrained_solve"] = by_name[1][rec["name"]]
+    for rec in kernels:
+        fam = "stencil" if rec["name"].startswith("stencil") else \
+            "band_grid" if rec["name"].startswith("band_grid") else None
+        if fam is not None:  # the constrained solve's own calls (phase 18)
+            kind = rec["name"].rsplit("_", 1)[1]
+            rec["max_abs_err_constrained"] = worst_cs[fam][kind]
     print(f"[episode] {BATCH / sec:.2f} img/s (2D), {BATCH3D / sec3:.3f} "
           f"vol/s (3D), train step {BATCH / sec_t:.2f} img/s (supervised "
-          f"{BATCH / sec_s:.2f}) on {card}", flush=True)
+          f"{BATCH / sec_s:.2f}), random chain {BATCH / sec_rc:.2f} img/s, "
+          f"constrained solve {sec_cs * 1e3:.2f} ms ({share_cs:.2f} "
+          f"preserved) on {card}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

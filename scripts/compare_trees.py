@@ -5,7 +5,7 @@ on one GPU, in turns, so that the trees are compared on one card under one
 power limit.
 
     python3 scripts/compare_trees.py --out PATH TREE [TREE ...]
-        [--order 0,1,1,0] [--reps 5] [--legacy3d] [--legacy2d]
+        [--order 0,1,1,0] [--reps 5] [--legacy3d] [--legacy2d] [--configs]
 
 Each TREE is the root of a checkout (for instance a ``git archive`` of
 another commit unpacked under ``build/``).  Every turn runs in a fresh
@@ -22,7 +22,10 @@ samples on the tree's plane route) and profiles one such episode
 its device busy time, kernel launches and idle share against the timed
 median; ``--legacy2d`` does the same for the headline 2D episode with
 ``ADVCHAIN_BAND_KERNEL=0`` (``chip_smoke.legacy_route(2)``: the 2D samples
-on the tree's corner route; PATH.legacy2d.<turn>.json).  ``--order`` lists the trees' indices in turn order (default: each
+on the tree's corner route; PATH.legacy2d.<turn>.json).  ``--configs``
+also times bench.py's random chain (config #2, ``chip_smoke.run_random_chain``,
+batch 128) and constrained solve (config #3, ``chip_smoke.run_constrained``,
+batch 4, with the share of solves that preserve the volume).  ``--order`` lists the trees' indices in turn order (default: each
 tree forward, then backward).  Prints one JSON line per turn and writes
 them all to PATH.
 """
@@ -50,7 +53,7 @@ tr = cs.run_train_step("cuda", cs.BATCH, cs.SHAPE, reps=reps)
 su = cs.run_train_step("cuda", cs.BATCH, cs.SHAPE, supervised=True,
                        reps=reps)
 e3 = cs.run_episode("cuda", cs.BATCH3D, cs.SHAPE3D, reps=reps)
-legacy = {}
+extra = {}
 for key, dims, n, shape, path in (
         ("episode3d_legacy", 3, cs.BATCH3D, cs.SHAPE3D, sys.argv[2]),
         ("episode_legacy2d", 2, cs.BATCH, cs.SHAPE, sys.argv[3])):
@@ -59,11 +62,22 @@ for key, dims, n, shape, path in (
     with cs.legacy_route(dims):
         lr = cs.run_episode("cuda", n, shape, reps=reps)
         prof = cs.profile_episode("cuda", n, shape, path)
-    legacy[key] = dict(
+    extra[key] = dict(
         median_ms=lr[1] * 1e3, per_s=n / lr[1],
         reps_ms=[t * 1e3 for t in lr[2]], loss=lr[3], peak_gb=lr[4] / 1e9,
         launches=lr[0], profile=prof,
         idle_share=1 - prof["device_busy_ms"] / (lr[1] * 1e3))
+
+if sys.argv[4]:
+    rc = cs.run_random_chain("cuda", cs.BATCH, cs.SHAPE, reps=reps)
+    extra["random_chain"] = dict(
+        median_ms=rc[3] * 1e3, per_s=cs.BATCH / rc[3],
+        reps_ms=[t * 1e3 for t in rc[4]], peak_gb=rc[5] / 1e9)
+    co = cs.run_constrained("cuda", cs.CONSTRAINED_BATCH, cs.SHAPE,
+                            reps=reps)
+    extra["constrained"] = dict(
+        median_ms=co[1] * 1e3, reps_ms=[t * 1e3 for t in co[2]],
+        preserved=co[3], losses=co[4], peak_gb=co[5] / 1e9)
 
 
 def rec(r, n, loss_key):
@@ -76,7 +90,7 @@ print(json.dumps({"card": cs.card_line(),
                   "episode": rec(ep, cs.BATCH, "loss"),
                   "train_step": rec(tr, cs.BATCH, "metrics"),
                   "supervised_step": rec(su, cs.BATCH, "metrics"),
-                  "episode3d": rec(e3, cs.BATCH3D, "loss"), **legacy}))
+                  "episode3d": rec(e3, cs.BATCH3D, "loss"), **extra}))
 """
 
 
@@ -92,6 +106,8 @@ def main(argv=None):
     parser.add_argument("--legacy2d", action="store_true",
                         help="also time and profile the 2D episode with "
                              "ADVCHAIN_BAND_KERNEL=0")
+    parser.add_argument("--configs", action="store_true",
+                        help="also time configs #2 and #3")
     args = parser.parse_args(argv)
     n = len(args.trees)
     order = ([int(i) for i in args.order.split(",")] if args.order
@@ -103,7 +119,7 @@ def main(argv=None):
                     if wanted else "" for d, wanted in
                     (("3d", args.legacy3d), ("2d", args.legacy2d))]
         proc = subprocess.run([sys.executable, "-c", CHILD, str(args.reps),
-                               *profiles],
+                               *profiles, "1" if args.configs else ""],
                               cwd=tree, capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
@@ -128,6 +144,13 @@ def main(argv=None):
                     f"{key}_launches": legacy["profile"]["device_launches"],
                     f"{key}_busy_ms": legacy["profile"]["device_busy_ms"],
                     f"{key}_peak_gb": legacy["peak_gb"]})
+        if "random_chain" in result:
+            line.update(
+                random_chain_per_s=result["random_chain"]["per_s"],
+                random_chain_reps_ms=result["random_chain"]["reps_ms"],
+                constrained_median_ms=result["constrained"]["median_ms"],
+                constrained_reps_ms=result["constrained"]["reps_ms"],
+                constrained_preserved=result["constrained"]["preserved"])
         print(json.dumps(line), flush=True)
     with open(args.out, "w") as f:
         json.dump(turns, f, indent=1)

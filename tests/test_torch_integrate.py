@@ -1,0 +1,99 @@
+"""The port's euler integration and the 2D Jacobian determinant against
+the JAX package's (advchain_tpu/ops/integrate.py:240-279), on identical
+numpy inputs.  The JAX side runs with ADVCHAIN_STENCIL=0 (its
+compositions on the sampler), the port with JAX's base grid, as in
+tests/test_torch_stencil.py: the two packages' linspaces differ in ulps
+(ROADMAP queue 3), which repeated compositions amplify."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from advchain_tpu import ops as jops
+from advchain_tpu.ops import integrate as jint
+
+from advchain_tpu_torch import ops as tops
+from advchain_tpu_torch.ops import integrate as tint
+
+
+@pytest.fixture(autouse=True)
+def _jax_dispatch_and_grid(monkeypatch):
+    monkeypatch.setenv("ADVCHAIN_STENCIL", "0")
+
+    def grid(batch_size, spatial_shape, dtype=torch.float32, device=None):
+        g = np.array(jint.base_grid(batch_size, spatial_shape))
+        return torch.from_numpy(g).to(dtype=dtype, device=device)
+    monkeypatch.setattr(tint, "base_grid", grid)
+
+
+def _velocity(shape, seed, amp):
+    r = np.random.RandomState(seed)
+    return r.uniform(-amp, amp, shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("nb_steps", [1, 4, 8])
+def test_euler_2d(nb_steps):
+    """nb_steps compositions of the interval flow; the exponentiate_flow
+    budget: max 1e-4, mean 1e-5."""
+    duv = _velocity((2, 2, 16, 20), 21, 0.2)
+    ours = tint.exponentiate_flow(torch.from_numpy(duv), nb_steps=nb_steps,
+                                  method="euler").numpy()
+    ref = np.asarray(jint.exponentiate_flow(jnp.asarray(duv),
+                                            nb_steps=nb_steps,
+                                            method="euler"))
+    d = np.abs(ours - ref)
+    assert d.max() <= 1e-4 and d.mean() <= 1e-5, (d.max(), d.mean())
+    assert np.abs(ref).max() > 1e-3  # the flow moved
+
+
+@pytest.mark.parametrize("nb_steps", [1, 3])
+def test_euler_3d(nb_steps):
+    """int(2 ** nb_steps) compositions in 3D (adaptive is ignored)."""
+    duv = _velocity((1, 3, 6, 8, 10), 22, 0.1)
+    ours = tint.exponentiate_flow(torch.from_numpy(duv), nb_steps=nb_steps,
+                                  method="euler", adaptive=True).numpy()
+    ref = np.asarray(jint.exponentiate_flow(jnp.asarray(duv),
+                                            nb_steps=nb_steps,
+                                            method="euler", adaptive=True))
+    d = np.abs(ours - ref)
+    assert d.max() <= 1e-4 and d.mean() <= 1e-5, (d.max(), d.mean())
+
+
+def test_euler_gradient():
+    """The velocity's gradient through the euler loop (the compositions'
+    backward kernels' plain versions), 1e-4 of its largest entry."""
+    import jax
+    duv = _velocity((2, 2, 16, 20), 23, 0.2)
+    cot = np.random.RandomState(24).randn(*duv.shape).astype(np.float32)
+    v = torch.from_numpy(duv).requires_grad_(True)
+    (tint.exponentiate_flow(v, nb_steps=4, method="euler")
+     * torch.from_numpy(cot)).sum().backward()
+    ref = jax.grad(lambda u: jnp.sum(jint.exponentiate_flow(
+        u, nb_steps=4, method="euler") * cot))(jnp.asarray(duv))
+    ref = np.asarray(ref)
+    assert np.abs(v.grad.numpy() - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+def test_unknown_method_raises():
+    with pytest.raises(NotImplementedError):
+        tint.exponentiate_flow(torch.zeros(1, 2, 4, 4), method="rk4")
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 16, 20), (1, 2, 3, 5)])
+def test_jacobian_determinant_2d(shape):
+    disp = _velocity(shape, 25, 0.3)
+    ours = tops.jacobian_determinant_2d(torch.from_numpy(disp))
+    ref = jops.jacobian_determinant_2d(jnp.asarray(disp))
+    assert tuple(ours.shape) == (shape[0], 1) + shape[2:]
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-6,
+                               rtol=0)
+
+
+def test_jacobian_of_identity_and_bad_shape():
+    torch.testing.assert_close(
+        tops.jacobian_determinant_2d(torch.zeros(1, 2, 6, 7)),
+        torch.ones(1, 1, 6, 7))
+    with pytest.raises(ValueError):
+        tops.jacobian_determinant_2d(torch.zeros(1, 3, 6, 7))

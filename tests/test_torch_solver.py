@@ -113,9 +113,10 @@ def test_argument_checks(model):
         solver.adversarial_training(_data(), model, step_sizes=[1.0])
     with pytest.raises(ValueError):
         solver.adversarial_training(_data(), model, power_iteration="x")
-    with pytest.raises(NotImplementedError):
-        solver.adversarial_training(_data(), model,
-                                    anatomy_mask_images=torch.ones(SIZE))
+    # an anatomy mask is an argument like any other now
+    dist = solver.adversarial_training(_data(), model, n_iter=1,
+                                       anatomy_mask_images=torch.ones(SIZE))
+    assert torch.isfinite(dist)
 
 
 def test_power_iteration_settings():
