@@ -67,6 +67,14 @@ def _zband_enabled() -> bool:
     return os.environ.get("ADVCHAIN_ZBAND") != "0"
 
 
+def _f32(t):
+    """The kernels take contiguous f32 tensors.  A CUDA tensor goes to the
+    kernel wrapper as it is, which refuses another dtype (a bf16 network
+    output must be cast back before it is warped); on the CPU the plain
+    version computes in f32."""
+    return t.contiguous() if t.is_cuda else t.float().contiguous()
+
+
 def grid_sample_2d(x, grid, mode: str = "bilinear",
                    padding_mode: str = "zeros", align_corners: bool = True,
                    tile_order: str = "rows"):
@@ -79,7 +87,7 @@ def grid_sample_2d(x, grid, mode: str = "bilinear",
         raise ValueError(f"grid batch {grid.shape[0]} != image batch {n}")
     if mode not in ("bilinear", "nearest"):
         raise NotImplementedError(f"mode={mode!r}")
-    xf = x.float().contiguous()
+    xf = _f32(x)
     # JAX also sends an image whose band stack exceeds its 5 MiB VMEM
     # budget to the corner kernels (gather_matmul.py:1621-1627); the band
     # kernels here have no size limit, so only the switch selects them
@@ -87,7 +95,7 @@ def grid_sample_2d(x, grid, mode: str = "bilinear",
         # one launch each way: the kernels read the grid and fold in
         # registers
         out = BandGridSample.apply(
-            xf, grid.float().reshape(n, -1, 2).contiguous(), padding_mode,
+            xf, _f32(grid.reshape(n, -1, 2)), padding_mode,
             align_corners, mode)
         return out.reshape(n, c, grid.shape[1], grid.shape[2]).to(x.dtype)
     if mode == "bilinear":
@@ -102,7 +110,7 @@ def grid_sample_2d(x, grid, mode: str = "bilinear",
     # of 2^31 elements or more
     # the raster width lets the backward tile the points in 2D
     out = CornerSample.apply(xf.reshape(n, c, h * w), yidx * w + xidx,
-                             weights[:, :len(offsets)].float().contiguous(),
+                             _f32(weights[:, :len(offsets)]),
                              offsets, grid.shape[2])
     return out.reshape(n, c, grid.shape[1], grid.shape[2]).to(x.dtype)
 
@@ -126,15 +134,13 @@ def grid_sample_3d(x, grid, mode: str = "bilinear",
         # when all channels' K=2 stack fits the TPU's VMEM budget, differs
         # from it only by f32 reassociation (:1997-2012).
         out = PlaneGridSample.apply(
-            x.float().contiguous(),
-            grid.float().reshape(n, -1, 3).contiguous(), padding_mode,
+            _f32(x), _f32(grid.reshape(n, -1, 3)), padding_mode,
             align_corners, lower_slope)
         return out.reshape((n, c) + tuple(grid.shape[1:4])).to(x.dtype)
     if mode not in ("bilinear", "nearest"):
         raise NotImplementedError(f"mode={mode!r}")
     # one launch each way: the kernels read the grid and fold in registers
-    out = ZBandGridSample.apply(x.float().contiguous(),
-                                grid.float().reshape(n, -1, 3).contiguous(),
+    out = ZBandGridSample.apply(_f32(x), _f32(grid.reshape(n, -1, 3)),
                                 padding_mode, align_corners, mode,
                                 lower_slope)
     return out.reshape((n, c) + tuple(grid.shape[1:4])).to(x.dtype)
@@ -163,8 +169,7 @@ def stencil_warp_2d(img, grid, radius: int = 2, grid_layout: str = "last",
     elif grid_layout != "first":
         raise ValueError(f"grid_layout must be 'last' or 'first', got "
                          f"{grid_layout!r}")
-    out = StencilWarp.apply(img.float().contiguous(),
-                            grid.float().contiguous(), lower_slope)
+    out = StencilWarp.apply(_f32(img), _f32(grid), lower_slope)
     return out.to(img.dtype)
 
 

@@ -6,6 +6,7 @@
                           [--profile-legacy2d PATH]
                           [--profile-constrained PATH]
                           [--profile-random-chain PATH]
+                          [--profile-train-bf16 PATH]
 
 Phases (any failure raises and the script exits non-zero):
   1. print the card's name and power limit, build the CUDA kernels from
@@ -142,18 +143,51 @@ Phases (any failure raises and the script exits non-zero):
      differentiated sample and composition in each) and the peak memory;
      then print the ``kernels`` line for all eighteen kernel records, with
      each record's launches in one random-chain call and one constrained
-     solve beside the main paths'.
+     solve beside the main paths';
+ 22. the wrapper's bf16 compute mode (UNet_16, batch 2, 64x64, the same
+     weights with moved running statistics): ``predict`` logits f32 and
+     within JAX's bound (5% of the f32 logits' scale, argmax agreement
+     above 0.99) against the card's f32 and the CPU's bf16; the headline
+     chain's episode with injected parameters and the running statistics
+     (JAX's bf16 test's settings): n_iter=0 adv_data bit-equal to f32's,
+     dist within 2%; n_iter=1 dist within 10%, parameter cosines above
+     0.95; one bf16 ``apply_train`` leaves every buffer f32 and finite;
+ 23. the headline episode of phase 4 in bf16, timed in turns with f32
+     (f32, bf16, bf16, f32; 5 episodes after 2 warm-ups each), each
+     turn's launches equal to phase 4's, with its peak memory;
+ 24. the headline train step of phase 12 in bf16, in the same turns, each
+     turn's launches equal to phase 12's;
+ 25. the UNet's options (encoder and decoder dropout 0.1, self-attention
+     with gamma 0.5, spectral norm): logits on the card against the CPU
+     within 1e-4 (batch 2, 64x64, both BN modes, the card's dropout masks
+     handed to the CPU); one headline episode (its frozen passes leave
+     every spectral u / sigma bit-equal and replay one dropout mask per
+     module; launches equal to phase 4's) and one train step (every
+     spectral u written back); UNetv2 (feature scale 4) and
+     DeeplySupervisedUNet (64 base filters, multi_out) forward and
+     backward at batch 8, 192x192 against the CPU (outputs within 1e-4,
+     gradients at cosine above 0.999);
+ 26. the retry ladder's seven scripted cases (tests/test_torch_anatomy.py's
+     noise + affine chain, "lowest" padding, UNet_16): at batch 2, 64x64
+     on the card and the CPU (the same steps, inits, redraws and
+     warnings, JAX's where known, the dist within 1e-2 where every draw
+     comes from the transforms' own generators), then at config #3's
+     batch 4, 192x192 on the card with each case's launches and ms.
 The last line of standard output is the device record.  ``--profile PATH``
 / ``--profile3d PATH`` / ``--profile-train PATH`` / ``--profile3d-legacy
 PATH`` / ``--profile-legacy2d PATH`` / ``--profile-constrained PATH`` /
-``--profile-random-chain PATH`` additionally write a torch.profiler
-summary of one 2D episode / 3D episode / train step / 3D episode with
-ADVCHAIN_ZBAND=0 / 2D episode with ADVCHAIN_BAND_KERNEL=0 (with the
-channels and padding of each of its corner backward calls) / constrained
-solve / random-chain call to PATH.
+``--profile-random-chain PATH`` / ``--profile-train-bf16 PATH``
+additionally write a torch.profiler summary of one 2D episode / 3D episode
+/ train step / 3D episode with ADVCHAIN_ZBAND=0 / 2D episode with
+ADVCHAIN_BAND_KERNEL=0 (with the channels and padding of each of its
+corner backward calls) / constrained solve (with the FFT convolutions'
+device time by caller and input shapes) / random-chain call / bf16 train
+step to PATH, each with its device time by kernel class (BatchNorm,
+convolution, upsampling, other).
 
 Convolutions and matmuls run in full f32 (TF32 off): morph's 8 or more
-self-compositions amplify rounding.
+self-compositions amplify rounding.  The bf16 phases cast the network
+alone; every kernel of the port still takes f32.
 """
 
 from __future__ import annotations
@@ -162,6 +196,7 @@ import argparse
 import contextlib
 import importlib
 import json
+import logging
 import math
 import os
 import statistics
@@ -335,15 +370,19 @@ def build_solver(batch, shape, names=("noise", "bias", "affine", "morph")):
         divergence_weights=[1.0, 0.5])
 
 
-def build_model(device, seed=0, dims=2, dropout=0.1):
-    """UNet_16 (2D) or PseudoConv3dModel (3D; ``dropout`` applies), 4
-    classes, seeded random weights."""
+def build_model(device, seed=0, dims=2, dropout=0.1, compute_dtype=None,
+                **options):
+    """UNet_16 (2D, with the UNet's ``options``) or PseudoConv3dModel (3D;
+    ``dropout`` applies), 4 classes, seeded random weights, the wrapper's
+    ``compute_dtype``."""
     from advchain_tpu_torch.models import (PseudoConv3dModel,
                                            SegmentationModel, UNet)
-    module = (UNet(input_channel=1, num_classes=4, feature_scale=4)
+    module = (UNet(input_channel=1, num_classes=4, feature_scale=4,
+                   **options)
               if dims == 2 else
               PseudoConv3dModel(num_classes=4, dropout=dropout))
-    return SegmentationModel.create(module, seed=seed, device=device)
+    return SegmentationModel.create(module, seed=seed, device=device,
+                                    compute_dtype=compute_dtype)
 
 
 # the episodes' power-iteration setting: the headline's "smart", the 3D
@@ -592,15 +631,15 @@ def episode_once(solver, model, data, power_iteration="smart"):
     return dist
 
 
-def run_episode(device, batch, shape, warm=2, reps=5):
-    """Phases 4 and 8: returns (launch counts of one episode, median
+def run_episode(device, batch, shape, warm=2, reps=5, compute_dtype=None):
+    """Phases 4, 8 and 23: returns (launch counts of one episode, median
     seconds per episode, all rep times, final loss, peak device bytes
     allocated, adaptive step counts of that episode)."""
     import torch
     from advchain_tpu_torch.ops import integrate
     dims = len(shape)
     solver = build_solver(batch, shape)
-    model = build_model(device, dims=dims)
+    model = build_model(device, dims=dims, compute_dtype=compute_dtype)
     data = torch.as_tensor(make_input(batch, shape), device=device)
     pi = POWER_ITERATION[dims]
     for _ in range(warm):
@@ -834,17 +873,57 @@ def profile_episode(device, batch, shape, path):
                        lambda: episode_once(solver, model, data, pi), path)
 
 
-def profile_run(label, fn, path):
+# kernel-name substrings of the profile's classes (cuDNN's and PyTorch's
+# native kernels; the FFT convolution's transforms and complex products
+# count as convolution)
+KERNEL_CLASSES = {
+    "batchnorm": ("batch_norm", "batchnorm", "bn_fw", "bn_bw"),
+    "upsample": ("upsample",),
+    "convolution": ("conv", "implicit_gemm", "xmma", "fft", "cf32",
+                    "dgrad", "wgrad", "fprop", "implicit_convolve",
+                    "nchwtonhwc", "nhwctonchw"),
+}
+# the FFT convolution's kernels (cuFFT transforms, complex products)
+FFT_KERNELS = ("fft", "cf32")
+
+
+def kernel_class(name):
+    low = name.lower()
+    for cls, keys in KERNEL_CLASSES.items():
+        if any(k in low for k in keys):
+            return cls
+    return "other"
+
+
+def conv_callers(prof):
+    """The FFT convolutions' device time by the launching op and its input
+    shapes (needs ``record_shapes``): rows of (op, shapes, calls, ms)."""
+    rows = {}
+    for e in prof.events():
+        ms = sum(k.duration for k in e.kernels
+                 if any(f in k.name.lower() for f in FFT_KERNELS)) / 1e3
+        if ms > 0:
+            key = (e.name, json.dumps(e.input_shapes[:2]))
+            calls, total = rows.get(key, (0, 0.0))
+            rows[key] = (calls + 1, total + ms)
+    return sorted(((op, shapes, n, ms) for (op, shapes), (n, ms)
+                   in rows.items()), key=lambda r: -r[3])
+
+
+def profile_run(label, fn, path, shapes=False):
     """Device time of one call of ``fn`` (after one warm-up call) by
     kernel (torch.profiler), written to ``path`` as JSON; prints the busy
-    time, the kernel launches and the largest kernels, and returns the
-    wall and busy times and the launch count."""
+    time, the kernel launches, the share of each kernel class
+    (``KERNEL_CLASSES``) and the largest kernels, and returns the wall and
+    busy times, the launch count and the class totals.  ``shapes``: also
+    record the ops' input shapes and print the FFT convolutions by caller
+    (:func:`conv_callers`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=shapes) as prof:
         fn()
     wall = (time.perf_counter() - t0) * 1e3
     rows = [{"name": e.key, "count": e.count,
@@ -858,15 +937,31 @@ def profile_run(label, fn, path):
     # the port's kernels, by the names in their sources
     samp = sum(r["device_ms"] for r in rows
                if any(k in r["name"] for k in PORT_KERNEL_NAMES))
+    classes = {}
+    for r in rows:
+        cls = kernel_class(r["name"])
+        classes[cls] = classes.get(cls, 0.0) + r["device_ms"]
     summary = {"wall_ms": wall, "device_busy_ms": busy,
-               "device_launches": launches, "port_kernels_ms": samp}
+               "device_launches": launches, "port_kernels_ms": samp,
+               "classes_ms": classes}
+    if shapes:
+        summary["fft_callers"] = [
+            {"op": op, "input_shapes": sh, "calls": n, "device_ms": ms}
+            for op, sh, n, ms in conv_callers(prof)]
     with open(path, "w") as f:
         json.dump(dict(summary, kernels=rows[:60]), f, indent=1)
     print(f"[profile] {label} {wall:.1f} ms under the profiler, "
           f"device busy {busy:.1f} ms over {launches} kernel launches, the "
-          f"port's kernels {samp:.1f} ms; top: " + "; ".join(
+          f"port's kernels {samp:.1f} ms; by class: " + ", ".join(
+              f"{c} {ms:.1f} ms ({ms / busy:.1%})"
+              for c, ms in sorted(classes.items(), key=lambda kv: -kv[1]))
+          + "; top: " + "; ".join(
               f"{r['name'][:50]} {r['device_ms']:.1f} ms x{r['count']}"
               for r in rows[:6]), flush=True)
+    for row in summary.get("fft_callers", [])[:8]:
+        print(f"[profile] {label} FFT convolutions: {row['op']} on "
+              f"{row['input_shapes']}: {row['calls']} calls, "
+              f"{row['device_ms']:.2f} ms", flush=True)
     return summary
 
 
@@ -1061,15 +1156,16 @@ def make_labels(batch, shape):
 
 def build_train_step(device, batch, shape, names=("noise", "bias", "affine",
                                                   "morph"),
-                     supervised=False):
+                     supervised=False, compute_dtype=None, **options):
     """(step, state, batch dict) of the headline train step (bench.py:
-    408-447): UNet_16 with seeded random weights, Adam 1e-4, n_iter=1,
+    408-447): UNet_16 (with the UNet's ``options``) with seeded random
+    weights and the wrapper's ``compute_dtype``, Adam 1e-4, n_iter=1,
     smart power iteration, mse + contour; or the supervised step."""
     import torch
     from advchain_tpu_torch.parallel import (TrainState,
                                              make_adversarial_train_step,
                                              make_supervised_train_step)
-    model = build_model(device)
+    model = build_model(device, compute_dtype=compute_dtype, **options)
     opt = torch.optim.Adam(model.module.parameters(), lr=LR)
     if supervised:
         step = make_supervised_train_step(model, opt)
@@ -1126,13 +1222,15 @@ def check_train_step_against_cpu(device, batch=2, shape=(32, 32), steps=2):
     return rel, w_err
 
 
-def run_train_step(device, batch, shape, supervised=False, warm=2, reps=5):
-    """Phase 12: returns (launch counts of one step, median seconds per
-    step, all rep times, the first timed step's metrics, peak device bytes
-    allocated)."""
+def run_train_step(device, batch, shape, supervised=False, warm=2, reps=5,
+                   compute_dtype=None):
+    """Phases 12 and 24: returns (launch counts of one step, median seconds
+    per step, all rep times, the first timed step's metrics, peak device
+    bytes allocated)."""
     import torch
     step, state, data = build_train_step(device, batch, shape,
-                                         supervised=supervised)
+                                         supervised=supervised,
+                                         compute_dtype=compute_dtype)
     gen = torch.Generator(device=device).manual_seed(1)
     for _ in range(warm):
         state, _ = step(state, data, gen)
@@ -2487,6 +2585,487 @@ def run_constrained(device, batch, shape, warm=2, reps=5):
             peak)
 
 
+# --------------------------------------------------------------- slice 11
+# JAX's bf16 quality bounds (tests/test_models.py:187-277): logits within
+# 5% of the f32 logits' scale, argmax agreement above 0.99; an episode's
+# dist within 2% (n_iter=0, adv_data exact) or 10% (n_iter=1, parameter
+# cosines above 0.95)
+BF16_LOGITS = 0.05
+BF16_ARGMAX = 0.99
+BF16_DIST = {0: 0.02, 1: 0.10}
+BF16_COSINE = 0.95
+# the options run on the card (phase 25), and the self-attention's gamma
+# set away from its init of 0 so that the block changes the output
+UNET_OPTIONS = {"encoder_dropout": 0.1, "decoder_dropout": 0.1,
+                "self_attention": True, "spectral": True}
+ATTENTION_GAMMA = 0.5
+ZOO_BATCH = 8
+TOL_ZOO = 1e-4               # f32 logits, card against the CPU
+# the retry ladder's scripted cases (tests/test_torch_anatomy.py:328-347):
+# (n_iter, scores: the init's, then the decisions'); P passes, F fails
+LADDER_TOL = 0.5
+P, F = 0.0, 1.0
+LADDER = {
+    "pass": (1, [P, P]),
+    "fail_pass": (1, [P, F, P]),
+    "fail_fail_pass": (1, [P, F, F, P]),
+    "exhausted": (1, [P, F, F, F]),
+    "init_retry": (1, [F, P, P]),
+    "init_exhausted": (1, [F] * 11 + [P]),
+    "n_iter2_reinit": (2, [P, F, F, F, P]),
+}
+# JAX's outcomes at n_iter=1: (PGD steps, chain inits, redraws, warnings)
+LADDER_EXPECTED = {
+    "pass": (1, 1, 0, []),
+    "fail_pass": (2, 1, 0, ["one more"]),
+    "fail_fail_pass": (3, 2, 0, ["one more", "new initialization"]),
+    "exhausted": (3, 3, 0, ["one more", "new initialization", "3X"]),
+    "init_retry": (1, 1, 1, []),
+    "init_exhausted": (1, 1, 11, ["random initialization"]),
+}
+# the cases whose every draw comes from the transforms' own (CPU)
+# generators, so that the card and the CPU take the same parameters: a
+# ladder re-init draws from a device generator
+LADDER_SAME_DRAWS = ("pass", "fail_pass", "init_retry", "init_exhausted")
+
+
+def perturb_running_stats(module, seed=0):
+    """Running statistics away from their (0, 1) init, from a numpy seed,
+    so that running-statistics forwards are tested."""
+    import torch
+    from advchain_tpu_torch.models.unet import FrozenStatsBN
+    r = np.random.RandomState(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, FrozenStatsBN):
+                n = m.num_features
+                m.running_mean.copy_(torch.from_numpy(
+                    r.uniform(-0.5, 0.5, n).astype(np.float32)))
+                m.running_var.copy_(torch.from_numpy(
+                    r.uniform(0.5, 1.5, n).astype(np.float32)))
+
+
+def logit_gap(ours, ref):
+    """(max |ours - ref| over max |ref|, argmax agreement over classes)."""
+    ours, ref = ours.detach().cpu(), ref.detach().cpu()
+    return (float((ours - ref).abs().max() / ref.abs().max()),
+            float((ours.argmax(1) == ref.argmax(1)).float().mean()))
+
+
+def copy_of(model, device, compute_dtype=None, **options):
+    """A wrapper of the same UNet (``options``) on ``device`` with
+    ``model``'s weights."""
+    other = build_model(device, compute_dtype=compute_dtype, **options)
+    other.module.load_state_dict(model.module.state_dict())
+    return other
+
+
+def check_bf16_against_cpu(device, batch=2, shape=(64, 64)):
+    """Phase 22: the wrapper's bf16 mode on ``device`` against its f32 and
+    against bf16 on the CPU (UNet_16, the same weights, running statistics
+    moved from their init).
+
+    Logits: f32 on both devices; ``predict`` within JAX's bound
+    (``BF16_LOGITS`` of the f32 scale, argmax ``BF16_ARGMAX``) against the
+    card's f32 and the CPU's bf16; the batch-statistics gap is printed (on
+    random weights JAX's own bf16 misses the bound there,
+    tests/test_torch_bf16.py).  Episodes, the headline chain with the same
+    injected parameters, JAX's test's settings (running statistics, no
+    power iteration, step 1.0): ``n_iter=0`` ``adv_data`` bit-equal to
+    f32's and dist within 2%; ``n_iter=1`` dist within 10% and every
+    transform's parameters at cosine above 0.95.  One bf16 ``apply_train``
+    leaves every parameter and buffer f32 and finite, the running
+    statistics moved."""
+    import torch
+    bf16 = torch.bfloat16
+    f32 = build_model(device)
+    perturb_running_stats(f32.module)
+    low, cpu = copy_of(f32, device, bf16), copy_of(f32, "cpu", bf16)
+    x = torch.as_tensor(make_image(batch, shape))
+    with torch.no_grad():
+        p32, p16 = f32.predict(x.to(device)), low.predict(x.to(device))
+        c16 = cpu.predict(x)
+        b32 = f32.apply_fixed(x.to(device), train=True)
+        b16 = low.apply_fixed(x.to(device), train=True)
+    gaps = {"f32": logit_gap(p16, p32), "cpu_bf16": logit_gap(p16, c16),
+            "batch_stats_f32": logit_gap(b16, b32)}
+    print(f"[bf16] logits (scale gap, argmax agreement), batch {batch} "
+          f"{shape}: predict against f32 {gaps['f32']}, against the CPU's "
+          f"bf16 {gaps['cpu_bf16']}; batch statistics against f32 "
+          f"{gaps['batch_stats_f32']}; dtypes {p16.dtype} / {c16.dtype}",
+          flush=True)
+    if not (p16.dtype == c16.dtype == b16.dtype == torch.float32
+            and all(gaps[k][0] < BF16_LOGITS and gaps[k][1] > BF16_ARGMAX
+                    for k in ("f32", "cpu_bf16"))):
+        raise AssertionError(f"bf16 logits outside JAX's bound: {gaps}")
+    gen = torch.Generator().manual_seed(7)
+    params = [t.init_params(gen)
+              for t in build_solver(batch, shape).chain_of_transforms]
+    runs = {}
+    for n_iter in (0, 1):
+        for name, model in (("f32", f32), ("bf16", low)):
+            model.eval()
+            solver = build_solver(batch, shape)
+            solver.set_transformation(params)
+            dist = solver.adversarial_training(
+                x.to(device), model, n_iter=n_iter, lazy_load=True,
+                step_sizes=1.0)
+            model.train()
+            runs[name] = (float(dist), solver.adv_data.cpu(),
+                          [t.param.cpu() for t in solver.chain_of_transforms])
+        (d32, a32, q32), (d16, a16, q16) = runs["f32"], runs["bf16"]
+        rel = abs(d16 - d32) / abs(d32)
+        cos = [float(torch.nn.functional.cosine_similarity(
+            u.reshape(1, -1), v.reshape(1, -1))) for u, v in zip(q16, q32)]
+        print(f"[bf16] episode n_iter={n_iter}, running statistics: dist "
+              f"{d16:.6e} vs f32 {d32:.6e} (rel {rel:.3e}), adv_data "
+              f"bit-equal {torch.equal(a16, a32)}, parameter cosines "
+              f"{[round(c, 5) for c in cos]}", flush=True)
+        ok = rel < BF16_DIST[n_iter] and (
+            torch.equal(a16, a32) if n_iter == 0
+            else min(cos) > BF16_COSINE)
+        if not ok:
+            raise AssertionError(f"the bf16 episode (n_iter={n_iter}) is "
+                                 f"outside JAX's bound")
+    before = {k: v.clone() for k, v in low.module.state_dict().items()}
+    low.apply_train(x.to(device)).square().mean().backward()
+    tensors = [*low.module.parameters(), *low.module.buffers()]
+    moved = [k for k, v in low.module.state_dict().items()
+             if "running" in k and not torch.equal(v, before[k])]
+    if not (all(t.dtype == torch.float32 and bool(torch.isfinite(t).all())
+                for t in tensors if t.is_floating_point())
+            and len(moved) == 36):
+        raise AssertionError(f"a bf16 apply_train left a buffer not f32 or "
+                             f"not finite, or {36 - len(moved)} running "
+                             f"statistics unmoved")
+    print(f"[bf16] apply_train: every parameter and buffer f32 and finite, "
+          f"{len(moved)} running statistics moved", flush=True)
+    return gaps
+
+
+def in_turns(label, run, card):
+    """f32, bf16, bf16, f32: ``run(compute_dtype)`` returns (launches, median
+    seconds, rep times, peak bytes); prints each turn, returns {mode:
+    [results]}."""
+    import torch
+    out = {"f32": [], "bf16": []}
+    for dt in (None, torch.bfloat16, torch.bfloat16, None):
+        mode = "f32" if dt is None else "bf16"
+        launches, sec, times, peak = run(dt)
+        out[mode].append((launches, sec, times, peak))
+        print(f"[{label}] {mode}: median {sec * 1e3:.2f} ms "
+              f"({BATCH / sec:.2f} img/s) over "
+              f"{[round(t * 1e3, 2) for t in times]} ms, peak "
+              f"{peak / 1e9:.3f} GB on {card}", flush=True)
+    return out
+
+
+def spectral_stats(module):
+    return {k: v.clone() for k, v in module.state_dict().items()
+            if k.endswith((".u", ".sigma"))}
+
+
+def dropouts(module):
+    from advchain_tpu_torch.models.unet import EpisodeDropout
+    return [m for m in module.modules()
+            if isinstance(m, EpisodeDropout) and m.p > 0]
+
+
+@contextlib.contextmanager
+def mask_log(module):
+    """Record, for each active dropout, the mask object of every forward."""
+    log = {i: [] for i, _ in enumerate(dropouts(module))}
+    handles = [m.register_forward_hook(
+        lambda mod, args, out, i=i: log[i].append(mod._mask))
+        for i, m in enumerate(dropouts(module))]
+    try:
+        yield log
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def options_model(device):
+    """UNet_16 with UNET_OPTIONS, seeded weights, gamma ATTENTION_GAMMA."""
+    import torch
+    model = build_model(device, **UNET_OPTIONS)
+    with torch.no_grad():
+        model.module.self_atn.gamma.fill_(ATTENTION_GAMMA)
+    return model
+
+
+def check_options_against_cpu(device, batch=2, shape=(64, 64)):
+    """Phase 25, first part: the options model's logits on ``device``
+    against the CPU's on the same weights within TOL_ZOO, with running
+    and with batch statistics (the card's dropout masks handed to the CPU
+    model)."""
+    import torch
+    model = options_model(device)
+    perturb_running_stats(model.module)
+    cpu = copy_of(model, "cpu", **UNET_OPTIONS)
+    x = torch.as_tensor(make_image(batch, shape))
+    errs = {}
+    with torch.no_grad():
+        for train in (False, True):
+            model.begin_episode(3)
+            ours = model.apply_fixed(x.to(device), train=train)
+            for a, b in zip(dropouts(model.module), dropouts(cpu.module)):
+                b._mask = None if a._mask is None else a._mask.cpu()
+            ref = cpu.apply_fixed(x, train=train)
+            errs["batch" if train else "running"] = float(
+                (ours.cpu() - ref).abs().max())
+    print(f"[options] logits against the CPU (max abs): {errs}",
+          flush=True)
+    if not max(errs.values()) <= TOL_ZOO:
+        raise AssertionError(f"the options model disagrees with the CPU: "
+                             f"{errs}")
+    return errs
+
+
+def run_options(device, batch, shape):
+    """Phase 25: one headline episode and one train step through the
+    options model.  The episode's frozen passes leave every spectral ``u``
+    / ``sigma`` bit-equal and replay one dropout mask per module across
+    the PGD step (a second episode draws new ones); the train step's
+    ``apply_train`` moves every ``u``.  Returns (the episode's launches,
+    its ms, the step's ms)."""
+    import torch
+    model = options_model(device)
+    solver = build_solver(batch, shape)
+    data = torch.as_tensor(make_image(batch, shape), device=device)
+    stats = spectral_stats(model.module)
+    episode_once(solver, model, data)  # warm
+    reset_launch_counts()
+    with mask_log(model.module) as log:
+        t0 = time.perf_counter()
+        dist = episode_once(solver, model, data)
+        ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    masks = {i: v[0] for i, v in log.items()}
+    fixed = all(len(v) >= 3 and all(m is v[0] for m in v)
+                for v in log.values())
+    with mask_log(model.module) as log2:
+        episode_once(solver, model, data)
+    redrawn = all(not torch.equal(v[0], masks[i]) for i, v in log2.items())
+    kept = all(torch.equal(v, stats[k])
+               for k, v in spectral_stats(model.module).items())
+    print(f"[options] episode batch {batch}: loss {float(dist):.6e}, "
+          f"{ms:.1f} ms, {len(log)} dropouts each one mask over "
+          f"{sorted({len(v) for v in log.values()})} forwards: {fixed}, "
+          f"redrawn in the next episode: {redrawn}; {len(stats)} spectral "
+          f"statistics bit-equal: {kept}", flush=True)
+    if not (math.isfinite(float(dist)) and fixed and redrawn and kept
+            and len(log) == 9 and len(stats) == 36):
+        raise AssertionError("the options model's episode broke the fixed "
+                             "network's contract")
+    step, state, batch_data = build_train_step(device, batch, shape,
+                                               **UNET_OPTIONS)
+    with torch.no_grad():
+        state.model.module.self_atn.gamma.fill_(ATTENTION_GAMMA)
+    before = spectral_stats(state.model.module)
+    gen = torch.Generator(device=device).manual_seed(1)
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch_data, gen)
+    sync(device)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    after = spectral_stats(state.model.module)
+    moved = [k for k in after if k.endswith(".u")
+             and not torch.equal(after[k], before[k])]
+    losses = {k: float(v) for k, v in metrics.items()}
+    print(f"[options] train step batch {batch}: losses {losses}, "
+          f"{step_ms:.1f} ms (first step), {len(moved)} of 18 spectral u "
+          f"moved", flush=True)
+    if not (all(math.isfinite(v) for v in losses.values())
+            and len(moved) == 18):
+        raise AssertionError("the options model's train step did not "
+                             "write every spectral u back")
+    return launches, ms, step_ms
+
+
+def check_zoo_nets(device, batch=ZOO_BATCH, shape=SHAPE):
+    """Phase 25, second part: UNetv2 (feature scale 4) and
+    DeeplySupervisedUNet (64 base filters, ``multi_out``) forward and
+    backward with batch statistics on ``device`` and on the CPU with the
+    same weights (the loss: the mean square of every output).  Every output
+    within TOL_ZOO of the CPU's; the gradients of the input, of the first
+    convolution and of the head at cosine above 0.999 with the CPU's, as
+    phase 3 holds a PGD direction (the input's and the first layer's run
+    back through every BatchNorm, whose backward cancels: on the CPU f32
+    sits up to ~1e-2 of their largest entries from f64, so they are not
+    held entrywise; the largest gaps are printed)."""
+    import torch
+    from advchain_tpu_torch.models import (DeeplySupervisedUNet,
+                                           SegmentationModel, UNetv2)
+    nets = {"UNetv2": (lambda: UNetv2(1, 4, 4), {}),
+            "DeeplySupervisedUNet": (lambda: DeeplySupervisedUNet(1, 4, 64),
+                                     {"multi_out": True})}
+    x = torch.as_tensor(make_image(batch, shape))
+    errs = {}
+    for name, (make, kw) in nets.items():
+        card = SegmentationModel.create(make(), seed=0, device=device)
+        cpu = make()
+        cpu.load_state_dict(card.module.state_dict())
+        res = []
+        for module, dev in ((card.module, device), (cpu, "cpu")):
+            module.train(True)
+            inp = x.to(dev).detach().requires_grad_(True)
+            outs = module(inp, **kw)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            sum(o.square().mean() for o in outs).backward()
+            res.append(([o.detach().cpu() for o in outs],
+                        {"d_input": inp.grad.cpu(),
+                         "d_first": module.inc.conv.conv[0].weight.grad.cpu(),
+                         "d_head": module.outc.conv.weight.grad.cpu()}))
+        (o_d, g_d), (o_c, g_c) = res
+        errs[name] = {"outputs": max(float((a - b).abs().max())
+                                     for a, b in zip(o_d, o_c))}
+        for k in g_d:
+            a, b = g_d[k].reshape(1, -1), g_c[k].reshape(1, -1)
+            errs[name][k] = (
+                float(torch.nn.functional.cosine_similarity(a, b)),
+                float((a - b).abs().max() / b.abs().max()))
+    print(f"[zoo] batch {batch} {shape} against the CPU: the outputs' "
+          f"largest gap, each gradient's (cosine, largest gap over its "
+          f"largest entry): {errs}", flush=True)
+    if not all(e["outputs"] <= TOL_ZOO
+               and all(e[k][0] > 0.999 for k in ("d_input", "d_first",
+                                                 "d_head"))
+               for e in errs.values()):
+        raise AssertionError(f"a zoo net disagrees with the CPU: {errs}")
+    return errs
+
+
+class LadderRecorder:
+    """Scripted volume scores and the counts of one episode: PGD steps,
+    chain inits and the geometric transform's stateful redraws (as
+    tests/test_torch_anatomy.py's recorder)."""
+
+    def __init__(self, solver, script):
+        self.steps = self.inits = self.redraws = 0
+        self.script = list(script)
+
+        def score(mask):
+            return self.script.pop(0)
+        solver.compute_anatomy_misoverlapping_loss = score
+        init = type(solver).init_random_transformation
+        step = type(solver).pgd_step
+        geo = solver.chain_of_transforms[-1]
+        redraw = type(geo).init_parameters
+
+        def init_random(*a, **kw):
+            self.inits += 1
+            return init(solver, *a, **kw)
+
+        def pgd_step(*a, **kw):
+            self.steps += 1
+            return step(solver, *a, **kw)
+
+        def init_parameters(*a, **kw):
+            self.redraws += 1
+            return redraw(geo, *a, **kw)
+        solver.init_random_transformation = init_random
+        solver.pgd_step = pgd_step
+        geo.init_parameters = init_parameters
+
+
+class _Warnings(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def ladder_case(device, case, batch, shape, params, state):
+    """One scripted case of the retry ladder on ``device``: the noise and
+    affine chain of tests/test_torch_anatomy.py's ladder ("lowest" padding,
+    mse + contour), UNet_16 with the weights ``state``, the ellipse,
+    ``lazy_load`` on the injected ``params``.  Returns (steps, inits,
+    redraws, warnings, dist, launches, ms)."""
+    import torch
+    n_iter, script = LADDER[case]
+    solver = build_constrained_solver(batch, shape, ("noise", "affine"),
+                                      device=device)
+    model = build_model(device)
+    model.module.load_state_dict(state)
+    solver.set_transformation([p.to(device) for p in params])
+    for t in solver.chain_of_transforms:
+        t.is_training = False
+    data = torch.as_tensor(make_image(batch, shape), device=device)
+    anatomy = torch.as_tensor(make_anatomy(batch, shape), device=device)
+    rec = LadderRecorder(solver, script)
+    handler = _Warnings()
+    log = logging.getLogger("advchain_tpu_torch.augmentor.compose")
+    log.addHandler(handler)
+    reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        dist = float(solver.adversarial_training(
+            data, model, n_iter=n_iter, lazy_load=True,
+            anatomy_mask_images=anatomy, anatomy_reg_weight=ANATOMY_WEIGHT,
+            volume_preserve_tolerance=LADDER_TOL))
+        sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        log.removeHandler(handler)
+    if rec.script or not math.isfinite(dist):
+        raise AssertionError(f"ladder case {case}: {len(rec.script)} "
+                             f"scripted scores left, dist {dist}")
+    return (rec.steps, rec.inits, rec.redraws, handler.messages, dist,
+            launch_counts(), ms)
+
+
+def run_ladder(device, batch=CONSTRAINED_BATCH, shape=SHAPE,
+               ref_batch=2, ref_shape=(64, 64)):
+    """Phase 26: every scripted case of the retry ladder.  At ``ref_batch``
+    x ``ref_shape`` on ``device`` and on the CPU from the same weights and
+    injected parameters: the same PGD steps, inits, redraws and warnings,
+    JAX's where tests/test_torch_anatomy.py lists them, and where every
+    draw comes from the transforms' own generators the dist within 1e-2
+    relative.  At config #3's ``batch`` x ``shape`` on ``device`` (after
+    one warm case): the same counts again, and each case's port kernel
+    launches and ms."""
+    import torch
+    rows = {}
+    runs = {}
+    for b, sh in ((ref_batch, ref_shape), (batch, shape)):
+        gen = torch.Generator().manual_seed(9)
+        params = [t.init_params(gen) for t in build_constrained_solver(
+            b, sh, ("noise", "affine"), device="cpu").chain_of_transforms]
+        state = build_model("cpu").module.state_dict()
+        runs[b, sh] = lambda dev, case, b=b, sh=sh, params=params, \
+            state=state: ladder_case(dev, case, b, sh, params, state)
+    small, big = runs[ref_batch, ref_shape], runs[batch, shape]
+    big(device, "pass")  # warm
+    for case in LADDER:
+        card, cpu, full = small(device, case), small("cpu", case), \
+            big(device, case)
+        launches = kernel_launches(full[5])
+        rows[case] = {"steps": full[0], "inits": full[1],
+                      "redraws": full[2], "warnings": len(full[3]),
+                      "port_launches": sum(launches.values()),
+                      "ms": full[6]}
+        print(f"[ladder] {case}: steps {full[0]}, inits {full[1]}, redraws "
+              f"{full[2]}, warnings {full[3]}; at {ref_batch} x {ref_shape} "
+              f"dist {card[4]:.6e} (cpu {cpu[4]:.6e}); at {batch} x {shape}"
+              f" port launches {({k: v for k, v in launches.items() if v})}"
+              f", {full[6]:.1f} ms", flush=True)
+        same = card[:4] == cpu[:4] == full[:4]
+        if case in LADDER_EXPECTED:
+            steps, inits, redraws, warns = LADDER_EXPECTED[case]
+            same = same and card[:3] == (steps, inits, redraws) and len(
+                card[3]) == len(warns) and all(
+                w in m for w, m in zip(warns, card[3]))
+        if case in LADDER_SAME_DRAWS:
+            same = same and abs(card[4] - cpu[4]) <= 1e-2 * abs(cpu[4])
+        if not same:
+            raise AssertionError(f"ladder case {case} on the card differs "
+                                 f"from the CPU or from JAX's outcome: "
+                                 f"{card[:5]} vs {cpu[:5]}, {full[:5]}")
+    return rows
+
+
 def kernel_launches(launches):
     """Launches by kernel record name (the ``kernels`` line's names)."""
     out = {f"{KERNEL_NAMES[fam]}_{kind}": launches[fam][kind]
@@ -2554,6 +3133,9 @@ def main(argv=None):
     parser.add_argument("--profile-random-chain", metavar="PATH",
                         help="also write a profile of one random-chain call "
                              "(config #2) to PATH")
+    parser.add_argument("--profile-train-bf16", metavar="PATH",
+                        help="also write a profile of one headline train "
+                             "step in the wrapper's bf16 mode to PATH")
     args = parser.parse_args(argv)
 
     import torch
@@ -2779,12 +3361,65 @@ def main(argv=None):
                                  f"sample or composition: {launches}")
     if args.profile_constrained:
         prof_cs = profile_run("constrained solve", lambda: constrained_solve(
-            solver_c, model_c, data_c, anatomy_c), args.profile_constrained)
+            solver_c, model_c, data_c, anatomy_c), args.profile_constrained,
+            shapes=True)
         print(f"[profile] constrained solve: device busy "
               f"{prof_cs['device_busy_ms']:.2f} ms of the unprofiled median "
               f"{sec_cs * 1e3:.2f} ms, idle share "
               f"{1 - prof_cs['device_busy_ms'] / (sec_cs * 1e3):.3f}",
               flush=True)
+
+    # slice 11: the model zoo; the wrapper's bf16 mode on the headline
+    # episode and train step, the UNet's options, UNetv2 and
+    # DeeplySupervisedUNet, and the retry ladder's branches
+    check_bf16_against_cpu(device)
+
+    def episode_turn(dt):
+        with count_calls(fold_modules, FOLDS) as folds_e:
+            launches, sec_e, times_e, loss_e, peak_e, _ = run_episode(
+                device, BATCH, SHAPE, compute_dtype=dt)
+        if not (math.isfinite(loss_e)
+                and kernel_launches(launches) == kernel_launches(launches2)):
+            raise AssertionError(f"the 2D episode ({dt}) launched "
+                                 f"{launches}, not phase 4's {launches2}")
+        assert_grid_only("2D episode", 2, launches,
+                         GRID_LAUNCHES["episode2d"], folds_e)
+        assert_stencil_launches("2D episode", launches)
+        return launches, sec_e, times_e, peak_e
+
+    turns_e = in_turns("episode-bf16", episode_turn, card)
+
+    def train_turn(dt):
+        with count_calls(fold_modules, FOLDS) as folds_b:
+            launches, sec_b, times_b, _, peak_b = run_train_step(
+                device, BATCH, SHAPE, compute_dtype=dt)
+        if kernel_launches(launches) != kernel_launches(launches_t):
+            raise AssertionError(f"the train step ({dt}) launched "
+                                 f"{launches}, not phase 12's {launches_t}")
+        assert_grid_only("train step", 2, launches, GRID_LAUNCHES["train"],
+                         folds_b)
+        assert_stencil_launches("train step", launches)
+        return launches, sec_b, times_b, peak_b
+
+    turns_t = in_turns("train-bf16", train_turn, card)
+    if args.profile_train_bf16:
+        step, state, data = build_train_step(device, BATCH, SHAPE,
+                                             compute_dtype=torch.bfloat16)
+        gen = torch.Generator(device=device).manual_seed(1)
+
+        def one_bf16_step():
+            step(state, data, gen)
+            sync(device)
+
+        profile_run("train step bf16", one_bf16_step,
+                    args.profile_train_bf16)
+    check_options_against_cpu(device)
+    launches_o, ms_o, step_ms_o = run_options(device, BATCH, SHAPE)
+    if kernel_launches(launches_o) != kernel_launches(launches2):
+        raise AssertionError(f"the options model's episode launched "
+                             f"{launches_o}, not phase 4's {launches2}")
+    check_zoo_nets(device)
+    ladder = run_ladder(device)
 
     shape2 = f"N={BATCH} {SHAPE[0]}x{SHAPE[1]}"
     shape3 = f"N={BATCH3D} {'x'.join(map(str, SHAPE3D))}"
@@ -2809,9 +3444,13 @@ def main(argv=None):
                + [slope_record(launches_t, slope_row, worst_slope, shape2)])
     by_name = (kernel_launches(launches_rc),
                kernel_launches(runs_cs[0][0]))
+    bf16_names = (kernel_launches(turns_e["bf16"][0][0]),
+                  kernel_launches(turns_t["bf16"][0][0]))
     for rec in kernels:
         rec["launches_random_chain"] = by_name[0][rec["name"]]
         rec["launches_constrained_solve"] = by_name[1][rec["name"]]
+        rec["launches_episode_bf16"] = bf16_names[0][rec["name"]]
+        rec["launches_train_bf16"] = bf16_names[1][rec["name"]]
     for rec in kernels:
         fam = "stencil" if rec["name"].startswith("stencil") else \
             "band_grid" if rec["name"].startswith("band_grid") else None
@@ -2823,6 +3462,20 @@ def main(argv=None):
           f"{BATCH / sec_s:.2f}), random chain {BATCH / sec_rc:.2f} img/s, "
           f"constrained solve {sec_cs * 1e3:.2f} ms ({share_cs:.2f} "
           f"preserved) on {card}", flush=True)
+
+    def medians(turns):
+        return {mode: round(BATCH / statistics.median(r[1] for r in runs), 2)
+                for mode, runs in turns.items()}
+
+    print(f"[bf16] img/s, medians over turns: episode "
+          f"{medians(turns_e)}, train step {medians(turns_t)}; peaks GB "
+          f"episode {[round(r[3] / 1e9, 3) for r in turns_e['bf16']]} "
+          f"(f32 {[round(r[3] / 1e9, 3) for r in turns_e['f32']]}), train "
+          f"{[round(r[3] / 1e9, 3) for r in turns_t['bf16']]} (f32 "
+          f"{[round(r[3] / 1e9, 3) for r in turns_t['f32']]}); options "
+          f"episode {ms_o:.1f} ms, first step {step_ms_o:.1f} ms; ladder ms "
+          f"{ {c: round(r['ms'], 1) for c, r in ladder.items()} } on {card}",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -427,3 +427,59 @@ def test_train_eval_and_learnable_flags():
     assert all(t.is_training for t in solver.chain_of_transforms)
     solver.eval()
     assert not any(t.is_training for t in solver.chain_of_transforms)
+
+
+# ---------------------------------------- the README's loop at step 1.0
+@pytest.mark.parametrize("chain", ["morph_free", "full"])
+def test_readme_manual_loop_at_step_one_like_jax(chain):
+    """chip_smoke.py's phase 19 on both packages: the port's seeded UNet_16
+    (carried into JAX by JAX's own ``torch_unet_state_to_flax``), config
+    #3's chain ("lowest" padding) at 64x64, the same injected parameters,
+    then the README's loop (``compute_transform_grads``, then
+    ``optimize_parameters()``, ``rescale_parameters()`` and ``eval()`` on
+    every transform at the default step 1.0).  The divergence before the
+    step agrees to 1e-4 relative; after it, it moves the same way in both
+    packages (both descend here: a step of 1.0 is not first order) and
+    agrees to 1e-3 without the morph and to 3e-2 with it (measured 5e-4
+    and 1.8e-2: the morph's squarings amplify f32 rounding, ROADMAP
+    queue 3)."""
+    import chip_smoke as cs
+    from advchain_tpu.models.convert import torch_unet_state_to_flax
+    names = CHAINS[chain]
+    batch, shape = 2, (64, 64)
+    tmodel = cs.build_model("cpu")
+    jmodel = JaxModel(FlaxUNet(1, 4, 4), *torch_unet_state_to_flax(
+        tmodel.module.state_dict()))
+    img = cs.make_image(batch, shape)
+    gen = torch.Generator().manual_seed(7)
+    params = [t.init_params(gen) for t in cs.build_constrained_solver(
+        batch, shape, names, device="cpu").chain_of_transforms]
+    cfg = cs.chain_configs(batch, shape)
+    seen = {}
+    for pkg, model in ((jaug, jmodel), (taug, tmodel)):
+        to = torch.from_numpy if pkg is taug else jnp.asarray
+        if pkg is taug:
+            solver = cs.build_constrained_solver(batch, shape, names,
+                                                 device="cpu")
+        else:
+            solver = jaug.ComposeAdversarialTransformSolver(
+                chain_of_transforms=[getattr(jaug, CLASSES[n])(
+                    config_dict=cfg[n], **({"image_padding_mode": "lowest"}
+                                           if n in ("affine", "morph")
+                                           else {})) for n in names],
+                divergence_types=["mse", "contour"],
+                divergence_weights=[1.0, 0.5])
+        solver.set_transformation([to(p.numpy()) for p in params])
+        init = solver.get_init_output(model, to(img))
+        before, _ = solver.compute_transform_grads(to(img), model, init)
+        for t in solver.chain_of_transforms:
+            t.optimize_parameters()
+            t.rescale_parameters()
+            t.eval()
+        after, _ = solver.compute_transform_grads(to(img), model, init)
+        seen[pkg.__name__] = (float(before), float(after))
+    print(f"manual loop at step 1.0, {chain}: {seen}")
+    (b_j, a_j), (b_t, a_t) = seen.values()
+    assert abs(b_t - b_j) <= 1e-4 * b_j, seen
+    assert abs(a_t - a_j) <= (3e-2 if chain == "full" else 1e-3) * a_j, seen
+    assert (a_t - b_t) * (a_j - b_j) > 0, seen

@@ -816,3 +816,31 @@ def test_cuda_tensor_never_takes_the_plane_grid_twin(cuda, monkeypatch):
         ps.plane_grid_sample_bwd(g.half(), img, grid)
     with pytest.raises(ValueError):
         ps.plane_grid_sample_fwd(img, grid[:, :, :2].contiguous())
+
+
+@pytest.mark.parametrize("route", ["grid_sample_2d", "grid_sample_3d",
+                                   "stencil_warp_2d"])
+def test_kernel_paths_refuse_a_bf16_image(cuda, route):
+    """A bf16 network output must be cast back before it is warped: the
+    samplers pass a CUDA tensor to the kernel as it is, and the kernel
+    wrappers take f32 alone."""
+    from advchain_tpu_torch import ops
+    dims = 3 if route.endswith("3d") else 2
+    spatial = (4, 8, 8)[-dims:]
+    img = torch.rand((2, 3) + spatial, device=cuda, dtype=torch.bfloat16)
+    grid = torch.rand((2,) + spatial + (dims,), device=cuda) * 2 - 1
+    with pytest.raises(TypeError, match="f32"):
+        getattr(ops, route)(img, grid)
+
+
+def test_bf16_model_feeds_the_samplers_f32(cuda):
+    """The wrapper's bf16 mode returns f32 logits, so the solver's warps
+    of its predictions run on the kernels."""
+    from advchain_tpu_torch.models import SegmentationModel, UNet
+    from advchain_tpu_torch.ops import grid_sample_2d
+    model = SegmentationModel.create(UNet(1, 4, 16), device=cuda,
+                                     compute_dtype=torch.bfloat16)
+    logits = model(torch.rand(2, 1, 32, 32, device=cuda))
+    assert logits.dtype == torch.float32
+    grid = torch.rand(2, 32, 32, 2, device=cuda) * 2 - 1
+    assert grid_sample_2d(logits, grid).dtype == torch.float32
