@@ -8,6 +8,9 @@ to find:
   augmentor/  the four transforms + the compose solver
   losses/     consistency divergences (mse / kl / contour)
   models/     the UNet and its wrapper, plus weight conversion
+  parallel/   the fused adversarial and supervised train steps
+  utils/      image I/O, random chains, RandAugment, checkpoints,
+              profiling and plots
 
 Entry points run on the GPU unless the caller asks for the CPU: models are
 created on ``device="cuda"`` by default, and the solver and transforms run

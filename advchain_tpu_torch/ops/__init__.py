@@ -6,7 +6,8 @@ from .grid_sample import grid_sample, grid_sample_2d, grid_sample_3d, \
 from .affine import affine_grid, affine_grid_2d, affine_grid_3d, \
     make_batch_eye, invert_affine_matrix
 from .resize import interpolate, interp_matrix
-from .conv import conv_same, conv_transpose, gaussian_smooth
+from .conv import conv_same, conv_transpose, depthwise_conv, \
+    gaussian_kernel_1d, gaussian_smooth
 from .bspline import bspline_kernel, BSplineFieldSpec, \
     make_bspline_field_spec, evaluate_bspline_field, clip_bias
 from .integrate import base_grid, compose_flow, exponentiate_flow, \
@@ -18,7 +19,8 @@ __all__ = [
     "affine_grid", "affine_grid_2d", "affine_grid_3d", "make_batch_eye",
     "invert_affine_matrix",
     "interpolate", "interp_matrix",
-    "conv_same", "conv_transpose", "gaussian_smooth",
+    "conv_same", "conv_transpose", "depthwise_conv", "gaussian_kernel_1d",
+    "gaussian_smooth",
     "bspline_kernel", "BSplineFieldSpec", "make_bspline_field_spec",
     "evaluate_bspline_field", "clip_bias",
     "base_grid", "compose_flow", "exponentiate_flow",

@@ -8,10 +8,11 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 import torch.nn.functional as F
 
-__all__ = ["conv_same", "conv_transpose", "effective_gaussian_ks",
-           "gaussian_smooth"]
+__all__ = ["conv_same", "conv_transpose", "depthwise_conv",
+           "effective_gaussian_ks", "gaussian_kernel_1d", "gaussian_smooth"]
 
 
 def _conv_fns(x):
@@ -34,12 +35,28 @@ def conv_transpose(x, weight, stride, padding):
     return _conv_fns(x)[1](x, weight, stride=stride, padding=padding)
 
 
+def depthwise_conv(x, kernel):
+    """Depthwise 'padding = k // 2' convolution: the same ``kernel`` (*K,
+    or any shape that broadcasts to (C, 1, *K)) on every channel."""
+    ndim = x.dim() - 2
+    c = x.shape[1]
+    w = torch.broadcast_to(kernel, (c, 1) + tuple(kernel.shape[-ndim:]))
+    return conv_same(x, w.contiguous(), groups=c)
+
+
 @functools.lru_cache(maxsize=32)
 def _gaussian_kernel_1d_np(kernel_size: int, sigma: float) -> np.ndarray:
     mean = (kernel_size - 1) / 2.0
     xs = np.arange(kernel_size, dtype=np.float64)
     k = np.exp(-((xs - mean) ** 2) / (2.0 * sigma ** 2))
     return (k / k.sum()).astype(np.float32)
+
+
+def gaussian_kernel_1d(kernel_size: int, sigma: float, device=None):
+    """The normalised 1-D Gaussian (f32, computed in float64) on
+    ``device`` (None: the CPU)."""
+    return torch.from_numpy(_gaussian_kernel_1d_np(kernel_size,
+                                                   sigma).copy()).to(device)
 
 
 def effective_gaussian_ks(kernel_size: int, sigma: float,

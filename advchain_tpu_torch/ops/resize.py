@@ -1,7 +1,8 @@
-"""Linear resize matching ``torch.nn.functional.interpolate`` (port of
-advchain_tpu/ops/resize.py): each spatial axis is resampled with a dense
-(out, in) interpolation matrix, so the result is exactly torch's separable
-linear resampling."""
+"""Resize matching ``torch.nn.functional.interpolate`` (port of
+advchain_tpu/ops/resize.py): linear modes resample each spatial axis with a
+dense (out, in) interpolation matrix, so the result is exactly torch's
+separable linear resampling; nearest gathers each axis at the JAX package's
+float64 source index."""
 
 from __future__ import annotations
 
@@ -48,11 +49,22 @@ def interp_matrix(in_size: int, out_size: int, align_corners: bool,
                                              align_corners), device=device)
 
 
+@functools.lru_cache(maxsize=128)
+def _nearest_idx_np(in_size: int, out_size: int) -> np.ndarray:
+    """torch's legacy 'nearest' index ``floor(i * in / out)``, computed in
+    float64 as the JAX package does (``F.interpolate``'s f32 scale can pick
+    another source row)."""
+    idx = np.floor(np.arange(out_size) * (in_size / out_size)).astype(np.int64)
+    return np.clip(idx, 0, in_size - 1)
+
+
 def interpolate(x, size=None, scale_factor=None, mode: str = "bilinear",
                 align_corners: bool = False):
-    """Resize (N, C, *spatial) along every spatial axis with per-axis linear
-    interpolation.  ``size`` is the target spatial shape, or
-    ``scale_factor`` gives it with torch's ``floor(in * factor)`` rule."""
+    """Resize (N, C, *spatial) along every spatial axis: 'linear' /
+    'bilinear' / 'trilinear' (each per-axis linear) or 'nearest' (a gather
+    per axis).  ``size`` is the target spatial shape, or ``scale_factor``
+    (scalar or per axis) gives it with torch's ``floor(in * factor)``
+    rule.  Axes whose size is unchanged are left alone."""
     spatial = x.shape[2:]
     ndim = len(spatial)
     if size is None:
@@ -67,6 +79,14 @@ def interpolate(x, size=None, scale_factor=None, mode: str = "bilinear",
     if len(size) != ndim:
         raise ValueError(f"size {size} rank mismatch with input "
                          f"{tuple(x.shape)}")
+    if mode == "nearest":
+        out = x
+        for axis, (ins, outs) in enumerate(zip(spatial, size)):
+            if ins != outs:
+                idx = torch.as_tensor(_nearest_idx_np(ins, outs),
+                                      device=x.device)
+                out = torch.index_select(out, 2 + axis, idx)
+        return out
     if mode not in ("linear", "bilinear", "trilinear"):
         raise NotImplementedError(f"mode={mode!r}")
     out = x

@@ -141,9 +141,6 @@ Phases (any failure raises and the script exits non-zero):
  21. config #3 timed: 5 solves after 2 warm-ups, the share that preserve
      the volume, each solve's launches (the same assertion, and a
      differentiated sample and composition in each) and the peak memory;
-     then print the ``kernels`` line for all eighteen kernel records, with
-     each record's launches in one random-chain call and one constrained
-     solve beside the main paths';
  22. the wrapper's bf16 compute mode (UNet_16, batch 2, 64x64, the same
      weights with moved running statistics): ``predict`` logits f32 and
      within JAX's bound (5% of the f32 logits' scale, argmax agreement
@@ -172,7 +169,41 @@ Phases (any failure raises and the script exits non-zero):
      on the card and the CPU (the same steps, inits, redraws and
      warnings, JAX's where known, the dist within 1e-2 where every draw
      comes from the transforms' own generators), then at config #3's
-     batch 4, 192x192 on the card with each case's launches and ms.
+     batch 4, 192x192 on the card with each case's launches and ms;
+ 27. the cardiac-2D recipe of examples/cardiac_2d.py:50-118 at batch 128,
+     1x192x192: a seeded synthetic int16 volume (10x256x256) and uint8
+     label written as gzip NRRD and gzip NIfTI, ``load_image_label`` of
+     slice 5 and of the whole volume bit-equal to numpy's crop and
+     rescale, 128 slices stacked, a seeded UNet_16 checkpoint loaded by
+     ``get_unet_model``, the recipe's chain (noise, bias, morph, affine):
+     the random augmentation, ``adversarial_training(lazy_load=True,
+     n_iter=1)``, a ``random_chain`` sub-chain solve and
+     ``reset_transformation``, the figure through the ``vis`` functions
+     (on matplotlib's Agg where it is installed, else on recording axes
+     whose panels are checked and tiled into a PNG);
+     5 passes timed by part after 2 warm-ups, the losses finite, every
+     sample of a pass on the band grid pair and every composition on the
+     stencil, no host-side fold;
+ 28. RandAugment at batch 128, 1x192x192 (the recipe's slices): every op
+     of the augmentation space at bin 9, both signs, nearest and
+     bilinear, without and with fill, and Color and Contrast at batch 8
+     with 3 channels, each against the CPU (nearest geometric ops equal
+     but at the tie pixels, whose count is printed; the rest within
+     1e-6), each geometric call one band grid forward launch, no
+     backward, no fold; replay bit-equal; ``MyRandAugment(num_ops=2,
+     magnitude=9)`` timed over 20 calls, its launches, each op's ms and
+     the peak;
+ 29. one headline train step, ``save_checkpoint`` of the TrainState and
+     its generator, ``save_transform_state``, both restored into fresh
+     objects bit for bit (``weights_only`` loads), the next step from
+     both within 1e-5 relative; ``checked`` on a clean episode and on one
+     with a NaN pixel; ``Timer``, ``benchmark`` and a ``start_trace`` /
+     ``stop_trace`` trace of one episode; ``interpolate(mode="nearest")``
+     2D and 3D bit-equal to the CPU and ``depthwise_conv`` within 1e-6.
+Then the ``kernels`` line for all eighteen kernel records, each with its
+launches in one random-chain call, one constrained solve, the bf16 episode
+and train step, one cardiac recipe pass and the 20 timed RandAugment calls
+beside the main paths'.
 The last line of standard output is the device record.  ``--profile PATH``
 / ``--profile3d PATH`` / ``--profile-train PATH`` / ``--profile3d-legacy
 PATH`` / ``--profile-legacy2d PATH`` / ``--profile-constrained PATH`` /
@@ -202,6 +233,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -3066,6 +3098,748 @@ def run_ladder(device, batch=CONSTRAINED_BATCH, shape=SHAPE,
     return rows
 
 
+# ---------------------------------------------------------------- slice 12
+# the cardiac-2D recipe's synthetic volume (z, y, x) and the slice it reads
+RECIPE_VOLUME = (10, 256, 256)
+RECIPE_SLICE = 5
+RA_BIN = 9                   # RandAugment's magnitude bin
+RA_C3_BATCH = 8              # the 3-channel Color / Contrast cases
+RA_REPS = 20                 # timed MyRandAugment calls
+TIE_TOL = 1e-4               # px from a half-integer: either rounding
+TOL_PHOTOMETRIC = 1e-6       # apply_op on the card against the CPU
+TOL_RESUME = 1e-5            # resumed step's losses, relative (atomics)
+TOL_DEPTHWISE = 1e-6
+_NRRD_TYPES = {np.dtype(np.int16): "short", np.dtype(np.uint8): "uchar",
+               np.dtype(np.float32): "float"}
+_NIFTI_TYPES = {np.dtype(np.uint8): 2, np.dtype(np.int16): 4,
+                np.dtype(np.float32): 16}
+
+
+def fold_callers():
+    """The modules whose ``FOLDS`` attributes the ops and the plain versions
+    call (what :func:`count_calls` wraps)."""
+    return [importlib.import_module(f"advchain_tpu_torch.{name}")
+            for name in ("ops.grid_sample", "kernels._coords")]
+
+
+def nearest_tie_mask(op_name, magnitude, h, w, tol=TIE_TOL):
+    """(h, w) bool: the output pixels of a RandAugment geometric op whose
+    float64 source coordinate (x or y) lies within ``tol`` pixels of a
+    half-integer.  Nearest sampling rounds half to even, so there an ulp
+    of f32 rounding may pick either neighbour.  All False for the other
+    ops."""
+    from advchain_tpu_torch.utils.rand_augment import (GEOMETRIC_OPS,
+                                                       _pixel_map)
+    if op_name not in GEOMETRIC_OPS:
+        return np.zeros((h, w), dtype=bool)
+    ys, xs = np.meshgrid(np.arange(h, dtype=np.float64),
+                         np.arange(w, dtype=np.float64), indexing="ij")
+    sx, sy = (np.broadcast_to(v, (h, w)) for v in
+              _pixel_map(op_name, magnitude, h, w)(xs, ys))
+    return ((np.abs(sx - np.floor(sx) - 0.5) < tol)
+            | (np.abs(sy - np.floor(sy) - 0.5) < tol))
+
+
+def write_nrrd(path, arr):
+    """``arr`` (z, y, x) as a gzip NRRD (sizes fastest axis first)."""
+    import gzip
+    kind = _NRRD_TYPES[arr.dtype]
+    arr = np.ascontiguousarray(arr, dtype=arr.dtype.newbyteorder("<"))
+    header = (f"NRRD0004\ntype: {kind}\n"
+              f"dimension: {arr.ndim}\n"
+              f"sizes: {' '.join(map(str, arr.shape[::-1]))}\n"
+              f"endian: little\nencoding: gzip\n\n")
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii") + gzip.compress(arr.tobytes()))
+
+
+def write_nifti(path, arr):
+    """``arr`` (z, y, x) as a NIfTI-1 file (x fastest, no intensity
+    scaling), gzip-compressed when ``path`` ends in ``.gz``."""
+    import gzip
+    import struct
+    hdr = bytearray(352)
+    struct.pack_into("<i", hdr, 0, 348)
+    struct.pack_into("<8h", hdr, 40, arr.ndim, *arr.shape[::-1],
+                     *([1] * (7 - arr.ndim)))
+    struct.pack_into("<hh", hdr, 70, _NIFTI_TYPES[arr.dtype],
+                     8 * arr.dtype.itemsize)
+    struct.pack_into("<ff", hdr, 108, 352.0, 0.0)  # vox_offset, scl_slope
+    hdr[344:348] = b"n+1\0"
+    data = np.transpose(arr, tuple(range(arr.ndim))[::-1]).astype(
+        arr.dtype.newbyteorder("<")).tobytes(order="F")
+    raw = bytes(hdr) + data
+    with open(path, "wb") as f:
+        f.write(gzip.compress(raw) if str(path).endswith(".gz") else raw)
+
+
+def recipe_volume(shape=RECIPE_VOLUME, seed=0):
+    """A synthetic short-axis stack from ``seed``: int16 intensities (a
+    bright blood pool inside a darker wall on a noisy background, growing
+    along z) and its uint8 label (0 background, 1 right ventricle, 2 wall,
+    3 pool)."""
+    r = np.random.RandomState(seed)
+    depth, h, w = shape
+    yy, xx = np.meshgrid(np.arange(h) - h / 2, np.arange(w) - w / 2,
+                         indexing="ij")
+    rad = np.hypot(yy / 1.1, xx)
+    img = np.empty(shape, np.int16)
+    label = np.zeros(shape, np.uint8)
+    for k in range(depth):
+        s = 1.0 + 0.03 * (k - depth / 2)
+        pool, wall = rad < 22 * s, (rad >= 22 * s) & (rad < 32 * s)
+        rv = (np.hypot(yy, xx + 40 * s) < 18 * s) & ~pool & ~wall
+        label[k][rv], label[k][wall], label[k][pool] = 1, 2, 3
+        vals = 300 + 900 * pool + 250 * wall + 700 * rv \
+            + r.normal(0.0, 40.0, (h, w))
+        img[k] = np.clip(vals, 0, 2000).astype(np.int16)
+    return img, label
+
+
+def write_recipe_files(directory, vol, label):
+    """The volume and its label as gzip NRRD and as gzip NIfTI: {format:
+    (image path, label path)}."""
+    paths = {"nrrd": (os.path.join(directory, "img.nrrd"),
+                      os.path.join(directory, "seg.nrrd")),
+             "nifti": (os.path.join(directory, "img.nii.gz"),
+                       os.path.join(directory, "seg.nii.gz"))}
+    for fmt, (img_path, lbl_path) in paths.items():
+        write = write_nrrd if fmt == "nrrd" else write_nifti
+        write(img_path, vol)
+        write(lbl_path, label)
+    return paths
+
+
+def check_recipe_loading(paths, vol, label, crop=SHAPE):
+    """Phase 27: ``load_image_label`` of slice RECIPE_SLICE and of the whole
+    volume (``slice_id=-1``), with the label, from each written format,
+    bit-equal to a numpy recomputation of the centre crop and the min-max
+    rescale."""
+    from advchain_tpu_torch.utils import load_image_label
+    hd, wd = ((s - c) // 2 for s, c in zip(vol.shape[1:], crop))
+    window = (Ellipsis, slice(hd, hd + crop[0]), slice(wd, wd + crop[1]))
+    for fmt, (img_path, lbl_path) in paths.items():
+        for sid in (RECIPE_SLICE, -1):
+            got, got_label = load_image_label(img_path, lbl_path,
+                                              slice_id=sid, crop_size=crop)
+            v = (vol[sid] if sid >= 0 else vol)[window].astype(np.float64)
+            want = (v - v.min()) / (v.max() - v.min() + 1e-10)
+            want_label = (label[sid] if sid >= 0 else label)[window]
+            if not (got.dtype == want.dtype and np.array_equal(got, want)
+                    and np.array_equal(got_label, want_label)):
+                raise AssertionError(f"load_image_label({fmt}, slice_id="
+                                     f"{sid}) differs from the crop and "
+                                     f"rescale of the written volume")
+    print(f"[recipe] load_image_label: slice {RECIPE_SLICE} and the whole "
+          f"volume, image and label, from {sorted(paths)}: bit-equal to "
+          f"numpy's crop and rescale", flush=True)
+
+
+def recipe_batch(path, depth, batch, crop, device, channels=1):
+    """``batch`` samples of ``channels`` consecutive slices each (cycling
+    through the volume's ``depth``), each read and rescaled on its own by
+    ``load_image_label``, as (batch, channels, *crop) f32 on ``device``."""
+    import torch
+    from advchain_tpu_torch.utils import load_image_label
+    slices = [load_image_label(path, slice_id=k, crop_size=crop)
+              for k in range(depth)]
+    x = np.stack([[slices[(i + j) % depth] for j in range(channels)]
+                  for i in range(batch)]).astype(np.float32)
+    return torch.as_tensor(x, device=device)
+
+
+def cardiac_chain(batch, shape, device=None):
+    """The cardiac-2D recipe's chain (examples/cardiac_2d.py:28-49) in its
+    order: noise, bias, morph, affine; seeded 0-3; ``device`` is where the
+    transforms draw their parameters (None: the GPU)."""
+    from advchain_tpu_torch.augmentor import (AdvAffine, AdvBias, AdvMorph,
+                                              AdvNoise)
+    size = (batch, 1, *shape)
+    bias = AdvBias(config_dict={
+        "epsilon": 0.3, "control_point_spacing": [shape[0] // 4] * 2,
+        "downscale": 2, "data_size": size, "interpolation_order": 3,
+        "init_mode": "random", "space": "log"}, seed=1, device=device)
+    noise = AdvNoise(config_dict={"epsilon": 1, "xi": 1e-6,
+                                  "data_size": size}, seed=0, device=device)
+    affine = AdvAffine(config_dict={
+        "rot": 30 / 180, "scale_x": 0.2, "scale_y": 0.2,
+        "shift_x": 0.1, "shift_y": 0.1, "data_size": size,
+        "forward_interp": "bilinear", "backward_interp": "bilinear"},
+        seed=3, device=device)
+    morph = AdvMorph(config_dict={
+        "epsilon": 1.5, "data_size": size,
+        "vector_size": [shape[0] // 16, shape[1] // 16],
+        "forward_interp": "bilinear", "backward_interp": "bilinear"},
+        seed=2, device=device)
+    return [noise, bias, morph, affine]
+
+
+class RecordingAxes:
+    """The axes methods the ``vis`` functions call, recording what they
+    draw (images as numpy arrays, line data), for a machine without
+    matplotlib."""
+
+    def __init__(self):
+        self.images, self.lines, self.title = [], [], None
+
+    def imshow(self, data, **kwargs):
+        self.images.append(np.asarray(data, dtype=np.float64))
+
+    def plot(self, x, y, **kwargs):
+        self.lines.append((np.asarray(x), np.asarray(y)))
+
+    def set_title(self, title, **kwargs):
+        self.title = title
+
+    def set_axis_off(self):
+        pass
+
+    def grid(self, *args):
+        pass
+
+    def axis(self, *args):
+        pass
+
+
+def write_png(path, img):
+    """A uint8 (H, W) grayscale PNG, with zlib alone."""
+    import struct
+    import zlib
+    h, w = img.shape
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\0" + row.tobytes() for row in img.astype(np.uint8))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def draw_recipe_figure(path, image, rand_image, adv_image, init_output,
+                       rand_recovered, adv_recovered, bias_field,
+                       displacement):
+    """The recipe's figure through the port's ``vis`` functions (sample
+    0), saved to ``path``: with matplotlib's Agg backend where matplotlib
+    is installed; else on :class:`RecordingAxes`, each panel's recorded
+    image checked finite and the grid's lines counted, the images tiled
+    into a grayscale PNG by :func:`write_png`.  Returns which."""
+    import importlib.util
+    from advchain_tpu_torch.utils import vis
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    if have_mpl:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        fig, axes = plt.subplots(2, 5, figsize=(17, 7))
+        ax = list(axes.ravel())
+    else:
+        ax = [RecordingAxes() for _ in range(10)]
+    vis.plot_image(image[0, 0], ax[0], title="input")
+    vis.plot_image(rand_image[0, 0], ax[1], title="random aug")
+    vis.plot_image(adv_image[0, 0], ax[2], title="adversarial aug")
+    vis.plot_noise((adv_image - image)[0, 0], ax[3], title="adv diff")
+    vis.plot_bias_field(bias_field[0, 0], ax[4], title="random bias")
+    for a, pred, title in ((ax[5], init_output, "predict (clean)"),
+                           (ax[6], rand_recovered, "rand, warped back"),
+                           (ax[7], adv_recovered, "adv, warped back")):
+        vis.plot_general(pred.argmax(1)[0], a, title=title)
+    # (H, W, 2) displacement -> the (2, H, W) offsets plot_warped_grid takes
+    interval = 8
+    vis.plot_warped_grid(displacement[0].movedim(-1, 0), ax[8],
+                         bg_img=image[0, 0], interval=interval, show=True)
+    if have_mpl:
+        ax[9].set_axis_off()
+        fig.tight_layout()
+        fig.savefig(path, dpi=40)
+        plt.close(fig)
+        return "matplotlib"
+    shape = tuple(image.shape[2:])
+    n_lines = sum(-(-s // interval) for s in shape)
+    panels = [a.images[0] for a in ax[:9]]
+    if not (all(len(a.images) == 1 and p.shape == shape
+                and np.isfinite(p).all() for a, p in zip(ax[:9], panels))
+            and len(ax[8].lines) == n_lines
+            and all(np.isfinite(x).all() and np.isfinite(y).all()
+                    for x, y in ax[8].lines)):
+        raise AssertionError("the vis functions drew no finite panel of "
+                             "the image's shape, or the wrong grid lines")
+    tiles = [(p - p.min()) / max(p.max() - p.min(), 1e-12) * 255.0
+             for p in panels + [np.zeros(shape)]]
+    rows = [np.concatenate(tiles[r * 5:r * 5 + 5], axis=1) for r in (0, 1)]
+    write_png(path, np.concatenate(rows, axis=0))
+    return "recorded"
+
+
+def cardiac_recipe_once(solver, model, image, seed, figure_path):
+    """One pass of the recipe (examples/cardiac_2d.py:66-118) on
+    ``image``: the random augmentation, the adversarial one, a random
+    sub-chain solve, the figure.  Returns (seconds per part, losses)."""
+    import torch
+    from advchain_tpu_torch.augmentor import ComposeAdversarialTransformSolver
+    from advchain_tpu_torch.utils import random_chain
+    chain = solver.chain_of_transforms
+    dev = image.device
+    sec = {}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        solver.init_random_transformation()
+        rand_image = solver.forward(image)
+        rand_predict = solver.get_net_output(model, rand_image)
+        rand_recovered = solver.predict_backward(rand_predict)
+        init_output = solver.get_init_output(model, image)
+    bias_field, displacement = chain[1].bias_field, chain[2].displacement
+    sync(dev)
+    sec["random"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss = solver.adversarial_training(
+        data=image, model=model, n_iter=1, lazy_load=True,
+        optimize_flags=[True] * len(chain))
+    losses = {"adversarial": float(loss)}
+    sec["adversarial"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one_chain = random_chain(chain[:], max_length=len(chain),
+                             rng=np.random.RandomState(seed))
+    sub_solver = ComposeAdversarialTransformSolver(
+        chain_of_transforms=one_chain, divergence_types=["mse", "contour"],
+        divergence_weights=[1.0, 0.5])
+    sub_loss = sub_solver.adversarial_training(
+        data=image, model=model, init_output=init_output, n_iter=1,
+        lazy_load=False, optimize_flags=[True] * len(one_chain),
+        step_sizes=[1] * len(one_chain))
+    losses["sub_chain"] = float(sub_loss)
+    losses["sub_chain_names"] = [t.get_name() for t in one_chain]
+    sub_solver.reset_transformation()
+    sync(dev)
+    sec["sub_chain"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    losses["figure"] = draw_recipe_figure(
+        figure_path, image, rand_image, solver.adv_data, init_output,
+        rand_recovered, solver.warped_back_adv_output, bias_field,
+        displacement)
+    sec["figure"] = time.perf_counter() - t0
+    return sec, losses
+
+
+def run_cardiac_recipe(device, batch, crop, directory, warm=2, reps=5,
+                       seed=0):
+    """Phase 27: the cardiac-2D recipe on ``device`` at ``batch`` x 1 x
+    ``crop``, read from NRRD and NIfTI files written under ``directory``,
+    with a seeded UNet_16 checkpoint loaded through ``get_unet_model``.
+    ``reps`` passes after ``warm``; each part's median seconds (the load
+    of the batch included), the first timed pass's launches, sample and
+    composition counts and host-side fold calls, the losses and the peak
+    bytes."""
+    import torch
+    from advchain_tpu_torch.augmentor import ComposeAdversarialTransformSolver
+    from advchain_tpu_torch.models import get_unet_model
+    vol, label = recipe_volume()
+    paths = write_recipe_files(directory, vol, label)
+    check_recipe_loading(paths, vol, label, crop)
+    ckpt = os.path.join(directory, "cardiac_seg_unet_16.pth")
+    torch.save(build_model("cpu").module.state_dict(), ckpt)
+    model = get_unet_model(ckpt, num_classes=4, model_arch="UNet_16",
+                           device=device)
+    solver = ComposeAdversarialTransformSolver(
+        chain_of_transforms=cardiac_chain(batch, crop, device),
+        divergence_types=["mse", "contour"], divergence_weights=[1.0, 0.5],
+        debug=True)
+    figure = os.path.join(directory, "cardiac_2d.png")
+    fold_modules = fold_callers()
+    parts = {"load": [], "random": [], "adversarial": [], "sub_chain": [],
+             "figure": []}
+    for i in range(warm + reps):
+        if i == warm:
+            reset_launch_counts()
+            if torch.device(device).type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+        with counted_samples() as calls, \
+                count_calls(fold_modules, FOLDS) as folds:
+            t0 = time.perf_counter()
+            image = recipe_batch(paths["nrrd"][0], vol.shape[0], batch,
+                                 crop, device)
+            sync(device)
+            load_s = time.perf_counter() - t0
+            sec, losses = cardiac_recipe_once(solver, model, image, seed,
+                                              figure)
+        if i == warm:
+            launches, first_calls, first_folds = (launch_counts(),
+                                                  dict(calls), dict(folds))
+            first_losses = losses
+        if i >= warm:
+            for part, s in dict(sec, load=load_s).items():
+                parts[part].append(s)
+        if not all(math.isfinite(losses[k])
+                   for k in ("adversarial", "sub_chain")):
+            raise AssertionError(f"the recipe's losses are not finite: "
+                                 f"{losses}")
+    if not (os.path.getsize(figure) > 0
+            and tuple(solver.adv_data.shape) == (batch, 1) + tuple(crop)):
+        raise AssertionError("the recipe wrote no figure or its "
+                             "adversarial batch has the wrong shape")
+    peak = torch.cuda.max_memory_allocated() \
+        if torch.device(device).type == "cuda" else 0
+    return {"image": image, "paths": paths, "depth": vol.shape[0],
+            "median_s": {k: statistics.median(v) for k, v in parts.items()},
+            "launches": launches, "calls": first_calls,
+            "folds": first_folds, "losses": first_losses, "peak": peak}
+
+
+def rand_augment_cases(shape):
+    """(op, magnitude) for every op of MyRandAugment's augmentation space
+    at bin RA_BIN, both signs of the signed ones."""
+    from advchain_tpu_torch.utils import MyRandAugment
+    space = MyRandAugment()._augmentation_space(31, shape)
+    cases = []
+    for op, (mags, signed) in space.items():
+        m = float(mags[RA_BIN]) if mags.ndim else 0.0
+        cases += [(op, m)] + ([(op, -m)] if signed else [])
+    return cases
+
+
+def hold_rand_augment(x, op, mag, interp, fill, ref=None):
+    """Phase 28: one ``apply_op`` call on ``x``'s device against the same
+    call on the CPU (``ref``, when given, is that result).  Geometric ops
+    in nearest mode must be equal everywhere but at the tie pixels of
+    :func:`nearest_tie_mask`; the others within TOL_PHOTOMETRIC.  On the
+    card the call must launch the band grid forward once for a geometric
+    op and nothing else, and call no host-side fold.  Returns (CPU
+    result, largest error outside the ties, mismatched pixels, tie pixels
+    of one image)."""
+    import torch
+    from advchain_tpu_torch.utils import apply_op
+    from advchain_tpu_torch.utils.rand_augment import GEOMETRIC_OPS
+    fold_modules = fold_callers()
+    geometric = op in GEOMETRIC_OPS
+    reset_launch_counts()
+    with count_calls(fold_modules, FOLDS) as folds:
+        out = apply_op(x, op, mag, interp=interp, fill=fill)
+        sync(x.device)
+    launches = kernel_launches(launch_counts())
+    if ref is None:
+        ref = apply_op(x.cpu(), op, mag, interp=interp, fill=fill)
+    h, w = x.shape[2:]
+    exact = geometric and interp == "nearest"
+    ties = torch.from_numpy(nearest_tie_mask(op, mag, h, w, TIE_TOL)) \
+        if exact else torch.zeros(h, w, dtype=torch.bool)
+    diff = (out.cpu() - ref).abs()
+    wrong = diff > (0.0 if exact else TOL_PHOTOMETRIC)
+    err = float(torch.where(ties, 0.0, diff).max())
+    label = f"{op} {mag:+.4g} {interp} fill={fill} {tuple(x.shape)}"
+    if bool((wrong & ~ties).any()):
+        raise AssertionError(f"apply_op on the card differs from the CPU "
+                             f"outside the ties: {label}, largest error "
+                             f"{err}")
+    want = {name: 0 for name in launches}
+    if x.is_cuda and geometric:
+        want[f"{KERNEL_NAMES['band_grid']}_fwd"] = 1
+    # on the CPU the plain version folds; on the card nothing may
+    if launches != want or (x.is_cuda and any(folds.values())):
+        raise AssertionError(f"apply_op {label} launched {launches} and "
+                             f"called the folds {folds}")
+    return ref, err, int(wrong.sum()), int(ties.sum())
+
+
+def check_rand_augment(device, x, x3):
+    """Phase 28: every op of the augmentation space at bin RA_BIN (both
+    signs) on ``x``, in nearest and bilinear mode, without and with
+    ``fill=0.5``, and Color and Contrast on the 3-channel ``x3``, each
+    held by :func:`hold_rand_augment`; then replay with
+    ``reuse_param=True`` bit-equal for 4 seeds.  Returns the largest
+    errors (nearest outside the ties, bilinear, photometric) and the tie
+    counts of the nearest geometric cases."""
+    import torch
+    from advchain_tpu_torch.utils import MyRandAugment
+    from advchain_tpu_torch.utils.rand_augment import GEOMETRIC_OPS
+    worst = {"nearest": 0.0, "bilinear": 0.0, "photometric": 0.0}
+    ties = {}
+    refs = {}
+    cases = [(x, op, mag, interp, fill)
+             for op, mag in rand_augment_cases(tuple(x.shape[2:]))
+             for interp in ("nearest", "bilinear") for fill in (None, 0.5)]
+    for op in ("Color", "Contrast"):
+        m = dict(rand_augment_cases(tuple(x.shape[2:])))[op]
+        cases += [(x3, op, m, "nearest", None), (x3, op, -m, "nearest", None)]
+    for img, op, mag, interp, fill in cases:
+        geometric = op in GEOMETRIC_OPS
+        # a photometric op ignores interp and fill: one CPU result each
+        key = (img.shape[1], op, mag) + ((interp, fill) if geometric else ())
+        refs[key], err, wrong, n_ties = hold_rand_augment(
+            img, op, mag, interp, fill, refs.get(key))
+        kind = interp if geometric else "photometric"
+        worst[kind] = max(worst[kind], err)
+        if geometric and interp == "nearest":
+            ties[f"{op} {mag:+.4g} fill={fill}"] = (wrong, n_ties)
+    for seed in range(4):
+        aug = MyRandAugment(num_ops=2, magnitude=RA_BIN, seed=seed,
+                            fill=0.5 if seed % 2 else None)
+        first = aug(x)
+        if not torch.equal(first, aug(x, reuse_param=True)):
+            raise AssertionError(f"MyRandAugment replay is not bit-equal "
+                                 f"(seed {seed}, {aug.op_sequence})")
+    print(f"[rand-augment] {len(cases)} apply_op calls on {tuple(x.shape)} "
+          f"and {tuple(x3.shape)} against the CPU: largest errors "
+          f"{json.dumps(worst)}; nearest geometric cases (mismatched "
+          f"pixels over the batch, tie pixels of one image): "
+          f"{json.dumps(ties)}; replay bit-equal for 4 seeds", flush=True)
+    return worst, ties
+
+
+def time_rand_augment(device, x, warm=2, reps=RA_REPS):
+    """Phase 28: ``reps`` calls of ``MyRandAugment(num_ops=2,
+    magnitude=RA_BIN, seed=0)`` on ``x`` after ``warm``, each ending in a
+    synchronize: the median seconds, the launches of the timed calls (one
+    band grid forward per geometric op drawn, no backward, no fold), the
+    ops drawn and the peak bytes; then each op's host time per call
+    (:func:`wall_ms`) at bin RA_BIN, in both modes for the geometric
+    ones."""
+    import torch
+    from advchain_tpu_torch.utils import MyRandAugment, apply_op
+    from advchain_tpu_torch.utils.rand_augment import GEOMETRIC_OPS
+    fold_modules = fold_callers()
+    aug = MyRandAugment(num_ops=2, magnitude=RA_BIN, seed=0)
+    for _ in range(warm):
+        aug(x)
+    sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, drawn = [], []
+    with count_calls(fold_modules, FOLDS) as folds:
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = aug(x)
+            sync(device)
+            times.append(time.perf_counter() - t0)
+            drawn.append(aug.op_sequence)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_geo = sum(op in GEOMETRIC_OPS for seq in drawn for op, _ in seq)
+    flat = kernel_launches(launches)
+    fwd = f"{KERNEL_NAMES['band_grid']}_fwd"
+    if not (flat[fwd] == n_geo and n_geo > 0
+            and not any(v for k, v in flat.items() if k != fwd)
+            and not any(folds.values())
+            and tuple(out.shape) == tuple(x.shape)
+            and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"MyRandAugment launched {flat} for {n_geo} "
+                             f"geometric ops (folds {folds})")
+    op_ms = {}
+    for op, mag in rand_augment_cases(tuple(x.shape[2:])):
+        if mag < 0:
+            continue
+        for interp in (("nearest", "bilinear") if op in GEOMETRIC_OPS
+                       else ("nearest",)):
+            name = op if op not in GEOMETRIC_OPS else f"{op} {interp}"
+            op_ms[name] = wall_ms(lambda: apply_op(x, op, mag, interp=interp))
+    return {"median_s": statistics.median(times), "times": times,
+            "launches": launches, "drawn": drawn, "n_geometric": n_geo,
+            "peak": peak, "op_ms": op_ms}
+
+
+def train_parts(device, batch, shape, seed):
+    """(step, solver, state) of the headline adversarial train step with
+    UNet_16 weights from ``seed`` and a fresh Adam; the solver's
+    transforms draw on ``device``."""
+    import torch
+    from advchain_tpu_torch.parallel import (TrainState,
+                                             make_adversarial_train_step)
+    model = build_model(device, seed=seed)
+    opt = torch.optim.Adam(model.module.parameters(), lr=LR)
+    solver = build_solver(batch, shape)
+    for t in solver.chain_of_transforms:
+        t.device = device
+    step = make_adversarial_train_step(model, solver, opt, n_iter=1,
+                                       power_iteration="smart")
+    return step, solver, TrainState.create(model, opt)
+
+
+def tensors_of(tree, prefix=""):
+    """{path: tensor} of every tensor in nested dicts and lists."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    items = tree.items() if isinstance(tree, dict) else (
+        enumerate(tree) if isinstance(tree, (list, tuple)) else ())
+    out = {}
+    for k, v in items:
+        out.update(tensors_of(v, f"{prefix}/{k}"))
+    return out
+
+
+def check_resume(device, batch, shape, directory):
+    """Phase 29: one headline train step, then ``save_checkpoint`` of the
+    TrainState with the step's generator state, and
+    ``save_transform_state`` of its solver after
+    ``init_random_transformation``; both files load with
+    ``weights_only=True``; both restored into fresh objects (other
+    weights, an empty Adam, another generator) on ``device``, every tensor
+    bit-equal; then the next step from the restored state and from the
+    original, every loss within TOL_RESUME relative.  Returns the step's
+    losses, the relative gaps, the tensors compared and the save and
+    restore seconds."""
+    import torch
+    from advchain_tpu_torch.utils import (restore_checkpoint,
+                                          restore_transform_state,
+                                          save_checkpoint,
+                                          save_transform_state)
+    data = {"image": torch.as_tensor(make_image(batch, shape),
+                                     device=device),
+            "label": torch.as_tensor(make_labels(batch, shape),
+                                     device=device)}
+    step, solver, state = train_parts(device, batch, shape, 0)
+    gen = torch.Generator(device=device).manual_seed(1)
+    state, _ = step(state, data, gen)
+    solver.init_random_transformation()
+    sync(device)
+    t0 = time.perf_counter()
+    ckpt = save_checkpoint(os.path.join(directory, "train_state.pt"),
+                           {"state": state, "generator": gen.get_state()})
+    tfile = save_transform_state(os.path.join(directory, "transforms.pt"),
+                                 solver)
+    save_s = time.perf_counter() - t0
+    for path in (ckpt, tfile):
+        torch.load(path, weights_only=True)
+    step2, solver2, state2 = train_parts(device, batch, shape, 1)
+    gen2 = torch.Generator(device=device).manual_seed(99)
+    t0 = time.perf_counter()
+    tree = restore_checkpoint(ckpt, target={"state": state2,
+                                            "generator": gen2.get_state()})
+    gen2.set_state(tree["generator"])
+    restore_transform_state(tfile, solver2)
+    sync(device)
+    restore_s = time.perf_counter() - t0
+    ours = tensors_of({"module": state.model.module.state_dict(),
+                       "optimizer": state.optimizer.state_dict(),
+                       "generator": gen.get_state(),
+                       "episodes": state.model._episodes.get_state(),
+                       "transforms": solver.get_transformation_parameters()})
+    back = tensors_of({"module": state2.model.module.state_dict(),
+                       "optimizer": state2.optimizer.state_dict(),
+                       "generator": gen2.get_state(),
+                       "episodes": state2.model._episodes.get_state(),
+                       "transforms": solver2.get_transformation_parameters()})
+    unequal = [k for k in ours if not (k in back
+                                       and back[k].device == ours[k].device
+                                       and torch.equal(back[k], ours[k]))]
+    if (unequal or ours.keys() != back.keys() or state2.step != state.step
+            or state2.model.episode_seed != state.model.episode_seed):
+        raise AssertionError(f"the restored state differs: {unequal[:8]}")
+    state, m1 = step(state, data, gen)
+    state2, m2 = step2(state2, data, gen2)
+    m1 = {k: float(v) for k, v in m1.items()}
+    m2 = {k: float(v) for k, v in m2.items()}
+    rel = {k: abs(m1[k] - m2[k]) / abs(m1[k]) for k in m1}
+    print(f"[resume] {len(ours)} tensors bit-equal after restore (module, "
+          f"Adam, generators, transforms); checkpoint "
+          f"{os.path.getsize(ckpt) / 1e6:.2f} MB, save {save_s * 1e3:.1f} ms, "
+          f"restore {restore_s * 1e3:.1f} ms; next step original {m1}, "
+          f"resumed {m2}, relative {rel}", flush=True)
+    if not (all(math.isfinite(v) for v in m1.values())
+            and max(rel.values()) <= TOL_RESUME):
+        raise AssertionError(f"the resumed step's losses differ: {rel}")
+    return {"losses": m1, "relative": rel, "tensors": len(ours),
+            "save_s": save_s, "restore_s": restore_s}
+
+
+def check_checked(device, batch, shape):
+    """Phase 29: ``checked`` passes a clean headline episode (a finite
+    loss) and raises FloatingPointError on the same episode with one NaN
+    pixel in its input."""
+    import torch
+    from advchain_tpu_torch.utils import checked
+    solver = build_solver(batch, shape)
+    model = build_model(device)
+    data = torch.as_tensor(make_image(batch, shape), device=device)
+    safe = checked(lambda x: episode_once(solver, model, x))
+    t0 = time.perf_counter()
+    loss = float(safe(data))
+    clean_s = time.perf_counter() - t0
+    bad = data.clone()
+    bad[0, 0, 0, 0] = float("nan")
+    raised = None
+    try:
+        safe(bad)
+    except FloatingPointError as err:
+        raised = str(err)
+    print(f"[checked] clean episode loss {loss:.6e} in {clean_s:.2f} s "
+          f"under the check; with one NaN pixel: {raised}", flush=True)
+    if not (math.isfinite(loss) and raised is not None):
+        raise AssertionError("checked did not pass the clean episode or "
+                             "did not raise on the NaN")
+    return clean_s
+
+
+def time_episode_utils(device, batch, shape, directory):
+    """Phase 29: one headline episode timed by ``Timer`` and by
+    ``benchmark`` (2 warm-ups, 5 reps), and one traced by ``start_trace``
+    / ``stop_trace`` inside a ``trace`` region: the Chrome trace must hold
+    the region and, on the card, the band grid kernels.  Returns (Timer
+    ms, benchmark stats, trace path)."""
+    import torch
+    from advchain_tpu_torch.utils import (Timer, benchmark, start_trace,
+                                          stop_trace, trace)
+    solver = build_solver(batch, shape)
+    model = build_model(device)
+    data = torch.as_tensor(make_image(batch, shape), device=device)
+
+    def episode():
+        return solver.adversarial_training(data=data, model=model, n_iter=1,
+                                           power_iteration="smart",
+                                           step_sizes=1.0)
+
+    episode()
+    with Timer() as t:
+        t.sync(episode())
+    stats = benchmark(episode, warmup=2, reps=5)
+    start_trace(os.path.join(directory, "trace"))
+    with trace("advchain_episode"):
+        episode()
+    sync(device)
+    path = stop_trace()
+    with open(path) as f:
+        text = f.read()
+    if not ("advchain_episode" in text
+            and ("band_grid" in text or not data.is_cuda)):
+        raise AssertionError(f"the trace {path} lacks the region or the "
+                             f"band grid kernels")
+    return t.ms, stats, path
+
+
+def check_ops_gaps(device):
+    """Phase 29: ``interpolate(mode="nearest")`` on the card against the
+    CPU, bit-equal, 2D (N=128, 192x192 -> 100x100) and 3D (N=2,
+    12x192x192 -> 7x100x100); ``depthwise_conv`` with a Gaussian kernel
+    from ``gaussian_kernel_1d``, 2D (5x5, N=128, C=2) and 3D (3x5x5, N=2,
+    C=3), within TOL_DEPTHWISE."""
+    import torch
+    from advchain_tpu_torch.ops import (depthwise_conv, gaussian_kernel_1d,
+                                        interpolate)
+    gen = torch.Generator().manual_seed(12)
+    errs = {}
+    for shape, size in (((BATCH, 1) + SHAPE, (100, 100)),
+                        ((BATCH3D, 1) + SHAPE3D, (7, 100, 100))):
+        x = torch.randn(shape, generator=gen)
+        out = interpolate(x.to(device), size=size, mode="nearest")
+        if not torch.equal(out.cpu(), interpolate(x, size=size,
+                                                  mode="nearest")):
+            raise AssertionError(f"nearest interpolate {shape} -> {size} "
+                                 f"differs from the CPU")
+    g5, g3 = gaussian_kernel_1d(5, 1.0), gaussian_kernel_1d(3, 0.8)
+    for shape, k in (((BATCH, 2) + SHAPE, g5[:, None] * g5[None]),
+                     ((BATCH3D, 3) + SHAPE3D,
+                      g3[:, None, None] * g5[None, :, None] * g5[None, None])):
+        x = torch.randn(shape, generator=gen)
+        out = depthwise_conv(x.to(device), k.to(device)).cpu()
+        errs[len(shape) - 2] = float((out - depthwise_conv(x, k)).abs().max())
+    print(f"[ops] nearest interpolate 2D and 3D bit-equal to the CPU; "
+          f"depthwise_conv largest error {errs}", flush=True)
+    if max(errs.values()) > TOL_DEPTHWISE:
+        raise AssertionError(f"depthwise_conv differs from the CPU: {errs}")
+    return errs
+
+
 def kernel_launches(launches):
     """Launches by kernel record name (the ``kernels`` line's names)."""
     out = {f"{KERNEL_NAMES[fam]}_{kind}": launches[fam][kind]
@@ -3421,6 +4195,52 @@ def main(argv=None):
     check_zoo_nets(device)
     ladder = run_ladder(device)
 
+    # slice 12: the utilities.  The cardiac-2D recipe read from written
+    # files, RandAugment on the band grid forward (nearest and bilinear),
+    # checkpoint resume of the train step, checked, the timers, the trace
+    # and the ops gaps
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        recipe = run_cardiac_recipe(device, BATCH, SHAPE, tmp)
+        launches_r = recipe["launches"]
+        assert_on_kernels("cardiac recipe", launches_r, recipe["calls"],
+                          recipe["folds"])
+        if not (launches_r["band_grid"]["bwd"]
+                and launches_r["stencil"]["bwd"]):
+            raise AssertionError(f"the cardiac recipe ran no differentiated "
+                                 f"sample or composition: {launches_r}")
+        print(f"[recipe] cardiac 2D, batch {BATCH} {SHAPE[0]}x{SHAPE[1]}: "
+              f"losses {recipe['losses']}, median s per part "
+              f"{json.dumps(recipe['median_s'])}, launches band_grid "
+              f"{launches_r['band_grid']}, stencil {launches_r['stencil']}, "
+              f"dispatch predicates {launches_r['slope']['fwd']}, samples "
+              f"{recipe['calls']}, host-side folds {recipe['folds']}, peak "
+              f"{recipe['peak'] / 1e9:.3f} GB on {card}", flush=True)
+        x3 = recipe_batch(recipe["paths"]["nrrd"][0], recipe["depth"],
+                          RA_C3_BATCH, SHAPE, device, channels=3)
+        worst_ra, _ = check_rand_augment(device, recipe["image"], x3)
+        ra = time_rand_augment(device, recipe["image"])
+        print(f"[rand-augment] MyRandAugment(num_ops=2, magnitude={RA_BIN}) "
+              f"at batch {BATCH} {SHAPE[0]}x{SHAPE[1]}: median "
+              f"{ra['median_s'] * 1e3:.3f} ms a call "
+              f"({BATCH / ra['median_s']:.2f} img/s) over "
+              f"{[round(t * 1e3, 3) for t in ra['times']]} ms, "
+              f"{ra['n_geometric']} geometric ops drawn in {RA_REPS} calls, "
+              f"band_grid launches {ra['launches']['band_grid']}, peak "
+              f"{ra['peak'] / 1e9:.3f} GB; ms per op call "
+              f"{json.dumps({k: round(v, 4) for k, v in ra['op_ms'].items()})}"
+              f" on {card}", flush=True)
+        resume = check_resume(device, BATCH, SHAPE, tmp)
+        checked_s = check_checked(device, BATCH, SHAPE)
+        timer_ms, bench_ms, _ = time_episode_utils(device, BATCH, SHAPE, tmp)
+        print(f"[profiling] headline episode: Timer {timer_ms:.2f} ms, "
+              f"benchmark {json.dumps(bench_ms)}, phase 4's median "
+              f"{sec * 1e3:.2f} ms; under checked {checked_s * 1e3:.1f} ms "
+              f"on {card}", flush=True)
+        check_ops_gaps(device)
+
     shape2 = f"N={BATCH} {SHAPE[0]}x{SHAPE[1]}"
     shape3 = f"N={BATCH3D} {'x'.join(map(str, SHAPE3D))}"
     kernels = (kernel_records("band", launches2, worst2, rows2, "rot30", 1,
@@ -3451,6 +4271,15 @@ def main(argv=None):
         rec["launches_constrained_solve"] = by_name[1][rec["name"]]
         rec["launches_episode_bf16"] = bf16_names[0][rec["name"]]
         rec["launches_train_bf16"] = bf16_names[1][rec["name"]]
+    by_util = (kernel_launches(launches_r), kernel_launches(ra["launches"]))
+    for rec in kernels:
+        rec["launches_cardiac_recipe"] = by_util[0][rec["name"]]
+        rec["launches_rand_augment"] = by_util[1][rec["name"]]
+        if rec["name"] == f"{KERNEL_NAMES['band_grid']}_fwd":
+            # phase 28's apply_op calls against the CPU: bilinear, and
+            # nearest outside the tie pixels
+            rec["max_abs_err_rand_augment"] = max(worst_ra["bilinear"],
+                                                  worst_ra["nearest"])
     for rec in kernels:
         fam = "stencil" if rec["name"].startswith("stencil") else \
             "band_grid" if rec["name"].startswith("band_grid") else None

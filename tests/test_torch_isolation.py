@@ -41,6 +41,7 @@ def test_port_imports_with_jax_blocked():
         "import advchain_tpu_torch.augmentor, advchain_tpu_torch.models\n"
         "import advchain_tpu_torch.kernels, advchain_tpu_torch.ops\n"
         "import advchain_tpu_torch.losses, advchain_tpu_torch.parallel\n"
+        "import advchain_tpu_torch.utils\n"
         "import chip_smoke\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -844,3 +844,75 @@ def test_bf16_model_feeds_the_samplers_f32(cuda):
     assert logits.dtype == torch.float32
     grid = torch.rand(2, 32, 32, 2, device=cuda) * 2 - 1
     assert grid_sample_2d(logits, grid).dtype == torch.float32
+
+
+# ------------------------------------------------- the utilities (slice 12)
+def _rand_augment_cases():
+    from advchain_tpu_torch.utils import MyRandAugment
+    space = MyRandAugment()._augmentation_space(31, (48, 40))
+    cases = []
+    for op, (mags, signed) in space.items():
+        m = float(mags[9]) if mags.ndim else 0.0
+        cases += [(op, m)] + ([(op, -m)] if signed else [])
+    return cases
+
+
+@pytest.mark.parametrize("fill", [None, 0.5])
+@pytest.mark.parametrize("interp", ["nearest", "bilinear"])
+@pytest.mark.parametrize("op,mag", _rand_augment_cases())
+def test_rand_augment_op_matches_the_cpu(cuda, op, mag, interp, fill):
+    """Every RandAugment op at bin 9 on the card against the same call on
+    the CPU (the plain band grid version): a geometric op launches the band
+    grid forward once and nothing else, equal to the CPU but at nearest
+    ties; the others within 1e-6 and launch nothing."""
+    import chip_smoke
+    from advchain_tpu_torch.utils import apply_op
+    from advchain_tpu_torch.utils.rand_augment import GEOMETRIC_OPS
+    gen = torch.Generator().manual_seed(8)
+    c = 3 if op in ("Color", "Contrast") else 1
+    x = torch.rand(3, c, 48, 40, generator=gen)
+    chip_smoke.reset_launch_counts()
+    out = apply_op(x.to(cuda), op, mag, interp=interp, fill=fill)
+    torch.cuda.synchronize()
+    counts = chip_smoke.launch_counts()
+    geometric = op in GEOMETRIC_OPS
+    assert counts["band_grid"] == {"fwd": int(geometric), "bwd": 0}
+    assert sum(sum(v.values()) for v in counts.values()) == int(geometric)
+    diff = (out.cpu() - apply_op(x, op, mag, interp=interp,
+                                 fill=fill)).abs()
+    if geometric and interp == "nearest":
+        ties = torch.from_numpy(chip_smoke.nearest_tie_mask(op, mag, 48, 40))
+        assert not bool(((diff > 0) & ~ties).any())
+    else:
+        assert float(diff.max()) <= 1e-6
+
+
+def test_my_rand_augment_replays_bit_equal_on_the_card(cuda):
+    from advchain_tpu_torch.utils import MyRandAugment
+    x = torch.rand(4, 1, 64, 64, device=cuda)
+    for seed in range(6):
+        aug = MyRandAugment(num_ops=3, magnitude=9, seed=seed, fill=0.3)
+        first = aug(x)
+        assert torch.equal(aug(x, reuse_param=True), first)
+        assert first.device == x.device
+
+
+@pytest.mark.parametrize("shape,size", [((2, 3, 7, 5), (5, 12)),
+                                        ((2, 2, 192, 192), (100, 100)),
+                                        ((2, 1, 12, 7, 5), (7, 5, 12))])
+def test_nearest_interpolate_matches_the_cpu(cuda, shape, size):
+    from advchain_tpu_torch.ops import interpolate
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(9))
+    out = interpolate(x.to(cuda), size=size, mode="nearest")
+    assert out.device.type == "cuda"
+    assert torch.equal(out.cpu(), interpolate(x, size=size, mode="nearest"))
+
+
+def test_depthwise_conv_matches_the_cpu(cuda):
+    from advchain_tpu_torch.ops import depthwise_conv, gaussian_kernel_1d
+    g = gaussian_kernel_1d(5, 1.0, device=cuda)
+    assert g.device.type == "cuda"
+    x = torch.randn(2, 3, 40, 36, generator=torch.Generator().manual_seed(1))
+    k = (g[:, None] * g[None]).cpu()
+    out = depthwise_conv(x.to(cuda), k.to(cuda)).cpu()
+    assert float((out - depthwise_conv(x, k)).abs().max()) <= 1e-6

@@ -90,6 +90,44 @@ def test_interpolate(size, align):
            jres.interpolate(jnp.asarray(x), size=size, align_corners=align))
 
 
+@pytest.mark.parametrize("size,scale", [((7, 5), None), ((5, 12), None),
+                                        ((100, 100), None), (None, 0.5),
+                                        (None, 1.5), ((9, 7), None)])
+def test_interpolate_nearest(size, scale):
+    """JAX's float64 ``floor(i * in / out)`` index, equal: 7->5 and 5->12
+    per axis, 192->100, and both scale factors."""
+    shape = (192, 192) if size == (100, 100) else (7, 5)
+    if size == (5, 12):
+        shape = (5, 5)
+    x = np.random.RandomState(5).randn(2, 3, *shape).astype(np.float32)
+    ours = tres.interpolate(torch.from_numpy(x), size=size,
+                            scale_factor=scale, mode="nearest")
+    ref = np.asarray(jres.interpolate(jnp.asarray(x), size=size,
+                                      scale_factor=scale, mode="nearest"))
+    assert ours.shape == ref.shape
+    np.testing.assert_array_equal(ours.numpy(), ref)
+
+
+def test_depthwise_conv_and_gaussian_kernel_1d():
+    r = np.random.RandomState(6)
+    x = r.randn(2, 3, 12, 11).astype(np.float32)
+    k = r.randn(5, 3).astype(np.float32)
+    _close(tconv.depthwise_conv(torch.from_numpy(x), torch.from_numpy(k)),
+           jconv.depthwise_conv(jnp.asarray(x), jnp.asarray(k)), atol=1e-6)
+    for ks, sigma in ((5, 1.0), (9, 2.0), (4, 0.7)):
+        np.testing.assert_array_equal(
+            tconv.gaussian_kernel_1d(ks, sigma).numpy(),
+            np.asarray(jconv.gaussian_kernel_1d(ks, sigma)))
+
+
+def test_ops_exports_every_name_of_jax():
+    import advchain_tpu.ops as jops
+    import advchain_tpu_torch.ops as tops
+    assert set(jops.__all__) <= set(tops.__all__)
+    for name in tops.__all__:
+        assert hasattr(tops, name)
+
+
 @pytest.mark.parametrize("image,spacing,log_space", [
     ((64, 64), (32, 32), True), ((64, 48), (16, 24), False),
     ((192, 192), (48, 48), True)])

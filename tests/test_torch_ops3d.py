@@ -91,6 +91,34 @@ def test_interpolate_trilinear(size, align):
                             align_corners=align))
 
 
+@pytest.mark.parametrize("size,scale", [((7, 5, 12), None),
+                                        ((12, 7, 5), None),
+                                        (None, 0.5), (None, 1.5)])
+def test_interpolate_nearest_3d(size, scale):
+    """Equal to JAX's: 7->5 and 5->12 in-plane, 12->7 along D, and both
+    scale factors."""
+    shape = (12, 7, 5) if size == (7, 5, 12) else (7, 12, 5)
+    if size is None:
+        shape = (12, 7, 5)
+    x = np.random.RandomState(5).randn(2, 2, *shape).astype(np.float32)
+    ours = tres.interpolate(torch.from_numpy(x), size=size,
+                            scale_factor=scale, mode="nearest")
+    ref = np.asarray(jres.interpolate(jnp.asarray(x), size=size,
+                                      scale_factor=scale, mode="nearest"))
+    assert ours.shape == ref.shape
+    np.testing.assert_array_equal(ours.numpy(), ref)
+
+
+def test_depthwise_conv_3d():
+    """Within 1e-6 of the largest output: the 45-tap sums reassociate."""
+    r = np.random.RandomState(7)
+    x = r.randn(2, 2, 6, 9, 8).astype(np.float32)
+    k = r.randn(3, 5, 3).astype(np.float32)
+    ours = tconv.depthwise_conv(torch.from_numpy(x), torch.from_numpy(k))
+    ref = np.asarray(jconv.depthwise_conv(jnp.asarray(x), jnp.asarray(k)))
+    assert np.abs(ours.numpy() - ref).max() <= 1e-6 * np.abs(ref).max()
+
+
 @pytest.mark.parametrize("image,spacing,downscale,log_space", [
     ((8, 32, 32), (4, 16, 16), 4, True),
     ((12, 48, 40), (6, 24, 20), 4, True),
