@@ -8,7 +8,9 @@ to find:
   augmentor/  the four transforms + the compose solver
   losses/     consistency divergences (mse / kl / contour)
   models/     the UNet and its wrapper, plus weight conversion
-  parallel/   the fused adversarial and supervised train steps
+  parallel/   meshes over torch.distributed ranks, the fused adversarial
+              and supervised train steps (one GPU or data-parallel), and
+              the spatially sharded halo exchange, Gaussian and sampler
   utils/      image I/O, random chains, RandAugment, checkpoints,
               profiling and plots
 

@@ -49,7 +49,7 @@ import torch
 
 from advchain_tpu_torch import resolve_device
 from advchain_tpu_torch.losses import calc_segmentation_consistency
-from advchain_tpu_torch.ops import norms
+from advchain_tpu_torch.ops import collectives, norms
 from advchain_tpu_torch.ops.grid_sample import clip
 
 logger = logging.getLogger(__name__)
@@ -231,10 +231,14 @@ class ComposeAdversarialTransformSolver:
     def _norm_image(self, x, data):
         if not self.if_norm_image:
             return x
-        lo = (torch.amin(data) if self.min_intensity is None
-              else self.min_intensity)
-        hi = (torch.amax(data) if self.max_intensity is None
-              else self.max_intensity)
+        dg = collectives.current_data_group()
+        lo, hi = self.min_intensity, self.max_intensity
+        if lo is None:  # over the whole batch, the data group's too
+            lo = torch.amin(data) if dg is None else \
+                collectives.all_reduce(torch.amin(data), "min", dg.group)
+        if hi is None:
+            hi = torch.amax(data) if dg is None else \
+                collectives.all_reduce(torch.amax(data), "max", dg.group)
         return clip(x, lo, hi)
 
     def _chain_apply(self, params, data, train_flags, auxs):
@@ -310,8 +314,13 @@ class ComposeAdversarialTransformSolver:
                                  lambda x: self._model_call(model, x),
                                  anatomy=anatomy,
                                  anatomy_reg_weight=anatomy_reg_weight)[0]
+        dg = collectives.current_data_group()
+        if dg is not None:  # this rank's share of the global divergence
+            dist = dist * (dg.n_local / dg.n_global)
         grads = iter(torch.autograd.grad(dist, opt))
         dist = dist.detach()
+        if dg is not None:  # the shares summed: the global batch's
+            dist = collectives.all_reduce(dist, group=dg.group)
         ok = torch.isfinite(dist)
         new_params = []
         for t, p, f, s in zip(self.chain_of_transforms, params, flags,

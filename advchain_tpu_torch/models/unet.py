@@ -38,6 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from advchain_tpu_torch.ops import collectives
+
 __all__ = ["UNet", "UNetv2", "DeeplySupervisedUNet", "DoubleConv", "Down",
            "Up", "OutConv", "SelfAttn2d", "SpectralConv2d", "FrozenStatsBN",
            "FrozenStatsBN3d", "EpisodeDropout", "ZDecomposedConv3d",
@@ -55,13 +57,70 @@ class _StatsWriter:
     write_back = False
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training-mode batch normalisation over the global batch of a data
+    group (``ops.collectives.data_group``), two-pass: the per-channel sums
+    all-reduced give the global mean, then the squared deviations
+    all-reduced give the biased variance.  The backward all-reduces the two
+    per-channel sums of the cotangent (``dy`` and ``dy * xhat``) the input
+    gradient needs; the weight and bias gradients stay this rank's own
+    sums, which the step all-reduces with every other parameter gradient.
+    Computes in f32 and returns the input's dtype; also returns the mean
+    and biased variance for the running statistics."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group, count):
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        xf = x.float()
+        mean = collectives.all_reduce(xf.sum(dims), group=group) / count
+        dev = xf - mean.view(shape)
+        var = collectives.all_reduce((dev * dev).sum(dims),
+                                     group=group) / count
+        invstd = torch.rsqrt(var + eps)
+        xhat = dev * invstd.view(shape)
+        y = xhat
+        if weight is not None:
+            y = y * weight.float().view(shape) + bias.float().view(shape)
+        ctx.save_for_backward(xhat, invstd, weight)
+        ctx.group, ctx.count, ctx.dtype = group, count, x.dtype
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, invstd, weight = ctx.saved_tensors
+        dims = [0] + list(range(2, xhat.dim()))
+        shape = (1, -1) + (1,) * (xhat.dim() - 2)
+        dy = dy.float()
+        sum_dy = dy.sum(dims)
+        sum_dy_xhat = (dy * xhat).sum(dims)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            both = collectives.all_reduce(torch.stack([sum_dy, sum_dy_xhat]),
+                                          group=ctx.group) / ctx.count
+            scale = invstd if weight is None else invstd * weight.float()
+            dx = (scale.view(shape)
+                  * (dy - both[0].view(shape) - xhat * both[1].view(shape))
+                  ).to(ctx.dtype)
+        dw = db = None
+        if weight is not None:
+            dw = sum_dy_xhat.to(weight.dtype)
+            db = sum_dy.to(weight.dtype)
+        return dx, dw, db, None, None, None
+
+
 class _FrozenStats(_StatsWriter):
     """Training mode uses batch statistics without updating the running
     ones, unless ``write_back`` is set (the JAX package's TorchBatchNorm
     with a mutable ``batch_stats`` collection); eval mode uses the running
-    ones."""
+    ones.  Inside a data group (``ops.collectives.data_group``) training
+    mode normalises by the global batch's statistics, and the write-back
+    takes the unbiased variance over the global count."""
 
     def forward(self, x):
+        dg = collectives.current_data_group()
+        if self.training and dg is not None:
+            return self._global_forward(x, dg)
         if self.training:
             if self.write_back:
                 return F.batch_norm(x, self.running_mean, self.running_var,
@@ -72,6 +131,20 @@ class _FrozenStats(_StatsWriter):
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, training=False,
                             eps=self.eps)
+
+    def _global_forward(self, x, dg):
+        count = x.numel() // (x.shape[0] * x.shape[1]) * dg.n_global
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
+                                              self.eps, dg.group, count)
+        if self.write_back:
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.mul_(1 - m).add_(
+                    m * mean.to(self.running_mean.dtype))
+                self.running_var.mul_(1 - m).add_(
+                    m * (var * (count / (count - 1))).to(
+                        self.running_var.dtype))
+        return y
 
 
 class FrozenStatsBN(_FrozenStats, nn.BatchNorm2d):
@@ -150,8 +223,14 @@ class EpisodeDropout(nn.Module):
         mask = self._mask
         if mask is None or mask.shape != x.shape or mask.device != x.device:
             gen = torch.Generator(device=x.device).manual_seed(self.seed)
-            mask = torch.rand(x.shape, generator=gen,
+            # inside a data group: the global batch's mask, this rank's rows
+            dg = collectives.current_data_group()
+            shape = x.shape if dg is None else \
+                (dg.n_global,) + tuple(x.shape[1:])
+            mask = torch.rand(shape, generator=gen,
                               device=x.device) >= self.p
+            if dg is not None:
+                mask = dg.rows(mask)
             self._mask = mask
         keep = 1.0 - self.p
         return torch.where(mask, x / keep, torch.zeros_like(x))

@@ -1,0 +1,202 @@
+"""Collectives over ``torch.distributed`` groups, and the data group of a
+running data-parallel step.
+
+Transport.  A ``gloo`` group moves host tensors: a CUDA tensor is copied to
+the host, reduced or exchanged there and copied back.  An ``nccl`` group
+moves device tensors (a host tensor, such as a generator's state, is
+staged through the current device).  The choice is made by the group's
+backend (:func:`transport`), never by catching an error.  ``COUNTS`` tallies
+the calls, the bytes they sent and the calls of each collective, so a run
+can report what a step cost in communication and which collectives it ran
+(``parallel.spatial.sharded_grid_sample``'s halo route is the one that
+runs a ``neighbour_exchange``).
+
+The data group.  The JAX package's data-parallel step is one GSPMD program,
+so every batch-wide quantity in it is global by construction.  Here each
+rank holds its rows of the batch, and :func:`data_group` marks the block in
+which the port's batch-wide quantities reduce over the data group:
+
+* ``FrozenStatsBN`` / ``FrozenStatsBN3d`` normalise by the global batch
+  statistics, and their backward all-reduces the two per-channel gradient
+  sums (``models/unet.py``);
+* ``EpisodeDropout`` draws the global batch's mask and keeps its rows;
+* the mse divergence's divisor counts the global batch
+  (``losses/consistency.py``); the other losses stay means over this
+  rank's rows, which the train step weights by ``n_local / n_global``;
+* the solver's intensity clamp takes the global minimum and maximum, and
+  its PGD step checks the global divergence for finiteness
+  (``augmentor/compose.py``);
+* the flow compositions' dispatch slope and the 3D adaptive step count see
+  the whole batch (``ops/integrate.py``).
+
+Outside the block all of these are the single-process computations, and no
+collective runs.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["transport", "all_reduce", "all_gather", "broadcast_",
+           "neighbour_exchange", "DataGroup", "data_group",
+           "current_data_group", "global_batch", "reset_counts", "COUNTS"]
+
+_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
+        "max": dist.ReduceOp.MAX}
+_NAMES = ("all_reduce", "all_gather", "broadcast_", "neighbour_exchange")
+
+# since the last reset: calls, bytes sent, and the calls of each collective
+COUNTS = dict.fromkeys(("calls", "bytes") + _NAMES, 0)
+
+
+def reset_counts() -> None:
+    COUNTS.update(dict.fromkeys(COUNTS, 0))
+
+
+def _count(name: str, *sent) -> None:
+    COUNTS["calls"] += 1
+    COUNTS[name] += 1
+    COUNTS["bytes"] += sum(t.numel() * t.element_size() for t in sent)
+
+
+def _wire_device(group) -> torch.device:
+    """Where ``group``'s backend takes its tensors: the host for gloo, the
+    current CUDA device otherwise (NCCL)."""
+    if dist.get_backend(group) == "gloo":
+        return torch.device("cpu")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _wire(t, group):
+    """``t`` detached, contiguous and on the wire device: a copy when it
+    moves, else ``t`` itself."""
+    t = t.detach().contiguous()
+    dev = _wire_device(group)
+    return t if t.device == dev else t.to(dev)
+
+
+def transport(group=None, device_type: str = "cuda") -> str:
+    """How this module moves ``device_type`` tensors over ``group``."""
+    wire = _wire_device(group).type
+    backend = dist.get_backend(group)
+    if wire != device_type:
+        return f"{backend}, {device_type} tensors staged through {wire}"
+    return f"{backend}, {device_type} tensors in place"
+
+
+def all_reduce(t, op: str = "sum", group=None):
+    """A new tensor: ``t`` reduced over ``group`` with ``op`` ('sum',
+    'min' or 'max'); ``t`` is left as it was."""
+    _count("all_reduce", t)
+    out = _wire(t, group)
+    if out.data_ptr() == t.data_ptr():
+        out = out.clone()
+    dist.all_reduce(out, op=_OPS[op], group=group)
+    return out.to(t.device)
+
+
+def all_gather(t, dim: int = 0, group=None):
+    """Every rank's ``t`` (all of one shape) concatenated along ``dim`` in
+    group-rank order."""
+    _count("all_gather", t)
+    src = _wire(t, group)
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim=dim).to(t.device)
+
+
+def broadcast_(t, group=None, src: int = 0):
+    """Overwrite ``t`` with group rank ``src``'s value, in place."""
+    _count("broadcast_", t)
+    peer = src if group is None else dist.get_global_rank(group, src)
+    wire = _wire(t, group)
+    if wire.data_ptr() == t.data_ptr():
+        wire = wire.clone()
+    dist.broadcast(wire, src=peer, group=group)
+    with torch.no_grad():
+        t.copy_(wire)
+    return t
+
+
+def neighbour_exchange(to_left, to_right, group):
+    """Non-cyclic exchange along the group's ranks: send ``to_left`` to
+    group rank ``r - 1`` and ``to_right`` to ``r + 1``; returns (what the
+    left neighbour sent right, what the right neighbour sent left), zeros
+    at the two ends.  Point-to-point ``batch_isend_irecv``."""
+    n = dist.get_world_size(group)
+    r = dist.get_group_rank(group, dist.get_rank())
+    send_l, send_r = _wire(to_left, group), _wire(to_right, group)
+    from_left = torch.zeros_like(send_r)
+    from_right = torch.zeros_like(send_l)
+    ops, sent = [], []
+    if r > 0:
+        peer = dist.get_global_rank(group, r - 1)
+        ops += [dist.P2POp(dist.isend, send_l, peer, group),
+                dist.P2POp(dist.irecv, from_left, peer, group)]
+        sent.append(send_l)
+    if r + 1 < n:
+        peer = dist.get_global_rank(group, r + 1)
+        ops += [dist.P2POp(dist.isend, send_r, peer, group),
+                dist.P2POp(dist.irecv, from_right, peer, group)]
+        sent.append(send_r)
+    _count("neighbour_exchange", *sent)
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return from_left.to(to_right.device), from_right.to(to_left.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataGroup:
+    """This rank's place in the global batch of a data-parallel step:
+    rows ``offset : offset + n_local`` of ``n_global``."""
+
+    group: object
+    n_local: int
+    n_global: int
+    offset: int
+
+    def rows(self, t):
+        """This rank's rows of a global-batch tensor."""
+        if t.shape[0] != self.n_global:
+            raise ValueError(f"expected the global batch of "
+                             f"{self.n_global} rows, got {t.shape[0]}")
+        return t[self.offset:self.offset + self.n_local]
+
+
+_DATA_GROUP: contextvars.ContextVar[Optional[DataGroup]] = \
+    contextvars.ContextVar("data_group", default=None)
+
+
+@contextlib.contextmanager
+def data_group(group, n_local: int, device=None):
+    """Open the data group of one step: every rank passes its own batch
+    rows' count (one all-gather of the counts, on ``device``)."""
+    if n_local < 1:
+        raise ValueError("every rank needs at least one row of the batch")
+    counts = all_gather(torch.tensor([n_local], dtype=torch.int64,
+                                     device=device), group=group).tolist()
+    r = dist.get_group_rank(group, dist.get_rank())
+    dg = DataGroup(group, n_local, int(sum(counts)), int(sum(counts[:r])))
+    token = _DATA_GROUP.set(dg)
+    try:
+        yield dg
+    finally:
+        _DATA_GROUP.reset(token)
+
+
+def current_data_group() -> Optional[DataGroup]:
+    return _DATA_GROUP.get()
+
+
+def global_batch(n_local: int) -> int:
+    """The batch that ``n_local`` rows belong to: the data group's global
+    batch inside :func:`data_group`, else ``n_local``."""
+    dg = _DATA_GROUP.get()
+    return n_local if dg is None else dg.n_global

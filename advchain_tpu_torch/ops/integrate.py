@@ -23,6 +23,11 @@ is read to the host once per exponentiation (one sync), and the squarings
 then run as a plain loop; a per-step ``if`` on a device scalar would sync
 8-16 times, and ``torch.where`` over all ``nb_steps + 8`` steps would run
 every composition whether it is needed or not.
+
+Inside a data-parallel step's data group both batch-wide quantities, the
+dispatch predicate's largest displacement and the adaptive step count's
+norm, are reduced over the group, as the JAX package's GSPMD step computes
+them over the global batch.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 
 from advchain_tpu_torch.kernels.stencil_warp import dispatch_slope
 
+from . import collectives
 from .affine import linspace
 from .grid_sample import grid_sample_2d, grid_sample_3d, stencil_warp_2d
 
@@ -78,6 +84,9 @@ def compose_flow(flow1, flow2):
     if torch.is_grad_enabled() and flow2.requires_grad:
         slope = dispatch_slope(flow2.detach().float().contiguous(),
                                _STENCIL_RADIUS[dims])
+        dg = collectives.current_data_group()
+        if dg is not None:  # the largest displacement of the whole batch
+            slope = collectives.all_reduce(slope, "min", dg.group)
     if dims == 2:
         return stencil_warp_2d(flow1, flow2, grid_layout="first",
                                lower_slope=slope)
@@ -91,6 +100,10 @@ def adaptive_step_count(duv, nb_steps: int) -> int:
     with the Frobenius norm over the whole batch (integrate.py:229-232).
     Reads one scalar from the device."""
     norm = torch.linalg.vector_norm(duv.detach().reshape(-1))
+    dg = collectives.current_data_group()
+    if dg is not None:  # the global batch's norm
+        norm = torch.sqrt(collectives.all_reduce(norm * norm,
+                                                 group=dg.group))
     needed = torch.ceil(torch.log2(torch.clamp(norm, min=1e-30) / 0.5))
     return int(min(max(nb_steps, int(needed)),
                    nb_steps + _MAX_EXTRA_STEPS))

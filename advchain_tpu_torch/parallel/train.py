@@ -1,5 +1,6 @@
-"""The fused adversarial training step and the plain supervised step on one
-GPU (port of advchain_tpu/parallel/train.py).
+"""The fused adversarial training step and the plain supervised step, on one
+GPU or data-parallel over a mesh of ranks (port of
+advchain_tpu/parallel/train.py).
 
 ``train_step(state, batch, generator) -> (state, metrics)`` follows the JAX
 step's order (train.py:149-200) on the batch's device:
@@ -18,20 +19,27 @@ step's order (train.py:149-200) on the batch's device:
   6. one optimiser step.
 
 The JAX package compiles all of it into one XLA program; here it runs
-eagerly, and the warps run on the port's CUDA kernels.  The state's model
-and optimiser are updated in place; the returned state carries the step
-count.  The anatomy-preserving retries and rejection sampling are host-side
-control flow and stay out of the step, as in JAX.
+eagerly, and the warps run on the port's CUDA kernels.  With a ``mesh``
+each rank runs the step on its rows of the batch inside a data group
+(``ops.collectives.data_group``), which makes BatchNorm and the solver's
+batch-wide quantities global, weights its loss by its share of the global
+batch and sums the gradients over the ranks: the same step as on one
+device, up to f32 reduction order, as the JAX package's GSPMD step is.
+The state's model and optimiser are updated in place; the returned state
+carries the step count.  The anatomy-preserving retries and rejection
+sampling are host-side control flow and stay out of the step, as in JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional
 
 import torch
 
 from advchain_tpu_torch.losses import cross_entropy
+from advchain_tpu_torch.ops import collectives
 
 __all__ = ["TrainState", "make_adversarial_train_step",
            "make_supervised_train_step"]
@@ -51,12 +59,32 @@ class TrainState:
         return cls(model=model, optimizer=optimizer, step=0)
 
 
-def _no_mesh(mesh, donate_state):
-    del donate_state  # a JAX buffer-donation hint; PyTorch updates in place
-    if mesh is not None:
+def _data_axis(mesh, axis_name: str):
+    """The process group of the mesh's data axis, or None without a mesh.
+    A mesh whose ``space`` axis is larger than 1 raises: the spatially
+    partitioned step is not ported."""
+    if mesh is None:
+        return None
+    names = tuple(mesh.mesh_dim_names or ())
+    if "space" in names and mesh.size(names.index("space")) > 1:
         raise NotImplementedError(
-            "the multi-device train step is not ported yet (ROADMAP item "
-            "13: data parallelism across GPUs with torch.distributed)")
+            "the train step on a ('data', 'space') mesh with space > 1 is not "
+            "ported (ROADMAP §1 item 2: the space-partitioned UNet); use a "
+            "1-D data mesh, or parallel.spatial's building blocks")
+    if axis_name not in names:
+        raise ValueError(f"the mesh has no {axis_name!r} axis: {names}")
+    return mesh.get_group(axis_name)
+
+
+@contextlib.contextmanager
+def _data_group(group, image):
+    """The step's data group (``ops.collectives``), or nothing."""
+    if group is None:
+        yield None
+        return
+    with collectives.data_group(group, image.shape[0],
+                                device=image.device) as dg:
+        yield dg
 
 
 def _check_state(state, model, optimizer):
@@ -65,10 +93,35 @@ def _check_state(state, model, optimizer):
                          "step was built for")
 
 
-def _optimizer_step(optimizer, loss):
+def _optimizer_step(optimizer, loss, dg=None):
+    """Backward, then the update.  With a data group, the backward runs on
+    this rank's mean loss weighted by its share of the global batch, and
+    the parameter gradients are summed over the group in one all-reduce:
+    the global batch's gradient on every rank."""
     optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    if dg is None:
+        loss.backward()
+    else:
+        (loss * (dg.n_local / dg.n_global)).backward()
+        grads = [p.grad for g in optimizer.param_groups for p in g["params"]
+                 if p.grad is not None]
+        flat = collectives.all_reduce(
+            torch.cat([g.reshape(-1) for g in grads]), group=dg.group)
+        for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(v.view_as(g))
     optimizer.step()
+
+
+def _global_metrics(metrics, dg):
+    """Each rank's mean metrics weighted by its share of the global batch
+    and summed over the data group: the global batch's values, equal on
+    every rank."""
+    if dg is None:
+        return metrics
+    total = collectives.all_reduce(
+        torch.stack(list(metrics.values())) * (dg.n_local / dg.n_global),
+        group=dg.group)
+    return dict(zip(metrics, total.unbind()))
 
 
 def make_adversarial_train_step(
@@ -92,10 +145,28 @@ def make_adversarial_train_step(
     *spatial) soft; ``generator`` (a ``torch.Generator``) draws the
     transforms' initial parameters.  ``metrics`` holds ``total_loss``,
     ``supervised_loss`` and ``consistency_loss`` (0-d tensors on the
-    device).  ``mesh`` raises (not ported yet); ``axis_name`` and
-    ``donate_state`` are accepted and ignored."""
-    del axis_name
-    _no_mesh(mesh, donate_state)
+    device).
+
+    ``mesh`` (``parallel.make_mesh``, or a 2-D ``make_spatial_mesh`` whose
+    ``space`` is 1): data parallelism over its ``axis_name`` axis.  Every
+    rank passes its own rows of the global batch (``shard_batch``), the
+    same replicated state (``replicate_to_mesh``) and a generator in the
+    same state; each draws the global batch's transform parameters (the
+    chain's ``data_size[0]`` rows) and keeps its own, so the draws are the
+    single-process step's.  Inside the step's data group
+    (``ops.collectives``) BatchNorm normalises by the global batch in every
+    pass and writes back the global running statistics, and the solver's
+    batch-wide quantities are global.  The losses are means over this
+    rank's rows (a custom ``supervised_loss_fn`` is the one-device loss, a
+    mean over the batch's samples); the step weights them by the rank's
+    share of the global batch and sums the parameter gradients over the
+    group before the update, so the model and optimiser stay replicated,
+    and the returned metrics are the global values on every rank.  A mesh whose
+    ``space`` axis is larger than 1 raises ``NotImplementedError``.
+    ``donate_state`` is a JAX buffer-donation hint, accepted and ignored.
+    """
+    del donate_state
+    group = _data_axis(mesh, axis_name)
     transforms = tuple(solver.chain_of_transforms)
     solver._apply_power_iteration_setting(power_iteration)
     flags = tuple(bool(f) for f in solver._normalize_flags(optimize_flags,
@@ -108,32 +179,36 @@ def make_adversarial_train_step(
         _check_state(state, model, optimizer)
         image = batch["image"].detach()
         label = batch["label"]
-        model.begin_episode()  # one dropout mask for the whole step
+        with _data_group(group, image) as dg:
+            model.begin_episode()  # one dropout mask for the whole step
 
-        def frozen(x):
-            return model.apply_fixed(x, train=True)
+            def frozen(x):
+                return model.apply_fixed(x, train=True)
 
-        with torch.no_grad():
-            init_output = frozen(image)
-        params = tuple(t.init_params(generator, image.device)
-                       for t in transforms)
-        params = tuple(t.prepare_train(p) if f else p
-                       for t, p, f in zip(transforms, params, flags))
-        if n_iter > 0:
-            for _ in range(n_iter):
-                params, _ = solver.pgd_step(frozen, params, image,
-                                            init_output, flags, steps)
-            params = tuple(t.project(p) if f else p
+            with torch.no_grad():
+                init_output = frozen(image)
+            params = tuple(t.init_params(generator, image.device)
+                           for t in transforms)
+            if dg is not None:  # the global batch's draws, this rank's rows
+                params = tuple(dg.rows(p) for p in params)
+            params = tuple(t.prepare_train(p) if f else p
                            for t, p, f in zip(transforms, params, flags))
-        params = tuple(p.detach() for p in params)
+            if n_iter > 0:
+                for _ in range(n_iter):
+                    params, _ = solver.pgd_step(frozen, params, image,
+                                                init_output, flags, steps)
+                params = tuple(t.project(p) if f else p
+                               for t, p, f in zip(transforms, params, flags))
+            params = tuple(p.detach() for p in params)
 
-        sup = loss_fn(model.apply_train(image), label)
-        cons = solver._final_loss(frozen, params, image, init_output)[0]
-        total = sup + consistency_weight * cons
-        _optimizer_step(optimizer, total)
-        metrics = {"total_loss": total.detach(),
-                   "supervised_loss": sup.detach(),
-                   "consistency_loss": cons.detach()}
+            sup = loss_fn(model.apply_train(image), label)
+            cons = solver._final_loss(frozen, params, image, init_output)[0]
+            total = sup + consistency_weight * cons
+            _optimizer_step(optimizer, total, dg)
+            metrics = _global_metrics(
+                {"total_loss": total.detach(),
+                 "supervised_loss": sup.detach(),
+                 "consistency_loss": cons.detach()}, dg)
         return dataclasses.replace(state, step=state.step + 1), metrics
 
     return train_step
@@ -147,20 +222,24 @@ def make_supervised_train_step(model, optimizer,
     generator=None) -> (state, {"total_loss": ...})``: one ``apply_train``
     forward, the loss, one optimiser step.  ``generator`` stands where the
     JAX step takes its rng; dropout masks come from the model's own
-    generator (``begin_episode``)."""
-    del axis_name
-    _no_mesh(mesh, donate_state)
+    generator (``begin_episode``).  ``mesh`` and ``axis_name`` as in
+    :func:`make_adversarial_train_step`: global BatchNorm statistics, the
+    loss weighted by this rank's share of the global batch, the gradients
+    summed over the data group."""
+    del donate_state
+    group = _data_axis(mesh, axis_name)
     loss_fn = cross_entropy if supervised_loss_fn is None \
         else supervised_loss_fn
 
     def train_step(state: TrainState, batch, generator=None):
         del generator
         _check_state(state, model, optimizer)
-        model.begin_episode()
-        loss = loss_fn(model.apply_train(batch["image"].detach()),
-                       batch["label"])
-        _optimizer_step(optimizer, loss)
-        return (dataclasses.replace(state, step=state.step + 1),
-                {"total_loss": loss.detach()})
+        image = batch["image"].detach()
+        with _data_group(group, image) as dg:
+            model.begin_episode()
+            loss = loss_fn(model.apply_train(image), batch["label"])
+            _optimizer_step(optimizer, loss, dg)
+            metrics = _global_metrics({"total_loss": loss.detach()}, dg)
+        return dataclasses.replace(state, step=state.step + 1), metrics
 
     return train_step

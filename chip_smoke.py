@@ -199,11 +199,39 @@ Phases (any failure raises and the script exits non-zero):
      both within 1e-5 relative; ``checked`` on a clean episode and on one
      with a NaN pixel; ``Timer``, ``benchmark`` and a ``start_trace`` /
      ``stop_trace`` trace of one episode; ``interpolate(mode="nearest")``
-     2D and 3D bit-equal to the CPU and ``depthwise_conv`` within 1e-6.
+     2D and 3D bit-equal to the CPU and ``depthwise_conv`` within 1e-6;
+ 30. the data-parallel train steps: two ranks spawned on this card (both
+     on cuda:0, gloo, the kernels built once above), each with 64 of the
+     128 rows; the supervised step, the headline step without its PGD
+     step (n_iter 0) and the headline step, each against the
+     single-process step at batch 128 from the same weights and generator
+     state on rank 0 (losses within the JAX package's bounds, rtol 1e-4
+     total and 1e-3 consistency; running statistics within rtol 1e-4 /
+     atol 1e-5; the applied gradients, summed over the ranks, within 3x
+     the relative L2 gap of the single-process step against itself with
+     its input perturbed by 1e-7 relative: at this width its first-level
+     gradients move that much under rounding-size changes); every
+     rank's weights equal; each rank's band grid, stencil and predicate
+     launches equal to phase 12's; the collectives and bytes a step, the
+     peak per rank, and the step's median in turns with the single-process
+     step (a record: the ranks share one card and gloo stages through the
+     host);
+ 31. ``sharded_grid_sample`` on the two ranks (space = 2) at the 3D
+     episode's volume (N=2, C in {1, 3}, 12x192x192) and at batch 128,
+     1x192x192: both routes, bilinear (forward and both gradients; the
+     halo route with zeros and border) and nearest, each rank's rows
+     against the dense kernel call on the whole volume (1e-5 of its max,
+     nearest exact), the z-band and band launches per call and the ms a
+     call;
+ 32. ``halo_exchange`` (halo 4) and ``sharded_gaussian_smooth`` (the
+     morph's sigma 1, kernel 5) on the morph's fields of both episodes,
+     against slicing the padded tensor and the dense op; the 3D velocity
+     field, 3 planes a shard, is refused.
 Then the ``kernels`` line for all eighteen kernel records, each with its
 launches in one random-chain call, one constrained solve, the bf16 episode
-and train step, one cardiac recipe pass and the 20 timed RandAugment calls
-beside the main paths'.
+and train step, one cardiac recipe pass, the 20 timed RandAugment calls,
+each rank's data-parallel train step and phase 31's sharded calls beside
+the main paths'.
 The last line of standard output is the device record.  ``--profile PATH``
 / ``--profile3d PATH`` / ``--profile-train PATH`` / ``--profile3d-legacy
 PATH`` / ``--profile-legacy2d PATH`` / ``--profile-constrained PATH`` /
@@ -1188,28 +1216,35 @@ def make_labels(batch, shape):
 
 def build_train_step(device, batch, shape, names=("noise", "bias", "affine",
                                                   "morph"),
-                     supervised=False, compute_dtype=None, **options):
+                     supervised=False, compute_dtype=None, mesh=None,
+                     n_iter=1, **options):
     """(step, state, batch dict) of the headline train step (bench.py:
     408-447): UNet_16 (with the UNet's ``options``) with seeded random
-    weights and the wrapper's ``compute_dtype``, Adam 1e-4, n_iter=1,
-    smart power iteration, mse + contour; or the supervised step."""
+    weights and the wrapper's ``compute_dtype``, Adam 1e-4, ``n_iter``
+    PGD steps (1), smart power iteration, mse + contour; or the supervised
+    step.  With a
+    ``mesh``: the data-parallel step, the state replicated from the mesh's
+    first rank and this rank's rows of the batch."""
     import torch
     from advchain_tpu_torch.parallel import (TrainState,
                                              make_adversarial_train_step,
-                                             make_supervised_train_step)
+                                             make_supervised_train_step,
+                                             replicate_to_mesh, shard_batch)
     model = build_model(device, compute_dtype=compute_dtype, **options)
     opt = torch.optim.Adam(model.module.parameters(), lr=LR)
     if supervised:
-        step = make_supervised_train_step(model, opt)
+        step = make_supervised_train_step(model, opt, mesh=mesh)
     else:
         step = make_adversarial_train_step(
-            model, build_solver(batch, shape, names), opt, n_iter=1,
-            power_iteration="smart")
-    data = {"image": torch.as_tensor(make_image(batch, shape),
-                                     device=device),
-            "label": torch.as_tensor(make_labels(batch, shape),
-                                     device=device)}
-    return step, TrainState.create(model, opt), data
+            model, build_solver(batch, shape, names), opt, n_iter=n_iter,
+            power_iteration="smart", mesh=mesh)
+    state = TrainState.create(model, opt)
+    data = {"image": make_image(batch, shape),
+            "label": make_labels(batch, shape)}
+    if mesh is not None:
+        return step, replicate_to_mesh(state, mesh), shard_batch(data, mesh)
+    return step, state, {k: torch.as_tensor(v, device=device)
+                         for k, v in data.items()}
 
 
 def check_train_step_against_cpu(device, batch=2, shape=(32, 32), steps=2):
@@ -3840,6 +3875,472 @@ def check_ops_gaps(device):
     return errs
 
 
+# ------------------------------------------------------------- phases 30-32
+DP_WORLD = 2                 # ranks sharing the one card, over gloo
+DP_TURNS = 4                 # timed turns after one warm-up (phase 30)
+TOL_DP_LOSS = {"total_loss": 1e-4, "supervised_loss": 1e-4,
+               "consistency_loss": 1e-3}   # the JAX package's bounds
+TOL_DP_RTOL, TOL_DP_ATOL = 1e-4, 1e-5      # running statistics
+# phase 30's steps compared with the single-process step, besides the
+# headline step: build_train_step's options
+DP_COMPARED = {"supervised": {"supervised": True}, "no_pgd": {"n_iter": 0}}
+DP_PERTURB = 1e-7            # the reference's input perturbation, relative
+# the applied gradients' relative L2 gap, over the single-process step's
+# own gap under that perturbation
+TOL_DP_GRAD = 3.0
+SS_DISP = {2: 0.05, 3: 0.08}  # the sampled warps' normalised displacement
+SS_MAX_DISP = {2: 0.06, 3: 0.1}  # the static bound handed to the halo route
+SS_REPS = 5                  # timed calls per case (phase 31)
+TOL_SS = 1e-5                # of the dense call's max (phase 31)
+RANK_TIMEOUT_S = 900.0
+
+
+def _rank_entry(rank, fn, world, directory, device, args):
+    """A spawned rank: one card means both ranks on cuda:0 (LOCAL_RANK 0);
+    joins the gloo group through a file store, runs ``fn`` and saves its
+    result."""
+    import torch
+    from advchain_tpu_torch.parallel import initialize_distributed
+    torch.set_num_threads(1)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device == "cuda":
+        os.environ["LOCAL_RANK"] = "0"
+    initialize_distributed(init_method=f"file://{directory}/store",
+                           world_size=world, rank=rank, backend="gloo")
+    try:
+        torch.save(fn(rank, world, device, *args),
+                   os.path.join(directory, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(fn, world, device, *args, timeout=RANK_TIMEOUT_S,
+                parent=None):
+    """Every rank's ``fn(rank, world, device, *args)`` from ``world``
+    spawned processes on one gloo group, which meets in a fresh temporary
+    directory under ``parent`` (default: the checkout's ``build/``).  A
+    failed rank stops the others and raises here; so does a run past
+    ``timeout``."""
+    import torch
+    import torch.multiprocessing as mp
+    if parent is None:
+        parent = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "build")
+    os.makedirs(parent, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=parent) as directory:
+        ctx = mp.start_processes(_rank_entry,
+                                 args=(fn, world, directory, device, args),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + timeout
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"{world} ranks ran past {timeout} s")
+        return [torch.load(os.path.join(directory, f"rank{r}.pt"),
+                           weights_only=False) for r in range(world)]
+
+
+def _weights(model):
+    return {k: v.detach().cpu().clone()
+            for k, v in model.module.state_dict().items()}
+
+
+def _grads(model):
+    """The gradients the last optimiser step applied (a data-parallel
+    step's are summed over the ranks)."""
+    return {k: p.grad.detach().cpu().clone()
+            for k, p in model.module.named_parameters()}
+
+
+def _step_record(state, metrics):
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "weights": _weights(state.model), "grads": _grads(state.model)}
+
+
+def _single_steps(dev, batch, shape, **kw):
+    """Rank 0's references for a compared step: the single-process step on
+    the whole batch from the data-parallel step's weights and generator
+    state, and the same on the image perturbed by ``DP_PERTURB`` relative.
+    Returns their records and the first's (step, state, data,
+    generator)."""
+    import torch
+    recs, runs = {}, {}
+    for key, pert in (("single", 0.0), ("perturbed", DP_PERTURB)):
+        step, state, data = build_train_step(dev, batch, shape, **kw)
+        if pert:
+            noise = torch.randn(data["image"].shape, device=dev,
+                                generator=torch.Generator(
+                                    device=dev).manual_seed(5))
+            data["image"] = data["image"] * (1 + pert * noise)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        state, m = step(state, data, gen)
+        recs[key] = _step_record(state, m)
+        runs[key] = (step, state, data, gen)
+    return recs, runs["single"]
+
+
+def dp_train_rank(rank, world, device, batch, shape, turns):
+    """Phase 30 on one rank: the supervised step, the headline step
+    without its PGD step and the headline step, each data-parallel on
+    this rank's rows from fresh weights, and on rank 0 its references
+    (:func:`_single_steps`); then ``turns`` timed turns of the headline
+    step (a data-parallel step, then the single-process step) after one
+    warm-up.  The headline step's first data-parallel step is the counted
+    one: launches, collectives and peak memory."""
+    import torch
+    import torch.distributed as dist
+    from advchain_tpu_torch.ops import collectives
+    from advchain_tpu_torch.parallel import make_mesh, replicate_to_mesh
+    from advchain_tpu_torch.parallel.mesh import mesh_device
+    mesh = make_mesh(device_type=device)
+    dev = mesh_device(mesh)
+    out = {"compared": {}}
+    for name, kw in DP_COMPARED.items():
+        step, state, data = build_train_step(dev, batch, shape, mesh=mesh,
+                                             **kw)
+        gen = replicate_to_mesh(torch.Generator(device=dev).manual_seed(1),
+                                mesh)
+        state, m = step(state, data, gen)
+        out["compared"][name] = _step_record(state, m)
+        if rank == 0:
+            out["compared"][name].update(
+                _single_steps(dev, batch, shape, **kw)[0])
+        del step, state, data
+    step, state, data = build_train_step(dev, batch, shape, mesh=mesh)
+    gen = replicate_to_mesh(torch.Generator(device=dev).manual_seed(1), mesh)
+    out.update(rows=int(data["image"].shape[0]), device=str(dev),
+               transport=collectives.transport(mesh.get_group("data"),
+                                               dev.type))
+    dist.barrier()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    collectives.reset_counts()
+    state, m = step(state, data, gen)
+    sync(dev)
+    out["launches"] = launch_counts()
+    out["collectives"] = dict(collectives.COUNTS)
+    out["peak"] = (torch.cuda.max_memory_allocated()
+                   if dev.type == "cuda" else 0)
+    out["compared"]["headline"] = _step_record(state, m)
+    single = None
+    if rank == 0:
+        recs, single = _single_steps(dev, batch, shape)
+        out["compared"]["headline"].update(recs)
+    dp_ms, single_ms = [], []
+    for i in range(1 + turns):
+        dist.barrier()
+        t0 = time.perf_counter()
+        state, _ = step(state, data, gen)
+        sync(dev)
+        dist.barrier()
+        if i:
+            dp_ms.append((time.perf_counter() - t0) * 1e3)
+        if single is not None:
+            s_step, s_state, s_data, s_gen = single
+            t0 = time.perf_counter()
+            s_state, _ = s_step(s_state, s_data, s_gen)
+            sync(dev)
+            if i:
+                single_ms.append((time.perf_counter() - t0) * 1e3)
+        dist.barrier()
+    out["dp_ms"], out["single_ms"] = dp_ms, single_ms
+    return out
+
+
+def _rel_l2(grads, ref):
+    """The relative L2 gap of a whole gradient."""
+    import torch
+    diff = torch.cat([(grads[k].double() - v.double()).flatten()
+                      for k, v in ref.items()])
+    full = torch.cat([v.double().flatten() for v in ref.values()])
+    return float(diff.norm() / full.norm())
+
+
+def _worst_leaf(grads, ref):
+    """The leaf furthest from the per-leaf yardstick (1e-4 of the leaf's
+    largest entry plus 1e-5 of the largest entry of any leaf: a
+    convolution bias that feeds a BatchNorm has an exact gradient of 0 and
+    a computed one of rounding size), and its gap over the yardstick."""
+    scale = max(float(g.abs().max()) for g in ref.values())
+    return max((float((grads[k].double() - v.double()).abs().max())
+                / (1e-4 * float(v.abs().max()) + 1e-5 * scale), k)
+               for k, v in ref.items())[::-1]
+
+
+def _check_dp_step(recs, name):
+    """One compared step: every rank's metrics and weights equal; the
+    losses within the JAX package's bounds of the single-process step's;
+    the running statistics within rtol 1e-4 / atol 1e-5; the applied
+    gradients' relative L2 gap within ``TOL_DP_GRAD`` times the
+    single-process step's own gap under the input perturbation.  Returns
+    the loss gaps, both relative L2 gaps and both worst leaves."""
+    import torch
+    ref = recs[0][name]
+    for r, rec in enumerate(recs[1:], 1):
+        if rec[name]["metrics"] != ref["metrics"]:
+            raise AssertionError(f"{name}: rank {r}'s metrics "
+                                 f"{rec[name]['metrics']} are not rank 0's "
+                                 f"{ref['metrics']}")
+        for k, v in ref["weights"].items():
+            if not torch.equal(rec[name]["weights"][k], v):
+                raise AssertionError(f"{name}: rank {r}'s {k} differs from "
+                                     f"rank 0's")
+    single = ref["single"]
+    rel = {k: abs(ref["metrics"][k] - v) / abs(v)
+           for k, v in single["metrics"].items()}
+    if any(rel[k] > TOL_DP_LOSS[k] for k in rel):
+        raise AssertionError(f"{name}: the data-parallel step's losses are "
+                             f"not the single-process step's: gaps {rel}")
+    for k, v in single["weights"].items():
+        if "running" not in k:
+            continue
+        gap = (ref["weights"][k].double() - v.double()).abs()
+        if bool((gap > TOL_DP_ATOL + TOL_DP_RTOL * v.double().abs()).any()):
+            raise AssertionError(f"{name}: running statistic {k} off the "
+                                 f"single-process step's by "
+                                 f"{float(gap.max()):.3e}")
+    dp = _rel_l2(ref["grads"], single["grads"])
+    floor = _rel_l2(ref["perturbed"]["grads"], single["grads"])
+    if dp > TOL_DP_GRAD * floor:
+        raise AssertionError(f"{name}: the data-parallel step's applied "
+                             f"gradients are {dp:.3e} off the "
+                             f"single-process step's (relative L2), more "
+                             f"than {TOL_DP_GRAD}x its own {floor:.3e} under "
+                             f"a {DP_PERTURB} input perturbation")
+    return {"losses": rel, "grad_rel_l2": dp, "perturbed_rel_l2": floor,
+            "worst_leaf": _worst_leaf(ref["grads"], single["grads"]),
+            "perturbed_worst_leaf": _worst_leaf(ref["perturbed"]["grads"],
+                                                single["grads"])}
+
+
+def check_dp_train(outs):
+    """Phase 30's gates (:func:`_check_dp_step`) on each compared step."""
+    recs = [o["compared"] for o in outs]
+    return {name: _check_dp_step(recs, name) for name in recs[0]}
+
+
+def _near_grid(n, shape, disp, seed, device):
+    """A warp within ``disp`` (normalised) of the identity, clipped to
+    [-1, 1] as the morph's grids are (samples exactly on the end planes),
+    (N, *S, d)."""
+    import torch
+    from advchain_tpu_torch.ops.integrate import base_grid
+    gen = torch.Generator().manual_seed(seed)
+    base = torch.movedim(base_grid(n, shape), 1, -1)
+    u = (torch.rand(base.shape, generator=gen) * 2 - 1) * disp
+    return torch.clamp(base + u, -1.0, 1.0).to(device)
+
+
+SS_CASES = [  # (dims, C, mode, padding, route)
+    (dims, c, mode, pad, route)
+    for dims, chans in ((3, (1, 3)), (2, (1,)))
+    for c in chans
+    for mode in ("bilinear", "nearest")
+    for route in ("gather", "halo")
+    for pad in (("zeros", "border") if route == "halo" and mode == "bilinear"
+                else ("zeros",))
+]
+
+
+def ss_rank(rank, world, device, cases, shapes, reps):
+    """Phase 31 on one rank: ``sharded_grid_sample`` over a (1, world)
+    mesh at each case (``shapes[dims]`` = (N, spatial)), its local rows
+    held against the dense call on the whole volume (forward; both
+    gradients for bilinear), its launches counted on the first call (the
+    dense calls are not counted), and timed."""
+    import torch
+    import torch.distributed as dist
+    from advchain_tpu_torch.ops import collectives
+    from advchain_tpu_torch.ops.grid_sample import grid_sample
+    from advchain_tpu_torch.parallel import (make_spatial_mesh,
+                                             shard_volume,
+                                             sharded_grid_sample)
+    from advchain_tpu_torch.parallel.mesh import mesh_device
+    mesh = make_spatial_mesh(1, world, device_type=device)
+    dev = mesh_device(mesh)
+    out = {}
+    for dims, c, mode, pad, route in cases:
+        n, sp = shapes[dims]
+        gen = torch.Generator().manual_seed(11 * dims + c)
+        x = torch.rand((n, c) + tuple(sp), generator=gen).to(dev)
+        g = _near_grid(n, sp, SS_DISP[dims], 5 + dims, dev)
+        d_loc = sp[0] // world
+        rows = slice(rank * d_loc, (rank + 1) * d_loc)
+        md = SS_MAX_DISP[dims] if route == "halo" else None
+        grad = mode == "bilinear"
+        xl = shard_volume(x, mesh).requires_grad_(grad)
+        gl = g[:, rows].contiguous().requires_grad_(grad)
+        ct = torch.rand(xl.shape[:2] + gl.shape[1:-1],
+                        generator=gen).to(dev) - 0.5
+
+        def call():
+            y = sharded_grid_sample(xl, gl, mesh, mode=mode,
+                                    padding_mode=pad, max_disp=md)
+            if grad:
+                dx, dg = torch.autograd.grad(y, (xl, gl), ct)
+                return y, dx, dg
+            return (y,)
+
+        dist.barrier()
+        reset_launch_counts()
+        collectives.reset_counts()
+        got = call()
+        sync(dev)
+        launches = launch_counts()
+        # the halo route is the one that exchanges neighbour bands
+        took = ("halo" if collectives.COUNTS["neighbour_exchange"]
+                else "gather")
+        # the dense call on the whole volume, on this rank
+        xd = x.clone().requires_grad_(grad)
+        gd = g.clone().requires_grad_(grad)
+        yd = grid_sample(xd, gd, mode=mode, padding_mode=pad)
+        want = [yd[:, :, rows]]
+        if grad:
+            ct_full = collectives.all_gather(ct, dim=2,
+                                             group=mesh.get_group("space"))
+            dx, dg = torch.autograd.grad(yd, (xd, gd), ct_full)
+            want += [dx[:, :, rows], dg[:, rows]]
+        errs = []
+        for a, b in zip(got, want):
+            scale = float(b.detach().abs().max())
+            errs.append(float((a - b).detach().abs().max())
+                        / max(scale, 1e-30))
+        times = []
+        for _ in range(reps):
+            dist.barrier()
+            t0 = time.perf_counter()
+            call()
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[dims, c, mode, pad, route] = {
+            "launches": launches, "route": took, "errs": errs,
+            "ms": statistics.median(times), "times": times}
+    return out
+
+
+def check_ss(outs):
+    """Phase 31's gates: the route each case asked for; forward and
+    gradients within ``TOL_SS`` of the dense call's max, nearest exact."""
+    for r, out in enumerate(outs):
+        for (dims, c, mode, pad, route), rec in out.items():
+            if rec["route"] != route:
+                raise AssertionError(f"rank {r}: {dims}D C={c} {mode} {pad} "
+                                     f"took the {rec['route']} route, not "
+                                     f"{route}")
+            tol = 0.0 if mode == "nearest" else TOL_SS
+            if max(rec["errs"]) > tol:
+                raise AssertionError(f"rank {r}: {dims}D C={c} {mode} {pad} "
+                                     f"{route} off the dense call by "
+                                     f"{rec['errs']} of its max")
+
+
+def halo_gauss_rank(rank, world, device, fields, reps):
+    """Phase 32 on one rank: ``halo_exchange`` (halo 4, the morph
+    Gaussian's) and ``sharded_gaussian_smooth`` (sigma 1, kernel 5: the
+    morph's) on each field shape, against slicing the padded tensor and
+    the dense ``gaussian_smooth``; a field thinner than the halo is
+    refused."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from advchain_tpu_torch.ops.conv import gaussian_smooth
+    from advchain_tpu_torch.parallel import (halo_exchange,
+                                             make_spatial_mesh,
+                                             shard_volume,
+                                             sharded_gaussian_smooth)
+    from advchain_tpu_torch.parallel.mesh import mesh_device
+    mesh = make_spatial_mesh(1, world, device_type=device)
+    dev = mesh_device(mesh)
+    out = {}
+    for name, shape in fields.items():
+        gen = torch.Generator().manual_seed(len(shape) + shape[2])
+        x = (torch.rand(shape, generator=gen) * 2 - 1).to(dev)
+        d_loc = shape[2] // world
+        xl = shard_volume(x, mesh)
+        if d_loc < 4:
+            try:
+                sharded_gaussian_smooth(xl, mesh)
+            except AssertionError as e:
+                out[name] = {"refused": str(e)}
+                continue
+            raise AssertionError(f"{name}: a shard of {d_loc} planes was "
+                                 f"not refused")
+        pads = [0, 0] * (x.dim() - 3) + [4, 4]
+        xp = F.pad(x, pads)
+        h = halo_exchange(xl, 4, 2, mesh)
+        halo_ok = torch.equal(h, xp[:, :, rank * d_loc:
+                                    rank * d_loc + d_loc + 8])
+        ys = sharded_gaussian_smooth(xl, mesh)
+        yd = gaussian_smooth(x)[:, :, rank * d_loc:(rank + 1) * d_loc]
+        err = float((ys - yd).abs().max())
+        times = {}
+        for label, fn in (("halo", lambda: halo_exchange(xl, 4, 2, mesh)),
+                          ("gauss", lambda: sharded_gaussian_smooth(xl,
+                                                                    mesh))):
+            ts = []
+            for _ in range(reps):
+                dist.barrier()
+                t0 = time.perf_counter()
+                fn()
+                sync(dev)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            times[label] = statistics.median(ts)
+        out[name] = {"halo_equal": halo_ok, "gauss_err": err, "ms": times}
+    return out
+
+
+def check_halo_gauss(outs):
+    """Phase 32's gates: the exchange equal to slicing the padded tensor,
+    the smoothing within 1e-6 of the dense op."""
+    for r, out in enumerate(outs):
+        for name, rec in out.items():
+            if "refused" in rec:
+                continue
+            if not rec["halo_equal"] or rec["gauss_err"] > 1e-6:
+                raise AssertionError(f"rank {r}: {name}: {rec}")
+
+
+def parallel_rank(rank, world, device, cfg):
+    """Phases 30-32 in one pair of spawned ranks."""
+    return {"dp": dp_train_rank(rank, world, device, cfg["batch"],
+                                cfg["shape"], cfg["turns"]),
+            "ss": ss_rank(rank, world, device, cfg["ss_cases"],
+                          cfg["ss_shapes"], cfg["ss_reps"]),
+            "hg": halo_gauss_rank(rank, world, device, cfg["fields"],
+                                  cfg["hg_reps"])}
+
+
+def parallel_config(batch=BATCH, shape=SHAPE, batch3d=None, shape3d=None,
+                    turns=DP_TURNS, reps=SS_REPS):
+    """Phases 30-32's sizes: the headline train step, the episodes'
+    volumes for the sampler, the morph's fields for the Gaussian."""
+    batch3d = BATCH3D if batch3d is None else batch3d
+    shape3d = SHAPE3D if shape3d is None else shape3d
+    vec2 = tuple(s // 16 for s in shape)
+    vec3 = (max(shape3d[0] // 2, 2),) + tuple(s // 16 for s in shape3d[1:])
+    return {"batch": batch, "shape": shape, "turns": turns,
+            "ss_cases": SS_CASES, "ss_reps": reps,
+            "ss_shapes": {2: (batch, shape), 3: (batch3d, shape3d)},
+            "fields": {"2d_velocity": (batch, 2) + vec2,
+                       "2d_field": (batch, 2) + tuple(shape),
+                       "3d_field": (batch3d, 3) + tuple(shape3d),
+                       "3d_velocity": (batch3d, 3) + vec3},
+            "hg_reps": reps}
+
+
+def run_parallel(device, cfg, world=DP_WORLD):
+    """Phases 30-32: spawn the ranks, hold every gate."""
+    outs = spawn_ranks(parallel_rank, world, device, cfg)
+    dp = check_dp_train([o["dp"] for o in outs])
+    check_ss([o["ss"] for o in outs])
+    check_halo_gauss([o["hg"] for o in outs])
+    return outs, dp
+
+
 def kernel_launches(launches):
     """Launches by kernel record name (the ``kernels`` line's names)."""
     out = {f"{KERNEL_NAMES[fam]}_{kind}": launches[fam][kind]
@@ -4241,6 +4742,76 @@ def main(argv=None):
               f"on {card}", flush=True)
         check_ops_gaps(device)
 
+    # phases 30-32: two ranks on this card over gloo
+    t_par = time.perf_counter()
+    par, gaps_dp = run_parallel(device, parallel_config())
+    dp_launches = [kernel_launches(o["dp"]["launches"]) for o in par]
+    for r, o in enumerate(par):
+        dp = o["dp"]
+        for fam in ("band_grid", "stencil", "slope"):
+            if dp["launches"][fam] != launches_t[fam]:
+                raise AssertionError(
+                    f"rank {r}'s data-parallel step launched {fam} "
+                    f"{dp['launches'][fam]}, not phase 12's "
+                    f"{launches_t[fam]}")
+        print(f"[dp-train] rank {r} of {DP_WORLD} on {dp['device']} "
+              f"({dp['transport']}): {dp['rows']} of {BATCH} rows, "
+              f"launches band_grid {dp['launches']['band_grid']}, stencil "
+              f"{dp['launches']['stencil']}, dispatch predicates "
+              f"{dp['launches']['slope']['fwd']}; {dp['collectives']['calls']}"
+              f" collectives moving {dp['collectives']['bytes']} bytes a "
+              f"step; peak {dp['peak'] / 1e9:.3f} GB", flush=True)
+    dp0 = par[0]["dp"]
+    for name, g in gaps_dp.items():
+        print(f"[dp-train] {name} step against the single-process step: "
+              f"metrics {dp0['compared'][name]['metrics']} (relative "
+              f"{g['losses']}); applied gradients {g['grad_rel_l2']:.3e} "
+              f"relative L2, against the single-process step's own "
+              f"{g['perturbed_rel_l2']:.3e} under a {DP_PERTURB} input "
+              f"perturbation (gate {TOL_DP_GRAD}x); worst leaf "
+              f"{g['worst_leaf'][0]} at {g['worst_leaf'][1]:.2f}x the "
+              f"per-leaf yardstick (1e-4 of its largest entry + 1e-5 of the "
+              f"largest), perturbed {g['perturbed_worst_leaf'][1]:.2f}x",
+              flush=True)
+    print(f"[dp-train] batch {BATCH} {SHAPE[0]}x{SHAPE[1]} over {DP_WORLD} "
+          f"ranks: headline step median "
+          f"{statistics.median(dp0['dp_ms']):.1f}"
+          f" ms (turns {[round(t, 1) for t in dp0['dp_ms']]}) against the "
+          f"single-process step's {statistics.median(dp0['single_ms']):.1f} "
+          f"ms ({[round(t, 1) for t in dp0['single_ms']]}) in turns; a "
+          f"record, not a scaling claim: the two ranks share one card and "
+          f"gloo stages every collective through host memory; on {card}",
+          flush=True)
+    # the launches of one sharded call (forward, and backward if
+    # bilinear), by kernel: each call's are asserted below
+    ss_launches = {}
+    for r, o in enumerate(par):
+        for (dims, c, mode, pad, route), rec in o["ss"].items():
+            fam = DEFAULT_FAMILY[dims]
+            want = {name: 0 for name in kernel_launches(rec["launches"])}
+            want[f"{KERNEL_NAMES[fam]}_fwd"] = 1
+            want[f"{KERNEL_NAMES[fam]}_bwd"] = int(mode == "bilinear")
+            got = kernel_launches(rec["launches"])
+            if got != want:
+                raise AssertionError(
+                    f"rank {r}: the sharded {dims}D {mode} call launched "
+                    f"{ {k: n for k, n in got.items() if n} }, not one "
+                    f"{fam} forward (and one backward if bilinear)")
+            for name, n in got.items():
+                ss_launches[name] = max(ss_launches.get(name, 0), n)
+            print(f"[sharded-sample] rank {r}: {dims}D C={c} {mode} {pad} "
+                  f"{route}: {fam} launches {rec['launches'][fam]}, max "
+                  f"error / dense max {['%.3e' % e for e in rec['errs']]}, "
+                  f"median {rec['ms']:.3f} ms a call"
+                  f"{' (forward and backward)' if mode == 'bilinear' else ''}"
+                  f" on {card}", flush=True)
+    for r, o in enumerate(par):
+        print(f"[halo-gauss] rank {r}: "
+              f"{json.dumps({k: v for k, v in o['hg'].items()})} "
+              f"on {card}", flush=True)
+    print(f"[parallel] phases 30-32 in {time.perf_counter() - t_par:.1f} s",
+          flush=True)
+
     shape2 = f"N={BATCH} {SHAPE[0]}x{SHAPE[1]}"
     shape3 = f"N={BATCH3D} {'x'.join(map(str, SHAPE3D))}"
     kernels = (kernel_records("band", launches2, worst2, rows2, "rot30", 1,
@@ -4275,6 +4846,10 @@ def main(argv=None):
     for rec in kernels:
         rec["launches_cardiac_recipe"] = by_util[0][rec["name"]]
         rec["launches_rand_augment"] = by_util[1][rec["name"]]
+        rec["launches_dp_train_per_rank"] = [d[rec["name"]]
+                                             for d in dp_launches]
+        rec["launches_sharded_sampler_call"] = ss_launches.get(rec["name"],
+                                                               0)
         if rec["name"] == f"{KERNEL_NAMES['band_grid']}_fwd":
             # phase 28's apply_op calls against the CPU: bilinear, and
             # nearest outside the tie pixels
