@@ -16,6 +16,7 @@ import math
 import torch
 
 from advchain_tpu_torch.augmentor.base import AdvTransformBase, uniform
+from advchain_tpu_torch.ops import collectives
 from advchain_tpu_torch.ops.affine import affine_grid, invert_affine_matrix
 from advchain_tpu_torch.ops.grid_sample import clip, grid_sample
 
@@ -25,10 +26,14 @@ def sample_with_padding(data, grid, interp: str, padding_mode,
     """grid_sample with the reference's extended padding modes:
     'zeros' | 'border' | 'reflection' | 'lowest' | a float.  'lowest' and a
     float shift the data so the pad value is 0, sample with zeros padding,
-    and shift back."""
+    and shift back.  Inside a space group 'lowest' is each sample's minimum
+    over every slab."""
     if padding_mode == "lowest":
         n = data.shape[0]
         mins = torch.amin(data.reshape(n, -1), dim=1).detach()
+        sg = collectives.current_space()
+        if sg is not None:
+            mins = collectives.all_reduce(mins, "min", sg.group)
         mins = mins.reshape((n,) + (1,) * (data.dim() - 1))
         out = grid_sample(data - mins, grid, mode=interp,
                           padding_mode="zeros", align_corners=True,

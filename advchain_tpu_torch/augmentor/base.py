@@ -18,6 +18,13 @@ predict_backward / optimize_parameters / rescale_parameters /
 set_step_size / get_step_size.  ``forward`` and ``predict_forward`` draw
 missing parameters on the data's device.
 
+In a parallel train step each rank draws the global batch's parameters
+and keeps its part (:meth:`AdvTransformBase.local_params`): its rows, and
+for a transform whose parameter is an image-sized field
+(``sharded_params``, the noise) its slab of a spatially partitioned
+step's leading spatial axis.  The other parameters are replicated over
+the space group.
+
 Debug stashes (``diff``, ``bias_field``, ``affine_matrix``,
 ``displacement``) hold detached tensors.  They are recorded by the
 stateful ``forward`` / ``predict_forward`` (always, with ``debug``), never
@@ -43,6 +50,10 @@ class AdvTransformBase:
     """Base adversarial transform.  ``device`` is where
     :meth:`init_parameters` places the parameters (None = the GPU); inside
     the solver, parameters follow the data's device."""
+
+    # whether the parameter is an image-sized field, sharded like the image
+    # in a spatially partitioned step (else it is replicated over 'space')
+    sharded_params = False
 
     def __init__(self, spatial_dims: int = 2,
                  config_dict: Optional[dict] = None,
@@ -120,6 +131,15 @@ class AdvTransformBase:
         return norms.renorm_l2(params, self.epsilon)
 
     def prepare_train(self, params):
+        return params
+
+    def local_params(self, params, dg):
+        """This rank's part of the global batch's parameters inside a data
+        group ``dg`` (``ops.collectives.DataGroup``): its rows, and its
+        slab when the parameter is sharded like the image."""
+        params = dg.rows(params)
+        if self.sharded_params and dg.space is not None:
+            params = dg.space.slab(params)
         return params
 
     # ------------------------------------------------------- stateful API
@@ -226,8 +246,8 @@ class AdvTransformBase:
         if self._stashes(value):
             setattr(self, name, value.detach())
 
-    def unit_normalize(self, d, p_type: str = "l2"):
-        return norms.unit_normalize(d, p_type)
+    def unit_normalize(self, d, p_type: str = "l2", sharded: bool = False):
+        return norms.unit_normalize(d, p_type, sharded)
 
     def rescale_intensity(self, data, new_min=0.0, new_max=1.0, eps=1e-20):
         return norms.rescale_intensity(data, new_min, new_max, eps)

@@ -75,7 +75,8 @@ class AdvBias(AdvTransformBase):
         raise NotImplementedError(f"init_mode {self.init_mode!r}")
 
     def compute_smoothed_bias(self, cpoint):
-        """Control points -> full-resolution bias field (N, 1, *image)."""
+        """Control points -> full-resolution bias field (N, 1, *image);
+        this rank's slab of it in a spatially partitioned step."""
         return evaluate_bspline_field(cpoint, self.spec,
                                       log_space=self.use_log)
 

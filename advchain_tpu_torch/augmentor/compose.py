@@ -41,7 +41,6 @@ that order).
 
 from __future__ import annotations
 
-import itertools
 import logging
 from typing import Optional, Sequence
 
@@ -53,8 +52,6 @@ from advchain_tpu_torch.ops import collectives, norms
 from advchain_tpu_torch.ops.grid_sample import clip
 
 logger = logging.getLogger(__name__)
-
-_episode_seeds = itertools.count(1)
 
 # the JAX package's warnings, word for word
 _WARN_INIT = ("random initialization: fail to find a good initialized geo "
@@ -102,6 +99,10 @@ class ComposeAdversarialTransformSolver:
         self.is_gt = is_gt
         self.class_weights = None
         self.diffs = []
+        # this solver's episode seeds, 1, 2, ... (JAX's _next_episode_seed,
+        # compose.py:125-127): one solver's draws do not depend on how many
+        # episodes other solvers ran before it
+        self._episode_seed = 0
 
     # ------------------------------------------------------------ main API
     def adversarial_training(self, data, model, optimize_flags=None,
@@ -137,8 +138,9 @@ class ComposeAdversarialTransformSolver:
         return dist
 
     def _generator(self, device):
-        return torch.Generator(device=device).manual_seed(
-            next(_episode_seeds))
+        """A generator seeded with this solver's next episode seed."""
+        self._episode_seed += 1
+        return torch.Generator(device=device).manual_seed(self._episode_seed)
 
     def _episode(self, data, model, flags, steps, n_iter, lazy_load,
                  init_output):
@@ -305,7 +307,16 @@ class ComposeAdversarialTransformSolver:
         rule.  ``model`` is any callable ``model(x) -> logits`` (a train
         step passes its frozen network); no gradient reaches its weights.
         ``anatomy`` (N, 1, *spatial) adds the volume penalty.  Returns (new
-        params, divergence)."""
+        params, divergence).
+
+        Inside a data group each rank differentiates its share of the
+        global divergence (its rows, and slab, over the global batch's);
+        the collectives' backwards make each parameter's gradient that of
+        the global divergence on the ranks holding it, but a parameter
+        replicated over a space group (the bias control points, the affine
+        latent, the morph velocity) gets one part from each slab, summed
+        here over the group.  A sharded one (the noise) is this rank's
+        slab's own."""
         opt = [p.detach().requires_grad_(True)
                for p, f in zip(params, flags) if f]
         it = iter(opt)
@@ -316,8 +327,11 @@ class ComposeAdversarialTransformSolver:
                                  anatomy_reg_weight=anatomy_reg_weight)[0]
         dg = collectives.current_data_group()
         if dg is not None:  # this rank's share of the global divergence
-            dist = dist * (dg.n_local / dg.n_global)
-        grads = iter(torch.autograd.grad(dist, opt))
+            dist = dist * dg.share
+        grads = torch.autograd.grad(dist, opt)
+        if dg is not None and dg.space is not None:
+            grads = self._sum_replicated_grads(grads, flags, dg.space)
+        grads = iter(grads)
         dist = dist.detach()
         if dg is not None:  # the shares summed: the global batch's
             dist = collectives.all_reduce(dist, group=dg.group)
@@ -331,6 +345,20 @@ class ComposeAdversarialTransformSolver:
             else:
                 new_params.append(p)
         return tuple(new_params), dist
+
+    def _sum_replicated_grads(self, grads, flags, space):
+        """The flagged gradients with each replicated parameter's summed
+        over the space group, in one all-reduce."""
+        flagged = [t for t, f in zip(self.chain_of_transforms, flags) if f]
+        rep = [i for i, t in enumerate(flagged) if not t.sharded_params]
+        if not rep:
+            return grads
+        flat = collectives.all_reduce(
+            torch.cat([grads[i].reshape(-1) for i in rep]), group=space.group)
+        grads = list(grads)
+        for i, v in zip(rep, flat.split([grads[i].numel() for i in rep])):
+            grads[i] = v.view_as(grads[i])
+        return tuple(grads)
 
     def _project(self, params, flags):
         return tuple(t.project(p) if f else p for t, p, f in

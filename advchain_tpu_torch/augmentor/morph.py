@@ -75,15 +75,16 @@ class AdvMorph(AdvTransformBase):
 
     def demons_compose(self, duv, smooth: bool = True):
         """Velocity -> full deformation grid (N, d, *spatial) in
-        [-1, 1]."""
-        grid = base_grid(duv.shape[0], self.image_spatial, duv.dtype,
-                         duv.device)
+        [-1, 1].  In a spatially partitioned step the velocity is
+        replicated and smoothed locally; from its resize on, the fields are
+        this rank's slab."""
         duv = gaussian_smooth(duv, sigma=self.sigma,
                               kernel_size=self.gaussian_ks,
                               iters=self.smooth_iter)
         duv = interpolate(duv, size=self.image_spatial,
                           mode="bilinear" if self.spatial_dims == 2
                           else "trilinear", align_corners=False)
+        grid = base_grid(duv.shape[0], duv.shape[2:], duv.dtype, duv.device)
         offsets = exponentiate_flow(duv, nb_steps=self.num_steps,
                                     adaptive=self.spatial_dims == 3)
         # The reference's last step samples the identity grid at
@@ -94,12 +95,12 @@ class AdvMorph(AdvTransformBase):
         if smooth:
             composed = gaussian_smooth(composed - grid, sigma=self.sigma,
                                        kernel_size=self.gaussian_ks,
-                                       iters=1) + grid
+                                       iters=1, sharded=True) + grid
         return clip(composed, -1.0, 1.0)
 
     def _displacement(self, dxy):
         """Deformation grid -> displacement, channel-last."""
-        grid = base_grid(dxy.shape[0], self.image_spatial, dxy.dtype,
+        grid = base_grid(dxy.shape[0], dxy.shape[2:], dxy.dtype,
                          dxy.device)
         return torch.movedim(dxy - grid, 1, -1)
 

@@ -1,6 +1,9 @@
 """AdvNoise — additive adversarial noise (port of
 advchain_tpu/augmentor/noise.py): an l2-unit Gaussian field scaled by
-``epsilon`` (``xi`` while power-iterating)."""
+``epsilon`` (``xi`` while power-iterating).  The parameter is an
+image-sized field: in a spatially partitioned step each rank holds its
+slab, and the updates and projections normalise each sample over the space
+group."""
 
 from __future__ import annotations
 
@@ -10,6 +13,8 @@ from advchain_tpu_torch.augmentor.base import (AdvTransformBase,
 
 class AdvNoise(AdvTransformBase):
     """config_dict keys: epsilon, xi, data_size."""
+
+    sharded_params = True
 
     def __init__(self, spatial_dims: int = 2, config_dict=None,
                  power_iteration: bool = False, ignore_values=None,
@@ -40,17 +45,17 @@ class AdvNoise(AdvTransformBase):
         return out
 
     def update(self, params, grad, step_size):
-        g = self.unit_normalize(grad)
+        g = self.unit_normalize(grad, sharded=True)
         if self.power_iteration:
             return g
         return params + step_size * g
 
     def project(self, params):
-        return self.unit_normalize(params, "l2")
+        return self.unit_normalize(params, "l2", sharded=True)
 
     def prepare_train(self, params):
         if self.power_iteration:
-            return self.unit_normalize(params)
+            return self.unit_normalize(params, sharded=True)
         return params
 
     def get_name(self):

@@ -10,10 +10,13 @@ differentiates along the last axis); the kl ``is_gt`` path clamps the
 one-hot reference to [1e-8, 1 - 1e-8].
 
 Inside a data-parallel step's data group (``ops.collectives.data_group``)
-every loss is the mean over this rank's rows, which the step weights by
-the rank's share of the global batch.  The one exception is the mse
-quirk's divisor ``numel / C``, which counts the global batch, as the JAX
-package's GSPMD step does.
+every loss is the mean over this rank's rows (and, in a spatially
+partitioned step, its slab), which the step weights by the rank's share of
+the global batch's elements.  The one exception is the mse quirk's divisor
+``numel / C``, which counts the global batch, as the JAX package's GSPMD
+step does.  Inside a space group the contour loss's Sobel filters read a
+halo of one plane from the neighbours (``ops.conv.conv_same``), so each
+slab's filtered values are the dense ones.
 """
 
 from __future__ import annotations
@@ -32,11 +35,6 @@ __all__ = ["calc_segmentation_consistency",
            "calc_segmentation_mse_consistency",
            "calc_segmentation_kl_consistency", "contour_loss",
            "kl_divergence", "one_hot", "cross_entropy_2d", "cross_entropy"]
-
-
-def _batch_numel(x) -> int:
-    """``x.numel()`` of the global batch inside a data group."""
-    return x.numel() // x.shape[0] * collectives.global_batch(x.shape[0])
 
 
 @functools.lru_cache(maxsize=8)
@@ -156,7 +154,8 @@ def calc_segmentation_consistency(output, reference,
                 input_pred = torch.softmax(out_s, dim=1)
                 loss = torch.mean((target_pred * mask_s
                                    - input_pred * mask_s) ** 2)
-                loss = loss / (_batch_numel(out_s) / num_classes)
+                loss = loss / (collectives.global_numel(out_s)
+                               / num_classes)
             elif divergence_type == "contour":
                 target_pred = ref_s if is_gt else torch.softmax(ref_s, dim=1)
                 input_pred = torch.softmax(out_s, dim=1)

@@ -24,6 +24,19 @@ episode (the reference's Fixable dropout); ``SegmentationModel.
 begin_episode`` redraws it.  A rate of None or 0 is the identity, as Flax's
 ``nn.Dropout(0.0)`` is.
 
+Inside a spatially partitioned step's space group
+(``ops.collectives.current_space``) each rank holds one slab of the
+leading spatial axis of every activation (H, or D for PseudoConv3dModel)
+plus, while a convolution reads it, a halo: the 3x3 (3x3x3) convolutions
+take one plane from each neighbour (``ops.collectives.exchange_halo``) and
+zero-pad the other axes only, the edge slabs' zero halos being the
+padding; ``Down``'s max-pool is local; ``Up``'s bilinear x2 computes this
+slab's output rows from the global coordinate and one halo plane;
+BatchNorm's statistics and dropout's mask span every rank.  A level whose
+slab a 2x2 max-pool cannot halve raises ``ValueError`` (the JAX package's
+GSPMD pads there).  The self-attention, UNetv2 and DeeplySupervisedUNet
+are not partitioned and raise ``NotImplementedError`` there.
+
 The JAX package computes PseudoConv3dModel's 3x3x3 convolutions as
 ``ZDecomposedConv3d``, three 2D convolutions over z-shifted plane stacks,
 because XLA's 3D convolution is slow on the TPU; it is the same SAME
@@ -34,6 +47,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -46,6 +60,36 @@ __all__ = ["UNet", "UNetv2", "DeeplySupervisedUNet", "DoubleConv", "Down",
            "PseudoConv3dModel", "init_unet_"]
 
 LAST_LAYER_ACTS = (None, "softmax", "sigmoid")
+# the ROADMAP entry of the networks that a space mesh does not partition
+_NOT_PARTITIONED = ("is not partitioned over a ('data', 'space') mesh "
+                    "(ROADMAP §1: the space-mesh model zoo); use UNet or "
+                    "PseudoConv3dModel there")
+
+
+def _refuse_space(what: str) -> None:
+    if collectives.current_space() is not None:
+        raise NotImplementedError(f"{what} {_NOT_PARTITIONED}")
+
+
+class _HaloConv:
+    """A convolution whose leading spatial axis, inside a space group,
+    reads ``(k - 1) // 2`` halo planes from the neighbours instead of its
+    zero padding (the edge slabs' zero halos are that padding)."""
+
+    def _conv_forward(self, x, weight, bias):
+        sg = collectives.current_space()
+        if sg is None:
+            return super()._conv_forward(x, weight, bias)
+        halo = self.padding[0]
+        x = collectives.exchange_halo(x, halo, 2, sg.group)
+        conv = F.conv2d if x.dim() == 4 else F.conv3d
+        return conv(x, weight, bias, self.stride, (0,) + self.padding[1:],
+                    self.dilation, self.groups)
+
+
+class SlabConv2d(_HaloConv, nn.Conv2d):
+    """``nn.Conv2d`` (zero 'same' padding) that a space group partitions
+    on H."""
 
 
 class _StatsWriter:
@@ -114,8 +158,9 @@ class _FrozenStats(_StatsWriter):
     ones, unless ``write_back`` is set (the JAX package's TorchBatchNorm
     with a mutable ``batch_stats`` collection); eval mode uses the running
     ones.  Inside a data group (``ops.collectives.data_group``) training
-    mode normalises by the global batch's statistics, and the write-back
-    takes the unbiased variance over the global count."""
+    mode normalises by the global batch's statistics (every rank's rows and,
+    with a space group, slabs), and the write-back takes the unbiased
+    variance over the global count."""
 
     def forward(self, x):
         dg = collectives.current_data_group()
@@ -133,7 +178,7 @@ class _FrozenStats(_StatsWriter):
                             eps=self.eps)
 
     def _global_forward(self, x, dg):
-        count = x.numel() // (x.shape[0] * x.shape[1]) * dg.n_global
+        count = dg.global_numel(x) // x.shape[1]
         y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
                                               self.eps, dg.group, count)
         if self.write_back:
@@ -159,7 +204,7 @@ def _l2_normalize(x, eps):
     return x * torch.rsqrt((x * x).sum() + eps)
 
 
-class SpectralConv2d(_StatsWriter, nn.Conv2d):
+class SpectralConv2d(_StatsWriter, SlabConv2d):
     """``nn.Conv2d`` under ``flax.linen.SpectralNorm(n_steps=1)`` (the JAX
     package's ``apply_maybe_spectral``).  Every forward, frozen ones
     included, takes one power iteration from the stored ``u`` (1, O) on the
@@ -203,7 +248,8 @@ class EpisodeDropout(nn.Module):
     ``nn.Dropout`` with the episode's fixed rng: kept values are scaled by
     ``1 / (1 - p)``, dropped ones are 0).  The mask is drawn on the input's
     device from a generator seeded with the episode seed, at the first
-    forward of the episode."""
+    forward of the episode; inside a data group it is the global batch's
+    mask (every row and slab), of which the rank keeps its part."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -224,13 +270,18 @@ class EpisodeDropout(nn.Module):
         if mask is None or mask.shape != x.shape or mask.device != x.device:
             gen = torch.Generator(device=x.device).manual_seed(self.seed)
             # inside a data group: the global batch's mask, this rank's rows
+            # and slab
             dg = collectives.current_data_group()
-            shape = x.shape if dg is None else \
-                (dg.n_global,) + tuple(x.shape[1:])
+            shape = tuple(x.shape)
+            if dg is not None:
+                shape = ((dg.n_global,) + shape[1:2]
+                         + (shape[2] * dg.planes,) + shape[3:])
             mask = torch.rand(shape, generator=gen,
                               device=x.device) >= self.p
             if dg is not None:
                 mask = dg.rows(mask)
+                if dg.space is not None:
+                    mask = dg.space.slab(mask)
             self._mask = mask
         keep = 1.0 - self.p
         return torch.where(mask, x / keep, torch.zeros_like(x))
@@ -246,7 +297,7 @@ class DoubleConv(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, spectral: bool = False):
         super().__init__()
-        conv = SpectralConv2d if spectral else nn.Conv2d
+        conv = SpectralConv2d if spectral else SlabConv2d
         self.conv = nn.Sequential(
             conv(in_ch, out_ch, 3, padding=1), FrozenStatsBN(out_ch),
             nn.ReLU(inplace=True),
@@ -294,8 +345,7 @@ class Up(nn.Module):
         self.conv = DoubleConv(in_ch, out_ch, spectral)
 
     def forward(self, x, skip):
-        x = F.interpolate(x, scale_factor=2, mode="bilinear",
-                          align_corners=True)
+        x = _upsample2x(x)
         dh = x.shape[2] - skip.shape[2]
         dw = x.shape[3] - skip.shape[3]
         skip = F.pad(skip, (dw // 2, int(dw / 2), dh // 2, int(dh / 2)))
@@ -331,6 +381,7 @@ class SelfAttn2d(nn.Module):
         self.gamma = nn.Parameter(torch.zeros(1))
 
     def forward(self, x):
+        _refuse_space("SelfAttn2d")
         n, c, h, w = x.shape
         q = self.query_conv(x).flatten(2).transpose(1, 2).float()
         k = self.key_conv(x).flatten(2).float()
@@ -385,6 +436,11 @@ class UNet(nn.Module):
         self.attention_map = None
 
     def forward(self, x):
+        if type(self) is not UNet:
+            _refuse_space(type(self).__name__)
+        if self.self_atn is not None:
+            _refuse_space("SelfAttn2d")
+        _check_levels(x, 4)
         x1 = self.drop(self.inc(x))
         x2 = self.down1(x1)
         x3 = self.down2(x2)
@@ -450,6 +506,7 @@ class DeeplySupervisedUNet(nn.Module):
         self.outc = OutConv(b, num_classes)
 
     def forward(self, x, multi_out: bool = False):
+        _refuse_space("DeeplySupervisedUNet")
         x1 = self.inc(x)
         x2 = self.down1(x1)
         x3 = self.drop3(self.down2(x2))
@@ -470,15 +527,69 @@ class DeeplySupervisedUNet(nn.Module):
         return init_unet_(self, generator)
 
 
+def _check_levels(x, levels: int) -> None:
+    """Inside a space group: every level's slab halves under a 2x2
+    max-pool, else ``ValueError`` naming the first level that does not and
+    the heights that would divide."""
+    sg = collectives.current_space()
+    if sg is None:
+        return
+    rows = x.shape[2]
+    for level in range(1, levels + 1):
+        if rows % 2:
+            raise ValueError(
+                f"UNet level down{level}: {rows * sg.n} rows split over "
+                f"space={sg.n} into slabs of {rows}, which a 2x2 max-pool "
+                f"cannot halve; the image height must be a multiple of "
+                f"{sg.n * 2 ** levels} (JAX's GSPMD pads such a level, "
+                f"ROADMAP §3)")
+        rows //= 2
+
+
 def _upsample2x(x):
+    """Bilinear x2 with align_corners=True; inside a space group this
+    slab's rows of the global upsampling (:func:`_slab_upsample2x`)."""
+    sg = collectives.current_space()
+    if sg is not None:
+        return _slab_upsample2x(x, sg)
     return F.interpolate(x, scale_factor=2, mode="bilinear",
                          align_corners=True)
 
 
-class ZDecomposedConv3d(nn.Conv3d):
+def _slab_upsample2x(x, sg):
+    """This slab's 2h output rows of the bilinear x2 (align_corners=True)
+    of a tensor (N, C, h, W) whose H is split over the space group: W is
+    upsampled locally (``F.interpolate`` with H unchanged leaves each row
+    as it is), then each output row ``i`` of the global H blends the two
+    input rows at ``i * (H - 1) / (2H - 1)``, PyTorch's source index and
+    weights in the input's accumulation type, read from the slab and one
+    halo plane on each side."""
+    n, c, h, w = x.shape
+    rows_in = h * sg.n
+    xw = F.interpolate(x, size=(h, 2 * w), mode="bilinear",
+                       align_corners=True)
+    xh = collectives.exchange_halo(xw, 1, 2, sg.group)
+    acc = np.float64 if x.dtype == torch.float64 else np.float32
+    scale = acc(rows_in - 1) / acc(2 * rows_in - 1)
+    out_rows = np.arange(2 * h * sg.index, 2 * h * (sg.index + 1))
+    src = scale * out_rows.astype(acc)
+    lo = src.astype(np.int64)  # src >= 0: truncation is the floor
+    lam1 = src - lo.astype(acc)
+    hi = lo + (lo < rows_in - 1)
+    first = h * sg.index - 1  # the global row of the left halo plane
+    r0 = xh.index_select(2, torch.as_tensor(lo - first, device=x.device))
+    r1 = xh.index_select(2, torch.as_tensor(hi - first, device=x.device))
+    lam0 = torch.as_tensor(acc(1) - lam1, dtype=x.dtype,
+                           device=x.device).view(1, 1, -1, 1)
+    lam1 = torch.as_tensor(lam1, dtype=x.dtype,
+                           device=x.device).view(1, 1, -1, 1)
+    return lam0 * r0 + lam1 * r1
+
+
+class ZDecomposedConv3d(_HaloConv, nn.Conv3d):
     """A 3x3x3 SAME convolution with bias (the JAX package's
     ``ZDecomposedConv3d(features)``, a TPU layout of the same
-    convolution)."""
+    convolution); a space group partitions it on D."""
 
     def __init__(self, in_channels: int, features: int):
         super().__init__(in_channels, features, 3, padding=1)

@@ -1,10 +1,15 @@
 """Affine grid generation and homogeneous matrix inversion, 2D and 3D
-(port of advchain_tpu/ops/affine.py)."""
+(port of advchain_tpu/ops/affine.py).  Inside a spatially partitioned
+step's space group the grid is this rank's rows of the global grid: the
+leading spatial axis of ``size`` is the slab's, and its coordinates are the
+slab's of the global ``linspace``."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import collectives
 
 __all__ = ["linspace", "affine_grid_2d", "affine_grid_3d", "affine_grid",
            "make_batch_eye", "invert_affine_matrix"]
@@ -18,11 +23,17 @@ def linspace(start: float, stop: float, num: int, dtype=torch.float32,
                            device=device)
 
 
-def _base_coords(size: int, align_corners: bool, dtype, device):
+def _base_coords(size: int, align_corners: bool, dtype, device,
+                 leading: bool = False):
+    """The coordinates of an axis of ``size``; ``leading``: the leading
+    spatial axis, this slab's coordinates inside a space group."""
+    sg = collectives.current_space() if leading else None
+    if sg is not None:
+        size *= sg.n
     xs = linspace(-1.0, 1.0, size, dtype, device)
-    if align_corners or size == 1:
-        return xs
-    return xs * (size - 1) / size
+    if not (align_corners or size == 1):
+        xs = xs * (size - 1) / size
+    return xs if sg is None else sg.slab(xs, 0)
 
 
 def affine_grid_2d(theta, size, align_corners: bool = True):
@@ -30,7 +41,7 @@ def affine_grid_2d(theta, size, align_corners: bool = True):
     ``grid[..., 0] = theta[0,0]*x + theta[0,1]*y + theta[0,2]``."""
     _, _, h, w = size
     xs = _base_coords(w, align_corners, theta.dtype, theta.device)
-    ys = _base_coords(h, align_corners, theta.dtype, theta.device)
+    ys = _base_coords(h, align_corners, theta.dtype, theta.device, True)
     by, bx = torch.meshgrid(ys, xs, indexing="ij")  # (H, W)
     base = torch.stack([bx, by, torch.ones_like(bx)], dim=-1)  # (H, W, 3)
     return torch.einsum("hwk,njk->nhwj", base, theta)
@@ -42,7 +53,7 @@ def affine_grid_3d(theta, size, align_corners: bool = True):
     _, _, d, h, w = size
     xs = _base_coords(w, align_corners, theta.dtype, theta.device)
     ys = _base_coords(h, align_corners, theta.dtype, theta.device)
-    zs = _base_coords(d, align_corners, theta.dtype, theta.device)
+    zs = _base_coords(d, align_corners, theta.dtype, theta.device, True)
     bz, by, bx = torch.meshgrid(zs, ys, xs, indexing="ij")  # (D, H, W)
     base = torch.stack([bx, by, bz, torch.ones_like(bx)], dim=-1)
     return torch.einsum("dhwk,njk->ndhwj", base, theta)

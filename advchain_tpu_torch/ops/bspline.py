@@ -170,21 +170,20 @@ def evaluate_bspline_field(cpoints, spec: BSplineFieldSpec,
     """Control points (N, 1, *cp_grid) -> bias field (N, 1, *image_size):
     transposed conv by the B-spline kernel and border crop (one matrix
     product per axis), linear resize (align_corners=False), then ``exp``
-    (log space) or ``1 + field``."""
+    (log space) or ``1 + field``.  Inside a space group the control points
+    are replicated and the field is this rank's slab of the leading spatial
+    axis (the slab's rows of the resize)."""
     field = _transposed_conv_cropped(cpoints, spec)
     cur = field.shape[2:]
+    # the axes that grow are resized (the cropped field is never larger);
+    # 3D to floor(size * scale), as torch's Upsample(scale_factor=...)
     if spec.spatial_dims == 2:
-        h, w = spec.image_size
-        if h / cur[0] > 1 or w / cur[1] > 1:
-            field = interpolate(field, size=(h, w), mode="bilinear",
-                                align_corners=False)
+        size, mode = spec.image_size, "bilinear"
     else:
-        factors = tuple(t / c for t, c in zip(spec.image_size, cur))
-        if any(f > 1 for f in factors):
-            out_size = tuple(int(math.floor(c * f))
-                             for c, f in zip(cur, factors))
-            field = interpolate(field, size=out_size, mode="trilinear",
-                                align_corners=False)
+        size = tuple(int(math.floor(c * (t / c)))
+                     for t, c in zip(spec.image_size, cur))
+        mode = "trilinear"
+    field = interpolate(field, size=size, mode=mode, align_corners=False)
     if log_space:
         return torch.exp(field)
     return 1.0 + field

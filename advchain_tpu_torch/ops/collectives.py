@@ -1,5 +1,5 @@
-"""Collectives over ``torch.distributed`` groups, and the data group of a
-running data-parallel step.
+"""Collectives over ``torch.distributed`` groups, the halo exchange, and
+the data and space groups of a running parallel step.
 
 Transport.  A ``gloo`` group moves host tensors: a CUDA tensor is copied to
 the host, reduced or exchanged there and copied back.  An ``nccl`` group
@@ -29,6 +29,33 @@ which the port's batch-wide quantities reduce over the data group:
 * the flow compositions' dispatch slope and the 3D adaptive step count see
   the whole batch (``ops/integrate.py``).
 
+The space group.  On a ``('data', 'space')`` mesh whose ``space`` axis is
+larger than 1 each rank also holds one slab of the leading spatial axis (H
+of NCHW, D of NCDHW): block ``index`` of ``n`` equal blocks.  The step
+opens its data group with a :class:`SpaceGroup` and with the group of
+every rank of the mesh, over which each batch-wide quantity above then
+reduces (the BatchNorm sums, the clamp, the divergence, the 3D step count,
+the weight gradients).  Inside it the readers of :func:`current_space` are
+partition-aware:
+
+* ``ops.grid_sample.grid_sample`` samples through
+  ``parallel.spatial``'s sharded sampler, and ``compose_flow`` takes that
+  sampler with border padding (no stencil, no dispatch slope);
+* ``ops.integrate.base_grid`` and ``ops.affine.affine_grid`` give this
+  slab's rows of the global grid, ``ops.resize.interpolate`` and
+  ``ops.bspline.evaluate_bspline_field`` this slab's rows of a replicated
+  field resized to the image;
+* ``ops.conv.conv_same`` and the UNet's convolutions read a halo from the
+  neighbours (:func:`exchange_halo`); the UNet's upsampling computes this
+  slab's rows from one halo plane;
+* two ops take either kind of field, so their call sites say which:
+  ``ops.conv.gaussian_smooth(..., sharded=True)`` smooths a slab with
+  halos (the morph's second smoothing; its first acts on the replicated
+  velocity), and ``ops.norms.unit_normalize(..., sharded=True)`` takes
+  each sample's l2 norm over the space group (the noise's updates and
+  projections; the other transforms' parameters are replicated);
+* BatchNorm, dropout's mask and the mse divisor count every plane.
+
 Outside the block all of these are the single-process computations, and no
 collective runs.
 """
@@ -44,8 +71,9 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["transport", "all_reduce", "all_gather", "broadcast_",
-           "neighbour_exchange", "DataGroup", "data_group",
-           "current_data_group", "global_batch", "reset_counts", "COUNTS"]
+           "neighbour_exchange", "exchange_halo", "DataGroup", "SpaceGroup",
+           "data_group", "current_data_group", "current_space",
+           "global_numel", "reset_counts", "COUNTS"]
 
 _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
         "max": dist.ReduceOp.MAX}
@@ -152,15 +180,87 @@ def neighbour_exchange(to_left, to_right, group):
     return from_left.to(to_right.device), from_right.to(to_left.device)
 
 
+class _HaloExchange(torch.autograd.Function):
+    """[left neighbour's last ``halo`` planes, x, right neighbour's first
+    ``halo``] along ``axis``; zeros past the two ends."""
+
+    @staticmethod
+    def forward(ctx, x, halo, axis, group):
+        size = x.shape[axis]
+        from_left, from_right = neighbour_exchange(
+            x.narrow(axis, 0, halo), x.narrow(axis, size - halo, halo),
+            group)
+        ctx.halo, ctx.axis, ctx.group = halo, axis, group
+        return torch.cat([from_left, x, from_right], dim=axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        halo, axis = ctx.halo, ctx.axis
+        size = g.shape[axis] - 2 * halo
+        # the halo slabs' gradients go back to their owners: my left slab
+        # is my left neighbour's last planes, my right slab my right
+        # neighbour's first
+        to_first, to_last = neighbour_exchange(
+            g.narrow(axis, 0, halo), g.narrow(axis, size + halo, halo),
+            ctx.group)
+        dx = g.narrow(axis, halo, size).clone()
+        dx.narrow(axis, 0, halo).add_(to_first)
+        dx.narrow(axis, size - halo, halo).add_(to_last)
+        return dx, None, None, None
+
+
+def exchange_halo(x, halo: int, axis: int, group):
+    """``x`` with ``halo`` planes from each neighbour along ``axis`` of the
+    group's ranks concatenated on either side, zeros past the group's two
+    ends (the dense ops' zero padding).  Differentiable: the backward sends
+    each halo's gradient back to its owner, which adds it.  ``halo == 0``
+    returns ``x``."""
+    if halo == 0:
+        return x
+    if x.shape[axis] < halo:
+        raise ValueError(f"local extent {x.shape[axis]} < halo {halo}")
+    return _HaloExchange.apply(x, halo, axis, group)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpaceGroup:
+    """This rank's slab of the leading spatial axis in a spatially
+    partitioned step: block ``index`` of ``n`` equal blocks over ``group``
+    (the mesh's ``space`` group).  ``mesh`` is the ``DeviceMesh`` that
+    ``parallel.spatial``'s sharded ops take, ``max_disp`` the chain's
+    static displacement bound (``parallel.spatial.
+    chain_displacement_bound``; None: every warp gathers its source)."""
+
+    group: object
+    n: int
+    index: int
+    mesh: object = None
+    max_disp: Optional[float] = None
+
+    def slab(self, t, axis: int = 2):
+        """This rank's block of a tensor whose ``axis`` holds the global
+        extent."""
+        size = t.shape[axis]
+        if size % self.n:
+            raise ValueError(f"an extent of {size} does not split into "
+                             f"{self.n} equal slabs over 'space'")
+        step = size // self.n
+        return t.narrow(axis, self.index * step, step)
+
+
 @dataclasses.dataclass(frozen=True)
 class DataGroup:
-    """This rank's place in the global batch of a data-parallel step:
-    rows ``offset : offset + n_local`` of ``n_global``."""
+    """This rank's place in the global batch of a parallel step: rows
+    ``offset : offset + n_local`` of ``n_global``, and with a ``space``
+    group one slab of each.  ``group`` is the group every batch-wide
+    quantity reduces over: the data group, or every rank of a ``('data',
+    'space')`` mesh."""
 
     group: object
     n_local: int
     n_global: int
     offset: int
+    space: Optional[SpaceGroup] = None
 
     def rows(self, t):
         """This rank's rows of a global-batch tensor."""
@@ -169,21 +269,43 @@ class DataGroup:
                              f"{self.n_global} rows, got {t.shape[0]}")
         return t[self.offset:self.offset + self.n_local]
 
+    @property
+    def planes(self) -> int:
+        """The slabs a sample is split into (1 without a space group)."""
+        return 1 if self.space is None else self.space.n
+
+    @property
+    def share(self) -> float:
+        """This rank's share of the global batch's elements: its rows over
+        the global rows, over the slabs of each."""
+        return self.n_local / (self.n_global * self.planes)
+
+    def global_numel(self, x) -> int:
+        """``x.numel()`` of the global batch tensor that ``x`` (this rank's
+        rows and slab) is part of."""
+        return x.numel() // x.shape[0] * self.n_global * self.planes
+
 
 _DATA_GROUP: contextvars.ContextVar[Optional[DataGroup]] = \
     contextvars.ContextVar("data_group", default=None)
 
 
 @contextlib.contextmanager
-def data_group(group, n_local: int, device=None):
+def data_group(group, n_local: int, device=None, space=None,
+               reduce_group=None):
     """Open the data group of one step: every rank passes its own batch
-    rows' count (one all-gather of the counts, on ``device``)."""
+    rows' count (one all-gather of the counts over ``group``, the data
+    group, on ``device``).  With ``space`` (a :class:`SpaceGroup`) the
+    step is also spatially partitioned, and ``reduce_group`` is the group
+    of every rank of the mesh, which the batch-wide quantities reduce
+    over (default: ``group``)."""
     if n_local < 1:
         raise ValueError("every rank needs at least one row of the batch")
     counts = all_gather(torch.tensor([n_local], dtype=torch.int64,
                                      device=device), group=group).tolist()
     r = dist.get_group_rank(group, dist.get_rank())
-    dg = DataGroup(group, n_local, int(sum(counts)), int(sum(counts[:r])))
+    dg = DataGroup(group if reduce_group is None else reduce_group, n_local,
+                   int(sum(counts)), int(sum(counts[:r])), space)
     token = _DATA_GROUP.set(dg)
     try:
         yield dg
@@ -195,8 +317,16 @@ def current_data_group() -> Optional[DataGroup]:
     return _DATA_GROUP.get()
 
 
-def global_batch(n_local: int) -> int:
-    """The batch that ``n_local`` rows belong to: the data group's global
-    batch inside :func:`data_group`, else ``n_local``."""
+def current_space() -> Optional[SpaceGroup]:
+    """The running step's space group, or None."""
     dg = _DATA_GROUP.get()
-    return n_local if dg is None else dg.n_global
+    return None if dg is None else dg.space
+
+
+def global_numel(x) -> int:
+    """``x.numel()`` of the global batch tensor inside :func:`data_group`
+    (every row and, with a space group, every slab), else
+    ``x.numel()``."""
+    dg = _DATA_GROUP.get()
+    return x.numel() if dg is None else dg.global_numel(x)
+

@@ -1,7 +1,14 @@
 """Convolution primitives with torch semantics on NCHW tensors (port of
 advchain_tpu/ops/conv.py, 2D and 3D).  The convolutions go to cuDNN through
 ``torch.nn.functional``; the Gaussian smoothing keeps the JAX package's
-separable tap accumulation so its arithmetic matches term for term."""
+separable tap accumulation so its arithmetic matches term for term.
+
+Inside a spatially partitioned step's space group
+(``ops.collectives.current_space``) ``conv_same`` reads a halo of
+``(k - 1) // 2`` planes of the leading spatial axis from the neighbours and
+pads only the other axes, and ``gaussian_smooth(..., sharded=True)`` does
+the same for each pass along that axis: the edge slabs' zero halos are
+SAME padding's zeros, so each slab equals the dense op's rows."""
 
 from __future__ import annotations
 
@@ -11,8 +18,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import collectives
+
 __all__ = ["conv_same", "conv_transpose", "depthwise_conv",
-           "effective_gaussian_ks", "gaussian_kernel_1d", "gaussian_smooth"]
+           "effective_gaussian_ks", "gaussian_kernel_1d", "gaussian_smooth",
+           "slab_gaussian_smooth"]
 
 
 def _conv_fns(x):
@@ -25,8 +35,13 @@ def _conv_fns(x):
 
 def conv_same(x, weight, groups: int = 1):
     """Cross-correlation with 'padding = k // 2' (odd kernels).
-    x: (N, C_in, *S); weight: (C_out, C_in / groups, *K)."""
+    x: (N, C_in, *S); weight: (C_out, C_in / groups, *K).  Inside a space
+    group ``x`` is this rank's slab, and so is the result."""
     pad = tuple((k - 1) // 2 for k in weight.shape[2:])
+    sg = collectives.current_space()
+    if sg is not None:  # the leading axis's padding comes from the halo
+        x = collectives.exchange_halo(x, pad[0], 2, sg.group)
+        pad = (0,) + pad[1:]
     return _conv_fns(x)[0](x, weight, padding=pad, groups=groups)
 
 
@@ -88,10 +103,15 @@ def _axis_smooth(x, taps, axis: int):
 
 
 def gaussian_smooth(x, sigma: float = 1.0, kernel_size: int = 5,
-                    iters: int = 1):
+                    iters: int = 1, sharded: bool = False):
     """Depthwise Gaussian smoothing of (N, C, *S): one separable pass per
     spatial axis with per-axis normalisation (equal to the reference's dense
-    product kernel)."""
+    product kernel).  ``sharded``: ``x`` is this rank's slab of a field
+    sharded over the running step's space group (:func:`slab_gaussian_
+    smooth`); outside a space group the flag does nothing."""
+    sg = collectives.current_space() if sharded else None
+    if sg is not None:
+        return slab_gaussian_smooth(x, sg.group, sigma, kernel_size, iters)
     ndim = x.dim() - 2
     ks = effective_gaussian_ks(kernel_size, sigma, ndim)
     taps = [float(v) for v in _gaussian_kernel_1d_np(ks, sigma)]
@@ -99,4 +119,30 @@ def gaussian_smooth(x, sigma: float = 1.0, kernel_size: int = 5,
     for _ in range(iters):
         for axis in range(ndim):
             out = _axis_smooth(out, taps, 2 + axis)
+    return out
+
+
+def slab_gaussian_smooth(x, group, sigma: float = 1.0, kernel_size: int = 5,
+                         iters: int = 1):
+    """:func:`gaussian_smooth` on this rank's slab of a field whose leading
+    spatial axis is split over ``group``'s ranks in order: each pass along
+    that axis reads ``(k_eff - 1) // 2`` halo planes from the neighbours
+    (:func:`collectives.exchange_halo`, zeros past the two ends), the other
+    axes pass locally.  Equal to the dense op's rows bit for bit: the same
+    taps in the same order."""
+    ndim = x.dim() - 2
+    ks = effective_gaussian_ks(kernel_size, sigma, ndim)
+    halo = (ks - 1) // 2
+    taps = [float(v) for v in _gaussian_kernel_1d_np(ks, sigma)]
+    d_loc = x.shape[2]
+    out = x
+    for _ in range(iters):
+        xp = collectives.exchange_halo(out, halo, 2, group)
+        acc = None
+        for i, k in enumerate(taps):  # the dense op's SAME taps, in order
+            term = k * xp.narrow(2, i, d_loc)
+            acc = term if acc is None else acc + term
+        out = acc
+        for axis in range(3, 2 + ndim):
+            out = _axis_smooth(out, taps, axis)
     return out

@@ -26,6 +26,14 @@ the clipped base corner, and runs the gather and its transpose in
 as XLA differentiates it in JAX.  Nearest sampling gives the grid a zero
 gradient.
 
+Inside a spatially partitioned step's space group
+(``ops.collectives.current_space``) :func:`grid_sample` samples through
+``parallel.spatial.slab_grid_sample`` on this rank's slabs of the source
+and the grid (the JAX package's ``spatial_sampling``, :113-157): the halo
+route when the chain's displacement bound fits a slab, else the whole
+source gathered over the space group.  :func:`local_grid_sample` is the
+dispatch without that routing.
+
 Clips are written ``minimum(maximum(x, lo), hi)`` (``kernels._coords.clip``):
 at an exact bound that passes half the gradient, as ``jnp.clip`` does,
 where ``torch.clamp`` passes all of it (base grid corners sit exactly on
@@ -48,7 +56,10 @@ from advchain_tpu_torch.kernels.plane_sample import (CornerSample,
 from advchain_tpu_torch.kernels.stencil_warp import StencilWarp
 from advchain_tpu_torch.kernels.zband_sample import ZBandGridSample
 
-__all__ = ["grid_sample", "grid_sample_2d", "grid_sample_3d",
+from . import collectives
+
+__all__ = ["grid_sample", "local_grid_sample", "grid_sample_2d",
+           "grid_sample_3d",
            "stencil_warp_2d", "corner_weights", "corner_weights_3d",
            "plane_weights", "nearest_weights", "clip"]
 
@@ -175,7 +186,24 @@ def stencil_warp_2d(img, grid, radius: int = 2, grid_layout: str = "last",
 
 def grid_sample(x, grid, mode: str = "bilinear", padding_mode: str = "zeros",
                 align_corners: bool = True, tile_order: str = "rows"):
-    """Dispatch on rank: 4-D input -> 2D sampler, 5-D input -> 3D."""
+    """Dispatch on rank: 4-D input -> 2D sampler, 5-D input -> 3D; inside
+    a space group, this rank's slab through the sharded sampler (a source
+    whose slabs differ in extent raises there)."""
+    sg = collectives.current_space()
+    if sg is not None:
+        from advchain_tpu_torch.parallel.spatial import slab_grid_sample
+        return slab_grid_sample(x, grid, sg, mode=mode,
+                                padding_mode=padding_mode,
+                                align_corners=align_corners)
+    return local_grid_sample(x, grid, mode, padding_mode, align_corners,
+                             tile_order)
+
+
+def local_grid_sample(x, grid, mode: str = "bilinear",
+                      padding_mode: str = "zeros", align_corners: bool = True,
+                      tile_order: str = "rows"):
+    """:func:`grid_sample` on this process's tensors, whatever the
+    context."""
     if x.dim() == 4:
         return grid_sample_2d(x, grid, mode, padding_mode, align_corners,
                               tile_order=tile_order)

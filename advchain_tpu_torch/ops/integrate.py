@@ -27,12 +27,24 @@ every composition whether it is needed or not.
 Inside a data-parallel step's data group both batch-wide quantities, the
 dispatch predicate's largest displacement and the adaptive step count's
 norm, are reduced over the group, as the JAX package's GSPMD step computes
-them over the global batch.
+them over the global batch.  Inside a space group (a spatially
+partitioned step) the stencil is off, as in JAX (integrate.py:52-64):
+every composition samples through the sharded sampler with border padding
+and no dispatch slope (the sampler's half slope at an exact -1 entry, JAX's
+``ADVCHAIN_STENCIL=0``), the base grid is this slab's rows of the global
+one, and the step count's norm spans every rank.  :func:`sampler_compositions`
+gives a single process those compositions (JAX's ``ADVCHAIN_STENCIL=0`` as
+a context): the stencil and the sampler agree to f32 rounding (1.5 ulp),
+but a binarised mask downstream can turn a rounding difference into a
+pixel, so the spatial step's exact single-process counterpart is the step
+inside it.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -41,11 +53,12 @@ from advchain_tpu_torch.kernels.stencil_warp import dispatch_slope
 
 from . import collectives
 from .affine import linspace
-from .grid_sample import grid_sample_2d, grid_sample_3d, stencil_warp_2d
+from .grid_sample import (grid_sample, grid_sample_2d, grid_sample_3d,
+                          stencil_warp_2d)
 
 __all__ = ["base_grid", "compose_flow", "exponentiate_flow",
            "adaptive_step_count", "jacobian_determinant_2d",
-           "ADAPTIVE_STEPS"]
+           "sampler_compositions", "ADAPTIVE_STEPS"]
 
 # the JAX package's static bound on extra squarings (integrate.py:32)
 _MAX_EXTRA_STEPS = 8
@@ -55,15 +68,35 @@ _STENCIL_RADIUS = {2: 2, 3: 1}
 
 # step counts of the latest adaptive exponentiations, newest last
 ADAPTIVE_STEPS: collections.deque = collections.deque(maxlen=64)
+_SAMPLER_ONLY: contextvars.ContextVar[bool] = \
+    contextvars.ContextVar("sampler_compositions", default=False)
+
+
+@contextlib.contextmanager
+def sampler_compositions():
+    """Every composition inside the block samples on the sampler with
+    border padding (no stencil, no dispatch slope), as the JAX package's
+    ``ADVCHAIN_STENCIL=0`` and its spatial step do."""
+    token = _SAMPLER_ONLY.set(True)
+    try:
+        yield
+    finally:
+        _SAMPLER_ONLY.reset(token)
 
 
 def base_grid(batch_size: int, spatial_shape, dtype=torch.float32,
               device=None):
     """Identity grid (N, d, *spatial) in [-1, 1]; channel 0 ('x') varies
-    along the last spatial axis."""
+    along the last spatial axis.  Inside a space group ``spatial_shape`` is
+    this rank's slab, and the grid is the slab's rows of the global one."""
     spatial_shape = tuple(int(s) for s in spatial_shape)
     d = len(spatial_shape)
-    axes = [linspace(-1.0, 1.0, s, dtype, device) for s in spatial_shape]
+    sg = collectives.current_space()
+    lead = spatial_shape[0] * (1 if sg is None else sg.n)
+    axes = [linspace(-1.0, 1.0, s, dtype, device)
+            for s in (lead,) + spatial_shape[1:]]
+    if sg is not None:
+        axes[0] = sg.slab(axes[0], 0)
     mesh = torch.meshgrid(*axes, indexing="ij")
     grid = torch.stack([mesh[d - 1 - i] for i in range(d)], dim=0)[None]
     return grid.expand((batch_size, d) + spatial_shape)
@@ -73,8 +106,14 @@ def compose_flow(flow1, flow2):
     """h = f(g(x)): sample ``flow1`` at the positions given by ``flow2``
     (both (N, d, *spatial) grids in [-1, 1], d = 2 or 3), border padding,
     align_corners=True, with the grid gradient of JAX's default dispatch at
-    an exact lower bound."""
+    an exact lower bound (the sampler's inside a space group or
+    :func:`sampler_compositions`)."""
     dims = flow1.shape[1]
+    if collectives.current_space() is not None or _SAMPLER_ONLY.get():
+        # the sampler (sharded inside a space group)
+        return grid_sample(flow1, torch.movedim(flow2, 1, -1),
+                           mode="bilinear", padding_mode="border",
+                           align_corners=True)
     if flow1.shape != flow2.shape:
         grid = torch.movedim(flow2, 1, -1)
         sample = grid_sample_3d if dims == 3 else grid_sample_2d
@@ -97,8 +136,9 @@ def compose_flow(flow1, flow2):
 
 def adaptive_step_count(duv, nb_steps: int) -> int:
     """``clamp(max(nb_steps, ceil(log2(||duv||_F / 0.5))), <= nb_steps + 8)``
-    with the Frobenius norm over the whole batch (integrate.py:229-232).
-    Reads one scalar from the device."""
+    with the Frobenius norm over the whole batch (integrate.py:229-232),
+    every rank's rows and slabs inside a data group.  Reads one scalar from
+    the device."""
     norm = torch.linalg.vector_norm(duv.detach().reshape(-1))
     dg = collectives.current_data_group()
     if dg is not None:  # the global batch's norm

@@ -2,7 +2,10 @@
 advchain_tpu/ops/resize.py): linear modes resample each spatial axis with a
 dense (out, in) interpolation matrix, so the result is exactly torch's
 separable linear resampling; nearest gathers each axis at the JAX package's
-float64 source index."""
+float64 source index.  Inside a spatially partitioned step's space group
+the input is a field replicated over the group and the result is this
+rank's slab of the output (the slab's rows of the leading axis's matrix or
+index), with no collective."""
 
 from __future__ import annotations
 
@@ -10,6 +13,8 @@ import functools
 
 import numpy as np
 import torch
+
+from . import collectives
 
 __all__ = ["interpolate", "interp_matrix"]
 
@@ -64,7 +69,9 @@ def interpolate(x, size=None, scale_factor=None, mode: str = "bilinear",
     'bilinear' / 'trilinear' (each per-axis linear) or 'nearest' (a gather
     per axis).  ``size`` is the target spatial shape, or ``scale_factor``
     (scalar or per axis) gives it with torch's ``floor(in * factor)``
-    rule.  Axes whose size is unchanged are left alone."""
+    rule.  Axes whose size is unchanged are left alone.  Inside a space
+    group ``x`` is the whole field on every rank and the result is this
+    rank's slab of the leading spatial axis."""
     spatial = x.shape[2:]
     ndim = len(spatial)
     if size is None:
@@ -79,21 +86,31 @@ def interpolate(x, size=None, scale_factor=None, mode: str = "bilinear",
     if len(size) != ndim:
         raise ValueError(f"size {size} rank mismatch with input "
                          f"{tuple(x.shape)}")
+    sg = collectives.current_space()
     if mode == "nearest":
         out = x
         for axis, (ins, outs) in enumerate(zip(spatial, size)):
-            if ins != outs:
+            if ins != outs or (axis == 0 and sg is not None):
                 idx = torch.as_tensor(_nearest_idx_np(ins, outs),
                                       device=x.device)
+                if axis == 0 and sg is not None:
+                    idx = sg.slab(idx, 0)
                 out = torch.index_select(out, 2 + axis, idx)
         return out
     if mode not in ("linear", "bilinear", "trilinear"):
         raise NotImplementedError(f"mode={mode!r}")
     out = x
     for axis, (ins, outs) in enumerate(zip(spatial, size)):
-        if ins == outs:
+        if axis == 0 and sg is not None:
+            if ins == outs:
+                out = sg.slab(out, 2)
+                continue
+            w = sg.slab(interp_matrix(ins, outs, align_corners, x.device),
+                        0).to(x.dtype)
+        elif ins == outs:
             continue
-        w = interp_matrix(ins, outs, align_corners, x.device).to(x.dtype)
+        else:
+            w = interp_matrix(ins, outs, align_corners, x.device).to(x.dtype)
         out = torch.movedim(
             torch.tensordot(out, w, dims=([2 + axis], [1])), -1, 2 + axis)
     return out

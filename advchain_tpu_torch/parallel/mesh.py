@@ -18,6 +18,7 @@ another backend is named).
 from __future__ import annotations
 
 import os
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -70,12 +71,29 @@ def _world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+# the group of every rank of each multi-axis mesh, made with the mesh: like
+# the mesh's own groups, a collective call on every rank of the job
+_EVERY_RANK: "weakref.WeakKeyDictionary[DeviceMesh, object]" = \
+    weakref.WeakKeyDictionary()
+
+
 def _mesh(device_type: str, shape, names) -> DeviceMesh:
     if not dist.is_initialized():
         raise RuntimeError("a mesh needs a process group: call "
                            "initialize_distributed (or torchrun) first")
     ranks = torch.arange(int(np.prod(shape))).reshape(shape)
-    return DeviceMesh(device_type, ranks, mesh_dim_names=tuple(names))
+    mesh = DeviceMesh(device_type, ranks, mesh_dim_names=tuple(names))
+    if len(shape) > 1:
+        _EVERY_RANK[mesh] = dist.new_group(ranks.flatten().tolist())
+    return mesh
+
+
+def every_rank_group(mesh: DeviceMesh):
+    """The process group of every rank of ``mesh``: what a spatially
+    partitioned step's BatchNorm statistics and gradients reduce over."""
+    if mesh.ndim == 1:
+        return mesh.get_group()
+    return _EVERY_RANK[mesh]
 
 
 def make_mesh(n_devices: Optional[int] = None, axis_name: str = "data",

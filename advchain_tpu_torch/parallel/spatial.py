@@ -21,9 +21,13 @@ stages CUDA tensors through host memory):
   with a static displacement bound (:func:`chain_displacement_bound`) it
   exchanges neighbour bands only and samples the local slab.
 
-A spatially partitioned train step (convolutions, pooling and BatchNorm
-across ``space``) is not ported; ``parallel.train`` raises on a mesh whose
-``space`` axis is larger than 1.
+The spatially partitioned train step (``parallel.train`` on a mesh whose
+``space`` axis is larger than 1) runs inside a space group
+(``ops.collectives.SpaceGroup``): there ``ops.grid_sample.grid_sample``
+samples through :func:`slab_grid_sample` (this module's sampler on the
+group, with the chain's bound and without the extent check), and the
+convolutions, the Gaussian and the UNet's upsampling exchange halos with
+``ops.collectives.exchange_halo``, as :func:`halo_exchange` does here.
 """
 
 from __future__ import annotations
@@ -39,9 +43,10 @@ from torch.distributed.tensor import Shard
 
 from advchain_tpu_torch.kernels._coords import prep_coord
 from advchain_tpu_torch.ops import collectives
-from advchain_tpu_torch.ops.conv import (_axis_smooth, effective_gaussian_ks,
-                                         gaussian_kernel_1d)
-from advchain_tpu_torch.ops.grid_sample import grid_sample
+from advchain_tpu_torch.ops.conv import (effective_gaussian_ks,
+                                         gaussian_smooth,
+                                         slab_gaussian_smooth)
+from advchain_tpu_torch.ops.grid_sample import local_grid_sample
 from advchain_tpu_torch.parallel.mesh import (_axis, _mesh, _world_size,
                                               mesh_device)
 
@@ -109,35 +114,6 @@ def shard_batch_spatial(batch, mesh: DeviceMesh):
     return out
 
 
-class _HaloExchange(torch.autograd.Function):
-    """[left neighbour's last ``halo`` planes, x, right neighbour's first
-    ``halo``] along ``axis``; zeros past the two ends."""
-
-    @staticmethod
-    def forward(ctx, x, halo, axis, group):
-        size = x.shape[axis]
-        from_left, from_right = collectives.neighbour_exchange(
-            x.narrow(axis, 0, halo), x.narrow(axis, size - halo, halo),
-            group)
-        ctx.halo, ctx.axis, ctx.group = halo, axis, group
-        return torch.cat([from_left, x, from_right], dim=axis)
-
-    @staticmethod
-    def backward(ctx, g):
-        halo, axis = ctx.halo, ctx.axis
-        size = g.shape[axis] - 2 * halo
-        # the halo slabs' gradients go back to their owners: my left slab
-        # is my left neighbour's last planes, my right slab my right
-        # neighbour's first
-        to_first, to_last = collectives.neighbour_exchange(
-            g.narrow(axis, 0, halo), g.narrow(axis, size + halo, halo),
-            ctx.group)
-        dx = g.narrow(axis, halo, size).clone()
-        dx.narrow(axis, 0, halo).add_(to_first)
-        dx.narrow(axis, size - halo, halo).add_(to_last)
-        return dx, None, None, None
-
-
 def halo_exchange(x_local, halo: int, axis: int, mesh: DeviceMesh,
                   axis_name: str = _SPACE):
     """Concatenate ``halo`` planes from each neighbour along ``axis``
@@ -155,7 +131,7 @@ def halo_exchange(x_local, halo: int, axis: int, mesh: DeviceMesh,
         return F.pad(x_local, pads)
     assert x_local.shape[axis] >= halo, (
         f"local extent {x_local.shape[axis]} < halo {halo}")
-    return _HaloExchange.apply(x_local, halo, axis, group)
+    return collectives.exchange_halo(x_local, halo, axis, group)
 
 
 def _shard_extent(x_local, group, n: int) -> int:
@@ -186,18 +162,9 @@ def sharded_gaussian_smooth(x_local, mesh: DeviceMesh, sigma: float = 1.0,
     d_loc = x_local.shape[2]
     assert d_loc >= halo, (
         f"local extent {d_loc} < halo {halo}: use fewer 'space' shards")
-    taps = [float(v) for v in gaussian_kernel_1d(ks, sigma)]
-    out = x_local
-    for _ in range(iters):
-        xp = halo_exchange(out, halo, 2, mesh)
-        acc = None
-        for i, k in enumerate(taps):  # the dense op's SAME taps, in order
-            term = k * xp.narrow(2, i, d_loc)
-            acc = term if acc is None else acc + term
-        out = acc
-        for axis in range(3, 2 + ndim):
-            out = _axis_smooth(out, taps, axis)
-    return out
+    if n_space == 1:
+        return gaussian_smooth(x_local, sigma, kernel_size, iters)
+    return slab_gaussian_smooth(x_local, group, sigma, kernel_size, iters)
 
 
 def _sin_cap(frac_of_pi: float) -> float:
@@ -341,25 +308,45 @@ def sharded_grid_sample(x_local, grid_local, mesh: DeviceMesh,
 
     Each shard's sample runs the port's kernels (``tile_order`` is a TPU
     hint, accepted and ignored)."""
-    ndim = x_local.dim() - 2
-    assert ndim in (2, 3)
+    del tile_order
     group, n_space, idx = _axis(mesh, _SPACE)
     size0 = _shard_extent(x_local, group, n_space)
+    return _sample_slab(x_local, grid_local, group, n_space, idx, size0,
+                        mode, padding_mode, align_corners, max_disp)
+
+
+def slab_grid_sample(x_local, grid_local, space, mode: str = "bilinear",
+                     padding_mode: str = "zeros",
+                     align_corners: bool = True):
+    """:func:`sharded_grid_sample` inside a spatially partitioned step's
+    space group (``ops.collectives.SpaceGroup``), with its displacement
+    bound: what ``ops.grid_sample.grid_sample`` routes to there.  The step
+    checked once that every rank's slab has one extent, so no call
+    gathers the extents again."""
+    return _sample_slab(x_local, grid_local, space.group, space.n,
+                        space.index, x_local.shape[2] * space.n, mode,
+                        padding_mode, align_corners, space.max_disp)
+
+
+def _sample_slab(x_local, grid_local, group, n_space, idx, size0, mode,
+                 padding_mode, align_corners, max_disp):
+    ndim = x_local.dim() - 2
+    assert ndim in (2, 3)
     d_loc = x_local.shape[2]
     halo = None
     if (max_disp is not None and align_corners
             and grid_local.shape[1] == d_loc and n_space > 1):
         hp = _halo_planes(float(max_disp), size0)
-        if hp < d_loc:  # halo_exchange reaches immediate neighbours only
+        if hp < d_loc:  # the exchange reaches immediate neighbours only
             halo = hp
     if halo is None:
         xf = x_local if n_space == 1 else _GatherSpace.apply(x_local, group)
-        return grid_sample(xf, grid_local, mode=mode,
-                           padding_mode=padding_mode,
-                           align_corners=align_corners, tile_order=tile_order)
+        return local_grid_sample(xf, grid_local, mode=mode,
+                                 padding_mode=padding_mode,
+                                 align_corners=align_corners)
     zch = ndim - 1  # the grid channel indexing the sharded axis (y or z)
     slab = d_loc + 2 * halo
-    xh = halo_exchange(x_local, halo, 2, mesh)  # zeros at global ends
+    xh = collectives.exchange_halo(x_local, halo, 2, group)  # zeros at ends
     if padding_mode != "zeros" and idx == n_space - 1:
         # border and reflection clamp the dense sampler's taps past the end
         # to the last plane, which a coordinate exactly on it reads as the
@@ -382,5 +369,5 @@ def sharded_grid_sample(x_local, grid_local, mesh: DeviceMesh,
     gz_l = _slab_coordinate(pix, idx * d_loc - halo, slab)
     grid_l = torch.cat([grid_local[..., :zch], gz_l[..., None],
                         grid_local[..., zch + 1:]], dim=-1)
-    return grid_sample(xh, grid_l, mode=mode, padding_mode=padding_mode,
-                       align_corners=True, tile_order=tile_order)
+    return local_grid_sample(xh, grid_l, mode=mode,
+                             padding_mode=padding_mode, align_corners=True)

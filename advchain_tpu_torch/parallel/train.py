@@ -25,6 +25,20 @@ each rank runs the step on its rows of the batch inside a data group
 batch-wide quantities global, weights its loss by its share of the global
 batch and sums the gradients over the ranks: the same step as on one
 device, up to f32 reduction order, as the JAX package's GSPMD step is.
+
+On a 2-D ``('data', 'space')`` mesh whose ``space`` axis is larger than 1
+(the JAX package's ``_mesh_shardings``, train.py:57-95) each rank also
+holds one slab of the leading spatial axis (H of NCHW, D of NCDHW), as
+``parallel.spatial.shard_batch_spatial`` places it, and the data group
+carries the space group (``ops.collectives.SpaceGroup``): the UNet's
+convolutions exchange halos, its upsampling reads one halo plane, every
+warp and composition samples through the sharded sampler with the chain's
+``chain_displacement_bound`` (the stencil is off, as in JAX), and
+BatchNorm, the solver's quantities, the gradients and the metrics reduce
+over every rank of the mesh, each rank's loss weighted by its share of the
+global elements (rows x planes).  The result is the single-device step's
+with the sampler in place of the stencil (JAX's ``ADVCHAIN_STENCIL=0``),
+up to f32 reduction order.
 The state's model and optimiser are updated in place; the returned state
 carries the step count.  The anatomy-preserving retries and rejection
 sampling are host-side control flow and stay out of the step, as in JAX.
@@ -40,6 +54,8 @@ import torch
 
 from advchain_tpu_torch.losses import cross_entropy
 from advchain_tpu_torch.ops import collectives
+from advchain_tpu_torch.parallel.mesh import every_rank_group
+from advchain_tpu_torch.parallel.spatial import chain_displacement_bound
 
 __all__ = ["TrainState", "make_adversarial_train_step",
            "make_supervised_train_step"]
@@ -59,31 +75,54 @@ class TrainState:
         return cls(model=model, optimizer=optimizer, step=0)
 
 
-def _data_axis(mesh, axis_name: str):
-    """The process group of the mesh's data axis, or None without a mesh.
-    A mesh whose ``space`` axis is larger than 1 raises: the spatially
-    partitioned step is not ported."""
+def _step_groups(mesh, axis_name: str, max_disp=None):
+    """(the data group, the space group or None, the group the step
+    reduces over) of a mesh, or None without a mesh.  On a mesh whose
+    ``space`` axis is larger than 1 the space group is a
+    ``collectives.SpaceGroup`` carrying the chain's bound ``max_disp``,
+    and the step reduces over every rank of the mesh."""
     if mesh is None:
         return None
     names = tuple(mesh.mesh_dim_names or ())
-    if "space" in names and mesh.size(names.index("space")) > 1:
-        raise NotImplementedError(
-            "the train step on a ('data', 'space') mesh with space > 1 is not "
-            "ported (ROADMAP §1 item 2: the space-partitioned UNet); use a "
-            "1-D data mesh, or parallel.spatial's building blocks")
     if axis_name not in names:
         raise ValueError(f"the mesh has no {axis_name!r} axis: {names}")
-    return mesh.get_group(axis_name)
+    data = mesh.get_group(axis_name)
+    if "space" not in names or mesh.size(names.index("space")) == 1:
+        return data, None, data
+    space = collectives.SpaceGroup(
+        mesh.get_group("space"), mesh.size(names.index("space")),
+        mesh.get_local_rank("space"), mesh, max_disp)
+    return data, space, every_rank_group(mesh)
 
 
 @contextlib.contextmanager
-def _data_group(group, image):
-    """The step's data group (``ops.collectives``), or nothing."""
-    if group is None:
+def _data_group(groups, batch):
+    """The step's data group (``ops.collectives``), with its space group on
+    a spatially partitioned mesh, or nothing.  There the batch must be
+    exactly ``{'image', 'label'}``, every rank's slab of one extent (one
+    all-gather over the space group) and the label's slab the image's."""
+    if groups is None:
         yield None
         return
-    with collectives.data_group(group, image.shape[0],
-                                device=image.device) as dg:
+    data, space, every = groups
+    image = batch["image"]
+    if space is not None:
+        if set(batch) != {"image", "label"}:
+            raise ValueError(f"a spatially partitioned step takes a batch "
+                             f"of exactly 'image' and 'label', got "
+                             f"{sorted(batch)}")
+        extents = collectives.all_gather(
+            torch.tensor([image.shape[2]], device=image.device),
+            group=space.group).tolist()
+        label = batch["label"]
+        lead = label.shape[1] if label.dim() == image.dim() - 1 \
+            else label.shape[2]
+        if len(set(extents)) != 1 or lead != image.shape[2]:
+            raise ValueError(f"the slabs of the leading spatial axis differ "
+                             f"over 'space': image {extents}, this rank's "
+                             f"label {lead}")
+    with collectives.data_group(data, image.shape[0], device=image.device,
+                                space=space, reduce_group=every) as dg:
         yield dg
 
 
@@ -95,14 +134,15 @@ def _check_state(state, model, optimizer):
 
 def _optimizer_step(optimizer, loss, dg=None):
     """Backward, then the update.  With a data group, the backward runs on
-    this rank's mean loss weighted by its share of the global batch, and
-    the parameter gradients are summed over the group in one all-reduce:
-    the global batch's gradient on every rank."""
+    this rank's mean loss weighted by its share of the global batch's
+    elements, and the parameter gradients are summed over the group (every
+    rank of the mesh) in one all-reduce: the global batch's gradient on
+    every rank."""
     optimizer.zero_grad(set_to_none=True)
     if dg is None:
         loss.backward()
     else:
-        (loss * (dg.n_local / dg.n_global)).backward()
+        (loss * dg.share).backward()
         grads = [p.grad for g in optimizer.param_groups for p in g["params"]
                  if p.grad is not None]
         flat = collectives.all_reduce(
@@ -113,14 +153,13 @@ def _optimizer_step(optimizer, loss, dg=None):
 
 
 def _global_metrics(metrics, dg):
-    """Each rank's mean metrics weighted by its share of the global batch
-    and summed over the data group: the global batch's values, equal on
-    every rank."""
+    """Each rank's mean metrics weighted by its share of the global batch's
+    elements and summed over the group: the global batch's values, equal
+    on every rank."""
     if dg is None:
         return metrics
     total = collectives.all_reduce(
-        torch.stack(list(metrics.values())) * (dg.n_local / dg.n_global),
-        group=dg.group)
+        torch.stack(list(metrics.values())) * dg.share, group=dg.group)
     return dict(zip(metrics, total.unbind()))
 
 
@@ -147,8 +186,8 @@ def make_adversarial_train_step(
     ``supervised_loss`` and ``consistency_loss`` (0-d tensors on the
     device).
 
-    ``mesh`` (``parallel.make_mesh``, or a 2-D ``make_spatial_mesh`` whose
-    ``space`` is 1): data parallelism over its ``axis_name`` axis.  Every
+    ``mesh`` (``parallel.make_mesh``, or a 2-D ``make_spatial_mesh``):
+    data parallelism over its ``axis_name`` axis.  Every
     rank passes its own rows of the global batch (``shard_batch``), the
     same replicated state (``replicate_to_mesh``) and a generator in the
     same state; each draws the global batch's transform parameters (the
@@ -161,13 +200,20 @@ def make_adversarial_train_step(
     mean over the batch's samples); the step weights them by the rank's
     share of the global batch and sums the parameter gradients over the
     group before the update, so the model and optimiser stay replicated,
-    and the returned metrics are the global values on every rank.  A mesh whose
-    ``space`` axis is larger than 1 raises ``NotImplementedError``.
-    ``donate_state`` is a JAX buffer-donation hint, accepted and ignored.
+    and the returned metrics are the global values on every rank.  A mesh
+    whose ``space`` axis is larger than 1 also splits the leading spatial
+    axis: each rank passes its block of the batch
+    (``shard_batch_spatial``), holds its slab of every activation and
+    field, and the losses and gradients are the global batch's (see the
+    module's docstring); the noise keeps its slab of the global draw, the
+    other transforms' parameters their rows.  A UNet level whose slab a
+    max-pool cannot halve raises ``ValueError``.  ``donate_state`` is a JAX
+    buffer-donation hint, accepted and ignored.
     """
     del donate_state
-    group = _data_axis(mesh, axis_name)
     transforms = tuple(solver.chain_of_transforms)
+    groups = _step_groups(mesh, axis_name,
+                          chain_displacement_bound(transforms))
     solver._apply_power_iteration_setting(power_iteration)
     flags = tuple(bool(f) for f in solver._normalize_flags(optimize_flags,
                                                            n_iter))
@@ -179,7 +225,7 @@ def make_adversarial_train_step(
         _check_state(state, model, optimizer)
         image = batch["image"].detach()
         label = batch["label"]
-        with _data_group(group, image) as dg:
+        with _data_group(groups, batch) as dg:
             model.begin_episode()  # one dropout mask for the whole step
 
             def frozen(x):
@@ -189,8 +235,9 @@ def make_adversarial_train_step(
                 init_output = frozen(image)
             params = tuple(t.init_params(generator, image.device)
                            for t in transforms)
-            if dg is not None:  # the global batch's draws, this rank's rows
-                params = tuple(dg.rows(p) for p in params)
+            if dg is not None:  # the global batch's draws, this rank's part
+                params = tuple(t.local_params(p, dg)
+                               for t, p in zip(transforms, params))
             params = tuple(t.prepare_train(p) if f else p
                            for t, p, f in zip(transforms, params, flags))
             if n_iter > 0:
@@ -225,9 +272,10 @@ def make_supervised_train_step(model, optimizer,
     generator (``begin_episode``).  ``mesh`` and ``axis_name`` as in
     :func:`make_adversarial_train_step`: global BatchNorm statistics, the
     loss weighted by this rank's share of the global batch, the gradients
-    summed over the data group."""
+    summed over the group; on a spatially partitioned mesh the network's
+    layers as there."""
     del donate_state
-    group = _data_axis(mesh, axis_name)
+    groups = _step_groups(mesh, axis_name)
     loss_fn = cross_entropy if supervised_loss_fn is None \
         else supervised_loss_fn
 
@@ -235,7 +283,7 @@ def make_supervised_train_step(model, optimizer,
         del generator
         _check_state(state, model, optimizer)
         image = batch["image"].detach()
-        with _data_group(group, image) as dg:
+        with _data_group(groups, batch) as dg:
             model.begin_episode()
             loss = loss_fn(model.apply_train(image), batch["label"])
             _optimizer_step(optimizer, loss, dg)

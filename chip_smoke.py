@@ -227,11 +227,34 @@ Phases (any failure raises and the script exits non-zero):
      morph's sigma 1, kernel 5) on the morph's fields of both episodes,
      against slicing the padded tensor and the dense op; the 3D velocity
      field, 3 planes a shard, is refused.
+ 33. the spatially partitioned train steps: two ranks spawned on this card
+     on a ('data', 'space') = (1, 2) mesh, each with the 128 rows and 96
+     of the 192 planes (``shard_batch_spatial``): the supervised step and
+     the headline step, each against the single-process step at batch 128
+     from the same weights and generator state with its compositions on
+     the sampler (``ops.integrate.sampler_compositions``, JAX's
+     ``ADVCHAIN_STENCIL=0``, which the space step is) under phase 30's
+     gates (the gradients within 3x the perturbation floor or 1e-5), and
+     against the default (stencil) single-process step, recorded; every
+     rank's weights equal; per rank no stencil launch and no dispatch
+     predicate, the band grid launches equal on both ranks; the
+     collectives and bytes a step; each rank's peak at most 0.75x the
+     single-process step's; the step's median in turns with the
+     single-process step (a record);
+ 34. the same on (2, 2), four ranks of 64 rows and 96 planes; the peak
+     recorded, not gated;
+ 35. the 3D volume train step (PseudoConv3dModel, dropout 0.1, the 3D
+     chain with mse, Adam 1e-4, n_iter 1) on (1, 2), 6 of the 12 planes a
+     rank, under phase 33's gates (no peak gate), its 3D step counts equal
+     to the single-process step's, the z-band launches per rank; the same
+     step with a space all-reduce dropped (the PGD step's sum of the
+     replicated parameters' gradients, or the weight gradients' sum over
+     'space'), which the gates must fail.
 Then the ``kernels`` line for all eighteen kernel records, each with its
 launches in one random-chain call, one constrained solve, the bf16 episode
 and train step, one cardiac recipe pass, the 20 timed RandAugment calls,
-each rank's data-parallel train step and phase 31's sharded calls beside
-the main paths'.
+each rank's data-parallel train step, phase 31's sharded calls and each
+rank's space steps of phases 33-35 beside the main paths'.
 The last line of standard output is the device record.  ``--profile PATH``
 / ``--profile3d PATH`` / ``--profile-train PATH`` / ``--profile3d-legacy
 PATH`` / ``--profile-legacy2d PATH`` / ``--profile-constrained PATH`` /
@@ -1222,27 +1245,38 @@ def build_train_step(device, batch, shape, names=("noise", "bias", "affine",
     408-447): UNet_16 (with the UNet's ``options``) with seeded random
     weights and the wrapper's ``compute_dtype``, Adam 1e-4, ``n_iter``
     PGD steps (1), smart power iteration, mse + contour; or the supervised
-    step.  With a
-    ``mesh``: the data-parallel step, the state replicated from the mesh's
-    first rank and this rank's rows of the batch."""
+    step.  A 3-D ``shape`` gives the 3D volume episode's step:
+    PseudoConv3dModel (dropout 0.1) and its chain (mse, no power
+    iteration).  With a ``mesh``: the data-parallel step, the state
+    replicated from the mesh's first rank and this rank's rows of the
+    batch; on a mesh whose ``space`` axis is larger than 1, this rank's
+    block of the batch (its rows and its slab of the leading spatial
+    axis)."""
     import torch
     from advchain_tpu_torch.parallel import (TrainState,
                                              make_adversarial_train_step,
                                              make_supervised_train_step,
-                                             replicate_to_mesh, shard_batch)
-    model = build_model(device, compute_dtype=compute_dtype, **options)
+                                             replicate_to_mesh, shard_batch,
+                                             shard_batch_spatial)
+    dims = len(shape)
+    model = build_model(device, dims=dims, compute_dtype=compute_dtype,
+                        **options)
     opt = torch.optim.Adam(model.module.parameters(), lr=LR)
     if supervised:
         step = make_supervised_train_step(model, opt, mesh=mesh)
     else:
         step = make_adversarial_train_step(
             model, build_solver(batch, shape, names), opt, n_iter=n_iter,
-            power_iteration="smart", mesh=mesh)
+            power_iteration=POWER_ITERATION[dims], mesh=mesh)
     state = TrainState.create(model, opt)
-    data = {"image": make_image(batch, shape),
+    data = {"image": make_input(batch, shape),
             "label": make_labels(batch, shape)}
     if mesh is not None:
-        return step, replicate_to_mesh(state, mesh), shard_batch(data, mesh)
+        names_m = tuple(mesh.mesh_dim_names)
+        spatial = ("space" in names_m
+                   and mesh.size(names_m.index("space")) > 1)
+        place = shard_batch_spatial if spatial else shard_batch
+        return step, replicate_to_mesh(state, mesh), place(data, mesh)
     return step, state, {k: torch.as_tensor(v, device=device)
                          for k, v in data.items()}
 
@@ -3956,27 +3990,37 @@ def _grads(model):
 
 
 def _step_record(state, metrics):
+    from advchain_tpu_torch.ops.integrate import ADAPTIVE_STEPS
     return {"metrics": {k: float(v) for k, v in metrics.items()},
-            "weights": _weights(state.model), "grads": _grads(state.model)}
+            "weights": _weights(state.model), "grads": _grads(state.model),
+            # the 3D exponentiations' step counts since the last clear
+            "adaptive_steps": list(ADAPTIVE_STEPS)}
 
 
-def _single_steps(dev, batch, shape, **kw):
+def _single_steps(dev, batch, shape, sampler=False, **kw):
     """Rank 0's references for a compared step: the single-process step on
     the whole batch from the data-parallel step's weights and generator
-    state, and the same on the image perturbed by ``DP_PERTURB`` relative.
+    state, and the same on the image perturbed by ``DP_PERTURB`` relative;
+    ``sampler``: with every composition on the sampler
+    (``ops.integrate.sampler_compositions``, JAX's ``ADVCHAIN_STENCIL=0``).
     Returns their records and the first's (step, state, data,
     generator)."""
     import torch
+    from advchain_tpu_torch.ops.integrate import (ADAPTIVE_STEPS,
+                                                  sampler_compositions)
     recs, runs = {}, {}
     for key, pert in (("single", 0.0), ("perturbed", DP_PERTURB)):
         step, state, data = build_train_step(dev, batch, shape, **kw)
+        ADAPTIVE_STEPS.clear()
         if pert:
             noise = torch.randn(data["image"].shape, device=dev,
                                 generator=torch.Generator(
                                     device=dev).manual_seed(5))
             data["image"] = data["image"] * (1 + pert * noise)
         gen = torch.Generator(device=dev).manual_seed(1)
-        state, m = step(state, data, gen)
+        with (sampler_compositions() if sampler
+              else contextlib.nullcontext()):
+            state, m = step(state, data, gen)
         recs[key] = _step_record(state, m)
         runs[key] = (step, state, data, gen)
     return recs, runs["single"]
@@ -4071,13 +4115,14 @@ def _worst_leaf(grads, ref):
                for k, v in ref.items())[::-1]
 
 
-def _check_dp_step(recs, name):
+def _check_dp_step(recs, name, grad_rel_l2=0.0):
     """One compared step: every rank's metrics and weights equal; the
     losses within the JAX package's bounds of the single-process step's;
     the running statistics within rtol 1e-4 / atol 1e-5; the applied
     gradients' relative L2 gap within ``TOL_DP_GRAD`` times the
-    single-process step's own gap under the input perturbation.  Returns
-    the loss gaps, both relative L2 gaps and both worst leaves."""
+    single-process step's own gap under the input perturbation, or within
+    ``grad_rel_l2`` where that is larger.  Returns the loss gaps, both
+    relative L2 gaps and both worst leaves."""
     import torch
     ref = recs[0][name]
     for r, rec in enumerate(recs[1:], 1):
@@ -4105,12 +4150,13 @@ def _check_dp_step(recs, name):
                                  f"{float(gap.max()):.3e}")
     dp = _rel_l2(ref["grads"], single["grads"])
     floor = _rel_l2(ref["perturbed"]["grads"], single["grads"])
-    if dp > TOL_DP_GRAD * floor:
-        raise AssertionError(f"{name}: the data-parallel step's applied "
+    if dp > max(TOL_DP_GRAD * floor, grad_rel_l2):
+        raise AssertionError(f"{name}: the parallel step's applied "
                              f"gradients are {dp:.3e} off the "
                              f"single-process step's (relative L2), more "
                              f"than {TOL_DP_GRAD}x its own {floor:.3e} under "
-                             f"a {DP_PERTURB} input perturbation")
+                             f"a {DP_PERTURB} input perturbation and more "
+                             f"than {grad_rel_l2}")
     return {"losses": rel, "grad_rel_l2": dp, "perturbed_rel_l2": floor,
             "worst_leaf": _worst_leaf(ref["grads"], single["grads"]),
             "perturbed_worst_leaf": _worst_leaf(ref["perturbed"]["grads"],
@@ -4339,6 +4385,240 @@ def run_parallel(device, cfg, world=DP_WORLD):
     check_ss([o["ss"] for o in outs])
     check_halo_gauss([o["hg"] for o in outs])
     return outs, dp
+
+
+# ------------------------------------------------------------- phases 33-35
+SPACE_TURNS = 2              # timed turns after one warm-up (phases 33-34)
+SPACE_PEAK_GATE = 0.75       # phase 33: peak per rank over the single step's
+# the applied gradients' relative L2 gap that passes whatever the
+# perturbation floor (f32 reduction order over the ranks): just above the
+# largest sound gaps, 7.2e-6 on the CPU (tests/test_torch_space_train.py,
+# which holds 1e-4) and 3.9e-7 on the card (phase 35, whose perturbation
+# floor is 1.2e-7)
+TOL_SPACE_GRAD = 1e-5
+# phase 35's planted faults, each a dropped space all-reduce that its gates
+# must fail: the PGD step's sum of the replicated transform parameters'
+# gradients, and the weight gradients' sum over 'space' (summed over 'data'
+# alone)
+PLANTED_FAULTS = ("pgd_space_sum", "weight_space_sum")
+# the phases' ('data', 'space') meshes
+SPACE_MESHES = {"space_1x2": (1, 2), "space_2x2": (2, 2),
+                "volume_1x2": (1, 2)}
+
+
+@contextlib.contextmanager
+def planted_fault(name, mesh):
+    """The space step with one of ``PLANTED_FAULTS`` planted."""
+    import dataclasses
+    import advchain_tpu_torch.parallel.train as train
+    from advchain_tpu_torch.augmentor import \
+        ComposeAdversarialTransformSolver as solver
+    saved = solver._sum_replicated_grads, train._optimizer_step
+    if name == "pgd_space_sum":
+        solver._sum_replicated_grads = lambda self, grads, flags, space: grads
+    else:
+        data = mesh.get_group("data")
+        train._optimizer_step = lambda opt, loss, dg=None: saved[1](
+            opt, loss, dataclasses.replace(dg, group=data))
+    try:
+        yield
+    finally:
+        solver._sum_replicated_grads, train._optimizer_step = saved
+
+
+def space_train_rank(rank, world, device, mesh_shape, batch, shape, turns):
+    """Phases 33-35 on one rank: on a ``mesh_shape`` ('data', 'space')
+    mesh, the supervised step (2D) and the headline step (or, for a 3-D
+    ``shape``, the 3D volume step), each on this rank's rows and slab from
+    fresh weights, and on rank 0 its references (:func:`_single_steps`,
+    whose peak memory rank 0 records); then ``turns`` timed turns of the
+    headline step (the space step, then the single-process step) after
+    one warm-up.  The headline step's first space step is the counted
+    one: launches, collectives, peak memory and the 3D step counts.  The
+    3D step also runs once with each of ``PLANTED_FAULTS``."""
+    import torch
+    import torch.distributed as dist
+    from advchain_tpu_torch.ops import collectives
+    from advchain_tpu_torch.ops.integrate import ADAPTIVE_STEPS
+    from advchain_tpu_torch.parallel import (make_spatial_mesh,
+                                             replicate_to_mesh)
+    from advchain_tpu_torch.parallel.mesh import mesh_device
+    mesh = make_spatial_mesh(*mesh_shape, device_type=device)
+    dev = mesh_device(mesh)
+    cuda = dev.type == "cuda"
+    out = {"compared": {}}
+    for name, kw in ({"supervised": {"supervised": True}}
+                     if len(shape) == 2 else {}).items():
+        step, state, data = build_train_step(dev, batch, shape, mesh=mesh,
+                                             **kw)
+        gen = replicate_to_mesh(torch.Generator(device=dev).manual_seed(1),
+                                mesh)
+        state, m = step(state, data, gen)
+        out["compared"][name] = _step_record(state, m)
+        if rank == 0:
+            out["compared"][name].update(
+                _single_steps(dev, batch, shape, **kw)[0])
+        del step, state, data
+    step, state, data = build_train_step(dev, batch, shape, mesh=mesh)
+    gen = replicate_to_mesh(torch.Generator(device=dev).manual_seed(1), mesh)
+    out.update(block=tuple(data["image"].shape), device=str(dev),
+               transport=collectives.transport(mesh.get_group("space"),
+                                               dev.type))
+    dist.barrier()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    collectives.reset_counts()
+    ADAPTIVE_STEPS.clear()
+    state, m = step(state, data, gen)
+    sync(dev)
+    out["launches"] = launch_counts()
+    out["collectives"] = dict(collectives.COUNTS)
+    out["peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+    out["compared"]["headline"] = _step_record(state, m)
+    single = None
+    if rank == 0:
+        # the default single-process step (stencil compositions): its peak,
+        # its time in the turns, its gaps recorded; the gates hold the step
+        # against the one with its compositions on the sampler
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        recs, single = _single_steps(dev, batch, shape)
+        out["single_peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+        out["compared"]["headline"]["stencil"] = recs
+        out["compared"]["headline"].update(
+            _single_steps(dev, batch, shape, sampler=True)[0])
+    if len(shape) == 3:
+        out["planted"] = {}
+        for fault in PLANTED_FAULTS:
+            f_step, f_state, f_data = build_train_step(dev, batch, shape,
+                                                       mesh=mesh)
+            f_gen = replicate_to_mesh(
+                torch.Generator(device=dev).manual_seed(1), mesh)
+            with planted_fault(fault, mesh):
+                f_state, f_m = f_step(f_state, f_data, f_gen)
+            out["planted"][fault] = _step_record(f_state, f_m)
+            del f_step, f_state, f_data
+    space_ms, single_ms = [], []
+    for i in range(1 + turns):
+        dist.barrier()
+        t0 = time.perf_counter()
+        state, _ = step(state, data, gen)
+        sync(dev)
+        dist.barrier()
+        if i:
+            space_ms.append((time.perf_counter() - t0) * 1e3)
+        if single is not None:
+            s_step, s_state, s_data, s_gen = single
+            t0 = time.perf_counter()
+            s_state, _ = s_step(s_state, s_data, s_gen)
+            sync(dev)
+            if i:
+                single_ms.append((time.perf_counter() - t0) * 1e3)
+        dist.barrier()
+    out["space_ms"], out["single_ms"] = space_ms, single_ms
+    return out
+
+
+def check_space_train(outs, peak_gate=None):
+    """Phases 33-35's gates: phase 30's on each compared step
+    (:func:`_check_dp_step`: ranks equal, losses at the JAX package's
+    bounds, running statistics, applied gradients within 3x the
+    perturbation floor, or within ``TOL_SPACE_GRAD``) against the
+    single-process step with its
+    compositions on the sampler, and the gaps to the default step's
+    (stencil) recorded; every rank's step launched no stencil kernel and
+    no dispatch predicate, and as many band grid and z-band grid kernels
+    as the others; the 3D step counts the single-process step's; with
+    ``peak_gate``, each rank's peak at most that share of the
+    single-process step's; the gates fail each planted fault, whose gaps
+    and failed gate are returned under ``planted``."""
+    gaps = {name: _check_dp_step([o["compared"] for o in outs], name,
+                                 TOL_SPACE_GRAD)
+            for name in outs[0]["compared"]}
+    head = outs[0]["compared"]["headline"]
+    gaps["planted"] = {}
+    for fault, rec in outs[0].get("planted", {}).items():
+        gap = gaps["planted"][fault] = {
+            "losses": {k: abs(rec["metrics"][k] - v) / abs(v)
+                       for k, v in head["single"]["metrics"].items()},
+            "grad_rel_l2": _rel_l2(rec["grads"], head["single"]["grads"])}
+        try:
+            _check_dp_step([{"planted": dict(o["planted"][fault],
+                                             single=head["single"],
+                                             perturbed=head["perturbed"])}
+                            for o in outs], "planted", TOL_SPACE_GRAD)
+        except AssertionError as e:
+            gap["failed"] = str(e)
+        else:
+            raise AssertionError(f"the space step's gates passed the "
+                                 f"planted fault {fault}: gaps {gap}")
+    stencil = head["stencil"]["single"]
+    gaps["headline"]["stencil_losses"] = {
+        k: abs(head["metrics"][k] - v) / abs(v)
+        for k, v in stencil["metrics"].items()}
+    gaps["headline"]["stencil_grad_rel_l2"] = _rel_l2(head["grads"],
+                                                      stencil["grads"])
+    gaps["headline"]["stencil_perturbed_rel_l2"] = _rel_l2(
+        head["stencil"]["perturbed"]["grads"], stencil["grads"])
+    for r, o in enumerate(outs):
+        lc = o["launches"]
+        if lc["stencil"]["fwd"] or lc["stencil"]["bwd"] or \
+                lc["slope"]["fwd"]:
+            raise AssertionError(f"rank {r}'s space step launched the "
+                                 f"stencil or the dispatch predicate: "
+                                 f"stencil {lc['stencil']}, predicates "
+                                 f"{lc['slope']['fwd']}")
+        for fam in ("band_grid", "zband_grid"):
+            if lc[fam] != outs[0]["launches"][fam]:
+                raise AssertionError(f"rank {r} launched {fam} {lc[fam]}, "
+                                     f"rank 0 {outs[0]['launches'][fam]}")
+        steps = o["compared"]["headline"]["adaptive_steps"]
+        want = outs[0]["compared"]["headline"]["single"]["adaptive_steps"]
+        if steps != want:
+            raise AssertionError(f"rank {r}'s 3D step counts {steps} are "
+                                 f"not the single-process step's {want}")
+        if peak_gate is not None and \
+                o["peak"] > peak_gate * outs[0]["single_peak"]:
+            raise AssertionError(
+                f"rank {r}'s peak {o['peak'] / 1e9:.3f} GB is over "
+                f"{peak_gate}x the single-process step's "
+                f"{outs[0]['single_peak'] / 1e9:.3f} GB")
+    return gaps
+
+
+def space_rank(rank, world, device, cfg):
+    """Phases 33 and 35 in one pair of spawned ranks, or phase 34 in four:
+    each configured space step."""
+    return {name: space_train_rank(rank, world, device, SPACE_MESHES[name],
+                                   c["batch"], c["shape"], c["turns"])
+            for name, c in cfg.items()
+            if SPACE_MESHES[name][0] * SPACE_MESHES[name][1] == world}
+
+
+def space_config(batch=BATCH, shape=SHAPE, batch3d=None, shape3d=None,
+                 turns=SPACE_TURNS):
+    """Phases 33-35's sizes: the headline train step on (1, 2) and (2, 2),
+    the 3D volume step on (1, 2) (no timed turns)."""
+    batch3d = BATCH3D if batch3d is None else batch3d
+    shape3d = SHAPE3D if shape3d is None else shape3d
+    return {"space_1x2": {"batch": batch, "shape": shape, "turns": turns},
+            "volume_1x2": {"batch": batch3d, "shape": shape3d, "turns": 0},
+            "space_2x2": {"batch": batch, "shape": shape, "turns": turns}}
+
+
+def run_space(device, cfg, peak_gate=SPACE_PEAK_GATE):
+    """Phases 33-35: spawn two ranks (33, 35), then four (34); hold every
+    gate (phase 33's peak against ``peak_gate``).  Returns each phase's
+    per-rank outputs and gaps."""
+    pairs = spawn_ranks(space_rank, 2, device, cfg)
+    fours = spawn_ranks(space_rank, 4, device, cfg)
+    outs = {name: [o[name] for o in (fours if name == "space_2x2"
+                                     else pairs)] for name in cfg}
+    gaps = {name: check_space_train(
+        outs[name], peak_gate if name == "space_1x2" else None)
+        for name in cfg}
+    return outs, gaps
 
 
 def kernel_launches(launches):
@@ -4812,6 +5092,69 @@ def main(argv=None):
     print(f"[parallel] phases 30-32 in {time.perf_counter() - t_par:.1f} s",
           flush=True)
 
+    # phases 33-35: the spatially partitioned train steps, two ranks on
+    # (1, 2) and four on (2, 2), on this card over gloo
+    t_space = time.perf_counter()
+    space_outs, gaps_space = run_space(device, space_config())
+    space_launches = {name: [kernel_launches(o["launches"]) for o in outs]
+                      for name, outs in space_outs.items()}
+    for name, outs in space_outs.items():
+        for r, o in enumerate(outs):
+            print(f"[space-train] {name} rank {r} of {len(outs)} on "
+                  f"{o['device']} ({o['transport']}): block "
+                  f"{list(o['block'])}, launches band_grid "
+                  f"{o['launches']['band_grid']}, zband_grid "
+                  f"{o['launches']['zband_grid']}, stencil "
+                  f"{o['launches']['stencil']}, dispatch predicates "
+                  f"{o['launches']['slope']['fwd']}; "
+                  f"{o['collectives']['calls']} collectives moving "
+                  f"{o['collectives']['bytes']} bytes a step "
+                  f"({ {k: v for k, v in o['collectives'].items() if k not in ('calls', 'bytes')} }); "
+                  f"peak {o['peak'] / 1e9:.3f} GB; 3D step counts "
+                  f"{o['compared']['headline']['adaptive_steps']}",
+                  flush=True)
+        o0 = outs[0]
+        for step_name, rec in o0["compared"].items():
+            g = gaps_space[name][step_name]
+            print(f"[space-train] {name} {step_name} step against the "
+                  f"single-process step with sampler compositions: metrics "
+                  f"{rec['metrics']} (relative {g['losses']}); applied "
+                  f"gradients {g['grad_rel_l2']:.3e} relative L2, against "
+                  f"its own {g['perturbed_rel_l2']:.3e} under a "
+                  f"{DP_PERTURB} input perturbation (gate {TOL_DP_GRAD}x, "
+                  f"or {TOL_SPACE_GRAD}); worst leaf {g['worst_leaf'][0]} "
+                  f"at {g['worst_leaf'][1]:.2f}x the per-leaf yardstick",
+                  flush=True)
+            if "stencil_losses" in g:
+                print(f"[space-train] {name} {step_name} step against the "
+                      f"default single-process step (stencil "
+                      f"compositions), recorded: losses "
+                      f"{g['stencil_losses']}, gradients "
+                      f"{g['stencil_grad_rel_l2']:.3e} relative L2, its "
+                      f"own {g['stencil_perturbed_rel_l2']:.3e} under the "
+                      f"perturbation", flush=True)
+        for fault, g in gaps_space[name]["planted"].items():
+            print(f"[space-train] {name} planted fault {fault}: losses "
+                  f"{g['losses']}, gradients {g['grad_rel_l2']:.3e} "
+                  f"relative L2 (gate {TOL_SPACE_GRAD}); failed: "
+                  f"{g['failed']}", flush=True)
+        peak_note = (f" (gate {SPACE_PEAK_GATE}x)" if name == "space_1x2"
+                     else "")
+        print(f"[space-train] {name}: peak per rank "
+              f"{[round(o['peak'] / 1e9, 3) for o in outs]} GB against the "
+              f"single-process step's {o0['single_peak'] / 1e9:.3f} GB"
+              f"{peak_note}; step median "
+              f"{statistics.median(o0['space_ms']) if o0['space_ms'] else float('nan'):.1f}"
+              f" ms per rank (turns {[round(t, 1) for t in o0['space_ms']]})"
+              f" against the single-process step's "
+              f"{statistics.median(o0['single_ms']) if o0['single_ms'] else float('nan'):.1f}"
+              f" ms ({[round(t, 1) for t in o0['single_ms']]}) in turns; a "
+              f"record, not a scaling claim: the ranks share one card and "
+              f"gloo stages every collective through host memory; on "
+              f"{card}", flush=True)
+    print(f"[space] phases 33-35 in {time.perf_counter() - t_space:.1f} s",
+          flush=True)
+
     shape2 = f"N={BATCH} {SHAPE[0]}x{SHAPE[1]}"
     shape3 = f"N={BATCH3D} {'x'.join(map(str, SHAPE3D))}"
     kernels = (kernel_records("band", launches2, worst2, rows2, "rot30", 1,
@@ -4850,6 +5193,12 @@ def main(argv=None):
                                              for d in dp_launches]
         rec["launches_sharded_sampler_call"] = ss_launches.get(rec["name"],
                                                                0)
+        # phases 33-35: one space step, per rank
+        for key, name in (("launches_space_train_per_rank", "space_1x2"),
+                          ("launches_space_train_2x2_per_rank",
+                           "space_2x2"),
+                          ("launches_space_volume_per_rank", "volume_1x2")):
+            rec[key] = [d[rec["name"]] for d in space_launches[name]]
         if rec["name"] == f"{KERNEL_NAMES['band_grid']}_fwd":
             # phase 28's apply_op calls against the CPU: bilinear, and
             # nearest outside the tie pixels

@@ -13,7 +13,6 @@ anatomy] backward).  The Flax UNet(1, 4, 4)'s weights are carried into the
 port for the parity checks; the ladder's checks use a small closed-form
 network in both packages, since they count steps, draws and warnings."""
 
-import itertools
 import logging
 
 import numpy as np
@@ -28,7 +27,6 @@ from advchain_tpu.models import SegmentationModel as JaxModel
 from advchain_tpu.models import UNet as FlaxUNet
 
 from advchain_tpu_torch import augmentor as taug
-from advchain_tpu_torch.augmentor import compose as tcompose
 from advchain_tpu_torch.models import (SegmentationModel, UNet,
                                        flax_unet_to_torch_state)
 
@@ -381,12 +379,7 @@ def test_ladder_branches(ladder_solvers, caplog, case):
 
 
 # --------------------------------------------- the fused first attempt
-def _fused(pkg, tol, n_iter, caplog, logger, monkeypatch):
-    if pkg is taug:
-        # the port's episode seeds come from a process-wide counter; start
-        # it where a fresh JAX solver's own counter starts, so the draws do
-        # not depend on which tests ran before in this process
-        monkeypatch.setattr(tcompose, "_episode_seeds", itertools.count(1))
+def _fused(pkg, tol, n_iter, caplog, logger):
     solver = _solver(pkg, ("wide_affine",), mse_only=True)
     rec = _Recorder(pkg, solver, [])
     del solver.compute_anatomy_misoverlapping_loss  # the real score
@@ -400,16 +393,15 @@ def _fused(pkg, tol, n_iter, caplog, logger, monkeypatch):
 
 
 @pytest.mark.parametrize("tol", [1e-9, 1.0])
-def test_fused_first_attempt(caplog, monkeypatch, tol):
+def test_fused_first_attempt(caplog, tol):
     """lazy_load=False end to end (tests/test_solver.py:193-262 for JAX):
     at 1e-9 no init passes and the ladder falls back to a random init
     after 3 x n_iter steps, with JAX's warnings in JAX's order; at 1.0 the
     first attempt's n_iter steps are all."""
     n_iter = 1 if tol < 1 else 2
-    d_ref, multi_steps, w_ref = _fused(jaug, tol, n_iter, caplog, LOGGERS[0],
-                                       monkeypatch)
-    d_ours, steps, w_ours = _fused(taug, tol, n_iter, caplog, LOGGERS[1],
-                                   monkeypatch)
+    d_ref, multi_steps, w_ref = _fused(jaug, tol, n_iter, caplog,
+                                       LOGGERS[0])
+    d_ours, steps, w_ours = _fused(taug, tol, n_iter, caplog, LOGGERS[1])
     assert np.isfinite(d_ours) and np.isfinite(d_ref)
     assert w_ours == w_ref, (w_ours, w_ref)
     # JAX runs the first attempt's steps inside its episode program

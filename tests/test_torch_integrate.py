@@ -5,6 +5,8 @@ compositions on the sampler), the port with JAX's base grid, as in
 tests/test_torch_stencil.py: the two packages' linspaces differ in ulps
 (ROADMAP queue 3), which repeated compositions amplify."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -97,3 +99,40 @@ def test_jacobian_of_identity_and_bad_shape():
         torch.ones(1, 1, 6, 7))
     with pytest.raises(ValueError):
         tops.jacobian_determinant_2d(torch.zeros(1, 3, 6, 7))
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_sampler_compositions_match_jax_sampler_route(dims):
+    """Inside ``sampler_compositions`` a same-shape composition samples on
+    the sampler with border padding: forward and both gradients against
+    JAX's composition with ADVCHAIN_STENCIL=0, on flows whose border
+    entries sit exactly on -1 (the sampler's half slope there), within
+    1e-5 of the largest entry; outside it the port's stencil passes the
+    whole slope at those entries (JAX's default dispatch)."""
+    import jax
+    shape = (2, dims) + ((12, 10) if dims == 2 else (6, 8, 10))
+    r = np.random.RandomState(30 + dims)
+    base = np.array(jint.base_grid(2, shape[2:]))
+    f1 = (base + 0.3 * r.uniform(-1, 1, shape)).astype(np.float32)
+    f2 = np.clip(base + 0.1 * r.uniform(-1, 1, shape), -1, 1).astype(
+        np.float32)
+    f2[:, 0, ..., 0] = -1.0  # exactly on the lower bound
+    ct = r.randn(*shape).astype(np.float32)
+
+    def ours(ctx):
+        a = torch.from_numpy(f1).requires_grad_(True)
+        b = torch.from_numpy(f2).requires_grad_(True)
+        with ctx:
+            y = tint.compose_flow(a, b)
+        (y * torch.from_numpy(ct)).sum().backward()
+        return [y.detach().numpy(), a.grad.numpy(), b.grad.numpy()]
+
+    jax.clear_caches()
+    y = jint.compose_flow(jnp.asarray(f1), jnp.asarray(f2))
+    grads = jax.grad(lambda a, b: jnp.sum(jint.compose_flow(a, b) * ct),
+                     argnums=(0, 1))(jnp.asarray(f1), jnp.asarray(f2))
+    refs = [np.asarray(y)] + [np.asarray(g) for g in grads]
+    for got, ref in zip(ours(tint.sampler_compositions()), refs):
+        assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+    stencil = ours(contextlib.nullcontext())
+    assert np.abs(stencil[2] - refs[2]).max() > 1e-3 * np.abs(refs[2]).max()

@@ -89,11 +89,11 @@ def mesh_rank(rank, world, device):
         for s in opt.state.values():
             s["exp_avg"].add_(1.0)
     state, gen, t = replicate_to_mesh((state, gen, t), mesh)
-    try:  # the space-partitioned step is not ported: no silent fallback
-        make_supervised_train_step(
-            model, opt, mesh=make_spatial_mesh(1, world, device_type=device))
-    except NotImplementedError as e:
-        out["space_mesh"] = str(e)
+    # the supervised step on a (1, world) space mesh: each rank a slab of
+    # the leading spatial axis
+    out["space_mesh"] = run_train_case(
+        {"kind": "supervised", "names": (), "size": SPACE_SIZE[world]},
+        make_spatial_mesh(1, world, device_type=device))
     out["replicated"] = {
         "state": {k: v.clone() for k, v in
                   model.module.state_dict().items()},
@@ -294,8 +294,21 @@ def test_replicate_to_mesh_after_a_perturbation(mesh_runs, world):
 
 @pytest.mark.parametrize("world", [2, 4])
 def test_train_step_refuses_a_space_mesh(mesh_runs, world):
+    """The step runs on a ('data', 'space') mesh whose space axis is every
+    rank: the supervised step's loss and weights are the single-process
+    step's at the JAX package's bounds, equal on every rank."""
+    ref = run_train_case({"kind": "supervised", "names": (),
+                          "size": SPACE_SIZE[world]})
+    first = mesh_runs[world][0]["space_mesh"]
     for out in mesh_runs[world]:
-        assert "ROADMAP §1 item 2" in out["space_mesh"]
+        assert out["space_mesh"]["metrics"] == first["metrics"]
+        for k, v in first["state"].items():
+            assert torch.equal(out["space_mesh"]["state"][k], v), k
+    assert first["metrics"][0]["total_loss"] == pytest.approx(
+        ref["metrics"][0]["total_loss"], rel=1e-4)
+    for k, v in ref["state"].items():
+        np.testing.assert_allclose(first["state"][k].numpy(), v.numpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=k)
 
 
 def test_initialize_distributed_single_process(monkeypatch):
@@ -330,6 +343,8 @@ TRAIN_CONFIGS = {
                "shift_y": 0.1},
     "morph": {"epsilon": 1.5, "vector_size": [2, 2]},
 }
+# the supervised step's image on a (1, world) space mesh: 16 planes a rank
+SPACE_SIZE = {2: [4, 1, 32, 16], 4: [4, 1, 64, 16]}
 # the 3D volume episode's chain (bench.py:363-382) at 4 x 1 x 8 x 16 x 16
 TRAIN_SIZE_3D = [4, 1, 8, 16, 16]
 TRAIN_CONFIGS_3D = {
@@ -392,7 +407,9 @@ def train_parts(names, state_dict=None, opt="sgd", lr=1e-2,
 
 def run_train_case(case, mesh=None, rows=slice(None)):
     """One case's steps: on the whole batch without a mesh, or on ``rows``
-    with one.  Returns per-step metrics, the weights and buffers after the
+    with one (on a mesh whose space axis is larger than 1, on this rank's
+    block, ``shard_batch_spatial``).  ``case["size"]`` overrides the
+    batch's size.  Returns per-step metrics, the weights and buffers after the
     last step and the gradients that step applied.  ``case["float64"]``
     runs the case with float64 as the default dtype; ``case["perturb"]``
     scales the image by ``1 + perturb * randn`` (seeded)."""
@@ -408,7 +425,8 @@ def run_train_case(case, mesh=None, rows=slice(None)):
 def _run_train_case(case, mesh, rows):
     from advchain_tpu_torch.parallel import (TrainState,
                                              make_adversarial_train_step,
-                                             make_supervised_train_step)
+                                             make_supervised_train_step,
+                                             shard_batch_spatial)
     model, solver, opt = train_parts(
         case["names"], case.get("state_dict"), case.get("opt", "sgd"),
         case.get("lr", 1e-2), case.get("divergences", ("mse", "contour")),
@@ -424,15 +442,21 @@ def _run_train_case(case, mesh, rows):
             model, solver, opt, n_iter=case.get("n_iter", 1),
             power_iteration="smart", supervised_loss_fn=loss_fn, mesh=mesh)
     draws = case.get("draws")
-    batch = train_batch(TRAIN_SIZE_3D if case.get("dims") == 3
-                        else TRAIN_SIZE)
+    batch = train_batch(case.get("size") or (
+        TRAIN_SIZE_3D if case.get("dims") == 3 else TRAIN_SIZE))
     image = batch["image"]
     if case.get("perturb"):
         image = image * (1 + case["perturb"] * np.random.RandomState(
             5).randn(*image.shape))
-    batch = {"image": torch.from_numpy(image[rows]).to(
-                 torch.get_default_dtype()),
-             "label": torch.from_numpy(batch["label"][rows]).long()}
+    names = () if mesh is None else tuple(mesh.mesh_dim_names)
+    if "space" in names and mesh.size(names.index("space")) > 1:
+        batch = shard_batch_spatial(
+            {"image": torch.from_numpy(image).to(torch.get_default_dtype()),
+             "label": torch.from_numpy(batch["label"]).long()}, mesh)
+    else:
+        batch = {"image": torch.from_numpy(image[rows]).to(
+                     torch.get_default_dtype()),
+                 "label": torch.from_numpy(batch["label"][rows]).long()}
     state = TrainState.create(model, opt)
     metrics = []
     for i in range(case.get("steps", 1)):
@@ -456,7 +480,9 @@ def train_rank(rank, world, device, cases):
     from advchain_tpu_torch.parallel import make_mesh, make_spatial_mesh
     meshes = {"1d": make_mesh(device_type=device),
               # ('data', 'space') with space 1: the data axis is every rank
-              "2d": make_spatial_mesh(world, 1, device_type=device)}
+              "2d": make_spatial_mesh(world, 1, device_type=device),
+              # and with space 2: each rank a slab of half the height
+              "space": make_spatial_mesh(world // 2, 2, device_type=device)}
     out = {}
     for name, case in cases.items():
         n = (TRAIN_SIZE_3D if case.get("dims") == 3 else TRAIN_SIZE)[0]

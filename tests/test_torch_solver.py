@@ -127,3 +127,27 @@ def test_power_iteration_settings():
     solver._apply_power_iteration_setting([False, True, False, True])
     assert [t.power_iteration for t in solver.chain_of_transforms] == \
         [False, True, False, True]
+
+
+def test_episode_seeds_are_per_solver(model):
+    """Each solver counts its own episode seeds from 1, as the JAX
+    package's ``_next_episode_seed`` does: a solver made after other
+    solvers ran episodes draws the same first episode as a fresh one."""
+    from advchain_tpu import augmentor as jaug
+
+    def first_episode():
+        solver = _solver()
+        solver.adversarial_training(_data(), model, n_iter=0)
+        return [p.clone() for p in solver.get_transformation_parameters()]
+
+    fresh = first_episode()
+    busy = _solver()
+    for _ in range(2):  # episodes of another solver in between
+        busy.adversarial_training(_data(), model, n_iter=0)
+    for a, b in zip(first_episode(), fresh):
+        assert torch.equal(a, b)
+    jsolver = jaug.ComposeAdversarialTransformSolver(chain_of_transforms=[])
+    tsolver = _solver()
+    assert ([int(tsolver._generator("cpu").initial_seed())
+             for _ in range(3)]
+            == [jsolver._next_episode_seed() for _ in range(3)] == [1, 2, 3])
