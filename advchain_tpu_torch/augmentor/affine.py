@@ -21,6 +21,12 @@ from advchain_tpu_torch.ops.affine import affine_grid, invert_affine_matrix
 from advchain_tpu_torch.ops.grid_sample import clip, grid_sample
 
 
+def hardtanh(x):
+    """``clip(x, -1, 1)`` with ``jnp.clip``'s half slope at the bounds
+    (the JAX package's ``hardtanh``)."""
+    return clip(x, -1.0, 1.0)
+
+
 def sample_with_padding(data, grid, interp: str, padding_mode,
                         tile_order: str = "rows"):
     """grid_sample with the reference's extended padding modes:
@@ -99,7 +105,7 @@ class AdvAffine(AdvTransformBase):
     def gen_batch_affine_matrix(self, affine_tensors):
         """Latent (N, 5|9) -> affine matrices (N, d, d+1); in 2D the
         rotation entries are multiplied by the scales."""
-        t = clip(affine_tensors, -1.0, 1.0)  # Hardtanh
+        t = hardtanh(affine_tensors)
         if self.spatial_dims == 3:
             return self._matrix_3d(t)
         rot, sx, sy, tx, ty = t.unbind(dim=1)

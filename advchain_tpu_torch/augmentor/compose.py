@@ -44,6 +44,7 @@ from __future__ import annotations
 import logging
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from advchain_tpu_torch import resolve_device
@@ -65,6 +66,12 @@ _WARN_REINIT = "volume not preserved; continuing search with a new " \
 _WARN_ONE_MORE = "volume not preserved; continuing search with one more step"
 # redraws of one geometric transform before the init gives up
 _MAX_INIT_TRIES = 10
+
+
+def np_asarray_list(x):
+    """``x`` as a list of Python floats (the JAX package's helper for
+    logging per-step distances)."""
+    return [float(v) for v in np.asarray(x)]
 
 
 def _binarize_nonzero(mask):

@@ -22,6 +22,18 @@ Conv kernels transpose (kH, kW, I, O) -> (O, I, kH, kW) and
 carries across unchanged.  UNetv2 and DeeplySupervisedUNet share the
 UNet's layout (the latter adds its two heads).
 
+Any block of ``models.blocks`` (:func:`flax_blocks_to_torch_state`): the
+port's blocks carry Flax's names, so each Flax path becomes the dotted
+torch name, but for a bank member ``norm_1_{d}`` -> ``norm_1.{d}``.  A
+leaf's kind follows from its node: ``kernel`` of rank 2 is a Dense
+(I, O) -> ``weight`` (O, I); of rank 4 or 5 a convolution as above, but
+``up_deconv``, Flax's ``ConvTranspose(padding="SAME")``, whose kernel
+flips in both spatial axes and lays out (I, O, kH, kW) for
+``ConvTranspose2d(stride=2, padding=1)``; ``scale`` / ``bias`` (and
+``BatchInstanceNorm``'s ``gate``) with ``mean`` / ``var`` are a norm; a
+spectral convolution's ``<conv>_sn/<conv>/kernel/u`` and ``/sigma`` are
+its buffers.
+
 The reference's ``.pth`` files use the port's own names, so
 :func:`get_unet_model` loads them with ``load_state_dict``; the JAX
 package's ``torch_unet_state_to_flax`` has no counterpart here.
@@ -30,6 +42,7 @@ package's ``torch_unet_state_to_flax`` has no counterpart here.
 from __future__ import annotations
 
 import os
+import re
 from typing import Dict
 
 import numpy as np
@@ -41,10 +54,14 @@ from advchain_tpu_torch.models.wrapper import SegmentationModel
 
 __all__ = ["flax_unet_to_torch_state", "flax_unetv2_to_torch_state",
            "flax_dsv_unet_to_torch_state", "flax_pseudo3d_to_torch_state",
-           "get_unet_model"]
+           "flax_blocks_to_torch_state", "get_unet_model"]
 
 # the UNet family's 1x1 heads
 _HEADS = ("outc", "up2_conv1", "up3_conv1")
+# the blocks' transposed convolutions (ResConvUp's)
+_TRANSPOSED = ("up_deconv",)
+# a domain bank member: Flax's norm_1_0 is the port's norm_1.0
+_BANK = re.compile(r"^(norm_[12])_(\d+)$")
 # get_unet_model's architectures: feature_scale of each
 _ARCHS = {"UNet_16": 4, "UNet_64": 1}
 
@@ -65,18 +82,25 @@ def _conv(out: Dict[str, torch.Tensor], prefix: str, p) -> None:
 def _bn(out: Dict[str, torch.Tensor], prefix: str, p, s) -> None:
     out[prefix + ".weight"] = _t(p["scale"])
     out[prefix + ".bias"] = _t(p["bias"])
+    if "gate" in p:  # BatchInstanceNorm
+        out[prefix + ".gate"] = _t(p["gate"])
     out[prefix + ".running_mean"] = _t(s["mean"])
     out[prefix + ".running_var"] = _t(s["var"])
     out[prefix + ".num_batches_tracked"] = torch.tensor(0)
 
 
+def _spectral(out, prefix: str, conv: str, s) -> None:
+    """Flax's SpectralNorm statistics of ``conv``, if it has them."""
+    sn = s.get(conv + "_sn")
+    if sn is not None:
+        out[f"{prefix}.u"] = _t(sn[conv + "/kernel/u"])
+        out[f"{prefix}.sigma"] = _t(sn[conv + "/kernel/sigma"])
+
+
 def _double_conv(out, prefix, p, s) -> None:
     for conv, bn, i in (("conv1", "bn1", 0), ("conv2", "bn2", 3)):
         _conv(out, f"{prefix}.{i}", p[conv])
-        sn = s.get(conv + "_sn")
-        if sn is not None:  # Flax's SpectralNorm statistics
-            out[f"{prefix}.{i}.u"] = _t(sn[conv + "/kernel/u"])
-            out[f"{prefix}.{i}.sigma"] = _t(sn[conv + "/kernel/sigma"])
+        _spectral(out, f"{prefix}.{i}", conv, s)
         _bn(out, f"{prefix}.{i + 1}", p[bn], s[bn])
 
 
@@ -117,6 +141,42 @@ def flax_pseudo3d_to_torch_state(params, batch_stats
     _bn(out, "bn1", params["bn1"], batch_stats["bn1"])
     _conv(out, "conv2", params["conv2"])
     return out
+
+
+def flax_blocks_to_torch_state(params, batch_stats=None
+                               ) -> Dict[str, torch.Tensor]:
+    """(params, batch_stats) of any block of the JAX package's
+    ``models/blocks.py`` -> a state dict for the port's block of the same
+    class (``advchain_tpu_torch.models.blocks``)."""
+    out: Dict[str, torch.Tensor] = {}
+    _block(out, "", params, batch_stats or {})
+    return {k.lstrip("."): v for k, v in out.items()}
+
+
+def _block(out, prefix: str, p, s) -> None:
+    name = prefix.rsplit(".", 1)[-1]
+    if "kernel" in p:
+        k = np.asarray(p["kernel"])
+        if k.ndim == 2:  # Dense
+            out[prefix + ".weight"] = _t(k.T)
+            if "bias" in p:
+                out[prefix + ".bias"] = _t(p["bias"])
+        elif name in _TRANSPOSED:
+            out[prefix + ".weight"] = _t(
+                np.flip(k, (0, 1)).transpose(2, 3, 0, 1))
+            out[prefix + ".bias"] = _t(p["bias"])
+        else:
+            _conv(out, prefix, p)
+        return
+    if "scale" in p:
+        _bn(out, prefix, p, s)
+        return
+    for key, sub in p.items():
+        bank = _BANK.match(key)
+        child = f"{bank[1]}.{bank[2]}" if bank else key
+        child = f"{prefix}.{child}" if prefix else child
+        _block(out, child, sub, s.get(key, {}))
+        _spectral(out, child, key, s)
 
 
 def get_unet_model(model_path: str, num_classes: int = 2, device=None,

@@ -57,18 +57,43 @@ from advchain_tpu_torch.ops import collectives
 __all__ = ["UNet", "UNetv2", "DeeplySupervisedUNet", "DoubleConv", "Down",
            "Up", "OutConv", "SelfAttn2d", "SpectralConv2d", "FrozenStatsBN",
            "FrozenStatsBN3d", "EpisodeDropout", "ZDecomposedConv3d",
-           "PseudoConv3dModel", "init_unet_"]
+           "PseudoConv3dModel", "init_unet_", "max_pool_2x2",
+           "upsample2x_align_corners", "pad_or_crop_to",
+           "apply_maybe_spectral", "kaiming_conv_init", "bn_scale_init"]
 
 LAST_LAYER_ACTS = (None, "softmax", "sigmoid")
-# the ROADMAP entry of the networks that a space mesh does not partition
-_NOT_PARTITIONED = ("is not partitioned over a ('data', 'space') mesh "
-                    "(ROADMAP §1: the space-mesh model zoo); use UNet or "
-                    "PseudoConv3dModel there")
 
 
-def _refuse_space(what: str) -> None:
-    if collectives.current_space() is not None:
-        raise NotImplementedError(f"{what} {_NOT_PARTITIONED}")
+def kaiming_conv_init(shape, generator: torch.Generator, device=None):
+    """torch's ``kaiming_normal_(mode='fan_in')``, the JAX package's
+    ``kaiming_conv_init``: N(0, 2 / fan_in) for a kernel laid out (O, I,
+    *k), fan_in = I * prod(k); drawn on ``device`` (the generator's)."""
+    fan_in = math.prod(shape[1:])
+    return torch.randn(shape, generator=generator,
+                       device=generator.device if device is None
+                       else device) * math.sqrt(2.0 / fan_in)
+
+
+def bn_scale_init(shape, generator: torch.Generator, device=None):
+    """The reference's BatchNorm weight init: N(1, 0.02)."""
+    return 1.0 + 0.02 * torch.randn(
+        shape, generator=generator,
+        device=generator.device if device is None else device)
+
+
+def max_pool_2x2(x):
+    """2x2 / 2 max pool (``nn.MaxPool2d(2)``: floor); local on a slab."""
+    return F.max_pool2d(x, 2)
+
+
+def pad_or_crop_to(skip, target_h: int, target_w: int):
+    """Pad, or for a negative difference crop, ``skip`` (N, C, H, W)
+    toward (target_h, target_w) as the reference's ``up`` does: ``d // 2``
+    before and ``int(d / 2)`` after (so an odd positive difference leaves
+    it one short, as in the JAX package's ``_pad_or_crop_to``)."""
+    dh = target_h - skip.shape[2]
+    dw = target_w - skip.shape[3]
+    return F.pad(skip, (dw // 2, int(dw / 2), dh // 2, int(dh / 2)))
 
 
 class _HaloConv:
@@ -163,24 +188,25 @@ class _FrozenStats(_StatsWriter):
     variance over the global count."""
 
     def forward(self, x):
+        return self._normalize(x, self.weight, self.bias)
+
+    def _normalize(self, x, weight, bias):
+        """The normalisation with this affine ``weight`` and ``bias`` (a
+        subclass may derive them from its parameters)."""
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                weight, bias, training=False, eps=self.eps)
         dg = collectives.current_data_group()
-        if self.training and dg is not None:
-            return self._global_forward(x, dg)
-        if self.training:
+        if dg is None:
             if self.write_back:
                 return F.batch_norm(x, self.running_mean, self.running_var,
-                                     self.weight, self.bias, training=True,
-                                     momentum=self.momentum, eps=self.eps)
-            return F.batch_norm(x, None, None, self.weight, self.bias,
-                                training=True, eps=self.eps)
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, training=False,
-                            eps=self.eps)
-
-    def _global_forward(self, x, dg):
+                                    weight, bias, training=True,
+                                    momentum=self.momentum, eps=self.eps)
+            return F.batch_norm(x, None, None, weight, bias, training=True,
+                                eps=self.eps)
         count = dg.global_numel(x) // x.shape[1]
-        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
-                                              self.eps, dg.group, count)
+        y, mean, var = _GlobalBatchNorm.apply(x, weight, bias, self.eps,
+                                              dg.group, count)
         if self.write_back:
             m = self.momentum
             with torch.no_grad():
@@ -291,18 +317,26 @@ def _dropout(p) -> EpisodeDropout:
     return EpisodeDropout(0.0 if p is None else p)
 
 
+def apply_maybe_spectral(in_ch: int, out_ch: int, kernel_size,
+                         spectral: bool = False, **kwargs) -> nn.Conv2d:
+    """A :class:`SpectralConv2d` with ``spectral`` (the reference's
+    ``if_SN`` branches; the JAX package's ``apply_maybe_spectral``), else
+    a :class:`SlabConv2d`; ``kwargs`` go to the convolution."""
+    conv = SpectralConv2d if spectral else SlabConv2d
+    return conv(in_ch, out_ch, kernel_size, **kwargs)
+
+
 class DoubleConv(nn.Module):
     """(3x3 conv -> BN -> ReLU) x 2; ``spectral``: both convolutions under
     spectral norm (the reference's ``if_SN``)."""
 
     def __init__(self, in_ch: int, out_ch: int, spectral: bool = False):
         super().__init__()
-        conv = SpectralConv2d if spectral else SlabConv2d
         self.conv = nn.Sequential(
-            conv(in_ch, out_ch, 3, padding=1), FrozenStatsBN(out_ch),
-            nn.ReLU(inplace=True),
-            conv(out_ch, out_ch, 3, padding=1), FrozenStatsBN(out_ch),
-            nn.ReLU(inplace=True))
+            apply_maybe_spectral(in_ch, out_ch, 3, spectral, padding=1),
+            FrozenStatsBN(out_ch), nn.ReLU(inplace=True),
+            apply_maybe_spectral(out_ch, out_ch, 3, spectral, padding=1),
+            FrozenStatsBN(out_ch), nn.ReLU(inplace=True))
 
     def forward(self, x):
         return self.conv(x)
@@ -345,10 +379,8 @@ class Up(nn.Module):
         self.conv = DoubleConv(in_ch, out_ch, spectral)
 
     def forward(self, x, skip):
-        x = _upsample2x(x)
-        dh = x.shape[2] - skip.shape[2]
-        dw = x.shape[3] - skip.shape[3]
-        skip = F.pad(skip, (dw // 2, int(dw / 2), dh // 2, int(dh / 2)))
+        x = upsample2x_align_corners(x)
+        skip = pad_or_crop_to(skip, x.shape[2], x.shape[3])
         return self.conv(self.drop(torch.cat([skip, x], dim=1)))
 
 
@@ -371,7 +403,15 @@ class SelfAttn2d(nn.Module):
     HW)).  The two products run in f32 whatever the input's dtype (JAX's
     ``preferred_element_type=float32``) and the output takes the input's
     dtype; in JAX's bf16 mode the f32 output instead promotes the layers
-    after it to f32."""
+    after it to f32.
+
+    Inside a space group the queries stay on the slab and the keys and
+    values of every slab are gathered in rank order (row slabs
+    concatenated are the global row-major order of HW), so the softmax
+    runs over every key, as the dense block's does; the gather's backward
+    sums the gathered gradient over the group and keeps this slab's part.
+    The attention map is then this slab's query rows, (N, hw, HW).
+    ``gamma`` is replicated: the step sums its gradient over the ranks."""
 
     def __init__(self, in_dim: int, factor: int = 8):
         super().__init__()
@@ -381,13 +421,17 @@ class SelfAttn2d(nn.Module):
         self.gamma = nn.Parameter(torch.zeros(1))
 
     def forward(self, x):
-        _refuse_space("SelfAttn2d")
         n, c, h, w = x.shape
         q = self.query_conv(x).flatten(2).transpose(1, 2).float()
-        k = self.key_conv(x).flatten(2).float()
-        v = self.value_conv(x).flatten(2).transpose(1, 2).float()
-        attention = torch.softmax(torch.matmul(q, k), dim=-1)
-        out = torch.matmul(attention, v).transpose(1, 2).reshape(n, c, h, w)
+        k = self.key_conv(x).flatten(2)
+        v = self.value_conv(x).flatten(2)
+        sg = collectives.current_space()
+        if sg is not None:  # one gather of every slab's keys and values
+            kv = collectives.gather_slabs(torch.cat([k, v], 1), sg.group)
+            k, v = kv.split([k.shape[1], c], dim=1)
+        attention = torch.softmax(torch.matmul(q, k.float()), dim=-1)
+        out = torch.matmul(attention, v.transpose(1, 2).float())
+        out = out.transpose(1, 2).reshape(n, c, h, w)
         weighted = self.gamma.float() * out
         return (weighted + x.float()).to(x.dtype), weighted, attention
 
@@ -436,10 +480,6 @@ class UNet(nn.Module):
         self.attention_map = None
 
     def forward(self, x):
-        if type(self) is not UNet:
-            _refuse_space(type(self).__name__)
-        if self.self_atn is not None:
-            _refuse_space("SelfAttn2d")
         _check_levels(x, 4)
         x1 = self.drop(self.inc(x))
         x2 = self.down1(x1)
@@ -506,7 +546,7 @@ class DeeplySupervisedUNet(nn.Module):
         self.outc = OutConv(b, num_classes)
 
     def forward(self, x, multi_out: bool = False):
-        _refuse_space("DeeplySupervisedUNet")
+        _check_levels(x, 4)
         x1 = self.inc(x)
         x2 = self.down1(x1)
         x3 = self.drop3(self.down2(x2))
@@ -515,8 +555,9 @@ class DeeplySupervisedUNet(nn.Module):
         y = self.up1(x5, x4)
         x_2 = self.up2(y, x3)
         x_3 = self.up3(x_2, x2)
-        mixed = _upsample2x(self.up2_conv1(x_2)) + self.up3_conv1(x_3)
-        mixed_up = _upsample2x(mixed)
+        mixed = (upsample2x_align_corners(self.up2_conv1(x_2))
+                 + self.up3_conv1(x_3))
+        mixed_up = upsample2x_align_corners(mixed)
         out = self.outc(self.up4(x_3, x1))
         final = out + mixed_up
         if multi_out:
@@ -528,9 +569,9 @@ class DeeplySupervisedUNet(nn.Module):
 
 
 def _check_levels(x, levels: int) -> None:
-    """Inside a space group: every level's slab halves under a 2x2
-    max-pool, else ``ValueError`` naming the first level that does not and
-    the heights that would divide."""
+    """Inside a space group: every level's slab of the UNet family halves
+    under a 2x2 max-pool, else ``ValueError`` naming the first level that
+    does not and the heights that would divide."""
     sg = collectives.current_space()
     if sg is None:
         return
@@ -546,8 +587,9 @@ def _check_levels(x, levels: int) -> None:
         rows //= 2
 
 
-def _upsample2x(x):
-    """Bilinear x2 with align_corners=True; inside a space group this
+def upsample2x_align_corners(x):
+    """Bilinear x2 with align_corners=True (``nn.Upsample(scale_factor=2,
+    mode='bilinear', align_corners=True)``); inside a space group this
     slab's rows of the global upsampling (:func:`_slab_upsample2x`)."""
     sg = collectives.current_space()
     if sg is not None:

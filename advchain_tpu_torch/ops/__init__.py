@@ -2,7 +2,7 @@
 and scatter run in :mod:`advchain_tpu_torch.kernels`."""
 
 from .grid_sample import grid_sample, grid_sample_2d, grid_sample_3d, \
-    stencil_warp_2d
+    stencil_warp_2d, stencil_warp_3d
 from .affine import affine_grid, affine_grid_2d, affine_grid_3d, \
     make_batch_eye, invert_affine_matrix
 from .resize import interpolate, interp_matrix
@@ -16,6 +16,7 @@ from .norms import renorm_l2, rescale_intensity, unit_normalize
 
 __all__ = [
     "grid_sample", "grid_sample_2d", "grid_sample_3d", "stencil_warp_2d",
+    "stencil_warp_3d",
     "affine_grid", "affine_grid_2d", "affine_grid_3d", "make_batch_eye",
     "invert_affine_matrix",
     "interpolate", "interp_matrix",

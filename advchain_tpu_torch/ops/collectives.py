@@ -71,7 +71,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["transport", "all_reduce", "all_gather", "broadcast_",
-           "neighbour_exchange", "exchange_halo", "DataGroup", "SpaceGroup",
+           "neighbour_exchange", "gather_slabs", "exchange_halo", "DataGroup", "SpaceGroup",
            "data_group", "current_data_group", "current_space",
            "global_numel", "reset_counts", "COUNTS"]
 
@@ -207,6 +207,32 @@ class _HaloExchange(torch.autograd.Function):
         dx.narrow(axis, 0, halo).add_(to_first)
         dx.narrow(axis, size - halo, halo).add_(to_last)
         return dx, None, None, None
+
+
+class _GatherSlabs(torch.autograd.Function):
+    """Every rank's ``x`` along ``dim`` in group-rank order; the backward
+    sums the gathered gradient over the group and keeps this rank's part
+    (a reduce-scatter written as an all-reduce and a slice)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.size = dim, group, x.shape[dim]
+        ctx.idx = dist.get_group_rank(group, dist.get_rank())
+        return all_gather(x, dim=dim, group=group)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = all_reduce(g.contiguous(), group=ctx.group)
+        return total.narrow(ctx.dim, ctx.idx * ctx.size, ctx.size), None, \
+            None
+
+
+def gather_slabs(x, group, dim: int = 2):
+    """Every rank's slab ``x`` (all of one shape) concatenated along
+    ``dim`` in group-rank order, differentiably: the whole source of a
+    global warp, or the self-attention's keys and values over the space
+    group."""
+    return _GatherSlabs.apply(x, dim, group)
 
 
 def exchange_halo(x, halo: int, axis: int, group):

@@ -29,10 +29,16 @@ gradient.
 Inside a spatially partitioned step's space group
 (``ops.collectives.current_space``) :func:`grid_sample` samples through
 ``parallel.spatial.slab_grid_sample`` on this rank's slabs of the source
-and the grid (the JAX package's ``spatial_sampling``, :113-157): the halo
-route when the chain's displacement bound fits a slab, else the whole
-source gathered over the space group.  :func:`local_grid_sample` is the
-dispatch without that routing.
+and the grid: the halo route when the chain's displacement bound fits a
+slab, else the whole source gathered over the space group.  Outside the
+step :func:`spatial_sampling` (the JAX package's, :113-157) opens that
+routing on a mesh, through ``parallel.spatial.sharded_grid_sample``.
+:func:`local_grid_sample` is the dispatch without the routing.
+
+The 3D stencil warp :func:`stencil_warp_3d` (the JAX package's, :497-663)
+is the z-band grid pair with ``edge`` padding; the JAX package's
+``force_impl``, which picks between its XLA and Pallas samplers on the
+TPU, has no counterpart: each device here has one implementation.
 
 Clips are written ``minimum(maximum(x, lo), hi)`` (``kernels._coords.clip``):
 at an exact bound that passes half the gradient, as ``jnp.clip`` does,
@@ -42,6 +48,8 @@ where ``torch.clamp`` passes all of it (base grid corners sit exactly on
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import os
 
 import torch
@@ -59,8 +67,8 @@ from advchain_tpu_torch.kernels.zband_sample import ZBandGridSample
 from . import collectives
 
 __all__ = ["grid_sample", "local_grid_sample", "grid_sample_2d",
-           "grid_sample_3d",
-           "stencil_warp_2d", "corner_weights", "corner_weights_3d",
+           "grid_sample_3d", "spatial_sampling", "stencil_warp_2d",
+           "stencil_warp_3d", "corner_weights", "corner_weights_3d",
            "plane_weights", "nearest_weights", "clip"]
 
 
@@ -184,17 +192,76 @@ def stencil_warp_2d(img, grid, radius: int = 2, grid_layout: str = "last",
     return out.to(img.dtype)
 
 
+def stencil_warp_3d(img, grid, radius: int = 1, grid_layout: str = "last"):
+    """Trilinear warp of ``img`` (N, C, D, H, W) with border padding and
+    align_corners=True at a grid on the image's own D x H x W raster (port
+    of advchain_tpu/ops/grid_sample.py::stencil_warp_3d, :497-663):
+    one z-band grid forward launch, and one backward launch when the
+    image or the grid needs a gradient.
+
+    ``grid_layout``: 'last' = (N, D, H, W, 3), the torch convention, or
+    'first' = (N, 3, D, H, W); channel 0 indexes W, 1 H and 2 D.
+    ``radius`` is accepted so the API matches and is ignored: JAX sums
+    (2R+1)^3 taps of an R-voxel edge-padded frame, so within R voxels of
+    each output voxel the two agree, and past it JAX's taps give out while
+    the sampler stays exact.  The grid gradient is the edge-padded
+    stencil's: at an exact lower bound (an entry on -1) the whole
+    one-sided slope, at the upper 0 (``padding_mode="edge"``)."""
+    del radius
+    if grid_layout == "first":
+        grid = torch.movedim(grid, 1, -1)
+    elif grid_layout != "last":
+        raise ValueError(f"grid_layout must be 'last' or 'first', got "
+                         f"{grid_layout!r}")
+    n, c = img.shape[:2]
+    out = ZBandGridSample.apply(_f32(img), _f32(grid.reshape(n, -1, 3)),
+                                "edge", True, "bilinear", None)
+    return out.reshape((n, c) + tuple(grid.shape[1:4])).to(img.dtype)
+
+
+# the mesh and displacement bound of an open spatial_sampling block
+_SPATIAL: contextvars.ContextVar = contextvars.ContextVar(
+    "spatial_sampling", default=None)
+
+
+@contextlib.contextmanager
+def spatial_sampling(mesh, max_disp=None):
+    """Inside the block :func:`grid_sample` takes this rank's slabs (the
+    source's leading spatial axis and the grid's leading output axis split
+    over the mesh's ``space`` axis) and samples through
+    ``parallel.spatial.sharded_grid_sample`` with the static displacement
+    bound ``max_disp`` (None: every call gathers the whole source), as the
+    train step's space group does.  ``mesh=None``, or a ``space`` axis of
+    1, leaves the routing off (the JAX package's ``spatial_sampling``)."""
+    token = _SPATIAL.set(None if mesh is None else (mesh, max_disp))
+    try:
+        yield
+    finally:
+        _SPATIAL.reset(token)
+
+
 def grid_sample(x, grid, mode: str = "bilinear", padding_mode: str = "zeros",
                 align_corners: bool = True, tile_order: str = "rows"):
     """Dispatch on rank: 4-D input -> 2D sampler, 5-D input -> 3D; inside
     a space group, this rank's slab through the sharded sampler (a source
-    whose slabs differ in extent raises there)."""
+    whose slabs differ in extent raises there), and inside
+    :func:`spatial_sampling` alike."""
     sg = collectives.current_space()
     if sg is not None:
         from advchain_tpu_torch.parallel.spatial import slab_grid_sample
         return slab_grid_sample(x, grid, sg, mode=mode,
                                 padding_mode=padding_mode,
                                 align_corners=align_corners)
+    routed = _SPATIAL.get()
+    if routed is not None:
+        from advchain_tpu_torch.parallel.spatial import sharded_grid_sample
+        mesh, max_disp = routed
+        names = tuple(mesh.mesh_dim_names)
+        if mesh.size(names.index("space")) > 1:
+            return sharded_grid_sample(x, grid, mesh, mode=mode,
+                                       padding_mode=padding_mode,
+                                       align_corners=align_corners,
+                                       max_disp=max_disp)
     return local_grid_sample(x, grid, mode, padding_mode, align_corners,
                              tile_order)
 

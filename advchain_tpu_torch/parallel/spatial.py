@@ -36,7 +36,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Shard
@@ -238,23 +237,6 @@ def _halo_planes(max_disp: float, size: int) -> int:
     return int(np.ceil(max_disp * 0.5 * (size - 1))) + 1
 
 
-class _GatherSpace(torch.autograd.Function):
-    """The whole source along dim 2 from every 'space' shard; the backward
-    sums the gathered gradient over the group and keeps this rank's
-    planes (a reduce-scatter written as an all-reduce and a slice)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group, ctx.d_loc = group, x.shape[2]
-        ctx.idx = dist.get_group_rank(group, dist.get_rank())
-        return collectives.all_gather(x, dim=2, group=group)
-
-    @staticmethod
-    def backward(ctx, g):
-        total = collectives.all_reduce(g.contiguous(), group=ctx.group)
-        return total.narrow(2, ctx.idx * ctx.d_loc, ctx.d_loc), None
-
-
 def _slab_coordinate(pix, off: int, planes: int):
     """The normalised coordinate (align_corners) over ``planes`` planes of
     the global coordinate ``pix`` on a slab starting at plane ``off``,
@@ -340,7 +322,8 @@ def _sample_slab(x_local, grid_local, group, n_space, idx, size0, mode,
         if hp < d_loc:  # the exchange reaches immediate neighbours only
             halo = hp
     if halo is None:
-        xf = x_local if n_space == 1 else _GatherSpace.apply(x_local, group)
+        xf = (x_local if n_space == 1
+              else collectives.gather_slabs(x_local, group))
         return local_grid_sample(xf, grid_local, mode=mode,
                                  padding_mode=padding_mode,
                                  align_corners=align_corners)

@@ -249,12 +249,37 @@ Phases (any failure raises and the script exits non-zero):
      to the single-process step's, the z-band launches per rank; the same
      step with a space all-reduce dropped (the PGD step's sum of the
      replicated parameters' gradients, or the weight gradients' sum over
-     'space'), which the gates must fail.
+     'space'), which the gates must fail;
+ 36. every block of ``models/blocks.py`` (the spectral variants, the
+     domain banks, the two functions, the 3D ones) on the card against the
+     CPU at UNet_16's level widths with 2 rows (16 channels at 192x192 to
+     128 at 12x12; the 3D ones at the 3D episode's 2 x 8 x 12x192x192):
+     a training forward with the statistics written back and its
+     backward (outputs within 1e-4 of the largest entry, statistics within
+     1e-5, gradients within 1e-2 relative L2 of the CPU's in float64: a
+     ReLU that rounding flips moves a pixel's share), then an eval
+     forward; then
+     each block's forward and backward timed at 128 rows (the 3D ones at
+     2), the median of 5 after 2 warm-ups;
+ 37. the headline train step on (1, 2), two ranks on this card over gloo,
+     with UNet_16 with self-attention (gamma 0.5), UNetv2 (feature scale
+     4) and DeeplySupervisedUNet (16 base filters), each under phase 33's
+     gates against the single-process step with sampler compositions;
+     per rank phase 33's band grid launches, no stencil launch, no
+     dispatch predicate, and the attention's all-gathers of its keys and
+     values; the collectives, the peak per rank and the step's median in
+     turns with the single-process step (a record);
+ 38. ``ops.stencil_warp_3d`` at the 3D episode's volume (N=2, C in {1, 3},
+     12x192x192, both grid layouts, displacements under a voxel with
+     entries exactly on +-1) against the z-band grid pair's plain versions
+     and the CPU (forward 1e-6, gradients 1e-5 of their largest entries),
+     one forward and one backward launch a call, and its ms.
 Then the ``kernels`` line for all eighteen kernel records, each with its
 launches in one random-chain call, one constrained solve, the bf16 episode
 and train step, one cardiac recipe pass, the 20 timed RandAugment calls,
-each rank's data-parallel train step, phase 31's sharded calls and each
-rank's space steps of phases 33-35 beside the main paths'.
+each rank's data-parallel train step, phase 31's sharded calls, each
+rank's space steps of phases 33-35 and 37, and one ``stencil_warp_3d``
+call beside the main paths'.
 The last line of standard output is the device record.  ``--profile PATH``
 / ``--profile3d PATH`` / ``--profile-train PATH`` / ``--profile3d-legacy
 PATH`` / ``--profile-legacy2d PATH`` / ``--profile-constrained PATH`` /
@@ -453,19 +478,40 @@ def build_solver(batch, shape, names=("noise", "bias", "affine", "morph")):
         divergence_weights=[1.0, 0.5])
 
 
+def zoo_net(name):
+    """Phase 37's networks at UNet_16's widths, 4 classes."""
+    from advchain_tpu_torch import models
+    return {"unet_attention": lambda: models.UNet(1, 4, feature_scale=4,
+                                                  self_attention=True),
+            "unetv2": lambda: models.UNetv2(1, 4, 4),
+            "deeply_supervised": lambda: models.DeeplySupervisedUNet(
+                1, 4, 16)}[name]()
+
+
 def build_model(device, seed=0, dims=2, dropout=0.1, compute_dtype=None,
-                **options):
-    """UNet_16 (2D, with the UNet's ``options``) or PseudoConv3dModel (3D;
-    ``dropout`` applies), 4 classes, seeded random weights, the wrapper's
-    ``compute_dtype``."""
+                net=None, **options):
+    """UNet_16 (2D, with the UNet's ``options``), :func:`zoo_net`'s
+    ``net`` (a self-attention's ``gamma`` set to ATTENTION_GAMMA, off its
+    init of 0, so that the block moves the output) or PseudoConv3dModel
+    (3D; ``dropout`` applies), 4 classes, seeded random weights, the
+    wrapper's ``compute_dtype``."""
+    import torch
     from advchain_tpu_torch.models import (PseudoConv3dModel,
                                            SegmentationModel, UNet)
-    module = (UNet(input_channel=1, num_classes=4, feature_scale=4,
-                   **options)
-              if dims == 2 else
-              PseudoConv3dModel(num_classes=4, dropout=dropout))
-    return SegmentationModel.create(module, seed=seed, device=device,
-                                    compute_dtype=compute_dtype)
+    if dims == 3:
+        module = PseudoConv3dModel(num_classes=4, dropout=dropout)
+    elif net is not None:
+        module = zoo_net(net)
+    else:
+        module = UNet(input_channel=1, num_classes=4, feature_scale=4,
+                      **options)
+    model = SegmentationModel.create(module, seed=seed, device=device,
+                                     compute_dtype=compute_dtype)
+    if net is not None and getattr(model.module, "self_atn", None) \
+            is not None:
+        with torch.no_grad():
+            model.module.self_atn.gamma.fill_(ATTENTION_GAMMA)
+    return model
 
 
 # the episodes' power-iteration setting: the headline's "smart", the 3D
@@ -4621,6 +4667,464 @@ def run_space(device, cfg, peak_gate=SPACE_PEAK_GATE):
     return outs, gaps
 
 
+# ------------------------------------------- phase 36: the block zoo
+BLOCK_REPS = 5               # timed fwd + bwd calls per block (phase 36)
+TOL_BLOCK = 1e-4             # outputs, of the CPU's largest entry
+TOL_BLOCK_STATS = 1e-5       # written running statistics and spectral u
+# gradients, relative L2 to the CPU's in float64: a ReLU input that f32
+# rounding puts on the other side of 0 moves one pixel's share of the
+# gradient, 1/sqrt(pixels) (1.3e-3 at 2 x 32 x 96x96, measured on the card
+# for DomainPoolDown, whose CPU f32 gap is 3e-7); a wrong backward is O(1)
+TOL_BLOCK_GRAD = 1e-2
+
+
+def block_cases(n, shape, n3, shape3):
+    """Phase 36's blocks, (name, factory, input shapes, int arguments), at
+    UNet_16's level widths and resolutions: 16 channels at ``shape``, 32
+    at half, 64 at a quarter, 128 at an eighth and a sixteenth, ``n``
+    rows; the 3D ones at ``n3`` x ``shape3`` (8 -> 16 channels)."""
+    from advchain_tpu_torch.models import blocks as b
+    lv = [(n,) + tuple(s // 2 ** i for s in shape) for i in range(5)]
+
+    def at(level, c):
+        return lv[level][:1] + (c,) + lv[level][1:]
+    vol = (n3, 8) + tuple(shape3)
+    half3 = (n3, 16) + tuple(s // 2 for s in shape3)
+    return [
+        ("ConvDown", lambda: b.ConvDown(16, 32), [at(0, 16)], ()),
+        ("ResConvDown_spectral", lambda: b.ResConvDown(32, 64,
+                                                       spectral=True),
+         [at(1, 32)], ()),
+        ("ResConv_spectral", lambda: b.ResConv(64, 64, spectral=True),
+         [at(2, 64)], ()),
+        ("ResBilinearUp", lambda: b.ResBilinearUp(128, 128, 64),
+         [at(4, 128), at(3, 128)], ()),
+        ("ResConvUp_spectral", lambda: b.ResConvUp(64, 64, 32,
+                                                   spectral=True),
+         [at(3, 64), at(2, 64)], ()),
+        ("SqeUp", lambda: b.SqeUp(32, 32, 16), [at(2, 32), at(1, 32)], ()),
+        ("DilationConv", lambda: b.DilationConv(16, 16, dilation=2),
+         [at(0, 16)], ()),
+        ("OutConvRelu", lambda: b.OutConvRelu(16, 4), [at(0, 16)], ()),
+        ("SELayer", lambda: b.SELayer(64), [at(2, 64)], ()),
+        ("CSELayer", lambda: b.CSELayer(64), [at(2, 64)], ()),
+        ("ChannelSELayer", lambda: b.ChannelSELayer(64), [at(2, 64)], ()),
+        ("SpatialSELayer", lambda: b.SpatialSELayer(64), [at(2, 64)], ()),
+        ("ChannelSpatialSELayer", lambda: b.ChannelSpatialSELayer(64),
+         [at(2, 64)], ()),
+        ("BatchInstanceNorm", lambda: b.BatchInstanceNorm(32), [at(1, 32)],
+         ()),
+        ("AdaptiveInstanceNorm", lambda: b.AdaptiveInstanceNorm(),
+         [at(3, 128), (128,), (128,)], ()),
+        ("AdaptiveBatchNorm", lambda: b.AdaptiveBatchNorm(),
+         [at(3, 128), (128,), (128,)], ()),
+        ("bilinear_additive_upsampling",
+         lambda: _Fn(b.bilinear_additive_upsampling, 32), [at(4, 128)], ()),
+        ("spatial_pyramid_pool",
+         lambda: _Fn(b.spatial_pyramid_pool, (1, 2, 4)), [at(4, 128)], ()),
+        ("DomainInConv", lambda: b.DomainInConv(1, 16, 3), [at(0, 1)], (1,)),
+        ("DomainPoolDown", lambda: b.DomainPoolDown(16, 32, 3),
+         [at(0, 16)], (2,)),
+        ("DomainDoubleConv", lambda: b.DomainDoubleConv(32, 32, 2),
+         [at(1, 32)], (0,)),
+        ("DomainUp", lambda: b.DomainUp(32, 16, 16, 3),
+         [at(1, 32), at(0, 16)], (1,)),
+        ("UnetConv2", lambda: b.UnetConv2(32, 32), [at(1, 32)], ()),
+        ("Conv2DBatchNorm", lambda: b.Conv2DBatchNorm(64, 64), [at(2, 64)],
+         ()),
+        ("Conv2DBatchNormRelu", lambda: b.Conv2DBatchNormRelu(128, 128),
+         [at(3, 128)], ()),
+        ("UnetConv3", lambda: b.UnetConv3(8, 16), [vol], ()),
+        ("UnetUp3", lambda: b.UnetUp3(16, 8, 8, z_scale_factor=2),
+         [vol, half3], ()),
+    ]
+
+
+class _Fn:
+    """A function of ``models.blocks`` with its static argument, called
+    as a block without parameters."""
+
+    def __init__(self, fn, arg):
+        self.fn, self.arg = fn, arg
+
+    def __call__(self, x):
+        return self.fn(x, self.arg)
+
+    def modules(self):
+        return []
+
+    def named_parameters(self):
+        return []
+
+    def named_buffers(self):
+        return []
+
+    def train(self, mode=True):
+        return self
+
+    def eval(self):
+        return self
+
+    def to(self, device):
+        return self
+
+    def double(self):
+        return self
+
+
+def _seeded_block(make, seed=0):
+    """A block on the CPU with seeded weights, running statistics away
+    from (0, 1) and a BatchInstanceNorm gate in (0.2, 0.8)."""
+    import torch
+    torch.manual_seed(seed)
+    block = make()
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, t in block.named_buffers():
+            if name.endswith("running_mean"):
+                t.copy_(torch.rand(t.shape, generator=gen) - 0.5)
+            elif name.endswith("running_var"):
+                t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
+        for name, p in block.named_parameters():
+            if name.endswith("gate"):
+                p.copy_(0.2 + 0.6 * torch.rand(p.shape, generator=gen))
+    return block
+
+
+def _block_inputs(shapes, seed=0):
+    """The inputs of a block case (numpy draws): feature maps of unit
+    scale, and for a forward's affine pair a weight (C,) about 1 then its
+    bias about 0."""
+    r = np.random.RandomState(seed)
+    out = []
+    for i, s in enumerate(shapes):
+        a = r.randn(*s).astype(np.float32)
+        if len(s) == 1:
+            a = (1.0 + 0.3 * a) if i == 1 else 0.2 * a
+        out.append(a)
+    return out
+
+
+def _block_pass(block, arrays, ints, device, ct=None, dtype=None):
+    """One training forward of ``block`` on ``device`` (in ``dtype``, None
+    for f32) with the statistics written back, and the backward of
+    ``sum(out * ct)`` (``ct`` drawn if None): ((out, input gradients,
+    parameter gradients, buffers) on the CPU, ct)."""
+    import torch
+    from advchain_tpu_torch.models.unet import _StatsWriter
+    block.train()
+    for m in block.modules():
+        if isinstance(m, _StatsWriter):
+            m.write_back = True
+    xs = [torch.as_tensor(a, device=device, dtype=dtype).requires_grad_(True)
+          for a in arrays]
+    y = block(*xs, *ints)
+    if ct is None:
+        ct = torch.as_tensor(np.random.RandomState(7).randn(
+            *y.shape).astype(np.float32))
+    (y * ct.to(device, y.dtype)).sum().backward()
+    return (y.detach().cpu(), [x.grad.cpu() for x in xs],
+            {k: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+             for k, p in block.named_parameters()},
+            {k: v.detach().cpu().clone() for k, v in block.named_buffers()
+             if not k.endswith("num_batches_tracked")}), ct
+
+
+def _gap(a, b):
+    """|a - b|'s largest entry over b's largest, and their relative L2
+    gap."""
+    a, b = a.double().flatten(), b.double().flatten()
+    scale = max(float(b.abs().max()), 1e-30)
+    return (float((a - b).abs().max()) / scale,
+            float((a - b).norm()) / max(float(b.norm()), 1e-30))
+
+
+def check_blocks(device, n=2, shape=SHAPE, n3=BATCH3D, shape3=SHAPE3D):
+    """Phase 36: every block of ``models/blocks.py`` on ``device`` against
+    the same block on the CPU (the same weights and inputs): a training
+    forward with the running statistics and spectral ``u`` / ``sigma``
+    written back and the backward of ``sum(out * ct)``, then an eval
+    forward.  The outputs within TOL_BLOCK of the CPU's largest entry, the
+    written statistics within TOL_BLOCK_STATS; the input and parameter
+    gradients (all leaves together) within TOL_BLOCK_GRAD relative L2 of
+    the CPU's in float64 (the CPU's own f32 gap beside them).  Returns
+    each block's gaps."""
+    import copy
+    import torch
+    errs = {}
+    for name, make, shapes, ints in block_cases(n, shape, n3, shape3):
+        cpu = _seeded_block(make)
+        card = copy.deepcopy(cpu).to(device)
+        f64 = copy.deepcopy(cpu).double()
+        arrays = _block_inputs(shapes)
+        (y_c, dx_c, dp_c, buf_c), ct = _block_pass(cpu, arrays, ints, "cpu")
+        (y_d, dx_d, dp_d, buf_d), _ = _block_pass(card, arrays, ints, device,
+                                                  ct)
+        (_, dx_r, dp_r, _), _ = _block_pass(f64, arrays, ints, "cpu", ct,
+                                            torch.float64)
+        cpu.eval()
+        card.eval()
+        with torch.no_grad():
+            e_c = cpu(*[torch.as_tensor(a) for a in arrays], *ints)
+            e_d = card(*[torch.as_tensor(a, device=device) for a in arrays],
+                       *ints).cpu()
+        rec = {"train": _gap(y_d, y_c)[0], "eval": _gap(e_d, e_c)[0]}
+        if buf_c:
+            rec["stats"] = max(_gap(buf_d[k], v)[0]
+                               for k, v in buf_c.items())
+        bad = {k: v for k, v in rec.items()
+               if v > (TOL_BLOCK_STATS if k == "stats" else TOL_BLOCK)}
+        grads = {"d_inputs": (dx_d, dx_c, dx_r)}
+        if dp_c:
+            grads["d_params"] = tuple(
+                [torch.cat([g[k].flatten() for k in dp_c])]
+                for g in (dp_d, dp_c, dp_r))
+        for key, (ours, cpu32, ref) in grads.items():
+            rec[key] = max(_gap(a, b)[1] for a, b in zip(ours, ref))
+            rec[key + "_cpu_f32"] = max(_gap(a, b)[1]
+                                        for a, b in zip(cpu32, ref))
+            if rec[key] > TOL_BLOCK_GRAD:
+                bad[key] = rec[key]
+        errs[name] = rec
+        if bad:
+            raise AssertionError(f"block {name} on {device} disagrees with "
+                                 f"the CPU: {bad} (all gaps {rec})")
+    return errs
+
+
+def time_blocks(device, n=BATCH, shape=SHAPE, n3=BATCH3D, shape3=SHAPE3D,
+                warm=2, reps=BLOCK_REPS):
+    """Phase 36: each block's training forward and backward at ``n`` rows
+    (the 3D ones at ``n3``, the 3D episode's batch), the median ms of
+    ``reps`` calls after ``warm``, each ending in a synchronize, and the
+    peak memory of the calls."""
+    import torch
+    out = {}
+    for name, make, shapes, ints in block_cases(n, shape, n3, shape3):
+        block = _seeded_block(make).to(device)
+        xs = [torch.as_tensor(a, device=device).requires_grad_(True)
+              for a in _block_inputs(shapes)]
+        block.train()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(warm + reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            block(*xs, *ints).square().mean().backward()
+            torch.cuda.synchronize()
+            if i >= warm:
+                times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"ms": statistics.median(times),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "rows": shapes[0][0]}
+        del block, xs
+        torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------- phase 37: the space zoo
+SPACE_ZOO_NETS = ("unet_attention", "unetv2", "deeply_supervised")
+SPACE_ZOO_TURNS = 2          # timed turns after the counted step (37)
+
+
+def space_zoo_rank(rank, world, device, batch, shape, turns):
+    """Phase 37 on one rank of a (1, ``world``) mesh: for each of
+    SPACE_ZOO_NETS the headline train step on this rank's slab from fresh
+    weights (the counted step: launches, collectives, peak), on rank 0 its
+    references (the single-process step with sampler compositions, and on
+    the perturbed image; their peak), then ``turns`` timed turns of the
+    space step and the single-process step (the counted step and the
+    references were their warm-ups)."""
+    import torch
+    import torch.distributed as dist
+    from advchain_tpu_torch.ops import collectives
+    from advchain_tpu_torch.parallel import (make_spatial_mesh,
+                                             replicate_to_mesh)
+    from advchain_tpu_torch.parallel.mesh import mesh_device
+    mesh = make_spatial_mesh(1, world, device_type=device)
+    dev = mesh_device(mesh)
+    cuda = dev.type == "cuda"
+    out = {k: {} for k in ("compared", "launches", "collectives", "peak",
+                           "single_peak", "space_ms", "single_ms")}
+    out["device"] = str(dev)
+    for net in SPACE_ZOO_NETS:
+        step, state, data = build_train_step(dev, batch, shape, mesh=mesh,
+                                             net=net)
+        gen = replicate_to_mesh(torch.Generator(device=dev).manual_seed(1),
+                                mesh)
+        dist.barrier()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        collectives.reset_counts()
+        state, m = step(state, data, gen)
+        sync(dev)
+        out["launches"][net] = launch_counts()
+        out["collectives"][net] = dict(collectives.COUNTS)
+        out["peak"][net] = torch.cuda.max_memory_allocated() if cuda else 0
+        out["compared"][net] = _step_record(state, m)
+        single = None
+        if rank == 0:
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            recs, single = _single_steps(dev, batch, shape, sampler=True,
+                                         net=net)
+            out["single_peak"][net] = (torch.cuda.max_memory_allocated()
+                                       if cuda else 0)
+            out["compared"][net].update(recs)
+        space_ms, single_ms = [], []
+        for _ in range(turns):
+            dist.barrier()
+            t0 = time.perf_counter()
+            state, _ = step(state, data, gen)
+            sync(dev)
+            dist.barrier()
+            space_ms.append((time.perf_counter() - t0) * 1e3)
+            if single is not None:
+                s_step, s_state, s_data, s_gen = single
+                t0 = time.perf_counter()
+                s_state, _ = s_step(s_state, s_data, s_gen)
+                sync(dev)
+                single_ms.append((time.perf_counter() - t0) * 1e3)
+            dist.barrier()
+        out["space_ms"][net], out["single_ms"][net] = space_ms, single_ms
+        del step, state, data, single
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_space_zoo(outs, grid_launches):
+    """Phase 37's gates for each network: phase 33's step gates
+    (:func:`_check_dp_step` against the single-process step with sampler
+    compositions, gradients within 3x the perturbation floor or
+    TOL_SPACE_GRAD); every rank's band grid launches equal to
+    ``grid_launches`` (phase 33's), no stencil launch and no dispatch
+    predicate; the attention UNet's step ran more all-gathers than
+    UNetv2's on the same chain (its keys and values).  Returns the gaps
+    and each rank's all-gathers of the attention a step."""
+    recs = [o["compared"] for o in outs]
+    gaps = {net: _check_dp_step(recs, net, TOL_SPACE_GRAD)
+            for net in SPACE_ZOO_NETS}
+    gaps["attention_gathers"] = []
+    for r, o in enumerate(outs):
+        for net in SPACE_ZOO_NETS:
+            lc = o["launches"][net]
+            if lc["band_grid"] != grid_launches:
+                raise AssertionError(
+                    f"rank {r}'s {net} space step launched band_grid "
+                    f"{lc['band_grid']}, not phase 33's {grid_launches}")
+            if lc["stencil"]["fwd"] or lc["stencil"]["bwd"] or \
+                    lc["slope"]["fwd"]:
+                raise AssertionError(
+                    f"rank {r}'s {net} space step launched the stencil or "
+                    f"the dispatch predicate: {lc['stencil']}, "
+                    f"{lc['slope']}")
+        extra = (o["collectives"]["unet_attention"]["all_gather"]
+                 - o["collectives"]["unetv2"]["all_gather"])
+        if extra <= 0:
+            raise AssertionError(f"rank {r}: the attention UNet's step ran "
+                                 f"no all-gather of its keys and values")
+        gaps["attention_gathers"].append(extra)
+    return gaps
+
+
+def run_space_zoo(device, grid_launches, batch=BATCH, shape=SHAPE,
+                  turns=SPACE_ZOO_TURNS):
+    """Phase 37: spawn two ranks on a (1, 2) mesh and hold every gate."""
+    outs = spawn_ranks(space_zoo_rank, 2, device, batch, shape, turns)
+    return outs, check_space_zoo(outs, grid_launches)
+
+
+# ------------------------------------------- phase 38: stencil_warp_3d
+def stencil3d_grid(n, shape, device, seed=0):
+    """A grid (N, D, H, W, 3) within 0.9 voxel of the identity, its entries
+    at both ends of every axis exactly on -1 and +1."""
+    import torch
+    from advchain_tpu_torch.ops.integrate import base_grid
+    base = base_grid(n, shape, device=device)
+    scale = torch.tensor([2.0 / (s - 1) for s in shape[::-1]],
+                         device=device).view(1, 3, 1, 1, 1)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    grid = (base + 0.9 * scale * (2 * torch.rand(
+        base.shape, generator=gen, device=device) - 1)).clamp(-1, 1)
+    grid[:, 0, :, :, 0], grid[:, 0, :, :, -1] = -1.0, 1.0
+    grid[:, 1, :, 0], grid[:, 1, :, -1] = -1.0, 1.0
+    grid[:, 2, 0], grid[:, 2, -1] = -1.0, 1.0
+    return grid.movedim(1, -1).contiguous()
+
+
+def check_stencil_warp_3d(device, n=BATCH3D, shape=SHAPE3D,
+                          channels=(1, 3)):
+    """Phase 38: ``ops.stencil_warp_3d`` on ``device`` against the z-band
+    grid pair's plain versions (``edge`` padding) on the same tensors and
+    against the CPU, at C in ``channels``, both grid layouts, on
+    :func:`stencil3d_grid`: the forward within TOL_GRID_FWD of the largest
+    entry, ``d_img`` within TOL_DIMG_REL, ``d_grid`` within TOL_DFLOW_REL;
+    exactly one forward launch of the pair per call, and one backward
+    launch under a gradient, none without.  Returns the worst gaps, the
+    launches of one call, and the ms of a forward and of a forward and
+    backward."""
+    import torch
+    from advchain_tpu_torch.kernels import zband_sample as zs
+    from advchain_tpu_torch.ops import stencil_warp_3d
+    worst = {"fwd": 0.0, "d_img": 0.0, "d_grid": 0.0}
+    for c in channels:
+        gen = torch.Generator(device=device).manual_seed(c)
+        img = torch.randn((n, c) + tuple(shape), generator=gen,
+                          device=device)
+        grid = stencil3d_grid(n, shape, device, seed=c)
+        ct = torch.randn(img.shape, generator=gen, device=device)
+        flat = grid.reshape(n, -1, 3)
+        plain = (zs.zband_grid_sample_fwd_plain(img, flat, "edge", True,
+                                                "bilinear"),
+                 *zs.zband_grid_sample_bwd_plain(ct.reshape(n, c, -1), img,
+                                                 flat, "edge", True,
+                                                 "bilinear"))
+        plain = tuple(t.cpu() for t in plain)
+        for layout in ("last", "first"):
+            g_in = grid if layout == "last" else grid.movedim(-1, 1)
+            outs = {}
+            for dev in (device, "cpu"):
+                a = img.detach().to(dev).requires_grad_(True)
+                g = g_in.detach().to(dev).requires_grad_(True)
+                reset_launch_counts()
+                y = stencil_warp_3d(a, g, 1, layout)
+                (y * ct.to(dev)).sum().backward()
+                sync(device)
+                if dev == device:
+                    call = launch_counts()["zband_grid"]
+                    if call != {"fwd": 1, "bwd": 1}:
+                        raise AssertionError(
+                            f"stencil_warp_3d launched {call}, not one "
+                            f"z-band grid forward and one backward")
+                d_grid = g.grad if layout == "last" else g.grad.movedim(1,
+                                                                        -1)
+                outs[dev] = (y.detach().reshape(n, c, -1).cpu(),
+                             a.grad.cpu(), d_grid.reshape(n, -1, 3).cpu())
+            for ref in (plain, outs["cpu"]):
+                for key, got, want in zip(worst, outs[device], ref):
+                    worst[key] = max(worst[key], _gap(got, want)[0])
+    tol = {"fwd": TOL_GRID_FWD, "d_img": TOL_DIMG_REL,
+           "d_grid": TOL_DFLOW_REL}
+    if any(worst[k] > tol[k] for k in worst):
+        raise AssertionError(f"stencil_warp_3d disagrees with its plain "
+                             f"versions or the CPU: {worst} (bounds {tol})")
+    reset_launch_counts()
+    with torch.no_grad():
+        stencil_warp_3d(img, grid, 1)
+    sync(device)
+    if launch_counts()["zband_grid"] != {"fwd": 1, "bwd": 0}:
+        raise AssertionError(f"stencil_warp_3d without a gradient launched "
+                             f"{launch_counts()['zband_grid']}")
+    a = img.detach().requires_grad_(True)
+    g = grid.detach().requires_grad_(True)
+    ms = {"fwd_ms": time_ms(lambda: stencil_warp_3d(img, grid, 1)),
+          "fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
+              stencil_warp_3d(a, g, 1), (a, g), ct))}
+    return worst, call, ms
+
+
 def kernel_launches(launches):
     """Launches by kernel record name (the ``kernels`` line's names)."""
     out = {f"{KERNEL_NAMES[fam]}_{kind}": launches[fam][kind]
@@ -5155,6 +5659,64 @@ def main(argv=None):
     print(f"[space] phases 33-35 in {time.perf_counter() - t_space:.1f} s",
           flush=True)
 
+    # phase 36: the block zoo on the card against the CPU, then timed
+    t_blocks = time.perf_counter()
+    block_errs = check_blocks(device)
+    print(f"[blocks] {len(block_errs)} blocks at 2 rows, UNet_16's level "
+          f"widths (the 3D ones at {BATCH3D} x 8 x "
+          f"{'x'.join(map(str, SHAPE3D))}) against the CPU, gaps (outputs "
+          f"over the largest entry, gradients relative L2, statistics over "
+          f"the largest entry): {json.dumps(block_errs)}", flush=True)
+    block_ms = time_blocks(device)
+    print(f"[blocks] training forward + backward, median of {BLOCK_REPS} "
+          f"after 2 warm-ups, at {BATCH} rows (the 3D ones at {BATCH3D}): "
+          f"{json.dumps(block_ms)} on {card}", flush=True)
+    print(f"[blocks] phase 36 in {time.perf_counter() - t_blocks:.1f} s",
+          flush=True)
+
+    # phase 37: the space-mesh zoo, two ranks on (1, 2) over gloo
+    t_zoo = time.perf_counter()
+    zoo_outs, gaps_zoo = run_space_zoo(
+        device, space_outs["space_1x2"][0]["launches"]["band_grid"])
+    zoo_launches = {net: [kernel_launches(o["launches"][net])
+                          for o in zoo_outs] for net in SPACE_ZOO_NETS}
+    z0 = zoo_outs[0]
+    for net in SPACE_ZOO_NETS:
+        g = gaps_zoo[net]
+        print(f"[space-zoo] {net} on (1, 2), {BATCH} rows x "
+              f"{SHAPE[0] // 2} of {SHAPE[0]} rows a rank: launches "
+              f"band_grid "
+              f"{[o['launches'][net]['band_grid'] for o in zoo_outs]}, "
+              f"stencil {z0['launches'][net]['stencil']}; collectives "
+              f"{[o['collectives'][net] for o in zoo_outs]}; against the "
+              f"single-process step with sampler compositions: metrics "
+              f"{z0['compared'][net]['metrics']} (relative {g['losses']}); "
+              f"applied gradients {g['grad_rel_l2']:.3e} relative L2 against "
+              f"its own {g['perturbed_rel_l2']:.3e} under a {DP_PERTURB} "
+              f"input perturbation (gate {TOL_DP_GRAD}x, or "
+              f"{TOL_SPACE_GRAD}); peak per rank "
+              f"{[round(o['peak'][net] / 1e9, 3) for o in zoo_outs]} GB "
+              f"against the single-process step's "
+              f"{z0['single_peak'][net] / 1e9:.3f} GB; step median "
+              f"{statistics.median(z0['space_ms'][net]):.1f} ms per rank "
+              f"(turns {[round(t, 1) for t in z0['space_ms'][net]]}) against "
+              f"the single-process step's "
+              f"{statistics.median(z0['single_ms'][net]):.1f} ms "
+              f"({[round(t, 1) for t in z0['single_ms'][net]]}) in turns; a "
+              f"record: the ranks share one card over gloo; on {card}",
+              flush=True)
+    print(f"[space-zoo] the attention's all-gathers a step per rank "
+          f"{gaps_zoo['attention_gathers']}; phase 37 in "
+          f"{time.perf_counter() - t_zoo:.1f} s", flush=True)
+
+    # phase 38: stencil_warp_3d on the z-band grid pair
+    worst_sw3, sw3_call, sw3_ms = check_stencil_warp_3d(device)
+    print(f"[stencil3d] N={BATCH3D} {'x'.join(map(str, SHAPE3D))} C in "
+          f"(1, 3), both layouts, against the plain versions and the CPU: "
+          f"{worst_sw3}; one call launched {sw3_call} on the z-band grid "
+          f"pair; C=3: forward {sw3_ms['fwd_ms']:.4f} ms, forward and "
+          f"backward {sw3_ms['fwd_bwd_ms']:.4f} ms on {card}", flush=True)
+
     shape2 = f"N={BATCH} {SHAPE[0]}x{SHAPE[1]}"
     shape3 = f"N={BATCH3D} {'x'.join(map(str, SHAPE3D))}"
     kernels = (kernel_records("band", launches2, worst2, rows2, "rot30", 1,
@@ -5199,6 +5761,14 @@ def main(argv=None):
                            "space_2x2"),
                           ("launches_space_volume_per_rank", "volume_1x2")):
             rec[key] = [d[rec["name"]] for d in space_launches[name]]
+        # phase 37: one space step of each zoo network, per rank; phase
+        # 38: one stencil_warp_3d call under a gradient
+        rec["launches_space_zoo_per_rank"] = {
+            net: [d[rec["name"]] for d in zoo_launches[net]]
+            for net in SPACE_ZOO_NETS}
+        rec["launches_stencil_warp_3d_call"] = sum(
+            n for kind, n in sw3_call.items()
+            if rec["name"] == f"{KERNEL_NAMES['zband_grid']}_{kind}")
         if rec["name"] == f"{KERNEL_NAMES['band_grid']}_fwd":
             # phase 28's apply_op calls against the CPU: bilinear, and
             # nearest outside the tie pixels

@@ -136,3 +136,75 @@ def test_sampler_compositions_match_jax_sampler_route(dims):
         assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
     stencil = ours(contextlib.nullcontext())
     assert np.abs(stencil[2] - refs[2]).max() > 1e-3 * np.abs(refs[2]).max()
+
+
+def _stencil3d_inputs(c, layout, seed):
+    """An image (2, C, 5, 6, 7), a grid within 1 voxel of the identity
+    (R = 1) whose entries at both ends of every axis sit exactly on -1
+    and +1, in ``layout``, and a cotangent."""
+    r = np.random.RandomState(seed)
+    d, h, w = 5, 6, 7
+    img = r.randn(2, c, d, h, w).astype(np.float32)
+    base = np.array(jint.base_grid(2, (d, h, w)))  # (2, 3, D, H, W)
+    scale = 2.0 / (np.array([w, h, d]) - 1.0)[None, :, None, None, None]
+    grid = np.clip(base + 0.9 * scale * r.uniform(-1, 1, base.shape),
+                   -1, 1).astype(np.float32)
+    # exact bounds at both ends of every axis
+    grid[:, 0, :, :, 0], grid[:, 0, :, :, -1] = -1.0, 1.0
+    grid[:, 1, :, 0], grid[:, 1, :, -1] = -1.0, 1.0
+    grid[:, 2, 0], grid[:, 2, -1] = -1.0, 1.0
+    if layout == "last":
+        grid = np.ascontiguousarray(np.moveaxis(grid, 1, -1))
+    ct = r.randn(*img.shape).astype(np.float32)
+    return img, grid, ct
+
+
+@pytest.mark.parametrize("layout", ["last", "first"])
+@pytest.mark.parametrize("c", [1, 3])
+def test_stencil_warp_3d_matches_jax(c, layout):
+    """``ops.stencil_warp_3d`` (the z-band grid pair, ``edge`` padding)
+    against JAX's (R = 1) and its custom VJP: the forward within 1e-6 and
+    ``d_img`` / ``d_grid`` within 1e-5 of their largest entries, both
+    grid layouts, displacements under one voxel with entries exactly on
+    the bounds (the whole one-sided slope at -1, none at +1)."""
+    import jax
+    from advchain_tpu.ops.grid_sample import stencil_warp_3d as jwarp
+    img, grid, ct = _stencil3d_inputs(c, layout, 40 + c)
+    y = jwarp(jnp.asarray(img), jnp.asarray(grid), 1, layout)
+    grads = jax.grad(lambda a, g: jnp.sum(jwarp(a, g, 1, layout) * ct),
+                     argnums=(0, 1))(jnp.asarray(img), jnp.asarray(grid))
+    a = torch.from_numpy(img).requires_grad_(True)
+    g = torch.from_numpy(grid).requires_grad_(True)
+    out = tops.stencil_warp_3d(a, g, 1, layout)
+    (out * torch.from_numpy(ct)).sum().backward()
+    for got, ref, tol in ((out.detach(), y, 1e-6), (a.grad, grads[0], 1e-5),
+                          (g.grad, grads[1], 1e-5)):
+        ref = np.asarray(ref)
+        assert got.shape == ref.shape
+        assert np.abs(got.numpy() - ref).max() <= tol * np.abs(ref).max()
+
+
+def test_stencil_warp_3d_past_its_radius_stays_exact():
+    """Past R voxels JAX's stencil taps give out (its caller keeps every
+    sample within R); the port samples exactly: a shift of 2.5 voxels
+    along W equals ``grid_sample_3d`` with border padding, where JAX's
+    R = 1 stencil does not."""
+    from advchain_tpu.ops.grid_sample import stencil_warp_3d as jwarp
+    img, _, _ = _stencil3d_inputs(2, "last", 50)
+    grid = np.array(jint.base_grid(2, img.shape[2:]))
+    grid[:, 0] += 2.5 * 2.0 / (img.shape[4] - 1)
+    grid = np.ascontiguousarray(np.moveaxis(np.clip(grid, -1, 1), 1, -1))
+    ours = tops.stencil_warp_3d(torch.from_numpy(img),
+                                torch.from_numpy(grid), 1)
+    sampled = tops.grid_sample_3d(torch.from_numpy(img),
+                                  torch.from_numpy(grid),
+                                  padding_mode="border")
+    assert torch.allclose(ours, sampled, atol=1e-6)
+    theirs = np.asarray(jwarp(jnp.asarray(img), jnp.asarray(grid), 1))
+    assert np.abs(theirs - sampled.numpy()).max() > 0.1
+
+
+def test_stencil_warp_3d_refuses_a_layout():
+    with pytest.raises(ValueError, match="grid_layout"):
+        tops.stencil_warp_3d(torch.zeros(1, 1, 2, 2, 2),
+                             torch.zeros(1, 2, 2, 2, 3), 1, "middle")

@@ -39,6 +39,7 @@ def test_port_imports_with_jax_blocked():
         "for name in ('jax', 'jaxlib', 'flax', 'advchain_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import advchain_tpu_torch.augmentor, advchain_tpu_torch.models\n"
+        "import advchain_tpu_torch.models.blocks\n"
         "import advchain_tpu_torch.kernels, advchain_tpu_torch.ops\n"
         "import advchain_tpu_torch.losses, advchain_tpu_torch.parallel\n"
         "import advchain_tpu_torch.utils\n"

@@ -916,3 +916,20 @@ def test_depthwise_conv_matches_the_cpu(cuda):
     k = (g[:, None] * g[None]).cpu()
     out = depthwise_conv(x.to(cuda), k.to(cuda)).cpu()
     assert float((out - depthwise_conv(x, k)).abs().max()) <= 1e-6
+
+
+def test_blocks_match_the_cpu(cuda):
+    """Every block of ``models/blocks.py`` on the card against the CPU at
+    a small size (chip_smoke phase 36's gates)."""
+    import chip_smoke as cs
+    errs = cs.check_blocks(cuda, 2, (32, 32), 2, (4, 16, 16))
+    assert len(errs) == len(cs.block_cases(2, (32, 32), 2, (4, 16, 16)))
+
+
+def test_stencil_warp_3d_launches_the_zband_pair(cuda):
+    """``ops.stencil_warp_3d`` against the z-band grid pair's plain
+    versions and the CPU: one forward and one backward launch a call
+    (chip_smoke phase 38 at a small volume)."""
+    import chip_smoke as cs
+    worst, call, _ = cs.check_stencil_warp_3d(cuda, 2, (6, 16, 20))
+    assert call == {"fwd": 1, "bwd": 1}, call

@@ -8,7 +8,7 @@ One spawn per world size runs every case (``space_rank``, which imports
 neither JAX nor the JAX package): on 2 ranks the ``(1, 2)`` mesh at batch 4,
 32x32, and the 3D chain on PseudoConv3dModel at 2 x 1 x 8 x 16 x 16; on 4
 ranks the ``(2, 2)`` mesh at 32x32 and the ``(1, 4)`` mesh at 64x64, the
-op-level cases, and the refusals.  The 2D chains (UNet feature_scale 16,
+op-level cases, and the uneven-level refusal.  The 2D chains (UNet feature_scale 16,
 SGD 1e-2): JAX's test chain (noise + affine, mse); noise + bias + affine
 with mse + contour; the full chain with mse + contour; the full chain
 without its PGD step in float64; the full chain with mse and dropout 0.1;
@@ -118,9 +118,10 @@ def _cases(world):
 
 # ------------------------------------------------------- one train case
 def space_parts(case, state_dict=None):
-    """(model, solver, optimizer): UNet feature_scale 16 or
-    PseudoConv3dModel (``case["dims"]`` 3), seeded weights (or
-    ``state_dict``), the chain at ``case["size"]``, SGD 1e-2 or Adam."""
+    """(model, solver, optimizer): UNet feature_scale 16,
+    PseudoConv3dModel (``case["dims"]`` 3) or ``case["net"]()``, seeded
+    weights (a self-attention's ``gamma`` set to ``case["gamma"]``) or
+    ``state_dict``, the chain at ``case["size"]``, SGD 1e-2 or Adam."""
     from advchain_tpu_torch import augmentor as taug
     from advchain_tpu_torch.models import (PseudoConv3dModel,
                                            SegmentationModel, UNet)
@@ -129,12 +130,18 @@ def space_parts(case, state_dict=None):
         module = PseudoConv3dModel(num_classes=4,
                                    dropout=case.get("dropout") or 0.0)
         configs = TRAIN_CONFIGS_3D
+    elif case.get("net") is not None:  # a picklable factory of the network
+        module = case["net"]()
+        configs = TRAIN_CONFIGS
     else:
         module = UNet(input_channel=1, num_classes=4, feature_scale=16,
                       encoder_dropout=case.get("dropout"),
                       decoder_dropout=case.get("dropout"))
         configs = TRAIN_CONFIGS
     model = SegmentationModel.create(module, seed=3, device="cpu")
+    if case.get("gamma") is not None:  # the self-attention's, off its 0
+        with torch.no_grad():
+            model.module.self_atn.gamma.fill_(case["gamma"])
     if state_dict is not None:
         model.module.load_state_dict(state_dict)
     chain = [getattr(taug, TRAIN_CLASSES[n])(
@@ -395,8 +402,9 @@ def norm_refusals(x):
 
 # ------------------------------------------------------------ the ranks
 def refusals(mesh):
-    """The step's refusals on a space mesh: a UNet level that a max-pool
-    cannot halve, and the networks that are not partitioned."""
+    """The step on a space mesh: a UNet level that a max-pool cannot halve
+    (refused), and the self-attention, UNetv2 and DeeplySupervisedUNet
+    (each one supervised step, its total loss)."""
     from advchain_tpu_torch.models import (DeeplySupervisedUNet,
                                            SegmentationModel, UNet, UNetv2)
     from advchain_tpu_torch.parallel import (TrainState,
@@ -419,9 +427,11 @@ def refusals(mesh):
             {"image": torch.from_numpy(raw["image"]),
              "label": torch.from_numpy(raw["label"]).long()}, mesh)
         try:
-            step(TrainState.create(model, opt), batch)
+            _, metrics = step(TrainState.create(model, opt), batch)
         except (ValueError, NotImplementedError) as e:
             out[name] = (type(e).__name__, str(e))
+        else:
+            out[name] = ("ran", float(metrics["total_loss"]))
     return out
 
 
@@ -821,8 +831,9 @@ def test_compose_flow_under_the_space_group_matches_jax_sampler(
 def test_refusals_on_a_space_mesh(space_runs):
     """A UNet level that a max-pool cannot halve raises ``ValueError``
     naming the level and the heights that divide; the self-attention,
-    UNetv2 and DeeplySupervisedUNet raise ``NotImplementedError`` naming
-    the ROADMAP entry."""
+    UNetv2 and DeeplySupervisedUNet are partitioned and take a step with a
+    finite loss (tests/test_torch_space_zoo.py holds them against the
+    single-process step)."""
     for out in space_runs[0][4]:
         got = out["refusals"]
         kind, msg = got["level"]
@@ -830,6 +841,5 @@ def test_refusals_on_a_space_mesh(space_runs):
         assert kind == "ValueError" and "UNet level down3" in msg
         assert "multiple of 32" in msg
         for name in ("self_attention", "unetv2", "deeply_supervised"):
-            kind, msg = got[name]
-            assert kind == "NotImplementedError", name
-            assert "ROADMAP §1: the space-mesh model zoo" in msg
+            kind, loss = got[name]
+            assert kind == "ran" and np.isfinite(loss), (name, got[name])
