@@ -25,17 +25,23 @@ begin_episode`` redraws it.  A rate of None or 0 is the identity, as Flax's
 ``nn.Dropout(0.0)`` is.
 
 Inside a spatially partitioned step's space group
-(``ops.collectives.current_space``) each rank holds one slab of the
-leading spatial axis of every activation (H, or D for PseudoConv3dModel)
-plus, while a convolution reads it, a halo: the 3x3 (3x3x3) convolutions
-take one plane from each neighbour (``ops.collectives.exchange_halo``) and
-zero-pad the other axes only, the edge slabs' zero halos being the
-padding; ``Down``'s max-pool is local; ``Up``'s bilinear x2 computes this
-slab's output rows from the global coordinate and one halo plane;
-BatchNorm's statistics and dropout's mask span every rank.  A level whose
-slab a 2x2 max-pool cannot halve raises ``ValueError`` (the JAX package's
-GSPMD pads there).  The self-attention, UNetv2 and DeeplySupervisedUNet
-are not partitioned and raise ``NotImplementedError`` there.
+(``ops.collectives.current_space``) each rank holds its rows of the
+leading spatial axis of every activation (H, or D for PseudoConv3dModel):
+equal slabs at the input, and on each inner level the rows of that
+level's ``ops.collectives.Partition``, which may be uneven or, on a small
+level, empty.  A convolution or pooling window reads the rows it needs
+past its own (``SpaceGroup.fetch``: the neighbours' halos, or the gathered
+level where some rank holds too few rows) and zero-pads the other axes
+only, the rows past the level's ends being the padding; its output row
+belongs to the rank holding its window's centre (a 2x2 pool's first row,
+so an odd level drops its last row as the floor pool does).  The bilinear
+x2 computes the rows of its skip's partition (or doubles each rank's rows)
+from the global coordinate; ``pad_or_crop_to`` pads or crops global rows;
+BatchNorm's statistics and dropout's mask span every rank and the level's
+global height; the self-attention gathers every rank's keys and values.
+A rank that holds no row of a level still takes part in every collective,
+and its empty outputs carry zero gradients to the weights, so every rank's
+backward runs the same collectives.
 
 The JAX package computes PseudoConv3dModel's 3x3x3 convolutions as
 ``ZDecomposedConv3d``, three 2D convolutions over z-shifted plane stacks,
@@ -55,10 +61,12 @@ from torch import nn
 from advchain_tpu_torch.ops import collectives
 
 __all__ = ["UNet", "UNetv2", "DeeplySupervisedUNet", "DoubleConv", "Down",
-           "Up", "OutConv", "SelfAttn2d", "SpectralConv2d", "FrozenStatsBN",
+           "Up", "OutConv", "SelfAttn2d", "SpectralConv2d", "SlabConv2d",
+           "SlabConv3d", "MaxPool2x2", "FrozenStatsBN",
            "FrozenStatsBN3d", "EpisodeDropout", "ZDecomposedConv3d",
            "PseudoConv3dModel", "init_unet_", "max_pool_2x2",
-           "upsample2x_align_corners", "pad_or_crop_to",
+           "upsample2x_align_corners", "upsample_to_skip", "pad_or_crop_to",
+           "pad_rows",
            "apply_maybe_spectral", "kaiming_conv_init", "bn_scale_init"]
 
 LAST_LAYER_ACTS = (None, "softmax", "sigmoid")
@@ -81,40 +89,127 @@ def bn_scale_init(shape, generator: torch.Generator, device=None):
         device=generator.device if device is None else device)
 
 
+def _empty_rows(x, shape, *tensors):
+    """Zeros of ``shape`` (no row on the leading spatial axis) wired to
+    ``x`` and ``tensors`` with zero gradients: a rank that holds no row of
+    a level still gives its weights a gradient and reaches, in its
+    backward, every collective the other ranks' backward runs."""
+    tie = sum(t.sum() * 0 for t in (x,) + tensors if t is not None)
+    return x.new_zeros(shape) + tie
+
+
+def _slab_window(x, sg, kernel: int, stride: int, padding: int,
+                 dilation: int):
+    """For a window op along the leading spatial axis of ``x`` (this
+    rank's rows of its level): (the input rows this rank's output rows
+    read, zeros past the level's ends; the output level's partition; this
+    rank's output rows)."""
+    part = sg.level(x)
+    out = part.window(kernel, stride, padding, dilation)
+    span = dilation * (kernel - 1) + 1
+    windows = [(j * stride - padding, (j + e - 1) * stride - padding + span)
+               if e else (0, 0) for j, e in zip(out.offsets, out.extents)]
+    return sg.fetch(x, part, windows), out, out.extents[sg.index]
+
+
+def _window_shape(x, kernel, stride, padding, dilation):
+    """The output extents of a window op on the axes after the leading
+    spatial one."""
+    return tuple((s + 2 * p - d * (k - 1) - 1) // t + 1 for s, k, t, p, d in
+                 zip(x.shape[3:], kernel, stride, padding, dilation))
+
+
 def max_pool_2x2(x):
-    """2x2 / 2 max pool (``nn.MaxPool2d(2)``: floor); local on a slab."""
-    return F.max_pool2d(x, 2)
+    """2x2 / 2 max pool (``nn.MaxPool2d(2)``: floor).  Inside a space group
+    each output row belongs to the rank holding its window's first row,
+    which reads the second from the next rank where the window straddles a
+    seam."""
+    sg = collectives.current_space()
+    if sg is None:
+        return F.max_pool2d(x, 2)
+    xw, out, rows = _slab_window(x, sg, 2, 2, 0, 1)
+    if rows:
+        y = F.max_pool2d(xw, 2)
+    else:
+        y = _empty_rows(xw, x.shape[:2] + (0, x.shape[3] // 2))
+    return sg.register(y, out)
+
+
+class MaxPool2x2(nn.MaxPool2d):
+    """``nn.MaxPool2d(2)`` through :func:`max_pool_2x2` (partitioned
+    inside a space group)."""
+
+    def __init__(self):
+        super().__init__(2)
+
+    def forward(self, x):
+        return max_pool_2x2(x)
 
 
 def pad_or_crop_to(skip, target_h: int, target_w: int):
     """Pad, or for a negative difference crop, ``skip`` (N, C, H, W)
     toward (target_h, target_w) as the reference's ``up`` does: ``d // 2``
     before and ``int(d / 2)`` after (so an odd positive difference leaves
-    it one short, as in the JAX package's ``_pad_or_crop_to``)."""
-    dh = target_h - skip.shape[2]
+    it one short, as in the JAX package's ``_pad_or_crop_to``).  Inside a
+    space group ``target_h`` is the global height and the rows padded or
+    cropped are the level's global first and last ones
+    (:func:`pad_rows`)."""
     dw = target_w - skip.shape[3]
-    return F.pad(skip, (dw // 2, int(dw / 2), dh // 2, int(dh / 2)))
+    sg = collectives.current_space()
+    if sg is None:
+        dh = target_h - skip.shape[2]
+        return F.pad(skip, (dw // 2, int(dw / 2), dh // 2, int(dh / 2)))
+    dh = target_h - sg.level(skip).height
+    return pad_rows(skip, dh // 2, int(dh / 2), sg, (dw // 2, int(dw / 2)))
+
+
+def pad_rows(x, before: int, after: int, sg, pads=()):
+    """``x`` (this rank's rows of a level) with ``before`` / ``after`` zero
+    rows added at the level's global ends (negative: rows cropped there),
+    and ``F.pad``'s ``pads`` on the axes after the leading one: added rows
+    go to the first and last rank, a cropped row leaves its owner,
+    whichever rank that is."""
+    part = sg.level(x)
+    new = part.padded(before, after)
+    o, e = part.rows(sg.index)
+    start, size = new.rows(sg.index)
+    lo = max(start, o + before)
+    kept = max(0, min(start + size, o + e + before) - lo)
+    piece = x.narrow(2, lo - o - before if kept else 0, kept)
+    top = lo - start if kept else size
+    pads = list(pads) + [0, 0] * (x.dim() - 3 - len(pads) // 2)
+    return sg.register(F.pad(piece, pads + [top, size - top - kept]), new)
 
 
 class _HaloConv:
     """A convolution whose leading spatial axis, inside a space group,
-    reads ``(k - 1) // 2`` halo planes from the neighbours instead of its
-    zero padding (the edge slabs' zero halos are that padding)."""
+    reads the rows past its own that its windows need (the rows past the
+    level's ends are its zero padding) and gives the rows of its output
+    level (:func:`_slab_window`); the other axes keep their padding."""
 
     def _conv_forward(self, x, weight, bias):
         sg = collectives.current_space()
         if sg is None:
             return super()._conv_forward(x, weight, bias)
-        halo = self.padding[0]
-        x = collectives.exchange_halo(x, halo, 2, sg.group)
+        xw, out, rows = _slab_window(x, sg, weight.shape[2], self.stride[0],
+                                     self.padding[0], self.dilation[0])
+        if not rows:
+            shape = (x.shape[0], weight.shape[0], 0) + _window_shape(
+                x, weight.shape[3:], self.stride[1:], self.padding[1:],
+                self.dilation[1:])
+            return sg.register(_empty_rows(xw, shape, weight, bias), out)
         conv = F.conv2d if x.dim() == 4 else F.conv3d
-        return conv(x, weight, bias, self.stride, (0,) + self.padding[1:],
-                    self.dilation, self.groups)
+        return sg.register(conv(xw, weight, bias, self.stride,
+                                (0,) + tuple(self.padding[1:]),
+                                self.dilation, self.groups), out)
 
 
 class SlabConv2d(_HaloConv, nn.Conv2d):
-    """``nn.Conv2d`` (zero 'same' padding) that a space group partitions
-    on H."""
+    """``nn.Conv2d`` (zero padding) that a space group partitions on H."""
+
+
+class SlabConv3d(_HaloConv, nn.Conv3d):
+    """``nn.Conv3d`` (zero padding) that a space group partitions on D."""
 
 
 class _StatsWriter:
@@ -275,7 +370,8 @@ class EpisodeDropout(nn.Module):
     ``1 / (1 - p)``, dropped ones are 0).  The mask is drawn on the input's
     device from a generator seeded with the episode seed, at the first
     forward of the episode; inside a data group it is the global batch's
-    mask (every row and slab), of which the rank keeps its part."""
+    mask (every row, and the level's every row), of which the rank keeps
+    its part."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -296,18 +392,20 @@ class EpisodeDropout(nn.Module):
         if mask is None or mask.shape != x.shape or mask.device != x.device:
             gen = torch.Generator(device=x.device).manual_seed(self.seed)
             # inside a data group: the global batch's mask, this rank's rows
-            # and slab
+            # and its rows of the level
             dg = collectives.current_data_group()
-            shape = tuple(x.shape)
+            shape, part = tuple(x.shape), None
             if dg is not None:
-                shape = ((dg.n_global,) + shape[1:2]
-                         + (shape[2] * dg.planes,) + shape[3:])
+                shape = (dg.n_global,) + shape[1:]
+                if dg.space is not None:
+                    part = dg.space.level(x)
+                    shape = shape[:2] + (part.height,) + shape[3:]
             mask = torch.rand(shape, generator=gen,
                               device=x.device) >= self.p
             if dg is not None:
                 mask = dg.rows(mask)
-                if dg.space is not None:
-                    mask = dg.space.slab(mask)
+                if part is not None:
+                    mask = dg.space.take(mask, part)
             self._mask = mask
         keep = 1.0 - self.p
         return torch.where(mask, x / keep, torch.zeros_like(x))
@@ -360,7 +458,7 @@ class Down(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, dropout=None,
                  spectral: bool = False):
         super().__init__()
-        self.mpconv = nn.Sequential(nn.MaxPool2d(2),
+        self.mpconv = nn.Sequential(MaxPool2x2(),
                                     DoubleConv(in_ch, out_ch, spectral))
         self.drop = _dropout(dropout)
 
@@ -379,8 +477,7 @@ class Up(nn.Module):
         self.conv = DoubleConv(in_ch, out_ch, spectral)
 
     def forward(self, x, skip):
-        x = upsample2x_align_corners(x)
-        skip = pad_or_crop_to(skip, x.shape[2], x.shape[3])
+        x, skip = upsample_to_skip(x, skip)
         return self.conv(self.drop(torch.cat([skip, x], dim=1)))
 
 
@@ -389,7 +486,7 @@ class OutConv(nn.Module):
 
     def __init__(self, in_ch: int, num_classes: int):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, num_classes, 1)
+        self.conv = SlabConv2d(in_ch, num_classes, 1)
 
     def forward(self, x):
         return self.conv(x)
@@ -405,19 +502,20 @@ class SelfAttn2d(nn.Module):
     dtype; in JAX's bf16 mode the f32 output instead promotes the layers
     after it to f32.
 
-    Inside a space group the queries stay on the slab and the keys and
-    values of every slab are gathered in rank order (row slabs
-    concatenated are the global row-major order of HW), so the softmax
-    runs over every key, as the dense block's does; the gather's backward
-    sums the gathered gradient over the group and keeps this slab's part.
-    The attention map is then this slab's query rows, (N, hw, HW).
+    Inside a space group the queries stay on the rank's rows and the keys
+    and values of every rank's rows are gathered in rank order (row slabs
+    concatenated are the global row-major order of HW; uneven or empty
+    slabs padded on the wire), so the softmax runs over every key, as the
+    dense block's does; the gather's backward sums the gathered gradient
+    over the group and keeps this rank's part.  The attention map is then
+    this rank's query rows, (N, hw, HW).
     ``gamma`` is replicated: the step sums its gradient over the ranks."""
 
     def __init__(self, in_dim: int, factor: int = 8):
         super().__init__()
-        self.query_conv = nn.Conv2d(in_dim, in_dim // factor, 1)
-        self.key_conv = nn.Conv2d(in_dim, in_dim // factor, 1)
-        self.value_conv = nn.Conv2d(in_dim, in_dim, 1)
+        self.query_conv = SlabConv2d(in_dim, in_dim // factor, 1)
+        self.key_conv = SlabConv2d(in_dim, in_dim // factor, 1)
+        self.value_conv = SlabConv2d(in_dim, in_dim, 1)
         self.gamma = nn.Parameter(torch.zeros(1))
 
     def forward(self, x):
@@ -426,8 +524,10 @@ class SelfAttn2d(nn.Module):
         k = self.key_conv(x).flatten(2)
         v = self.value_conv(x).flatten(2)
         sg = collectives.current_space()
-        if sg is not None:  # one gather of every slab's keys and values
-            kv = collectives.gather_slabs(torch.cat([k, v], 1), sg.group)
+        if sg is not None:  # one gather of every rank's keys and values
+            kv = collectives.gather_slabs(
+                torch.cat([k, v], 1), sg.group,
+                extents=[e * w for e in sg.level(x).extents])
             k, v = kv.split([k.shape[1], c], dim=1)
         attention = torch.softmax(torch.matmul(q, k.float()), dim=-1)
         out = torch.matmul(attention, v.transpose(1, 2).float())
@@ -480,7 +580,6 @@ class UNet(nn.Module):
         self.attention_map = None
 
     def forward(self, x):
-        _check_levels(x, 4)
         x1 = self.drop(self.inc(x))
         x2 = self.down1(x1)
         x3 = self.down2(x2)
@@ -546,7 +645,6 @@ class DeeplySupervisedUNet(nn.Module):
         self.outc = OutConv(b, num_classes)
 
     def forward(self, x, multi_out: bool = False):
-        _check_levels(x, 4)
         x1 = self.inc(x)
         x2 = self.down1(x1)
         x3 = self.drop3(self.down2(x2))
@@ -555,10 +653,11 @@ class DeeplySupervisedUNet(nn.Module):
         y = self.up1(x5, x4)
         x_2 = self.up2(y, x3)
         x_3 = self.up3(x_2, x2)
-        mixed = (upsample2x_align_corners(self.up2_conv1(x_2))
-                 + self.up3_conv1(x_3))
-        mixed_up = upsample2x_align_corners(mixed)
         out = self.outc(self.up4(x_3, x1))
+        # the heads' upsamplings give the rows of the levels they join
+        mixed = (upsample2x_align_corners(self.up2_conv1(x_2), like=x_3)
+                 + self.up3_conv1(x_3))
+        mixed_up = upsample2x_align_corners(mixed, like=out)
         final = out + mixed_up
         if multi_out:
             return out, mixed_up, final
@@ -568,67 +667,79 @@ class DeeplySupervisedUNet(nn.Module):
         return init_unet_(self, generator)
 
 
-def _check_levels(x, levels: int) -> None:
-    """Inside a space group: every level's slab of the UNet family halves
-    under a 2x2 max-pool, else ``ValueError`` naming the first level that
-    does not and the heights that would divide."""
+def upsample2x_align_corners(x, like=None):
+    """Bilinear x2 with align_corners=True (``nn.Upsample(scale_factor=2,
+    mode='bilinear', align_corners=True)``).  Inside a space group this
+    rank's rows of the global upsampling, on the level of ``like`` (a
+    tensor of twice ``x``'s global height whose rows it joins) or, without
+    ``like``, with each rank's rows doubled (:func:`_slab_upsample2x`);
+    outside one ``like`` is not read."""
     sg = collectives.current_space()
     if sg is None:
-        return
-    rows = x.shape[2]
-    for level in range(1, levels + 1):
-        if rows % 2:
-            raise ValueError(
-                f"UNet level down{level}: {rows * sg.n} rows split over "
-                f"space={sg.n} into slabs of {rows}, which a 2x2 max-pool "
-                f"cannot halve; the image height must be a multiple of "
-                f"{sg.n * 2 ** levels} (JAX's GSPMD pads such a level, "
-                f"ROADMAP §3)")
-        rows //= 2
+        return F.interpolate(x, scale_factor=2, mode="bilinear",
+                             align_corners=True)
+    part = sg.level(x)
+    target = part.resized(2 * part.height) if like is None \
+        else sg.level(like)
+    return _slab_upsample2x(x, sg, part, target)
 
 
-def upsample2x_align_corners(x):
-    """Bilinear x2 with align_corners=True (``nn.Upsample(scale_factor=2,
-    mode='bilinear', align_corners=True)``); inside a space group this
-    slab's rows of the global upsampling (:func:`_slab_upsample2x`)."""
+def upsample_to_skip(x, skip):
+    """(``x`` upsampled x2, ``skip`` padded or cropped to it), the decoder
+    blocks' first step; inside a space group the skip's global rows are
+    padded or cropped first and the upsampling gives the rows of the
+    result."""
     sg = collectives.current_space()
-    if sg is not None:
-        return _slab_upsample2x(x, sg)
-    return F.interpolate(x, scale_factor=2, mode="bilinear",
-                         align_corners=True)
+    if sg is None:
+        x = upsample2x_align_corners(x)
+        return x, pad_or_crop_to(skip, x.shape[2], x.shape[3])
+    skip = pad_or_crop_to(skip, 2 * sg.level(x).height, 2 * x.shape[3])
+    return upsample2x_align_corners(x, like=skip), skip
 
 
-def _slab_upsample2x(x, sg):
-    """This slab's 2h output rows of the bilinear x2 (align_corners=True)
-    of a tensor (N, C, h, W) whose H is split over the space group: W is
-    upsampled locally (``F.interpolate`` with H unchanged leaves each row
-    as it is), then each output row ``i`` of the global H blends the two
-    input rows at ``i * (H - 1) / (2H - 1)``, PyTorch's source index and
-    weights in the input's accumulation type, read from the slab and one
-    halo plane on each side."""
-    n, c, h, w = x.shape
-    rows_in = h * sg.n
-    xw = F.interpolate(x, size=(h, 2 * w), mode="bilinear",
-                       align_corners=True)
-    xh = collectives.exchange_halo(xw, 1, 2, sg.group)
-    acc = np.float64 if x.dtype == torch.float64 else np.float32
+def _source_rows(rows_in: int, out_rows, acc):
+    """The two input rows and the second's weight of each output row of
+    the bilinear x2 (align_corners=True) of ``rows_in`` rows: PyTorch's
+    source index ``i * (H - 1) / (2H - 1)`` and weights in the input's
+    accumulation type ``acc``."""
     scale = acc(rows_in - 1) / acc(2 * rows_in - 1)
-    out_rows = np.arange(2 * h * sg.index, 2 * h * (sg.index + 1))
-    src = scale * out_rows.astype(acc)
+    src = scale * np.asarray(out_rows).astype(acc)
     lo = src.astype(np.int64)  # src >= 0: truncation is the floor
-    lam1 = src - lo.astype(acc)
-    hi = lo + (lo < rows_in - 1)
-    first = h * sg.index - 1  # the global row of the left halo plane
-    r0 = xh.index_select(2, torch.as_tensor(lo - first, device=x.device))
-    r1 = xh.index_select(2, torch.as_tensor(hi - first, device=x.device))
+    return lo, lo + (lo < rows_in - 1), src - lo.astype(acc)
+
+
+def _slab_upsample2x(x, sg, part, target):
+    """The rows of ``target`` (a partition of 2H rows) of the bilinear x2
+    (align_corners=True) of a tensor (N, C, h, W) whose H rows are split
+    as ``part``: each output row ``i`` of the global H blends the two
+    input rows at ``i * (H - 1) / (2H - 1)`` (:func:`_source_rows`), read
+    from this rank's rows and the rows past them that it needs; W is
+    upsampled locally (``F.interpolate`` with H unchanged leaves each row
+    as it is)."""
+    n, c, _, w = x.shape
+    acc = np.float64 if x.dtype == torch.float64 else np.float32
+    windows = []
+    for o, e in zip(target.offsets, target.extents):
+        lo, hi, _ = _source_rows(part.height, [o, o + e - 1], acc)
+        windows.append((int(lo[0]), int(hi[1]) + 1) if e else (0, 0))
+    xw = sg.fetch(x, part, windows)
+    o, e = target.rows(sg.index)
+    if not e:
+        return sg.register(_empty_rows(xw, (n, c, 0, 2 * w)), target)
+    xw = F.interpolate(xw, size=(xw.shape[2], 2 * w), mode="bilinear",
+                       align_corners=True)
+    lo, hi, lam1 = _source_rows(part.height, np.arange(o, o + e), acc)
+    first = windows[sg.index][0]
+    r0 = xw.index_select(2, torch.as_tensor(lo - first, device=x.device))
+    r1 = xw.index_select(2, torch.as_tensor(hi - first, device=x.device))
     lam0 = torch.as_tensor(acc(1) - lam1, dtype=x.dtype,
                            device=x.device).view(1, 1, -1, 1)
     lam1 = torch.as_tensor(lam1, dtype=x.dtype,
                            device=x.device).view(1, 1, -1, 1)
-    return lam0 * r0 + lam1 * r1
+    return sg.register(lam0 * r0 + lam1 * r1, target)
 
 
-class ZDecomposedConv3d(_HaloConv, nn.Conv3d):
+class ZDecomposedConv3d(SlabConv3d):
     """A 3x3x3 SAME convolution with bias (the JAX package's
     ``ZDecomposedConv3d(features)``, a TPU layout of the same
     convolution); a space group partitions it on D."""

@@ -31,11 +31,27 @@ which the port's batch-wide quantities reduce over the data group:
 
 The space group.  On a ``('data', 'space')`` mesh whose ``space`` axis is
 larger than 1 each rank also holds one slab of the leading spatial axis (H
-of NCHW, D of NCDHW): block ``index`` of ``n`` equal blocks.  The step
-opens its data group with a :class:`SpaceGroup` and with the group of
-every rank of the mesh, over which each batch-wide quantity above then
+of NCHW, D of NCDHW): at the input, block ``index`` of ``n`` equal blocks.
+The step opens its data group with a :class:`SpaceGroup` and with the group
+of every rank of the mesh, over which each batch-wide quantity above then
 reduces (the BatchNorm sums, the clamp, the divergence, the 3D step count,
-the weight gradients).  Inside it the readers of :func:`current_space` are
+the weight gradients).
+
+Levels.  A network's inner activations are levels of other heights, and
+each level is split by a :class:`Partition`: every rank's ``(offset,
+extent)`` on the leading axis, contiguous in rank order, uneven, and on a
+small level empty on some ranks.  The op that makes a level derives its
+partition from its input's with no collective (a pooling or strided
+window's output row belongs to the rank holding its input anchor row, an
+upsampling's to its skip's or to the rank of ``floor(i * in / out)``, a pad
+or crop shifts the rows) and registers it under the level's trailing shape
+(:meth:`SpaceGroup.register`); the ops after it look it up
+(:meth:`SpaceGroup.level`).  A trailing shape that no op registered, or
+that two levels of different partitions share, costs one all-gather of the
+extents.  :meth:`SpaceGroup.fetch` gives a rank any window of rows of a
+level: from the neighbours' halos when every rank holds enough rows, else
+from the gathered level (:func:`gather_slabs`, uneven slabs padded on the
+wire).  Inside the space group the readers of :func:`current_space` are
 partition-aware:
 
 * ``ops.grid_sample.grid_sample`` samples through
@@ -45,16 +61,19 @@ partition-aware:
   slab's rows of the global grid, ``ops.resize.interpolate`` and
   ``ops.bspline.evaluate_bspline_field`` this slab's rows of a replicated
   field resized to the image;
-* ``ops.conv.conv_same`` and the UNet's convolutions read a halo from the
-  neighbours (:func:`exchange_halo`); the UNet's upsampling computes this
-  slab's rows from one halo plane;
+* ``ops.conv.conv_same`` reads a halo from the neighbours
+  (:func:`exchange_halo`); the models' convolutions, pools, upsamplings,
+  pads and crops act on each level's partition (``models/unet.py``,
+  ``models/blocks.py``);
 * two ops take either kind of field, so their call sites say which:
   ``ops.conv.gaussian_smooth(..., sharded=True)`` smooths a slab with
   halos (the morph's second smoothing; its first acts on the replicated
   velocity), and ``ops.norms.unit_normalize(..., sharded=True)`` takes
   each sample's l2 norm over the space group (the noise's updates and
   projections; the other transforms' parameters are replicated);
-* BatchNorm, dropout's mask and the mse divisor count every plane.
+* BatchNorm, dropout's mask and the mse divisor count every plane of the
+  level (:meth:`DataGroup.global_numel`); the blocks' channel gates and
+  instance statistics sum over the space group (:func:`space_sum`).
 
 Outside the block all of these are the single-process computations, and no
 collective runs.
@@ -65,15 +84,20 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import itertools
+import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 __all__ = ["transport", "all_reduce", "all_gather", "broadcast_",
-           "neighbour_exchange", "gather_slabs", "exchange_halo", "DataGroup", "SpaceGroup",
-           "data_group", "current_data_group", "current_space",
-           "global_numel", "reset_counts", "COUNTS"]
+           "neighbour_exchange", "gather_slabs", "exchange_halo",
+           "space_sum", "Partition", "DataGroup", "SpaceGroup", "data_group",
+           "current_data_group", "current_space", "global_numel",
+           "reset_counts", "COUNTS"]
 
 _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
         "max": dist.ReduceOp.MAX}
@@ -210,29 +234,66 @@ class _HaloExchange(torch.autograd.Function):
 
 
 class _GatherSlabs(torch.autograd.Function):
-    """Every rank's ``x`` along ``dim`` in group-rank order; the backward
-    sums the gathered gradient over the group and keeps this rank's part
-    (a reduce-scatter written as an all-reduce and a slice)."""
+    """Every rank's ``x`` along ``dim`` in group-rank order, rank ``r``'s
+    of ``extents[r]`` planes (each padded to the largest on the wire); the
+    backward sums the gathered gradient over the group and keeps this
+    rank's part (a reduce-scatter written as an all-reduce and a
+    slice)."""
 
     @staticmethod
-    def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group, ctx.size = dim, group, x.shape[dim]
-        ctx.idx = dist.get_group_rank(group, dist.get_rank())
-        return all_gather(x, dim=dim, group=group)
+    def forward(ctx, x, dim, group, extents):
+        idx = dist.get_group_rank(group, dist.get_rank())
+        ctx.dim, ctx.group = dim, group
+        ctx.offset, ctx.size = sum(extents[:idx]), extents[idx]
+        most = max(extents)
+        if x.shape[dim] < most:
+            shape = list(x.shape)
+            shape[dim] = most - x.shape[dim]
+            x = torch.cat([x, x.new_zeros(shape)], dim)
+        out = all_gather(x, dim=dim, group=group)
+        if min(extents) == most:
+            return out
+        return torch.cat([out.narrow(dim, r * most, e)
+                          for r, e in enumerate(extents)], dim)
 
     @staticmethod
     def backward(ctx, g):
         total = all_reduce(g.contiguous(), group=ctx.group)
-        return total.narrow(ctx.dim, ctx.idx * ctx.size, ctx.size), None, \
+        return total.narrow(ctx.dim, ctx.offset, ctx.size), None, None, \
             None
 
 
-def gather_slabs(x, group, dim: int = 2):
-    """Every rank's slab ``x`` (all of one shape) concatenated along
-    ``dim`` in group-rank order, differentiably: the whole source of a
-    global warp, or the self-attention's keys and values over the space
-    group."""
-    return _GatherSlabs.apply(x, dim, group)
+def gather_slabs(x, group, dim: int = 2, extents=None):
+    """Every rank's slab ``x`` concatenated along ``dim`` in group-rank
+    order, differentiably: the whole source of a global warp, the
+    self-attention's keys and values over the space group, or a level too
+    small for halos (:meth:`SpaceGroup.fetch`).  ``extents``: every rank's
+    extent along ``dim`` (None: all ``x``'s)."""
+    if extents is None:
+        extents = (x.shape[dim],) * dist.get_world_size(group)
+    return _GatherSlabs.apply(x, dim, group, tuple(int(e) for e in extents))
+
+
+class _SpaceSum(torch.autograd.Function):
+    """``t`` summed over ``group``; the backward sums the gradient over the
+    group too, since each rank's cotangent of the replicated sum is that
+    rank's part of it."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_reduce(t, group=group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), group=ctx.group), None
+
+
+def space_sum(t, group):
+    """``t`` (this rank's partial sums) summed over ``group``,
+    differentiably: the replicated result's gradient on each rank is that
+    rank's part, so the backward sums it over the group as well."""
+    return _SpaceSum.apply(t, group)
 
 
 def exchange_halo(x, halo: int, axis: int, group):
@@ -248,30 +309,156 @@ def exchange_halo(x, halo: int, axis: int, group):
     return _HaloExchange.apply(x, halo, axis, group)
 
 
+def _rows_or_zeros(t, lo: int, hi: int, axis: int):
+    """Rows ``lo : hi`` of ``t`` along ``axis``, zeros where they fall
+    outside it."""
+    before, after = max(0, -lo), max(0, hi - t.shape[axis])
+    pads = [0, 0] * (t.dim() - 1 - axis) + [before, after]
+    return F.pad(t, pads).narrow(axis, lo + before, hi - lo)
+
+
+@dataclasses.dataclass(frozen=True)
+class Partition:
+    """Each rank's rows of one level's leading spatial axis: group rank
+    ``r`` holds global rows ``offsets[r] : offsets[r] + extents[r]``,
+    contiguous and in rank order; an extent may be 0."""
+
+    extents: tuple
+
+    @classmethod
+    def equal(cls, height: int, n: int) -> "Partition":
+        if height % n:
+            raise ValueError(f"an extent of {height} does not split into "
+                             f"{n} equal slabs over 'space'")
+        return cls((height // n,) * n)
+
+    @property
+    def height(self) -> int:
+        return sum(self.extents)
+
+    @property
+    def offsets(self) -> tuple:
+        return tuple(itertools.accumulate((0,) + self.extents[:-1]))
+
+    def rows(self, rank: int):
+        """(offset, extent) of group rank ``rank``."""
+        return self.offsets[rank], self.extents[rank]
+
+    def derive(self, anchors) -> "Partition":
+        """The partition of a level whose row ``j`` belongs to the rank
+        holding row ``anchors[j]`` of this one (an anchor before the first
+        row to rank 0, one past the last row to the last rank)."""
+        n = len(self.extents)
+        owners = np.minimum(np.searchsorted(np.cumsum(self.extents),
+                                            np.asarray(anchors, np.int64),
+                                            side="right"), n - 1)
+        return Partition(tuple(int(c) for c in
+                               np.bincount(owners, minlength=n)))
+
+    def window(self, kernel: int, stride: int = 1, padding: int = 0,
+               dilation: int = 1) -> "Partition":
+        """The output of a convolution or pooling window along this axis:
+        row ``j`` belongs to the rank holding its window's centre row
+        ``j * stride - padding + dilation * (kernel - 1) // 2`` (a 2 x 2 /
+        2 pool's first row; a 'same' convolution keeps the partition)."""
+        span = dilation * (kernel - 1)
+        n_out = max((self.height + 2 * padding - span - 1) // stride + 1, 0)
+        return self.derive(np.arange(n_out) * stride - padding + span // 2)
+
+    def resized(self, n_out: int) -> "Partition":
+        """A resize to ``n_out`` rows: row ``i`` belongs to the rank
+        holding row ``floor(i * height / n_out)`` (an x2 upsampling
+        doubles each rank's rows, so a pool gives this partition back)."""
+        return self.derive(np.arange(n_out) * self.height // n_out)
+
+    def padded(self, before: int, after: int) -> "Partition":
+        """Rows added (positive) or cropped (negative) at the two ends:
+        added rows go to the first and last rank, cropped ones leave their
+        owners."""
+        total = self.height + before + after
+        starts = [0] + [min(max(o + before, 0), total)
+                        for o in self.offsets[1:]]
+        return Partition(tuple(b - a for a, b in
+                               zip(starts, starts[1:] + [total])))
+
+
 @dataclasses.dataclass(frozen=True)
 class SpaceGroup:
     """This rank's slab of the leading spatial axis in a spatially
-    partitioned step: block ``index`` of ``n`` equal blocks over ``group``
-    (the mesh's ``space`` group).  ``mesh`` is the ``DeviceMesh`` that
-    ``parallel.spatial``'s sharded ops take, ``max_disp`` the chain's
-    static displacement bound (``parallel.spatial.
-    chain_displacement_bound``; None: every warp gathers its source)."""
+    partitioned step: at the input, block ``index`` of ``n`` equal blocks
+    over ``group`` (the mesh's ``space`` group).  ``mesh`` is the
+    ``DeviceMesh`` that ``parallel.spatial``'s sharded ops take,
+    ``max_disp`` the chain's static displacement bound
+    (``parallel.spatial.chain_displacement_bound``; None: every warp
+    gathers its source).  ``levels`` maps a level's trailing shape to its
+    :class:`Partition` (None: two levels share it); :func:`data_group`
+    starts each step with an empty map."""
 
     group: object
     n: int
     index: int
     mesh: object = None
     max_disp: Optional[float] = None
+    levels: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
 
     def slab(self, t, axis: int = 2):
         """This rank's block of a tensor whose ``axis`` holds the global
-        extent."""
-        size = t.shape[axis]
-        if size % self.n:
-            raise ValueError(f"an extent of {size} does not split into "
-                             f"{self.n} equal slabs over 'space'")
-        step = size // self.n
-        return t.narrow(axis, self.index * step, step)
+        extent, split into equal blocks."""
+        o, e = Partition.equal(t.shape[axis], self.n).rows(self.index)
+        return t.narrow(axis, o, e)
+
+    def level(self, x, axis: int = 2) -> Partition:
+        """The partition of the level ``x`` (this rank's rows along
+        ``axis``) lies on: the registered one for its trailing shape, else
+        every rank's extent (one all-gather)."""
+        key = tuple(x.shape[axis + 1:])
+        part = self.levels.get(key)
+        if part is None:
+            part = Partition(tuple(all_gather(
+                torch.tensor([x.shape[axis]]), group=self.group).tolist()))
+            self.levels.setdefault(key, part)
+        if part.extents[self.index] != x.shape[axis]:
+            raise RuntimeError(f"this rank holds {x.shape[axis]} rows of a "
+                               f"level registered as {part.extents}")
+        return part
+
+    def register(self, x, part: Partition, axis: int = 2):
+        """Record that ``x`` lies on a level split as ``part``; returns
+        ``x``."""
+        key = tuple(x.shape[axis + 1:])
+        self.levels[key] = part if self.levels.get(key, part) == part \
+            else None
+        return x
+
+    def take(self, t, part: Partition, axis: int = 2):
+        """This rank's rows of a global tensor on a level split as
+        ``part``."""
+        return t.narrow(axis, *part.rows(self.index))
+
+    def fetch(self, x, part: Partition, windows, axis: int = 2):
+        """Global rows ``windows[index]`` = (lo, hi) of the level split as
+        ``part`` (``x``: this rank's rows), zeros outside the level;
+        ``windows`` holds every rank's (hi <= lo: none), so that every rank
+        takes the same route.  Differentiable.  When every rank holds as
+        many rows as the farthest window reaches past its own, the
+        neighbours' halos (:func:`exchange_halo`; no collective when no
+        window leaves its rows), else the gathered level
+        (:func:`gather_slabs`)."""
+        halo = 0
+        for (o, e), (lo, hi) in zip(zip(part.offsets, part.extents),
+                                    windows):
+            if hi > lo:
+                halo = max(halo, o - lo, hi - o - e)
+        o, e = part.rows(self.index)
+        lo, hi = windows[self.index]
+        if hi <= lo:
+            lo = hi = o
+        if min(part.extents) >= halo:
+            xh = exchange_halo(x, halo, axis, self.group)
+            return xh.narrow(axis, lo - o + halo, hi - lo)
+        whole = gather_slabs(x, self.group, axis, part.extents)
+        return _rows_or_zeros(whole, lo, hi, axis)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -302,14 +489,19 @@ class DataGroup:
 
     @property
     def share(self) -> float:
-        """This rank's share of the global batch's elements: its rows over
-        the global rows, over the slabs of each."""
+        """This rank's share of the global batch's elements at the input
+        level: its rows over the global rows, over the slabs of each."""
         return self.n_local / (self.n_global * self.planes)
 
     def global_numel(self, x) -> int:
         """``x.numel()`` of the global batch tensor that ``x`` (this rank's
-        rows and slab) is part of."""
-        return x.numel() // x.shape[0] * self.n_global * self.planes
+        rows and, with a space group, its rows of the level) is part
+        of."""
+        if x.dim() < 3:
+            return math.prod(x.shape[1:]) * self.n_global
+        lead = x.shape[2] if self.space is None \
+            else self.space.level(x).height
+        return math.prod(x.shape[1:2] + x.shape[3:]) * lead * self.n_global
 
 
 _DATA_GROUP: contextvars.ContextVar[Optional[DataGroup]] = \
@@ -327,6 +519,8 @@ def data_group(group, n_local: int, device=None, space=None,
     over (default: ``group``)."""
     if n_local < 1:
         raise ValueError("every rank needs at least one row of the batch")
+    if space is not None:  # each step maps its own levels
+        space = dataclasses.replace(space, levels={})
     counts = all_gather(torch.tensor([n_local], dtype=torch.int64,
                                      device=device), group=group).tolist()
     r = dist.get_group_rank(group, dist.get_rank())

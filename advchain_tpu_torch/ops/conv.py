@@ -4,11 +4,13 @@ advchain_tpu/ops/conv.py, 2D and 3D).  The convolutions go to cuDNN through
 separable tap accumulation so its arithmetic matches term for term.
 
 Inside a spatially partitioned step's space group
-(``ops.collectives.current_space``) ``conv_same`` reads a halo of
-``(k - 1) // 2`` planes of the leading spatial axis from the neighbours and
-pads only the other axes, and ``gaussian_smooth(..., sharded=True)`` does
-the same for each pass along that axis: the edge slabs' zero halos are
-SAME padding's zeros, so each slab equals the dense op's rows."""
+(``ops.collectives.current_space``) ``conv_same`` reads ``(k - 1) // 2``
+planes of the leading spatial axis past its rows
+(``SpaceGroup.fetch``: the neighbours' halos, or the gathered level where a
+rank holds fewer rows) and pads only the other axes, and
+``gaussian_smooth(..., sharded=True)`` does the same for each pass along
+that axis: the rows past the level's two ends are SAME padding's zeros, so
+each slab equals the dense op's rows."""
 
 from __future__ import annotations
 
@@ -40,9 +42,17 @@ def conv_same(x, weight, groups: int = 1):
     pad = tuple((k - 1) // 2 for k in weight.shape[2:])
     sg = collectives.current_space()
     if sg is not None:  # the leading axis's padding comes from the halo
-        x = collectives.exchange_halo(x, pad[0], 2, sg.group)
+        x = _halo_rows(x, sg, pad[0])
         pad = (0,) + pad[1:]
     return _conv_fns(x)[0](x, weight, padding=pad, groups=groups)
+
+
+def _halo_rows(x, sg, halo: int):
+    """This rank's rows of the level ``x`` lies on and ``halo`` rows past
+    each end (zeros past the level's)."""
+    part = sg.level(x)
+    return sg.fetch(x, part, [(o - halo, o + e + halo) if e else (0, 0)
+                              for o, e in zip(part.offsets, part.extents)])
 
 
 def conv_transpose(x, weight, stride, padding):
@@ -127,9 +137,9 @@ def slab_gaussian_smooth(x, group, sigma: float = 1.0, kernel_size: int = 5,
     """:func:`gaussian_smooth` on this rank's slab of a field whose leading
     spatial axis is split over ``group``'s ranks in order: each pass along
     that axis reads ``(k_eff - 1) // 2`` halo planes from the neighbours
-    (:func:`collectives.exchange_halo`, zeros past the two ends), the other
-    axes pass locally.  Equal to the dense op's rows bit for bit: the same
-    taps in the same order."""
+    (:func:`collectives.exchange_halo`, zeros past the two ends; each slab
+    must hold that many planes), the other axes pass locally.  Equal to the
+    dense op's rows bit for bit: the same taps in the same order."""
     ndim = x.dim() - 2
     ks = effective_gaussian_ks(kernel_size, sigma, ndim)
     halo = (ks - 1) // 2

@@ -5,7 +5,10 @@ separable linear resampling; nearest gathers each axis at the JAX package's
 float64 source index.  Inside a spatially partitioned step's space group
 the input is a field replicated over the group and the result is this
 rank's slab of the output (the slab's rows of the leading axis's matrix or
-index), with no collective."""
+index), with no collective; with ``sharded=True`` the input is this rank's
+rows of a level split over the group, and the result its rows of the
+output level (the input rows each needs fetched past its own,
+``SpaceGroup.fetch``)."""
 
 from __future__ import annotations
 
@@ -63,16 +66,57 @@ def _nearest_idx_np(in_size: int, out_size: int) -> np.ndarray:
     return np.clip(idx, 0, in_size - 1)
 
 
+def _axis_matrix(in_size: int, out_size: int, mode: str,
+                 align_corners: bool) -> np.ndarray:
+    """The (out, in) matrix of one axis's resize: linear weights, or
+    nearest's one-hot rows."""
+    if mode == "nearest":
+        w = np.zeros((out_size, in_size), np.float32)
+        w[np.arange(out_size), _nearest_idx_np(in_size, out_size)] = 1.0
+        return w
+    return _interp_matrix_np(in_size, out_size, align_corners)
+
+
+def _slab_rows(x, sg, part, out_size: int, mode: str, align_corners: bool,
+               like):
+    """The leading axis of a sharded resize: this rank's rows of the
+    output level (``like``'s, or ``part.resized``), each from the input
+    rows its matrix row reads."""
+    if mode not in ("nearest", "linear", "bilinear", "trilinear"):
+        raise NotImplementedError(f"mode={mode!r}")
+    target = part.resized(out_size) if like is None else sg.level(like)
+    mat = _axis_matrix(part.height, out_size, mode, align_corners)
+    windows = []
+    for a, e in zip(target.offsets, target.extents):
+        cols = np.nonzero(mat[a:a + e].any(0))[0]
+        windows.append((int(cols[0]), int(cols[-1]) + 1) if e else (0, 0))
+    xw = sg.fetch(x, part, windows)
+    a, e = target.rows(sg.index)
+    lo, hi = windows[sg.index]
+    w = torch.as_tensor(mat[a:a + e, lo:hi], device=x.device).to(x.dtype)
+    out = torch.movedim(torch.tensordot(xw, w, dims=([2], [1])), -1, 2)
+    return sg.register(out, target)
+
+
 def interpolate(x, size=None, scale_factor=None, mode: str = "bilinear",
-                align_corners: bool = False):
+                align_corners: bool = False, sharded: bool = False,
+                like=None):
     """Resize (N, C, *spatial) along every spatial axis: 'linear' /
     'bilinear' / 'trilinear' (each per-axis linear) or 'nearest' (a gather
     per axis).  ``size`` is the target spatial shape, or ``scale_factor``
     (scalar or per axis) gives it with torch's ``floor(in * factor)``
     rule.  Axes whose size is unchanged are left alone.  Inside a space
     group ``x`` is the whole field on every rank and the result is this
-    rank's slab of the leading spatial axis."""
+    rank's slab of the leading spatial axis; with ``sharded`` ``x`` is
+    this rank's rows of a level, ``size`` is global, and the result is
+    this rank's rows of the output on the level of ``like`` (else output
+    row ``i`` goes to the rank holding input row ``floor(i * in / out)``);
+    outside a space group both are not read."""
+    sg = collectives.current_space()
     spatial = x.shape[2:]
+    if sharded and sg is not None:
+        part = sg.level(x)
+        spatial = (part.height,) + tuple(spatial[1:])
     ndim = len(spatial)
     if size is None:
         if scale_factor is None:
@@ -86,7 +130,9 @@ def interpolate(x, size=None, scale_factor=None, mode: str = "bilinear",
     if len(size) != ndim:
         raise ValueError(f"size {size} rank mismatch with input "
                          f"{tuple(x.shape)}")
-    sg = collectives.current_space()
+    if sharded and sg is not None:
+        x = _slab_rows(x, sg, part, size[0], mode, align_corners, like)
+        spatial, sg = (size[0],) + tuple(spatial[1:]), None
     if mode == "nearest":
         out = x
         for axis, (ins, outs) in enumerate(zip(spatial, size)):

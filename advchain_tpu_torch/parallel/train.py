@@ -30,8 +30,9 @@ On a 2-D ``('data', 'space')`` mesh whose ``space`` axis is larger than 1
 (the JAX package's ``_mesh_shardings``, train.py:57-95) each rank also
 holds one slab of the leading spatial axis (H of NCHW, D of NCDHW), as
 ``parallel.spatial.shard_batch_spatial`` places it, and the data group
-carries the space group (``ops.collectives.SpaceGroup``): the UNet's
-convolutions exchange halos, its upsampling reads one halo plane, every
+carries the space group (``ops.collectives.SpaceGroup``): the network's
+convolutions, pools and upsamplings act on each level's partition of the
+rows (uneven below the input, or empty on some ranks), every
 warp and composition samples through the sharded sampler with the chain's
 ``chain_displacement_bound`` (the stencil is off, as in JAX), and
 BatchNorm, the solver's quantities, the gradients and the metrics reduce
@@ -123,6 +124,8 @@ def _data_group(groups, batch):
                              f"label {lead}")
     with collectives.data_group(data, image.shape[0], device=image.device,
                                 space=space, reduce_group=every) as dg:
+        if space is not None:  # the input level, known without a collective
+            dg.space.register(image, collectives.Partition(tuple(extents)))
         yield dg
 
 
@@ -206,9 +209,10 @@ def make_adversarial_train_step(
     (``shard_batch_spatial``), holds its slab of every activation and
     field, and the losses and gradients are the global batch's (see the
     module's docstring); the noise keeps its slab of the global draw, the
-    other transforms' parameters their rows.  A UNet level whose slab a
-    max-pool cannot halve raises ``ValueError``.  ``donate_state`` is a JAX
-    buffer-donation hint, accepted and ignored.
+    other transforms' parameters their rows; the network's inner levels
+    may split unevenly, or leave a rank no row (``ops.collectives.
+    Partition``).  ``donate_state`` is a JAX buffer-donation hint, accepted
+    and ignored.
     """
     del donate_state
     transforms = tuple(solver.chain_of_transforms)

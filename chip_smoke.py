@@ -273,13 +273,31 @@ Phases (any failure raises and the script exits non-zero):
      12x192x192, both grid layouts, displacements under a voxel with
      entries exactly on +-1) against the z-band grid pair's plain versions
      and the CPU (forward 1e-6, gradients 1e-5 of their largest entries),
-     one forward and one backward launch a call, and its ms.
+     one forward and one backward launch a call, and its ms;
+ 39. the headline train step at 224x224 on (1, 4), four ranks on this
+     card over gloo, each with the 128 rows and 56 of the 224 planes: 56,
+     28, 14 and 7 rows a rank down to the third level, then (4, 3, 4, 3)
+     rows of the bottom level, which no rank could halve; with UNet_16 and
+     with UNet_16 with self-attention (gamma 0.5), each under phase 33's
+     gates against the single-process step with sampler compositions;
+     per rank phase 33's band grid launches, no stencil launch, no
+     dispatch predicate; each level's rows per rank, the collectives,
+     bytes, peak per rank and the step's median in turns with the
+     single-process step (a record);
+ 40. every block of ``models/blocks.py`` inside a (1, 2) space group, two
+     ranks on this card over gloo, at phase 36's sizes (128 rows at
+     UNet_16's level widths, the 3D ones at 2 x 8 x 12x192x192, D split
+     6 + 6), each rank's rows against the dense block on the card from the
+     same weights and inputs, at phase 36's gates: outputs within 1e-4 of
+     the largest entry, written statistics within 1e-5, input and
+     parameter gradients (summed over the ranks) within 1e-2 relative L2;
+     no kernel launch.
 Then the ``kernels`` line for all eighteen kernel records, each with its
 launches in one random-chain call, one constrained solve, the bf16 episode
 and train step, one cardiac recipe pass, the 20 timed RandAugment calls,
 each rank's data-parallel train step, phase 31's sharded calls, each
-rank's space steps of phases 33-35 and 37, and one ``stencil_warp_3d``
-call beside the main paths'.
+rank's space steps of phases 33-35, 37 and 39, phase 40's block passes,
+and one ``stencil_warp_3d`` call beside the main paths'.
 The last line of standard output is the device record.  ``--profile PATH``
 / ``--profile3d PATH`` / ``--profile-train PATH`` / ``--profile3d-legacy
 PATH`` / ``--profile-legacy2d PATH`` / ``--profile-constrained PATH`` /
@@ -4805,24 +4823,34 @@ def _block_inputs(shapes, seed=0):
     return out
 
 
-def _block_pass(block, arrays, ints, device, ct=None, dtype=None):
+def _block_pass(block, arrays, ints, device, ct=None, dtype=None,
+                space=None):
     """One training forward of ``block`` on ``device`` (in ``dtype``, None
     for f32) with the statistics written back, and the backward of
     ``sum(out * ct)`` (``ct`` drawn if None): ((out, input gradients,
-    parameter gradients, buffers) on the CPU, ct)."""
+    parameter gradients, buffers) on the CPU, ct).  Inside a ``space``
+    group the block takes this rank's slab of each feature map and ``ct``
+    (the dense output's) its rows of the output, or a replicated output's
+    share."""
     import torch
     from advchain_tpu_torch.models.unet import _StatsWriter
     block.train()
     for m in block.modules():
         if isinstance(m, _StatsWriter):
             m.write_back = True
-    xs = [torch.as_tensor(a, device=device, dtype=dtype).requires_grad_(True)
-          for a in arrays]
+    xs = [torch.as_tensor(a, device=device, dtype=dtype) for a in arrays]
+    if space is not None:
+        xs = [space.slab(x) if x.dim() > 1 else x for x in xs]
+    xs = [x.clone().requires_grad_(True) for x in xs]
     y = block(*xs, *ints)
     if ct is None:
         ct = torch.as_tensor(np.random.RandomState(7).randn(
             *y.shape).astype(np.float32))
-    (y * ct.to(device, y.dtype)).sum().backward()
+    ct_y = ct
+    if space is not None:
+        ct_y = ct / space.n if y.dim() == 2 \
+            else space.take(ct, space.level(y))
+    (y * ct_y.to(device, y.dtype)).sum().backward()
     return (y.detach().cpu(), [x.grad.cpu() for x in xs],
             {k: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
              for k, p in block.named_parameters()},
@@ -4927,14 +4955,16 @@ SPACE_ZOO_NETS = ("unet_attention", "unetv2", "deeply_supervised")
 SPACE_ZOO_TURNS = 2          # timed turns after the counted step (37)
 
 
-def space_zoo_rank(rank, world, device, batch, shape, turns):
-    """Phase 37 on one rank of a (1, ``world``) mesh: for each of
-    SPACE_ZOO_NETS the headline train step on this rank's slab from fresh
-    weights (the counted step: launches, collectives, peak), on rank 0 its
-    references (the single-process step with sampler compositions, and on
-    the perturbed image; their peak), then ``turns`` timed turns of the
-    space step and the single-process step (the counted step and the
-    references were their warm-ups)."""
+def space_zoo_rank(rank, world, device, batch, shape, turns,
+                   nets=SPACE_ZOO_NETS):
+    """Phases 37 and 39 on one rank of a (1, ``world``) mesh: for each of
+    ``nets`` (:func:`zoo_net`'s, or ``"unet"``: UNet_16) the headline
+    train step on this rank's slab from fresh weights (the counted step:
+    launches, collectives, peak, each top-level module's output rows), on
+    rank 0 its references (the single-process step with sampler
+    compositions, and on the perturbed image; their peak), then ``turns``
+    timed turns of the space step and the single-process step (the
+    counted step and the references were their warm-ups)."""
     import torch
     import torch.distributed as dist
     from advchain_tpu_torch.ops import collectives
@@ -4945,13 +4975,24 @@ def space_zoo_rank(rank, world, device, batch, shape, turns):
     dev = mesh_device(mesh)
     cuda = dev.type == "cuda"
     out = {k: {} for k in ("compared", "launches", "collectives", "peak",
-                           "single_peak", "space_ms", "single_ms")}
+                           "single_peak", "space_ms", "single_ms", "rows")}
     out["device"] = str(dev)
-    for net in SPACE_ZOO_NETS:
+    for net in nets:
+        kind = None if net == "unet" else net
         step, state, data = build_train_step(dev, batch, shape, mesh=mesh,
-                                             net=net)
+                                             net=kind)
         gen = replicate_to_mesh(torch.Generator(device=dev).manual_seed(1),
                                 mesh)
+        rows = out["rows"][net] = {}
+
+        def record(name):
+            def hook(module, inputs, output):
+                y = output[0] if isinstance(output, tuple) else output
+                rows[name] = y.shape[2]
+            return hook
+
+        hooks = [m.register_forward_hook(record(name)) for name, m in
+                 state.model.module.named_children()]
         dist.barrier()
         if cuda:
             torch.cuda.reset_peak_memory_stats()
@@ -4959,6 +5000,8 @@ def space_zoo_rank(rank, world, device, batch, shape, turns):
         collectives.reset_counts()
         state, m = step(state, data, gen)
         sync(dev)
+        for h in hooks:
+            h.remove()
         out["launches"][net] = launch_counts()
         out["collectives"][net] = dict(collectives.COUNTS)
         out["peak"][net] = torch.cuda.max_memory_allocated() if cuda else 0
@@ -4968,7 +5011,7 @@ def space_zoo_rank(rank, world, device, batch, shape, turns):
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
             recs, single = _single_steps(dev, batch, shape, sampler=True,
-                                         net=net)
+                                         net=kind)
             out["single_peak"][net] = (torch.cuda.max_memory_allocated()
                                        if cuda else 0)
             out["compared"][net].update(recs)
@@ -4994,21 +5037,21 @@ def space_zoo_rank(rank, world, device, batch, shape, turns):
     return out
 
 
-def check_space_zoo(outs, grid_launches):
-    """Phase 37's gates for each network: phase 33's step gates
-    (:func:`_check_dp_step` against the single-process step with sampler
-    compositions, gradients within 3x the perturbation floor or
+def check_space_zoo(outs, grid_launches, nets=SPACE_ZOO_NETS,
+                    plain="unetv2"):
+    """Phases 37 and 39's gates for each of ``nets``: phase 33's step
+    gates (:func:`_check_dp_step` against the single-process step with
+    sampler compositions, gradients within 3x the perturbation floor or
     TOL_SPACE_GRAD); every rank's band grid launches equal to
     ``grid_launches`` (phase 33's), no stencil launch and no dispatch
     predicate; the attention UNet's step ran more all-gathers than
-    UNetv2's on the same chain (its keys and values).  Returns the gaps
+    ``plain``'s on the same chain (its keys and values).  Returns the gaps
     and each rank's all-gathers of the attention a step."""
     recs = [o["compared"] for o in outs]
-    gaps = {net: _check_dp_step(recs, net, TOL_SPACE_GRAD)
-            for net in SPACE_ZOO_NETS}
+    gaps = {net: _check_dp_step(recs, net, TOL_SPACE_GRAD) for net in nets}
     gaps["attention_gathers"] = []
     for r, o in enumerate(outs):
-        for net in SPACE_ZOO_NETS:
+        for net in nets:
             lc = o["launches"][net]
             if lc["band_grid"] != grid_launches:
                 raise AssertionError(
@@ -5021,7 +5064,7 @@ def check_space_zoo(outs, grid_launches):
                     f"the dispatch predicate: {lc['stencil']}, "
                     f"{lc['slope']}")
         extra = (o["collectives"]["unet_attention"]["all_gather"]
-                 - o["collectives"]["unetv2"]["all_gather"])
+                 - o["collectives"][plain]["all_gather"])
         if extra <= 0:
             raise AssertionError(f"rank {r}: the attention UNet's step ran "
                                  f"no all-gather of its keys and values")
@@ -5034,6 +5077,142 @@ def run_space_zoo(device, grid_launches, batch=BATCH, shape=SHAPE,
     """Phase 37: spawn two ranks on a (1, 2) mesh and hold every gate."""
     outs = spawn_ranks(space_zoo_rank, 2, device, batch, shape, turns)
     return outs, check_space_zoo(outs, grid_launches)
+
+
+# ------------------------------------------- phase 39: uneven levels
+LEVELS_MESH = (1, 4)         # phase 39's ('data', 'space') mesh
+LEVELS_SHAPE = (224, 224)    # 56 rows a rank: the bottom level (4, 3, 4, 3)
+LEVELS_NETS = ("unet", "unet_attention")
+LEVELS_TURNS = 1             # timed turns after the counted step (39)
+
+
+def run_space_levels(device, grid_launches, batch=BATCH, shape=LEVELS_SHAPE,
+                     turns=LEVELS_TURNS):
+    """Phase 39: spawn four ranks on a (1, 4) mesh, run the headline step
+    with UNet_16 and with the attention UNet, and hold phase 33's gates
+    and launch counts; every rank's modules' rows add up to the dense
+    network's."""
+    world = LEVELS_MESH[0] * LEVELS_MESH[1]
+    outs = spawn_ranks(space_zoo_rank, world, device, batch, shape, turns,
+                       LEVELS_NETS)
+    gaps = check_space_zoo(outs, grid_launches, LEVELS_NETS, plain="unet")
+    for net in LEVELS_NETS:
+        heights = {k: sum(o["rows"][net][k] for o in outs)
+                   for k in outs[0]["rows"][net]}
+        if heights["inc"] != shape[0] or heights["outc"] != shape[0] or \
+                heights["down4"] != shape[0] // 16:
+            raise AssertionError(f"{net}: the ranks' rows do not add up to "
+                                 f"the levels' heights: {heights}")
+    return outs, gaps
+
+
+# ------------------------------------------- phase 40: the space blocks
+def space_blocks_rank(rank, world, device, n, shape, n3, shape3):
+    """Phase 40 on one rank of a (1, ``world``) mesh: each block of
+    :func:`block_cases` twice from the same seeded weights, the dense
+    block on the whole input and the block inside the mesh's space group
+    on this rank's slab (the dense output's cotangent, this rank's rows of
+    it, or a replicated output's share); returns its gaps: its output rows
+    and written statistics over the dense ones' largest entry, and the
+    relative L2 gaps of the input gradients (over every rank's rows) and
+    of the parameter gradients (summed over the ranks, all leaves
+    together); and the kernel launches of the slab passes."""
+    import copy
+    import torch
+    from advchain_tpu_torch.ops import collectives
+    from advchain_tpu_torch.parallel import make_spatial_mesh
+    from advchain_tpu_torch.parallel.mesh import (every_rank_group,
+                                                  mesh_device)
+    mesh = make_spatial_mesh(1, world, device_type=device)
+    dev = mesh_device(mesh)
+    group = mesh.get_group("space")
+    space = collectives.SpaceGroup(group, world,
+                                   mesh.get_local_rank("space"), mesh)
+
+    def summed(t):
+        return collectives.all_reduce(t.double(), group=group)
+
+    out, launches = {}, {}
+    for name, make, shapes, ints in block_cases(n, shape, n3, shape3):
+        cpu = _seeded_block(make)
+        dense, slab = copy.deepcopy(cpu).to(dev), cpu.to(dev)
+        arrays = _block_inputs(shapes)
+        (y_d, dx_d, dp_d, buf_d), ct = _block_pass(dense, arrays, ints, dev)
+        del dense
+        reset_launch_counts()
+        with collectives.data_group(mesh.get_group("data"), shapes[0][0],
+                                    space=space,
+                                    reduce_group=every_rank_group(mesh)):
+            sg = collectives.current_space()
+            (y, dx, dp, buf), _ = _block_pass(slab, arrays, ints, dev, ct,
+                                              space=sg)
+            scale = max(float(y_d[y_d.isfinite()].abs().max()), 1e-30)
+            if y.dim() > 2:
+                y_d = sg.take(y_d, sg.level(y))
+        sync(dev)
+        launches[name] = kernel_launches(launch_counts())
+        # equal entries count 0 (a pyramid bin all padding is -inf on both
+        # sides), a NaN counts as infinitely far
+        diff = torch.where(y == y_d, torch.zeros_like(y),
+                           (y - y_d).abs()).nan_to_num(nan=math.inf)
+        rec = {"out": float(collectives.all_reduce(
+            diff.max()[None], "max", group)[0]) / scale}
+        if buf_d:
+            rec["stats"] = max(float((buf[k] - v).abs().max())
+                               / max(float(v.abs().max()), 1e-30)
+                               for k, v in buf_d.items())
+        gaps = []
+        for g, g_d in zip(dx, dx_d):
+            if g_d.dim() > 1:  # a feature map: this rank's rows of it
+                g_d = space.slab(g_d)
+                diff = summed((g - g_d).double().square().sum()[None])
+                norm = summed(g_d.double().square().sum()[None])
+            else:  # an affine vector: each rank's part of its gradient
+                diff = (summed(g) - g_d.double()).square().sum()[None]
+                norm = g_d.double().square().sum()[None]
+            gaps.append(float((diff / norm).sqrt()[0]))
+        rec["d_inputs"] = max(gaps)
+        if dp_d:
+            ours = summed(torch.cat([dp[k].flatten() for k in dp_d]))
+            ref = torch.cat([v.flatten() for v in dp_d.values()]).double()
+            rec["d_params"] = float((ours - ref).norm() / ref.norm())
+        out[name] = rec
+        del slab, y, y_d, dx, dx_d
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return {"gaps": out, "launches": launches}
+
+
+def check_space_blocks(outs):
+    """Phase 40's gates, phase 36's: every rank's output rows within
+    TOL_BLOCK of the dense block's largest entry, its written statistics
+    within TOL_BLOCK_STATS, the input and parameter gradients within
+    TOL_BLOCK_GRAD relative L2; no kernel launched.  Returns the gaps,
+    the worst rank's of each."""
+    gaps = {}
+    for name in outs[0]["gaps"]:
+        rec = {k: max(o["gaps"][name][k] for o in outs)
+               for k in outs[0]["gaps"][name]}
+        bad = {k: v for k, v in rec.items()
+               if v > {"out": TOL_BLOCK, "stats": TOL_BLOCK_STATS}.get(
+                   k, TOL_BLOCK_GRAD)}
+        if bad:
+            raise AssertionError(f"block {name} inside a space group "
+                                 f"disagrees with the dense block: {bad} "
+                                 f"(all gaps {rec})")
+        for r, o in enumerate(outs):
+            if any(o["launches"][name].values()):
+                raise AssertionError(f"block {name} launched a kernel on "
+                                     f"rank {r}: {o['launches'][name]}")
+        gaps[name] = rec
+    return gaps
+
+
+def run_space_blocks(device, n=BATCH, shape=SHAPE, n3=BATCH3D,
+                     shape3=SHAPE3D):
+    """Phase 40: spawn two ranks on a (1, 2) mesh and hold its gates."""
+    outs = spawn_ranks(space_blocks_rank, 2, device, n, shape, n3, shape3)
+    return outs, check_space_blocks(outs)
 
 
 # ------------------------------------------- phase 38: stencil_warp_3d
@@ -5717,6 +5896,53 @@ def main(argv=None):
           f"pair; C=3: forward {sw3_ms['fwd_ms']:.4f} ms, forward and "
           f"backward {sw3_ms['fwd_bwd_ms']:.4f} ms on {card}", flush=True)
 
+    # phase 39: the headline step on (1, 4) at 224x224, where the bottom
+    # level splits (4, 3, 4, 3), four ranks on this card over gloo
+    t_lv = time.perf_counter()
+    lv_outs, gaps_lv = run_space_levels(
+        device, space_outs["space_1x2"][0]["launches"]["band_grid"])
+    lv_launches = {net: [kernel_launches(o["launches"][net])
+                         for o in lv_outs] for net in LEVELS_NETS}
+    l0 = lv_outs[0]
+    for net in LEVELS_NETS:
+        g = gaps_lv[net]
+        rows = {k: [o["rows"][net][k] for o in lv_outs]
+                for k in l0["rows"][net]}
+        print(f"[space-levels] {net} on {LEVELS_MESH} at "
+              f"{LEVELS_SHAPE[0]}x{LEVELS_SHAPE[1]}, {BATCH} rows: each "
+              f"level's rows per rank {rows}; launches band_grid "
+              f"{[o['launches'][net]['band_grid'] for o in lv_outs]}, "
+              f"stencil {l0['launches'][net]['stencil']}; collectives "
+              f"{[o['collectives'][net] for o in lv_outs]}; against the "
+              f"single-process step with sampler compositions: metrics "
+              f"{l0['compared'][net]['metrics']} (relative {g['losses']}); "
+              f"applied gradients {g['grad_rel_l2']:.3e} relative L2 against "
+              f"its own {g['perturbed_rel_l2']:.3e} under a {DP_PERTURB} "
+              f"input perturbation (gate {TOL_DP_GRAD}x, or "
+              f"{TOL_SPACE_GRAD}); peak per rank "
+              f"{[round(o['peak'][net] / 1e9, 3) for o in lv_outs]} GB "
+              f"against the single-process step's "
+              f"{l0['single_peak'][net] / 1e9:.3f} GB; step "
+              f"{[round(t, 1) for t in l0['space_ms'][net]]} ms per rank "
+              f"against the single-process step's "
+              f"{[round(t, 1) for t in l0['single_ms'][net]]} ms in turns; "
+              f"a record: the ranks share one card over gloo; on {card}",
+              flush=True)
+    print(f"[space-levels] the attention's all-gathers a step per rank "
+          f"{gaps_lv['attention_gathers']}; phase 39 in "
+          f"{time.perf_counter() - t_lv:.1f} s", flush=True)
+
+    # phase 40: every block inside a (1, 2) space group on the card
+    t_sb = time.perf_counter()
+    sb_outs, gaps_sb = run_space_blocks(device)
+    print(f"[space-blocks] {len(gaps_sb)} blocks inside a (1, 2) space "
+          f"group at {BATCH} rows, UNet_16's level widths (the 3D ones at "
+          f"{BATCH3D} x 8 x {'x'.join(map(str, SHAPE3D))}, D split in two) "
+          f"against the dense block on the card, the worst rank's gaps "
+          f"(outputs and statistics over the largest entry, gradients "
+          f"relative L2): {json.dumps(gaps_sb)}; no kernel launched; phase "
+          f"40 in {time.perf_counter() - t_sb:.1f} s", flush=True)
+
     shape2 = f"N={BATCH} {SHAPE[0]}x{SHAPE[1]}"
     shape3 = f"N={BATCH3D} {'x'.join(map(str, SHAPE3D))}"
     kernels = (kernel_records("band", launches2, worst2, rows2, "rot30", 1,
@@ -5766,6 +5992,14 @@ def main(argv=None):
         rec["launches_space_zoo_per_rank"] = {
             net: [d[rec["name"]] for d in zoo_launches[net]]
             for net in SPACE_ZOO_NETS}
+        # phase 39: one space step of each network, per rank; phase 40:
+        # every block's slab passes, per rank
+        rec["launches_space_levels_per_rank"] = {
+            net: [d[rec["name"]] for d in lv_launches[net]]
+            for net in LEVELS_NETS}
+        rec["launches_space_blocks_per_rank"] = [
+            sum(d[rec["name"]] for d in o["launches"].values())
+            for o in sb_outs]
         rec["launches_stencil_warp_3d_call"] = sum(
             n for kind, n in sw3_call.items()
             if rec["name"] == f"{KERNEL_NAMES['zband_grid']}_{kind}")

@@ -466,13 +466,43 @@ def norm_values(rows=slice(None)):
     return out
 
 
+def space_block_output(name, sg=None):
+    """The port's block of case ``name`` (seeded) in training mode on the
+    case's inputs: its output; inside a space group ``sg`` on this rank's
+    rows of each feature map (the first rank takes the odd row)."""
+    arrays, ints = _inputs(name)
+    torch.manual_seed(0)
+    block = CASES[name][1]()
+    block.train()
+    xs = []
+    for a in arrays:
+        t = torch.from_numpy(a)
+        if sg is not None and t.dim() > 1:
+            first = (t.shape[2] + 1) // 2
+            t = t[:, :, :first] if sg.index == 0 else t[:, :, first:]
+        xs.append(t)
+    with torch.no_grad():
+        return block(*xs, *ints)
+
+
 def norm_rank(rank, world, device):
     from advchain_tpu_torch.ops import collectives
-    from advchain_tpu_torch.parallel import make_mesh
+    from advchain_tpu_torch.parallel import make_mesh, make_spatial_mesh
+    from advchain_tpu_torch.parallel.mesh import every_rank_group
     group = make_mesh(device_type=device).get_group("data")
     with collectives.data_group(group, GROUP_ROWS):
-        return norm_values(slice(rank * GROUP_ROWS,
-                                 (rank + 1) * GROUP_ROWS))
+        out = norm_values(slice(rank * GROUP_ROWS, (rank + 1) * GROUP_ROWS))
+    mesh = make_spatial_mesh(1, world, device_type=device)
+    space = collectives.SpaceGroup(mesh.get_group("space"), world,
+                                   mesh.get_local_rank("space"), mesh)
+    out["space"] = {}
+    for name in sorted(CASES):
+        with collectives.data_group(mesh.get_group("data"),
+                                    CASES[name][2][0][0], space=space,
+                                    reduce_group=every_rank_group(mesh)):
+            out["space"][name] = space_block_output(
+                name, collectives.current_space())
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -511,23 +541,20 @@ def test_models_all_matches_jax():
             assert hasattr(tm, name), name
 
 
-def test_blocks_refuse_a_space_group():
-    """Inside a space group a block raises ``NotImplementedError`` naming
-    the ROADMAP entry (the blocks are not partitioned)."""
-    import dataclasses
-    from advchain_tpu_torch.ops import collectives
-
-    @dataclasses.dataclass(frozen=True)
-    class _Fake:
-        space: object = collectives.SpaceGroup(None, 2, 0)
-
-    token = collectives._DATA_GROUP.set(_Fake())
-    try:
-        for fn in (lambda: tb.ResConv(2, 3)(torch.zeros(1, 2, 4, 4)),
-                   lambda: tb.spatial_pyramid_pool(torch.zeros(1, 2, 4, 4),
-                                                   (1,))):
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP §1: the blocks on a space"):
-                fn()
-    finally:
-        collectives._DATA_GROUP.reset(token)
+def test_blocks_refuse_a_space_group(norm_runs):
+    """No block refuses a space group any more: on 2 ranks each block of
+    ``CASES`` (the port's, seeded) runs inside a (1, 2) space group on its
+    rank's rows of the input (split unevenly where the rows are odd), and
+    its output rows in rank order (a replicated output: every rank's) are
+    the dense block's within 1e-5 of the largest entry
+    (tests/test_torch_space_blocks.py holds every block's gradients and
+    statistics too)."""
+    outs, _ = norm_runs
+    for name in sorted(CASES):
+        ref = space_block_output(name)
+        got = [o["space"][name] for o in outs]
+        if ref.dim() == 2:
+            for g in got:
+                _close(g, ref, 1e-5)
+        else:
+            _close(torch.cat(got, 2), ref, 1e-5)

@@ -6,7 +6,10 @@ spawned CPU ranks over gloo, and the multi-rank harness the other
 ``world`` spawned processes on one gloo group (``chip_smoke.spawn_ranks``:
 a file store in a fresh temporary directory, no fixed port, as test
 workers run side by side) and returns every rank's result.  It joins with
-a timeout, so a hung collective fails the test that waits on it.  The rank
+a timeout, so a hung collective fails the test that waits on it; and it
+holds a lock file in the temporary directory while its ranks run, so the
+test workers start one spawn at a time (ranks of several spawns sharing
+the CPU wait on each other's collectives past that timeout).  The rank
 functions here import neither JAX nor the JAX package (a spawned rank
 imports this module); the tests that compare with JAX import it inside the
 test.
@@ -24,6 +27,8 @@ another slope and step count.
 data-parallel tests in ``test_torch_train.py`` drive it.
 """
 
+import fcntl
+import os
 import tempfile
 
 import numpy as np
@@ -37,9 +42,13 @@ JOIN_TIMEOUT_S = 120.0
 
 
 def run_ranks(fn, world, *args):
-    """Every rank's ``fn(rank, world, "cpu", *args)``."""
-    return spawn_ranks(fn, world, "cpu", *args, timeout=JOIN_TIMEOUT_S,
-                       parent=tempfile.gettempdir())
+    """Every rank's ``fn(rank, world, "cpu", *args)``, one spawn at a time
+    across the test processes."""
+    parent = tempfile.gettempdir()
+    with open(os.path.join(parent, "advchain_torch_ranks.lock"), "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)  # released when the file closes
+        return spawn_ranks(fn, world, "cpu", *args, timeout=JOIN_TIMEOUT_S,
+                           parent=parent)
 
 
 # ------------------------------------------------------ the mesh helpers
