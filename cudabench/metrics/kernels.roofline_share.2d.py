@@ -1,0 +1,2 @@
+"""The 2D warps' and compositions' byte bound over their kernels' time, %."""
+from cudabench.layers import roofline_share as read  # noqa: F401
