@@ -19,6 +19,13 @@ divergence, not the step), and a failed volume check after ``n_iter``
 steps enters the graduated retry ladder of :meth:`optimizing_transform`.
 Each rejection try and each ladder decision reads one scalar to the host.
 
+While a torch profiler records, each PGD step is an
+``advchain.solver.pgd_step`` span holding ``advchain.solver.grad`` and
+``advchain.solver.update``, and each pass through the chain and the network
+records ``advchain.chain.precompute``, ``advchain.chain.apply``,
+``advchain.chain.warp_back`` and ``advchain.loss.divergence``
+(``advchain_tpu_torch._trace``).
+
 The stateful API (``forward`` / ``backward`` / ``predict_*``,
 ``init_random_transformation``, ``compute_transform_grads``,
 ``get_adv_data``, ...) drives the transforms' own state, as the
@@ -48,6 +55,7 @@ import numpy as np
 import torch
 
 from advchain_tpu_torch import resolve_device
+from advchain_tpu_torch._trace import trace
 from advchain_tpu_torch.losses import calc_segmentation_consistency
 from advchain_tpu_torch.ops import collectives, norms
 from advchain_tpu_torch.ops.grid_sample import clip
@@ -282,28 +290,37 @@ class ComposeAdversarialTransformSolver:
         the volume penalty, ``anatomy_reg_weight * mean((binarise(rec) -
         anatomy)^2)``, whose gradient is zero.  ``detach_input`` stops the
         gradient at the adversarial image (the final pass)."""
-        auxs = self._precompute_chain(params, train_flags)
-        adv_data = self._chain_apply(params, data, train_flags, auxs)
+        with trace("advchain.chain.precompute"):
+            auxs = self._precompute_chain(params, train_flags)
+        with trace("advchain.chain.apply"):
+            adv_data = self._chain_apply(params, data, train_flags, auxs)
         adv_output = model_fn(adv_data.detach() if detach_input
                               else adv_data)
         if not self.if_contains_geo_transform():
-            return (self.loss_fn(pred=adv_output, reference=init_output),
-                    adv_data, adv_output, adv_output)
-        ones = torch.ones(init_output.shape[:1] + (1,)
-                          + init_output.shape[2:], dtype=init_output.dtype,
-                          device=init_output.device)
-        fwd_in = ones if anatomy is None else torch.cat([ones, anatomy], 1)
-        fwd = self._predict_forward(params, fwd_in, train_flags, auxs)
-        c = adv_output.shape[1]
-        both = self._predict_backward(
-            params, torch.cat([adv_output, fwd], dim=1), train_flags, auxs)
-        warped = both[:, :c]
-        fb_mask = _binarize_nonzero(both[:, c:c + 1])
-        dist = self.loss_fn(pred=warped, reference=init_output, mask=fb_mask)
-        if anatomy is not None:
-            rec = _binarize_half(both[:, c + 1:])
-            dist = dist + anatomy_reg_weight * torch.mean(
-                (rec - anatomy) ** 2)
+            with trace("advchain.loss.divergence"):
+                dist = self.loss_fn(pred=adv_output, reference=init_output)
+            return dist, adv_data, adv_output, adv_output
+        with trace("advchain.chain.warp_back"):
+            ones = torch.ones(init_output.shape[:1] + (1,)
+                              + init_output.shape[2:],
+                              dtype=init_output.dtype,
+                              device=init_output.device)
+            fwd_in = ones if anatomy is None else torch.cat([ones, anatomy],
+                                                            1)
+            fwd = self._predict_forward(params, fwd_in, train_flags, auxs)
+            c = adv_output.shape[1]
+            both = self._predict_backward(
+                params, torch.cat([adv_output, fwd], dim=1), train_flags,
+                auxs)
+            warped = both[:, :c]
+            fb_mask = _binarize_nonzero(both[:, c:c + 1])
+        with trace("advchain.loss.divergence"):
+            dist = self.loss_fn(pred=warped, reference=init_output,
+                                mask=fb_mask)
+            if anatomy is not None:
+                rec = _binarize_half(both[:, c + 1:])
+                dist = dist + anatomy_reg_weight * torch.mean(
+                    (rec - anatomy) ** 2)
         return dist, adv_data, adv_output, warped
 
     def pgd_step(self, model, params, data, init_output, flags, steps,
@@ -324,6 +341,12 @@ class ComposeAdversarialTransformSolver:
         latent, the morph velocity) gets one part from each slab, summed
         here over the group.  A sharded one (the noise) is this rank's
         slab's own."""
+        with trace("advchain.solver.pgd_step"):
+            return self._pgd_step(model, params, data, init_output, flags,
+                                  steps, anatomy, anatomy_reg_weight)
+
+    def _pgd_step(self, model, params, data, init_output, flags, steps,
+                  anatomy, anatomy_reg_weight):
         opt = [p.detach().requires_grad_(True)
                for p, f in zip(params, flags) if f]
         it = iter(opt)
@@ -335,22 +358,24 @@ class ComposeAdversarialTransformSolver:
         dg = collectives.current_data_group()
         if dg is not None:  # this rank's share of the global divergence
             dist = dist * dg.share
-        grads = torch.autograd.grad(dist, opt)
-        if dg is not None and dg.space is not None:
-            grads = self._sum_replicated_grads(grads, flags, dg.space)
+        with trace("advchain.solver.grad"):
+            grads = torch.autograd.grad(dist, opt)
+            if dg is not None and dg.space is not None:
+                grads = self._sum_replicated_grads(grads, flags, dg.space)
         grads = iter(grads)
         dist = dist.detach()
         if dg is not None:  # the shares summed: the global batch's
             dist = collectives.all_reduce(dist, group=dg.group)
-        ok = torch.isfinite(dist)
-        new_params = []
-        for t, p, f, s in zip(self.chain_of_transforms, params, flags,
-                              steps):
-            if f:
-                new_params.append(torch.where(
-                    ok, t.update(p, next(grads), s), p))
-            else:
-                new_params.append(p)
+        with trace("advchain.solver.update"):
+            ok = torch.isfinite(dist)
+            new_params = []
+            for t, p, f, s in zip(self.chain_of_transforms, params, flags,
+                                  steps):
+                if f:
+                    new_params.append(torch.where(
+                        ok, t.update(p, next(grads), s), p))
+                else:
+                    new_params.append(p)
         return tuple(new_params), dist
 
     def _sum_replicated_grads(self, grads, flags, space):

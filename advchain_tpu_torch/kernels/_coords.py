@@ -25,14 +25,16 @@ from typing import NamedTuple
 
 import torch
 
+from advchain_tpu_torch._trace import to_device
+
 __all__ = ["clip", "prep_coord", "axis_terms", "corner_weights", "fold_2d",
            "corner_weights_3d", "nearest_weights", "plane_weights"]
 
 
 def clip(x, lo, hi):
     """``jnp.clip`` with its subgradient: 0.5 at an exact bound."""
-    lo = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
-    hi = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
+    lo = to_device(lo, x.dtype, x.device)
+    hi = to_device(hi, x.dtype, x.device)
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
@@ -112,7 +114,7 @@ def prep_coord(g, size: int, align_corners: bool, padding_mode: str,
             # the clip's value; autograd passes lo_tie at 0 (lo_tie * 0 is
             # the value there)
             ix = torch.where(ix > 0, torch.minimum(
-                ix, torch.as_tensor(hi, dtype=ix.dtype, device=ix.device)),
+                ix, to_device(hi, ix.dtype, ix.device)),
                 torch.where(ix == 0, ix * lo_tie, torch.zeros_like(ix)))
         else:
             ix = clip(ix, 0.0, hi)

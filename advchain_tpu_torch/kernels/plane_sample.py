@@ -62,6 +62,7 @@ import functools
 
 import torch
 
+from advchain_tpu_torch._trace import to_device
 from advchain_tpu_torch.kernels import _build, _coords, _corners
 
 __all__ = ["CornerSample", "PlaneSample", "corner_sample_fwd",
@@ -110,7 +111,7 @@ def tile_offsets(offsets) -> bool:
 def _taps(zidx, yxidx, offsets, d: int, hw: int):
     """Flat tap index into each sample's (D*HW) block, (N, K, P) int64,
     and validity: ``0 <= yx + offsets[k] < HW`` and ``0 <= z < D``."""
-    off = torch.tensor(offsets, dtype=torch.int64, device=yxidx.device)
+    off = to_device(offsets, torch.int64, yxidx.device)
     yx = yxidx.long()[:, None, :] + off[None, :, None]
     valid = (yx >= 0) & (yx < hw)
     flat = yx

@@ -49,6 +49,7 @@ import functools
 import numpy as np
 import torch
 
+from advchain_tpu_torch._trace import to_device
 from advchain_tpu_torch.kernels import _build
 
 __all__ = ["StencilWarp", "stencil_warp_fwd", "stencil_warp_bwd",
@@ -162,9 +163,9 @@ def _base(sizes: tuple, device: str):
     """The base grid's coordinates along each axis, the last spatial axis
     first, concatenated (f32 on ``device``): ``linspace(-1, 1, S)`` computed
     in float64 and rounded once, as the port's ``base_grid``."""
-    return torch.as_tensor(np.concatenate(
+    return to_device(np.concatenate(
         [np.linspace(-1.0, 1.0, s) for s in reversed(sizes)]),
-        dtype=torch.float32, device=device)
+        torch.float32, device)
 
 
 def dispatch_slope_plain(flow, radius: int):

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from advchain_tpu_torch._trace import to_device
 from advchain_tpu_torch.ops import collectives
 from advchain_tpu_torch.ops.conv import conv_same
 
@@ -111,7 +112,7 @@ def contour_loss(input, target, ignore_background: bool = True,
                else _sobel_kernels_3d)(object_classes)
     total = 0.0
     for k in kernels:
-        k = torch.as_tensor(k, dtype=input.dtype, device=input.device)
+        k = to_device(k, input.dtype, input.device)
         total = total + torch.mean((conv_same(input, k) * m
                                     - conv_same(target, k) * m) ** 2)
     return total / len(kernels)
@@ -197,7 +198,8 @@ def cross_entropy_2d(input, target, weight=None, size_average: bool = True):
     if weight is not None:
         weight = torch.as_tensor(np.asarray(weight, np.float64),
                                  dtype=torch.float64)
-        weight = (weight / weight.sum() * c).to(input.dtype).to(input.device)
+        weight = to_device(weight / weight.sum() * c, input.dtype,
+                           input.device)
     if target.dim() == 3:
         t = target.long()
         picked = torch.gather(log_p, 1, t[:, None])[:, 0]

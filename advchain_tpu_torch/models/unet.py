@@ -58,6 +58,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from advchain_tpu_torch._trace import to_device
 from advchain_tpu_torch.ops import collectives
 
 __all__ = ["UNet", "UNetv2", "DeeplySupervisedUNet", "DoubleConv", "Down",
@@ -730,12 +731,10 @@ def _slab_upsample2x(x, sg, part, target):
                        align_corners=True)
     lo, hi, lam1 = _source_rows(part.height, np.arange(o, o + e), acc)
     first = windows[sg.index][0]
-    r0 = xw.index_select(2, torch.as_tensor(lo - first, device=x.device))
-    r1 = xw.index_select(2, torch.as_tensor(hi - first, device=x.device))
-    lam0 = torch.as_tensor(acc(1) - lam1, dtype=x.dtype,
-                           device=x.device).view(1, 1, -1, 1)
-    lam1 = torch.as_tensor(lam1, dtype=x.dtype,
-                           device=x.device).view(1, 1, -1, 1)
+    r0 = xw.index_select(2, to_device(lo - first, device=x.device))
+    r1 = xw.index_select(2, to_device(hi - first, device=x.device))
+    lam0 = to_device(acc(1) - lam1, x.dtype, x.device).view(1, 1, -1, 1)
+    lam1 = to_device(lam1, x.dtype, x.device).view(1, 1, -1, 1)
     return sg.register(lam0 * r0 + lam1 * r1, target)
 
 

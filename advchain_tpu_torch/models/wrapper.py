@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from advchain_tpu_torch import resolve_device
+from advchain_tpu_torch._trace import trace
 from advchain_tpu_torch.models.unet import (EpisodeDropout, _FrozenStats,
                                             _StatsWriter)
 
@@ -102,18 +103,19 @@ class SegmentationModel:
                  cast: bool = True):
         """One forward in BN / dropout mode ``train``; ``write``: write the
         statistics back; ``cast``: honour ``compute_dtype``."""
-        self.module.train(train)
-        writers = [m for m in self.module.modules()
-                   if isinstance(m, _StatsWriter)] if write else []
-        for m in writers:
-            m.write_back = True
-        try:
-            if self.compute_dtype is None or not cast:
-                return self.module(x)
-            return self._cast_forward(x, write)
-        finally:
+        with trace("advchain.model.forward"):
+            self.module.train(train)
+            writers = [m for m in self.module.modules()
+                       if isinstance(m, _StatsWriter)] if write else []
             for m in writers:
-                m.write_back = False
+                m.write_back = True
+            try:
+                if self.compute_dtype is None or not cast:
+                    return self.module(x)
+                return self._cast_forward(x, write)
+            finally:
+                for m in writers:
+                    m.write_back = False
 
     def _cast_forward(self, x, write: bool):
         dt = self.compute_dtype

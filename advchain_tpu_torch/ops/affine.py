@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from advchain_tpu_torch._trace import count, to_device
+
 from . import collectives
 
 __all__ = ["linspace", "affine_grid_2d", "affine_grid_3d", "affine_grid",
@@ -19,8 +21,7 @@ def linspace(start: float, stop: float, num: int, dtype=torch.float32,
              device=None):
     """``linspace`` computed in float64 and rounded once, so every device
     gives the same values."""
-    return torch.as_tensor(np.linspace(start, stop, num), dtype=dtype,
-                           device=device)
+    return to_device(np.linspace(start, stop, num), dtype, device)
 
 
 def _base_coords(size: int, align_corners: bool, dtype, device,
@@ -81,4 +82,6 @@ def invert_affine_matrix(affine_matrix):
     last = make_batch_eye(n, d, affine_matrix.dtype,
                           affine_matrix.device)[:, d:, :]
     homo = torch.cat([affine_matrix, last], dim=1)
+    if homo.is_cuda:  # its error check reads a device value
+        count("host_syncs")
     return torch.linalg.inv(homo)[:, :d, :]

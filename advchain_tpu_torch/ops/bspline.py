@@ -24,6 +24,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from advchain_tpu_torch._trace import to_device
+
 from .grid_sample import clip
 from .resize import interpolate
 
@@ -147,9 +149,8 @@ def _axis_matrices(spec: BSplineFieldSpec, dtype: torch.dtype,
         tap = (np.arange(start, stop)[:, None] + pad
                - np.arange(cp)[None, :] * s)
         inside = (tap >= 0) & (tap < ks)
-        mats.append(torch.as_tensor(
-            np.where(inside, k[np.clip(tap, 0, ks - 1)], 0.0), dtype=dtype,
-            device=device))
+        mats.append(to_device(
+            np.where(inside, k[np.clip(tap, 0, ks - 1)], 0.0), dtype, device))
     return tuple(mats)
 
 

@@ -93,6 +93,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from advchain_tpu_torch._trace import count, host_value, to_device
+
 __all__ = ["transport", "all_reduce", "all_gather", "broadcast_",
            "neighbour_exchange", "gather_slabs", "exchange_halo",
            "space_sum", "Partition", "DataGroup", "SpaceGroup", "data_group",
@@ -130,7 +132,11 @@ def _wire(t, group):
     moves, else ``t`` itself."""
     t = t.detach().contiguous()
     dev = _wire_device(group)
-    return t if t.device == dev else t.to(dev)
+    if t.device == dev:
+        return t
+    if t.is_cuda and dev.type == "cpu":  # gloo reads the tensor on the host
+        count("host_syncs")
+    return to_device(t, device=dev)
 
 
 def transport(group=None, device_type: str = "cuda") -> str:
@@ -150,7 +156,7 @@ def all_reduce(t, op: str = "sum", group=None):
     if out.data_ptr() == t.data_ptr():
         out = out.clone()
     dist.all_reduce(out, op=_OPS[op], group=group)
-    return out.to(t.device)
+    return to_device(out, device=t.device)
 
 
 def all_gather(t, dim: int = 0, group=None):
@@ -160,7 +166,7 @@ def all_gather(t, dim: int = 0, group=None):
     src = _wire(t, group)
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
-    return torch.cat(parts, dim=dim).to(t.device)
+    return to_device(torch.cat(parts, dim=dim), device=t.device)
 
 
 def broadcast_(t, group=None, src: int = 0):
@@ -171,6 +177,8 @@ def broadcast_(t, group=None, src: int = 0):
     if wire.data_ptr() == t.data_ptr():
         wire = wire.clone()
     dist.broadcast(wire, src=peer, group=group)
+    if t.is_cuda and not wire.is_cuda:  # a pageable copy onto the device
+        count("host_syncs")
     with torch.no_grad():
         t.copy_(wire)
     return t
@@ -201,7 +209,8 @@ def neighbour_exchange(to_left, to_right, group):
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
-    return from_left.to(to_right.device), from_right.to(to_left.device)
+    return (to_device(from_left, device=to_right.device),
+            to_device(from_right, device=to_left.device))
 
 
 class _HaloExchange(torch.autograd.Function):
@@ -521,8 +530,8 @@ def data_group(group, n_local: int, device=None, space=None,
         raise ValueError("every rank needs at least one row of the batch")
     if space is not None:  # each step maps its own levels
         space = dataclasses.replace(space, levels={})
-    counts = all_gather(torch.tensor([n_local], dtype=torch.int64,
-                                     device=device), group=group).tolist()
+    counts = host_value(all_gather(to_device([n_local], torch.int64, device),
+                                   group=group))
     r = dist.get_group_rank(group, dist.get_rank())
     dg = DataGroup(group if reduce_group is None else reduce_group, n_local,
                    int(sum(counts)), int(sum(counts[:r])), space)

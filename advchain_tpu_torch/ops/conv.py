@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from advchain_tpu_torch._trace import to_device
+
 from . import collectives
 
 __all__ = ["conv_same", "conv_transpose", "depthwise_conv",
@@ -80,8 +82,8 @@ def _gaussian_kernel_1d_np(kernel_size: int, sigma: float) -> np.ndarray:
 def gaussian_kernel_1d(kernel_size: int, sigma: float, device=None):
     """The normalised 1-D Gaussian (f32, computed in float64) on
     ``device`` (None: the CPU)."""
-    return torch.from_numpy(_gaussian_kernel_1d_np(kernel_size,
-                                                   sigma).copy()).to(device)
+    return to_device(_gaussian_kernel_1d_np(kernel_size, sigma).copy(),
+                     device=device)
 
 
 def effective_gaussian_ks(kernel_size: int, sigma: float,

@@ -49,6 +49,7 @@ import math
 
 import torch
 
+from advchain_tpu_torch._trace import host_value
 from advchain_tpu_torch.kernels.stencil_warp import dispatch_slope
 
 from . import collectives
@@ -145,7 +146,7 @@ def adaptive_step_count(duv, nb_steps: int) -> int:
         norm = torch.sqrt(collectives.all_reduce(norm * norm,
                                                  group=dg.group))
     needed = torch.ceil(torch.log2(torch.clamp(norm, min=1e-30) / 0.5))
-    return int(min(max(nb_steps, int(needed)),
+    return int(min(max(nb_steps, int(host_value(needed))),
                    nb_steps + _MAX_EXTRA_STEPS))
 
 

@@ -17,6 +17,8 @@ import functools
 import numpy as np
 import torch
 
+from advchain_tpu_torch._trace import to_device
+
 from . import collectives
 
 __all__ = ["interpolate", "interp_matrix"]
@@ -53,8 +55,8 @@ def _interp_matrix_np(in_size: int, out_size: int,
 
 def interp_matrix(in_size: int, out_size: int, align_corners: bool,
                   device=None):
-    return torch.as_tensor(_interp_matrix_np(in_size, out_size,
-                                             align_corners), device=device)
+    return to_device(_interp_matrix_np(in_size, out_size, align_corners),
+                     device=device)
 
 
 @functools.lru_cache(maxsize=128)
@@ -93,7 +95,7 @@ def _slab_rows(x, sg, part, out_size: int, mode: str, align_corners: bool,
     xw = sg.fetch(x, part, windows)
     a, e = target.rows(sg.index)
     lo, hi = windows[sg.index]
-    w = torch.as_tensor(mat[a:a + e, lo:hi], device=x.device).to(x.dtype)
+    w = to_device(mat[a:a + e, lo:hi], device=x.device).to(x.dtype)
     out = torch.movedim(torch.tensordot(xw, w, dims=([2], [1])), -1, 2)
     return sg.register(out, target)
 
@@ -137,8 +139,7 @@ def interpolate(x, size=None, scale_factor=None, mode: str = "bilinear",
         out = x
         for axis, (ins, outs) in enumerate(zip(spatial, size)):
             if ins != outs or (axis == 0 and sg is not None):
-                idx = torch.as_tensor(_nearest_idx_np(ins, outs),
-                                      device=x.device)
+                idx = to_device(_nearest_idx_np(ins, outs), device=x.device)
                 if axis == 0 and sg is not None:
                     idx = sg.slab(idx, 0)
                 out = torch.index_select(out, 2 + axis, idx)

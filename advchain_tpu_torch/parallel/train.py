@@ -43,6 +43,15 @@ up to f32 reduction order.
 The state's model and optimiser are updated in place; the returned state
 carries the step count.  The anatomy-preserving retries and rejection
 sampling are host-side control flow and stay out of the step, as in JAX.
+
+While a torch profiler records, the step records its phases as
+``advchain.*`` spans (``advchain_tpu_torch._trace.trace``):
+``advchain.step`` around the whole step, ``.step.clean_pass``,
+``.solver.episode`` (the draws, the PGD steps, ``.solver.project``),
+``.step.supervised_pass``, ``.step.consistency_pass``, ``.step.backward``
+(with the gradient all-reduce) and ``.step.optimizer``; the solver and the
+model's wrapper record theirs inside them.  With no profiler each costs a
+flag check.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from typing import Callable, Optional
 
 import torch
 
+from advchain_tpu_torch._trace import host_value, to_device, trace
 from advchain_tpu_torch.losses import cross_entropy
 from advchain_tpu_torch.ops import collectives
 from advchain_tpu_torch.parallel.mesh import every_rank_group
@@ -112,9 +122,9 @@ def _data_group(groups, batch):
             raise ValueError(f"a spatially partitioned step takes a batch "
                              f"of exactly 'image' and 'label', got "
                              f"{sorted(batch)}")
-        extents = collectives.all_gather(
-            torch.tensor([image.shape[2]], device=image.device),
-            group=space.group).tolist()
+        extents = host_value(collectives.all_gather(
+            to_device([image.shape[2]], device=image.device),
+            group=space.group))
         label = batch["label"]
         lead = label.shape[1] if label.dim() == image.dim() - 1 \
             else label.shape[2]
@@ -141,18 +151,20 @@ def _optimizer_step(optimizer, loss, dg=None):
     elements, and the parameter gradients are summed over the group (every
     rank of the mesh) in one all-reduce: the global batch's gradient on
     every rank."""
-    optimizer.zero_grad(set_to_none=True)
-    if dg is None:
-        loss.backward()
-    else:
-        (loss * dg.share).backward()
-        grads = [p.grad for g in optimizer.param_groups for p in g["params"]
-                 if p.grad is not None]
-        flat = collectives.all_reduce(
-            torch.cat([g.reshape(-1) for g in grads]), group=dg.group)
-        for g, v in zip(grads, flat.split([g.numel() for g in grads])):
-            g.copy_(v.view_as(g))
-    optimizer.step()
+    with trace("advchain.step.backward"):
+        optimizer.zero_grad(set_to_none=True)
+        if dg is None:
+            loss.backward()
+        else:
+            (loss * dg.share).backward()
+            grads = [p.grad for g in optimizer.param_groups
+                     for p in g["params"] if p.grad is not None]
+            flat = collectives.all_reduce(
+                torch.cat([g.reshape(-1) for g in grads]), group=dg.group)
+            for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(v.view_as(g))
+    with trace("advchain.step.optimizer"):
+        optimizer.step()
 
 
 def _global_metrics(metrics, dg):
@@ -225,7 +237,7 @@ def make_adversarial_train_step(
     loss_fn = cross_entropy if supervised_loss_fn is None \
         else supervised_loss_fn
 
-    def train_step(state: TrainState, batch, generator: torch.Generator):
+    def step_body(state, batch, generator):
         _check_state(state, model, optimizer)
         image = batch["image"].detach()
         label = batch["label"]
@@ -235,25 +247,30 @@ def make_adversarial_train_step(
             def frozen(x):
                 return model.apply_fixed(x, train=True)
 
-            with torch.no_grad():
+            with trace("advchain.step.clean_pass"), torch.no_grad():
                 init_output = frozen(image)
-            params = tuple(t.init_params(generator, image.device)
-                           for t in transforms)
-            if dg is not None:  # the global batch's draws, this rank's part
-                params = tuple(t.local_params(p, dg)
-                               for t, p in zip(transforms, params))
-            params = tuple(t.prepare_train(p) if f else p
-                           for t, p, f in zip(transforms, params, flags))
-            if n_iter > 0:
-                for _ in range(n_iter):
-                    params, _ = solver.pgd_step(frozen, params, image,
-                                                init_output, flags, steps)
-                params = tuple(t.project(p) if f else p
+            with trace("advchain.solver.episode"):
+                params = tuple(t.init_params(generator, image.device)
+                               for t in transforms)
+                if dg is not None:  # the global batch's draws, this rank's
+                    params = tuple(t.local_params(p, dg)
+                                   for t, p in zip(transforms, params))
+                params = tuple(t.prepare_train(p) if f else p
                                for t, p, f in zip(transforms, params, flags))
-            params = tuple(p.detach() for p in params)
+                if n_iter > 0:
+                    for _ in range(n_iter):
+                        params, _ = solver.pgd_step(frozen, params, image,
+                                                    init_output, flags, steps)
+                    with trace("advchain.solver.project"):
+                        params = tuple(t.project(p) if f else p for t, p, f
+                                       in zip(transforms, params, flags))
+                params = tuple(p.detach() for p in params)
 
-            sup = loss_fn(model.apply_train(image), label)
-            cons = solver._final_loss(frozen, params, image, init_output)[0]
+            with trace("advchain.step.supervised_pass"):
+                sup = loss_fn(model.apply_train(image), label)
+            with trace("advchain.step.consistency_pass"):
+                cons = solver._final_loss(frozen, params, image,
+                                          init_output)[0]
             total = sup + consistency_weight * cons
             _optimizer_step(optimizer, total, dg)
             metrics = _global_metrics(
@@ -261,6 +278,10 @@ def make_adversarial_train_step(
                  "supervised_loss": sup.detach(),
                  "consistency_loss": cons.detach()}, dg)
         return dataclasses.replace(state, step=state.step + 1), metrics
+
+    def train_step(state: TrainState, batch, generator: torch.Generator):
+        with trace("advchain.step"):
+            return step_body(state, batch, generator)
 
     return train_step
 
@@ -285,13 +306,15 @@ def make_supervised_train_step(model, optimizer,
 
     def train_step(state: TrainState, batch, generator=None):
         del generator
-        _check_state(state, model, optimizer)
-        image = batch["image"].detach()
-        with _data_group(groups, batch) as dg:
-            model.begin_episode()
-            loss = loss_fn(model.apply_train(image), batch["label"])
-            _optimizer_step(optimizer, loss, dg)
-            metrics = _global_metrics({"total_loss": loss.detach()}, dg)
+        with trace("advchain.step"):
+            _check_state(state, model, optimizer)
+            image = batch["image"].detach()
+            with _data_group(groups, batch) as dg:
+                model.begin_episode()
+                with trace("advchain.step.supervised_pass"):
+                    loss = loss_fn(model.apply_train(image), batch["label"])
+                _optimizer_step(optimizer, loss, dg)
+                metrics = _global_metrics({"total_loss": loss.detach()}, dg)
         return dataclasses.replace(state, step=state.step + 1), metrics
 
     return train_step

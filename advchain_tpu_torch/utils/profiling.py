@@ -4,7 +4,14 @@ advchain_tpu/utils/profiling.py):
   * ``trace(name)`` — a ``torch.profiler.record_function`` region that
     shows up in traces captured with ``start_trace`` / ``stop_trace``
     (one ``torch.profiler.profile``, written as a Chrome trace under the
-    log directory);
+    log directory), or under any other torch profiler; with none
+    recording, a shared no-op that costs one flag check.  The train step
+    records its ``advchain.*`` spans through it;
+  * ``COUNTS`` / ``TRACED_COUNTS`` / ``count`` / ``reset_counts`` — the
+    program's counters (``host_syncs``: each place the step makes the host
+    wait for a CUDA device), and ``to_device`` / ``host_value``, the
+    helpers that count those waits (defined in ``advchain_tpu_torch._trace``,
+    which every layer imports);
   * ``Timer`` / ``benchmark`` — wall timers that synchronise the CUDA
     devices of the tensors they are given;
   * ``checked`` — run a function under a dispatch mode that raises on the
@@ -23,15 +30,15 @@ from typing import Callable
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-__all__ = ["trace", "start_trace", "stop_trace", "Timer", "benchmark",
-           "checked"]
+from advchain_tpu_torch._trace import (COUNTS, TRACED_COUNTS, count,
+                                      host_value, reset_counts, to_device,
+                                      trace)
+
+__all__ = ["trace", "COUNTS", "TRACED_COUNTS", "count", "reset_counts",
+           "to_device", "host_value", "start_trace", "stop_trace", "Timer",
+           "benchmark", "checked"]
 
 _PROFILE = None  # (profiler, log_dir) while a trace runs
-
-
-def trace(name: str):
-    """Named region for profiler timelines."""
-    return torch.profiler.record_function(name)
 
 
 def start_trace(log_dir: str):
