@@ -6,6 +6,10 @@ from advchain_tpu_torch.kernels.band_sample import (BandSample,
                                                     band_sample_bwd_plain,
                                                     band_sample_fwd,
                                                     band_sample_fwd_plain)
+# the module's own name stays the package's attribute: its wrapper
+# function, conv3d_wgrad.conv3d_wgrad, is not re-exported here
+from advchain_tpu_torch.kernels.conv3d_wgrad import (Conv3dSame,
+                                                     conv3d_wgrad_plain)
 from advchain_tpu_torch.kernels.plane_sample import (
     CornerSample, PlaneGridSample, PlaneSample, corner_sample_bwd,
     corner_sample_bwd_plain, corner_sample_fwd, corner_sample_fwd_plain,
@@ -36,4 +40,5 @@ __all__ = ["BandSample", "band_sample_fwd", "band_sample_bwd",
            "PlaneSample", "plane_sample_fwd", "plane_sample_bwd",
            "plane_sample_fwd_plain", "plane_sample_bwd_plain",
            "PlaneGridSample", "plane_grid_sample_fwd", "plane_grid_sample_bwd",
-           "plane_grid_sample_fwd_plain", "plane_grid_sample_bwd_plain"]
+           "plane_grid_sample_fwd_plain", "plane_grid_sample_bwd_plain",
+           "Conv3dSame", "conv3d_wgrad_plain"]

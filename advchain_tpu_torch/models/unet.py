@@ -59,6 +59,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from advchain_tpu_torch._trace import to_device
+from advchain_tpu_torch.kernels.conv3d_wgrad import conv3d_same
 from advchain_tpu_torch.ops import collectives
 
 __all__ = ["UNet", "UNetv2", "DeeplySupervisedUNet", "DoubleConv", "Down",
@@ -741,10 +742,21 @@ def _slab_upsample2x(x, sg, part, target):
 class ZDecomposedConv3d(SlabConv3d):
     """A 3x3x3 SAME convolution with bias (the JAX package's
     ``ZDecomposedConv3d(features)``, a TPU layout of the same
-    convolution); a space group partitions it on D."""
+    convolution); a space group partitions it on D.  Outside a space
+    group, in f32, its weight and bias gradients come from the port's
+    deterministic kernel (``kernels.conv3d_wgrad.Conv3dSame``); the slab
+    call and other dtypes keep cuDNN's."""
 
     def __init__(self, in_channels: int, features: int):
         super().__init__(in_channels, features, 3, padding=1)
+
+    def _conv_forward(self, x, weight, bias):
+        if (collectives.current_space() is None
+                and x.dtype == weight.dtype == torch.float32
+                and self.kernel_size == (3, 3, 3) and self.padding == (1, 1, 1)
+                and self.stride == self.dilation == (1, 1, 1)):
+            return conv3d_same(x, weight, bias)
+        return super()._conv_forward(x, weight, bias)
 
 
 class PseudoConv3dModel(nn.Module):

@@ -291,8 +291,15 @@ Phases (any failure raises and the script exits non-zero):
      same weights and inputs, at phase 36's gates: outputs within 1e-4 of
      the largest entry, written statistics within 1e-5, input and
      parameter gradients (summed over the ranks) within 1e-2 relative L2;
-     no kernel launch.
-Then the ``kernels`` line for all eighteen kernel records, each with its
+     no kernel launch;
+ 41. the 3D model's Conv3d weight gradient (``conv3d_wgrad``, the pair
+     that replaces cuDNN's for ``ZDecomposedConv3d``) at the 3D cell's two
+     layers (N=2, 12x192x192, 1 -> 8 and 8 -> 4 channels) and at ragged
+     shapes against its plain twin in float64, each no farther from it than
+     cuDNN's ``conv3d_weight``, and bit-equal over two runs; 4 launches in
+     one 3D adversarial train step, none in its episode; the ms of each
+     layer's call, its bound, the twin's and cuDNN's ``conv3d_weight``.
+Then the ``kernels`` line for all nineteen kernel records, each with its
 launches in one random-chain call, one constrained solve, the bf16 episode
 and train step, one cardiac recipe pass, the 20 timed RandAugment calls,
 each rank's data-parallel train step, phase 31's sharded calls, each
@@ -359,14 +366,17 @@ KERNEL_SOURCES = {"band": _CSRC + "band_sample.cu",
                   # the corner route's bilinear backward (K = 4)
                   "corner_tile": _CSRC + "plane_sample.cu",
                   "plane": _CSRC + "plane_sample.cu",
-                  "plane_grid": _CSRC + "plane_sample.cu"}
+                  "plane_grid": _CSRC + "plane_sample.cu",
+                  # the 3D model's Conv3d weight gradient (not a Pallas
+                  # kernel: cuDNN's, which the port no longer calls there)
+                  "wgrad": _CSRC + "conv3d_wgrad.cu"}
 KERNEL_NAMES = {"band": "band_sample", "band_grid": "band_grid_sample",
                 "zband": "zband_sample",
                 "zband_grid": "zband_grid_sample",
                 "stencil": "stencil_warp", "slope": "dispatch_slope",
                 "corner": "corner_sample",
                 "corner_tile": "corner_tile_sample", "plane": "plane_sample",
-                "plane_grid": "plane_grid_sample"}
+                "plane_grid": "plane_grid_sample", "wgrad": "conv3d_wgrad"}
 # the sources to build, one nvcc each
 BUILD = sorted({src.rsplit("/", 1)[1][:-3] for src in KERNEL_SOURCES.values()})
 # the TPU kernels each pair replaces
@@ -382,11 +392,14 @@ REPLACES = {"band": {"fwd": f"{_GM}:839", "bwd": f"{_GM}:923"},
             "corner": {"fwd": f"{_GM}:134", "bwd": f"{_GM}:283"},
             "corner_tile": {"bwd": f"{_GM}:283"},
             "plane": {"fwd": f"{_GM}:466", "bwd": f"{_GM}:603"},
-            "plane_grid": {"fwd": f"{_GM}:466", "bwd": f"{_GM}:603"}}
+            "plane_grid": {"fwd": f"{_GM}:466", "bwd": f"{_GM}:603"},
+            # not a Pallas kernel: JAX leaves the Conv3d's weight gradient
+            # to lax.conv_general_dilated's transpose
+            "wgrad": {"bwd": "advchain_tpu/models/unet.py:328"}}
 # substrings of the port's CUDA kernel names (the profiler's rows)
 PORT_KERNEL_NAMES = ("band_sample", "band_grid", "zband_grid",
                      "stencil_warp", "dispatch_slope", "plane_sample",
-                     "plane_grid", "corner_tile")
+                     "plane_grid", "corner_tile", "conv3d_wgrad")
 # the switches that send 2D / 3D sampling to the corner / plane kernels
 LEGACY_SWITCH = {2: "ADVCHAIN_BAND_KERNEL", 3: "ADVCHAIN_ZBAND"}
 # the family the default route sends bilinear sampling to, and the one
@@ -537,6 +550,19 @@ def build_model(device, seed=0, dims=2, dropout=0.1, compute_dtype=None,
 POWER_ITERATION = {2: "smart", 3: False}
 
 
+# the Conv3d weight gradient's launches in one 3D adversarial train step
+# (two layers, each in the supervised and the consistency backward) and in
+# one 3D episode (whose autograd.grad asks for no weight)
+WGRAD_LAUNCHES = {"train3d": 4, "episode3d": 0}
+# the 3D cell's two layers: (N, Cin, Cout) + the volume
+WGRAD_SHAPES = {"conv1": (BATCH3D, 1, 8) + SHAPE3D,
+                "conv2": (BATCH3D, 8, 4) + SHAPE3D}
+# ragged shapes: a single plane, H and W that no tile divides, Cout not a
+# multiple of the 4 output channels a lane keeps
+WGRAD_RAGGED = {"d1": (2, 1, 8, 1, 7, 37), "odd": (2, 8, 4, 5, 17, 33),
+                "cout5": (1, 3, 5, 3, 40, 70), "tiny": (3, 1, 1, 2, 3, 3)}
+
+
 def _kernel_modules():
     from advchain_tpu_torch.kernels import (band_sample, stencil_warp,
                                             zband_sample)
@@ -545,19 +571,20 @@ def _kernel_modules():
 
 
 def reset_launch_counts():
-    from advchain_tpu_torch.kernels import plane_sample
+    from advchain_tpu_torch.kernels import conv3d_wgrad, plane_sample
     for mod in _kernel_modules().values():
         mod.reset_launch_counts()
     plane_sample.reset_launch_counts()
+    conv3d_wgrad.reset_launch_counts()
 
 
 def launch_counts():
     """Launches per family: band and zband (the corner-level pairs),
     band_grid and zband_grid (the grid-level pairs), stencil, the dispatch
-    predicate (slope), and corner and plane (the two routes of one kernel
-    pair, counted apart)."""
-    from advchain_tpu_torch.kernels import (band_sample, plane_sample,
-                                            zband_sample)
+    predicate (slope), corner and plane (the two routes of one kernel
+    pair, counted apart), and the Conv3d weight gradient (wgrad)."""
+    from advchain_tpu_torch.kernels import (band_sample, conv3d_wgrad,
+                                            plane_sample, zband_sample)
     counts = {fam: {"fwd": mod.FWD_LAUNCHES, "bwd": mod.BWD_LAUNCHES}
               for fam, mod in _kernel_modules().items()}
     counts["zband_grid"] = {"fwd": zband_sample.GRID_FWD_LAUNCHES,
@@ -568,6 +595,7 @@ def launch_counts():
     counts["slope"] = {"fwd": _kernel_modules()["stencil"].SLOPE_LAUNCHES}
     counts.update({route: dict(c) for route, c in
                    plane_sample.LAUNCHES.items()})
+    counts["wgrad"] = {"bwd": conv3d_wgrad.LAUNCHES}
     return counts
 
 
@@ -5304,6 +5332,124 @@ def check_stencil_warp_3d(device, n=BATCH3D, shape=SHAPE3D,
     return worst, call, ms
 
 
+# --------------------------------------------------------------- phase 41
+def wgrad_inputs(shape, device, seed=0):
+    """x (N, Cin, D, H, W) and dy (N, Cout, D, H, W), normal, f32."""
+    import torch
+    n, cin, cout, *vol = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((n, cin, *vol), generator=gen, device=device)
+    dy = torch.randn((n, cout, *vol), generator=gen, device=device)
+    return x, dy
+
+
+def check_conv3d_wgrad(device, cases=None):
+    """Phase 41's gates: each case's kernel ``(dW, db)`` against the plain
+    twin in float64 on the same inputs, as the largest gap over the
+    largest float64 entry, no larger than cuDNN's ``conv3d_weight``
+    (f32, TF32 off) at the 3D cell's shapes and within TOL_DW elsewhere
+    (where both are a few ulps of short sums), and the same bits over two
+    runs.  Returns {case: {"dw": gap, "db": gap, "cudnn_dw": gap}}."""
+    import torch
+    from advchain_tpu_torch.kernels import conv3d_wgrad as cw
+    cases = cases or {**WGRAD_SHAPES, **WGRAD_RAGGED}
+    out = {}
+    for name, shape in cases.items():
+        x, dy = wgrad_inputs(shape, device, seed=len(out))
+        dw, db = cw.conv3d_wgrad(x, dy)
+        dw2, db2 = cw.conv3d_wgrad(x, dy)
+        ref_w, ref_b = cw.conv3d_wgrad_plain(x.double(), dy.double())
+        lib = torch.nn.grad.conv3d_weight(x, tuple(ref_w.shape), dy,
+                                          padding=1)
+        sync(device)
+        scale_w = float(ref_w.abs().max())
+        gaps = {"dw": float((dw.double() - ref_w).abs().max()) / scale_w,
+                "db": float((db.double() - ref_b).abs().max())
+                / float(ref_b.abs().max()),
+                "cudnn_dw": float((lib.double() - ref_w).abs().max())
+                / scale_w}
+        if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
+            raise AssertionError(f"conv3d_wgrad {name} {shape}: two runs "
+                                 f"differ")
+        cap = gaps["cudnn_dw"] if name in WGRAD_SHAPES else TOL_DW
+        if gaps["dw"] > cap or gaps["db"] > TOL_DW:
+            raise AssertionError(f"conv3d_wgrad {name} {shape}: gaps "
+                                 f"{gaps} against float64 (dW cap {cap})")
+        out[name] = gaps
+    return out
+
+
+def count_wgrad_launches(device, batch=BATCH3D, shape=SHAPE3D):
+    """The Conv3d weight gradient's launches in one 3D adversarial train
+    step and in one 3D episode (each after a warm one), asserted against
+    WGRAD_LAUNCHES."""
+    import torch
+    step, state, data = build_train_step(device, batch, shape)
+    gen = torch.Generator(device=device).manual_seed(1)
+    state, _ = step(state, data, gen)
+    reset_launch_counts()
+    state, _ = step(state, data, gen)
+    sync(device)
+    got = {"train3d": launch_counts()["wgrad"]["bwd"]}
+    solver = build_solver(batch, shape)
+    model = build_model(device, dims=3)
+    image = data["image"]
+    episode_once(solver, model, image, POWER_ITERATION[3])
+    reset_launch_counts()
+    episode_once(solver, model, image, POWER_ITERATION[3])
+    got["episode3d"] = launch_counts()["wgrad"]["bwd"]
+    if got != WGRAD_LAUNCHES:
+        raise AssertionError(f"conv3d_wgrad launched {got}, not "
+                             f"{WGRAD_LAUNCHES}")
+    return got
+
+
+def time_conv3d_wgrad(device):
+    """Phase 41's timings at the 3D cell's two layers: the kernel pair, its
+    bound (x and dy read once, dW and db written once; the products' FMAs
+    and the bias's adds), the twin on the card, and cuDNN's
+    ``conv3d_weight`` (the weight gradient alone), the library
+    yardstick the port no longer calls there."""
+    import torch
+    from advchain_tpu_torch.kernels import conv3d_wgrad as cw
+    rows = []
+    for name, shape in WGRAD_SHAPES.items():
+        n, cin, cout, *vol = shape
+        x, dy = wgrad_inputs(shape, device)
+        voxels = n * math.prod(vol)
+        nbytes = 4 * (x.numel() + dy.numel() + cout * cin * 27 + cout)
+        flops = 2 * voxels * cin * cout * 27 + voxels * cout
+        bound, by = bound_ms(nbytes, flops)
+        rows.append({
+            "layer": name, "shape": list(shape), "rows_per_warp":
+            cw.rows_per_warp(n, cin, cout, *vol),
+            "ms": time_ms(lambda: cw.conv3d_wgrad(x, dy)),
+            "plain_ms": time_ms(lambda: cw.conv3d_wgrad_plain(x, dy),
+                                iters=5),
+            "library_ms": time_ms(lambda: torch.nn.grad.conv3d_weight(
+                x, (cout, cin, 3, 3, 3), dy, padding=1), iters=5),
+            "bound_ms": bound, "bound_by": by})
+    return rows
+
+
+def wgrad_record(launches, gaps, rows, shape_note):
+    """The ``kernels`` line's entry of the Conv3d weight gradient, timed at
+    the 3D cell's 8 -> 4 layer (``conv1``: the 1 -> 8 layer's row)."""
+    head = next(r for r in rows if r["layer"] == "conv2")
+    return {
+        "name": KERNEL_NAMES["wgrad"], "route": "cuda",
+        "source": KERNEL_SOURCES["wgrad"],
+        "replaces": REPLACES["wgrad"]["bwd"],
+        "launches": launches, "max_abs_err": max(
+            max(g["dw"], g["db"]) for g in gaps.values()),
+        "cudnn_err": {k: g["cudnn_dw"] for k, g in gaps.items()},
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "conv1": next(r for r in rows if r["layer"] == "conv1"),
+        "shape": f"{shape_note} Cin=8 Cout=4"}
+
+
 def kernel_launches(launches):
     """Launches by kernel record name (the ``kernels`` line's names)."""
     out = {f"{KERNEL_NAMES[fam]}_{kind}": launches[fam][kind]
@@ -5312,6 +5458,7 @@ def kernel_launches(launches):
            for kind in ("fwd", "bwd")}
     out[f"{KERNEL_NAMES['corner_tile']}_bwd"] = launches["corner_tile"]["bwd"]
     out[KERNEL_NAMES["slope"]] = launches["slope"]["fwd"]
+    out[KERNEL_NAMES["wgrad"]] = launches["wgrad"]["bwd"]
     return out
 
 
@@ -5943,6 +6090,17 @@ def main(argv=None):
           f"relative L2): {json.dumps(gaps_sb)}; no kernel launched; phase "
           f"40 in {time.perf_counter() - t_sb:.1f} s", flush=True)
 
+    # phase 41: the 3D model's Conv3d weight gradient
+    t_wg = time.perf_counter()
+    gaps_wg = check_conv3d_wgrad(device)
+    launches_wg = count_wgrad_launches(device)
+    rows_wg = time_conv3d_wgrad(device)
+    print(f"[wgrad] conv3d_wgrad against its float64 twin (largest gap "
+          f"over the largest entry; cuDNN's conv3d_weight beside it): "
+          f"{json.dumps(gaps_wg)}; two runs bit-equal; launches "
+          f"{json.dumps(launches_wg)}; timings {json.dumps(rows_wg)}; phase "
+          f"41 in {time.perf_counter() - t_wg:.1f} s on {card}", flush=True)
+
     shape2 = f"N={BATCH} {SHAPE[0]}x{SHAPE[1]}"
     shape3 = f"N={BATCH3D} {'x'.join(map(str, SHAPE3D))}"
     kernels = (kernel_records("band", launches2, worst2, rows2, "rot30", 1,
@@ -5963,7 +6121,9 @@ def main(argv=None):
                                 "near_identity", 3, shape3 + " K=4")
                + kernel_records("plane_grid", launches_p, worst_pg, rows_pg,
                                 "near_identity", 3, shape3)
-               + [slope_record(launches_t, slope_row, worst_slope, shape2)])
+               + [slope_record(launches_t, slope_row, worst_slope, shape2)]
+               + [wgrad_record(launches_wg["train3d"], gaps_wg, rows_wg,
+                               shape3)])
     by_name = (kernel_launches(launches_rc),
                kernel_launches(runs_cs[0][0]))
     bf16_names = (kernel_launches(turns_e["bf16"][0][0]),

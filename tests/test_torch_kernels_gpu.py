@@ -933,3 +933,120 @@ def test_stencil_warp_3d_launches_the_zband_pair(cuda):
     import chip_smoke as cs
     worst, call, _ = cs.check_stencil_warp_3d(cuda, 2, (6, 16, 20))
     assert call == {"fwd": 1, "bwd": 1}, call
+
+
+@pytest.mark.parametrize("case", ["conv1", "conv2", "d1", "odd", "cout5",
+                                  "tiny"])
+def test_conv3d_wgrad_kernel_matches_twin_and_cudnn(cuda, case):
+    """chip_smoke phase 41's gates at one of its shapes (the 3D cell's two
+    layers, then ragged ones): against the twin in float64, no farther
+    than cuDNN's ``conv3d_weight`` at the cell's shapes and within 1e-5 of
+    the largest entry elsewhere; two runs bit-equal."""
+    import chip_smoke as cs
+    from advchain_tpu_torch.kernels import conv3d_wgrad as cw
+    shapes = {**cs.WGRAD_SHAPES, **cs.WGRAD_RAGGED}
+    before = cw.LAUNCHES
+    gaps = cs.check_conv3d_wgrad(cuda, {case: shapes[case]})
+    assert cw.LAUNCHES == before + 2
+    assert gaps[case]["dw"] <= max(gaps[case]["cudnn_dw"], 1e-5)
+
+
+@pytest.mark.parametrize("h,rows", [(3, 1), (5, 2), (45, 12), (400, 25)])
+def test_conv3d_wgrad_kernel_rows_per_warp(cuda, h, rows):
+    """Heights whose row runs are 1 to 25 rows a warp, a block's last warps
+    walking a short run or none, give the float64 sums up to
+    reassociation."""
+    import chip_smoke as cs
+    from advchain_tpu_torch.kernels import conv3d_wgrad as cw
+    shape = (1, 8, 4, 2, h, 40)
+    assert cw.rows_per_warp(*shape) == rows
+    x, dy = cs.wgrad_inputs(shape, cuda, seed=4)
+    dw, db = cw.conv3d_wgrad(x, dy)
+    ref_w, ref_b = cw.conv3d_wgrad_plain(x.double(), dy.double())
+    assert float((dw.double() - ref_w).abs().max()) <= 1e-5 * float(
+        ref_w.abs().max())
+    assert float((db.double() - ref_b).abs().max()) <= 1e-5 * float(
+        ref_b.abs().max())
+
+
+def test_conv3d_wgrad_launch_error_raises(cuda, monkeypatch):
+    """An error code from the launch raises and counts no launch."""
+    import chip_smoke as cs
+    from advchain_tpu_torch.kernels import conv3d_wgrad as cw
+    x, dy = cs.wgrad_inputs((1, 2, 3, 2, 5, 6), cuda)
+    lib = cw._lib()
+
+    class Refused:
+        advchain_conv3d_wgrad_scratch = lib.advchain_conv3d_wgrad_scratch
+
+        @staticmethod
+        def advchain_conv3d_wgrad(*args):
+            return 9  # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(cw, "_lib", lambda: Refused)
+    before = cw.LAUNCHES
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cw.conv3d_wgrad(x, dy)
+    assert cw.LAUNCHES == before
+
+
+def test_cuda_tensor_never_takes_the_conv3d_wgrad_twin(cuda, monkeypatch):
+    import chip_smoke as cs
+    from advchain_tpu_torch.kernels import conv3d_wgrad as cw
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor took the plain twin")
+
+    x, dy = cs.wgrad_inputs((1, 2, 3, 2, 5, 6), cuda)
+    monkeypatch.setattr(cw, "conv3d_wgrad_plain", refuse)
+    cw.conv3d_wgrad(x, dy)
+    with pytest.raises(TypeError):
+        cw.conv3d_wgrad(x.double(), dy.double())
+    with pytest.raises(ValueError):
+        cw.conv3d_wgrad(x.transpose(3, 4), dy.transpose(3, 4))
+
+
+def test_conv3d_wgrad_launches_in_the_3d_step_and_episode(cuda):
+    """4 launches in one 3D adversarial train step (two layers, in the
+    supervised and the consistency backward), none in its episode
+    (chip_smoke phase 41 at a small volume)."""
+    import chip_smoke as cs
+    assert cs.count_wgrad_launches(cuda, 2, (8, 64, 64)) == \
+        cs.WGRAD_LAUNCHES
+
+
+@pytest.mark.parametrize("mode", ["grad_params", "double_backward"])
+def test_conv3d_same_grad_modes_on_the_card(cuda, mode):
+    """``torch.autograd.grad`` over the weights launches the pair once and
+    matches the library's convolution.  In a double backward the
+    ``create_graph`` pass takes the library's differentiable backward and
+    launches nothing; the second pass reaches the function's own backward
+    through the first's ``dy`` (the output), which launches the pair."""
+    import torch
+    import torch.nn.functional as F
+
+    from advchain_tpu_torch.kernels import conv3d_wgrad as cw
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(2, 8, 4, 20, 36, generator=gen, device=cuda)
+    w = torch.randn(4, 8, 3, 3, 3, generator=gen, device=cuda)
+    b = torch.randn(4, generator=gen, device=cuda)
+    grads, launches = [], []
+    for fn in (cw.conv3d_same, lambda *a: F.conv3d(*a, padding=1)):
+        xs, ws, bs = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        before = cw.LAUNCHES
+        out = fn(xs, ws, bs)
+        if mode == "grad_params":
+            grads.append(torch.autograd.grad(out.square().sum(), [ws, bs]))
+            launches.append(cw.LAUNCHES - before)
+        else:
+            (gx,) = torch.autograd.grad(out.square().sum(), [xs],
+                                        create_graph=True)
+            first = cw.LAUNCHES - before
+            gx.square().sum().backward()
+            grads.append((ws.grad, bs.grad))
+            launches.append((first, cw.LAUNCHES - before - first))
+    assert launches == ([1, 0] if mode == "grad_params"
+                        else [(0, 1), (0, 0)])
+    for a, r in zip(*grads):
+        torch.testing.assert_close(a, r, atol=1e-5 * float(r.abs().max()),
+                                   rtol=0)
