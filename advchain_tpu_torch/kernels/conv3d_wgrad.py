@@ -17,7 +17,15 @@ the same bits.
 
 Dispatch: a CPU tensor takes the plain twin; a CUDA tensor launches the
 kernels or raises.  ``LAUNCHES`` counts calls that launch the pair (the
-partial sums and their reduction) and nothing else.
+partial sums and their reduction) and nothing else, as does the program
+counter ``conv3d_wgrad.pair`` (``_trace.count``).
+
+Width rule (:func:`takes_pair`, read by ``ZDecomposedConv3d``): the pair
+wins where cuDNN's weight gradient is pathological, at few channels; its
+time grows with ``Cin * Cout``, where cuDNN's implicit GEMM does well.  A
+layer takes the pair where ``Cin * Cout <= PAIR_PRODUCTS`` and one block a
+plane keeps the scratch within ``SCRATCH_CAP`` (:func:`scratch_fits`);
+every other layer keeps cuDNN's.
 """
 
 from __future__ import annotations
@@ -29,10 +37,12 @@ import math
 import torch
 import torch.nn.functional as F
 
+from advchain_tpu_torch._trace import count
 from advchain_tpu_torch.kernels import _build
 
 __all__ = ["Conv3dSame", "conv3d_same", "conv3d_wgrad",
-           "conv3d_wgrad_plain", "reset_launch_counts"]
+           "conv3d_wgrad_plain", "reset_launch_counts", "takes_pair",
+           "scratch_fits"]
 
 LAUNCHES = 0
 # csrc/conv3d_wgrad.cu's kWarps: the warps of a block, each walking its own
@@ -40,6 +50,13 @@ LAUNCHES = 0
 WARPS = 4
 # the scratch a call aims to stay under (bytes): the segments' partial sums
 SCRATCH_BYTES = 2 << 20
+# the width rule, from dW + db timed against cuDNN's on an H100
+# (scripts/conv3d_width_table.py): the pair is 20-200x faster up to 512
+# Cin * Cout products and 2x at 1024, the two tie at 2048 and 4096, and
+# cuDNN is 1.8-4.7x faster from 8192 on; where the pair won, its least
+# scratch was at most 21 MB
+PAIR_PRODUCTS = 1024
+SCRATCH_CAP = 16 * SCRATCH_BYTES
 
 
 def reset_launch_counts() -> None:
@@ -73,14 +90,35 @@ def _lib():
     return lib
 
 
+def plane_scratch_bytes(n, cin, cout, d, w) -> int:
+    """The scratch of one block a plane down H: the least a call needs."""
+    return n * d * math.ceil(w / 32) * (cout * cin * 27 + cout) * 4
+
+
 def rows_per_warp(n, cin, cout, d, h, w) -> int:
     """The output rows a warp walks: about 96 rows a block of ``WARPS``
     warps (24 a warp, the fastest run length at the 3D cell's shapes on an
     H100), fewer blocks down H where the segments' partial sums would pass
     ``SCRATCH_BYTES`` (never fewer than one a plane)."""
-    per_block = n * d * math.ceil(w / 32) * (cout * cin * 27 + cout) * 4
+    per_block = plane_scratch_bytes(n, cin, cout, d, w)
     row_blocks = max(1, min(round(h / 96), SCRATCH_BYTES // per_block))
     return math.ceil(h / (WARPS * row_blocks))
+
+
+def takes_pair(cin: int, cout: int) -> bool:
+    """Whether a 3x3x3 f32 layer of these widths takes the pair's weight
+    gradient rather than cuDNN's (the width rule)."""
+    return cin * cout <= PAIR_PRODUCTS
+
+
+def scratch_fits(n, cin, cout, d, w) -> bool:
+    """Whether the least scratch a call needs stays within
+    ``SCRATCH_CAP``: a safeguard only.  At every timed shape that
+    :func:`takes_pair` admits, the least scratch is at most 21 MB, within
+    the cap; it refuses the pair to a narrow layer on a volume far larger
+    than any timed one, whose N * D * ceil(W / 32) segments of partial sums
+    would pass it."""
+    return plane_scratch_bytes(n, cin, cout, d, w) <= SCRATCH_CAP
 
 
 def _check(x, dy) -> bool:
@@ -137,6 +175,7 @@ def conv3d_wgrad(x, dy):
     if err:
         raise RuntimeError(f"conv3d_wgrad launch failed: CUDA error {err}")
     LAUNCHES += 1
+    count("conv3d_wgrad.pair")
     return dw, db
 
 

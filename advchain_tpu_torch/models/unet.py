@@ -1,7 +1,8 @@
 """The reference UNet family and the 3D demo model as torch ``nn.Module``s
 (port of advchain_tpu/models/unet.py: UNet with DoubleConv / Down / Up /
 OutConv and its options, UNetv2, DeeplySupervisedUNet, SelfAttn2d,
-PseudoConv3dModel).
+PseudoConv3dModel), and the 3D U-Net of Cicek et al. 2016
+(:class:`UNet3D`), which the JAX package does not have.
 
 ``UNet_16`` is ``feature_scale=4``, ``UNet_64`` is ``feature_scale=1``.
 Module and parameter names follow the reference torch model
@@ -58,15 +59,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from advchain_tpu_torch._trace import to_device
-from advchain_tpu_torch.kernels.conv3d_wgrad import conv3d_same
+from advchain_tpu_torch._trace import count, to_device, trace
+from advchain_tpu_torch.kernels.conv3d_wgrad import (conv3d_same,
+                                                     scratch_fits, takes_pair)
 from advchain_tpu_torch.ops import collectives
 
 __all__ = ["UNet", "UNetv2", "DeeplySupervisedUNet", "DoubleConv", "Down",
            "Up", "OutConv", "SelfAttn2d", "SpectralConv2d", "SlabConv2d",
            "SlabConv3d", "MaxPool2x2", "FrozenStatsBN",
            "FrozenStatsBN3d", "EpisodeDropout", "ZDecomposedConv3d",
-           "PseudoConv3dModel", "init_unet_", "max_pool_2x2",
+           "PseudoConv3dModel", "DoubleConv3d", "UNet3D", "init_unet_",
+           "max_pool_2x2",
            "upsample2x_align_corners", "upsample_to_skip", "pad_or_crop_to",
            "pad_rows",
            "apply_maybe_spectral", "kaiming_conv_init", "bn_scale_init"]
@@ -743,9 +746,12 @@ class ZDecomposedConv3d(SlabConv3d):
     """A 3x3x3 SAME convolution with bias (the JAX package's
     ``ZDecomposedConv3d(features)``, a TPU layout of the same
     convolution); a space group partitions it on D.  Outside a space
-    group, in f32, its weight and bias gradients come from the port's
-    deterministic kernel (``kernels.conv3d_wgrad.Conv3dSame``); the slab
-    call and other dtypes keep cuDNN's."""
+    group, in f32, a layer that the width rule gives to the port's
+    deterministic kernel (``kernels.conv3d_wgrad.takes_pair`` and
+    ``scratch_fits``: few channels) takes its weight and bias gradients
+    from it (``Conv3dSame``); every other f32 call of that kind keeps
+    cuDNN's and counts ``conv3d_wgrad.cudnn``; the slab call and other
+    dtypes keep cuDNN's too."""
 
     def __init__(self, in_channels: int, features: int):
         super().__init__(in_channels, features, 3, padding=1)
@@ -755,7 +761,11 @@ class ZDecomposedConv3d(SlabConv3d):
                 and x.dtype == weight.dtype == torch.float32
                 and self.kernel_size == (3, 3, 3) and self.padding == (1, 1, 1)
                 and self.stride == self.dilation == (1, 1, 1)):
-            return conv3d_same(x, weight, bias)
+            cout, cin = weight.shape[:2]
+            if takes_pair(cin, cout) and scratch_fits(
+                    x.shape[0], cin, cout, x.shape[2], x.shape[4]):
+                return conv3d_same(x, weight, bias)
+            count("conv3d_wgrad.cudnn")
         return super()._conv_forward(x, weight, bias)
 
 
@@ -782,12 +792,85 @@ class PseudoConv3dModel(nn.Module):
         return init_unet_(self, generator, bn_weight_std=0.0)
 
 
+class DoubleConv3d(nn.Module):
+    """(3x3x3 SAME conv -> BN3d -> ReLU) x 2, the 3D U-Net's level:
+    ``in_ch -> mid_ch -> out_ch``."""
+
+    def __init__(self, in_ch: int, mid_ch: int, out_ch: int):
+        super().__init__()
+        self.conv1 = ZDecomposedConv3d(in_ch, mid_ch)
+        self.bn1 = FrozenStatsBN3d(mid_ch)
+        self.conv2 = ZDecomposedConv3d(mid_ch, out_ch)
+        self.bn2 = FrozenStatsBN3d(out_ch)
+
+    def forward(self, x):
+        x = F.relu(self.bn1(self.conv1(x)))
+        return F.relu(self.bn2(self.conv2(x)))
+
+
+class UNet3D(nn.Module):
+    """The 3D U-Net of Cicek et al. 2016 (arXiv:1606.06650, Fig. 2) with
+    SAME padding, so the logits lie on the input's grid.  Analysis level
+    ``l`` (0-3) is a :class:`DoubleConv3d` to ``b * 2**l`` then ``b *
+    2**(l + 1)`` channels (``b = base_filters``; 32 is the paper's, a 512
+    channel bottom), the upper three each followed by a 2x2x2 max pool.
+    Synthesis level ``l`` (2-0) is a 2x2x2 stride-2 up-convolution that
+    keeps its channels, the concatenation ``[skip, up]`` and a
+    :class:`DoubleConv3d` to ``b * 2**(l + 1)`` twice; a 1x1x1 head gives
+    the classes.  D, H and W must be divisible by 8.  The space-partitioned
+    step is not implemented for it."""
+
+    LEVELS = 4
+
+    def __init__(self, input_channel: int = 1, num_classes: int = 4,
+                 base_filters: int = 32):
+        super().__init__()
+        b = base_filters
+        widths = [b * 2 ** (l + 1) for l in range(self.LEVELS)]
+        self.encoder = nn.ModuleList(
+            DoubleConv3d(input_channel if l == 0 else widths[l - 1],
+                         b * 2 ** l, widths[l]) for l in range(self.LEVELS))
+        below = widths[1:][::-1]  # the channels arriving from the level below
+        self.upconv = nn.ModuleList(nn.ConvTranspose3d(c, c, 2, stride=2)
+                                    for c in below)
+        self.decoder = nn.ModuleList(
+            DoubleConv3d(c + widths[l], widths[l], widths[l])
+            for c, l in zip(below, range(self.LEVELS - 2, -1, -1)))
+        self.head = nn.Conv3d(widths[0], num_classes, 1)
+
+    def forward(self, x):
+        if collectives.current_space() is not None:
+            raise NotImplementedError("UNet3D has no space-partitioned path")
+        scale = 2 ** (self.LEVELS - 1)
+        if x.dim() != 5 or any(s % scale for s in x.shape[2:]):
+            raise ValueError(f"UNet3D takes (N, C, D, H, W) with D, H and W "
+                             f"divisible by {scale}, got {tuple(x.shape)}")
+        skips = []
+        with trace("advchain.model.encoder"):
+            for l, level in enumerate(self.encoder):
+                if l:
+                    x = F.max_pool3d(x, 2, 2)
+                x = level(x)
+                skips.append(x)
+        with trace("advchain.model.decoder"):
+            x = skips.pop()
+            for up, level in zip(self.upconv, self.decoder):
+                x = level(torch.cat([skips.pop(), up(x)], dim=1))
+            return self.head(x)
+
+    def init_weights_(self, generator: torch.Generator):
+        """The JAX package's UNet init, the up-convolutions included."""
+        return init_unet_(self, generator)
+
+
 @torch.no_grad()
 def init_unet_(model: nn.Module, generator: torch.Generator,
                bn_weight_std: float = 0.02) -> nn.Module:
     """The JAX package's init, in place: conv kernels ~ kaiming normal
-    (fan_in, gain 2), except the self-attention's 1x1 convolutions, which
-    keep Flax's default gain 1 (lecun normal, here not truncated); conv
+    (fan_in, gain 2; a 3D up-convolution's fan_in as torch's
+    ``kaiming_normal_`` counts it, its output channels times its taps),
+    except the self-attention's 1x1 convolutions, which keep Flax's
+    default gain 1 (lecun normal, here not truncated); conv
     biases 0; a spectral ``u`` ~ N(0, 1) and ``sigma`` 1; BN weight ~ N(1,
     bn_weight_std), BN bias 0; the self-attention's ``gamma`` 0.  Draws on
     the generator's device and copies into the parameters."""
@@ -799,7 +882,7 @@ def init_unet_(model: nn.Module, generator: torch.Generator,
                            device=generator.device)
 
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Conv3d)):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
             gain = 1.0 if id(m) in lecun else 2.0
             m.weight.copy_(draw(m.weight.shape)
                            * math.sqrt(gain / m.weight[0].numel()))

@@ -294,11 +294,14 @@ Phases (any failure raises and the script exits non-zero):
      no kernel launch;
  41. the 3D model's Conv3d weight gradient (``conv3d_wgrad``, the pair
      that replaces cuDNN's for ``ZDecomposedConv3d``) at the 3D cell's two
-     layers (N=2, 12x192x192, 1 -> 8 and 8 -> 4 channels) and at ragged
-     shapes against its plain twin in float64, each no farther from it than
-     cuDNN's ``conv3d_weight``, and bit-equal over two runs; 4 launches in
-     one 3D adversarial train step, none in its episode; the ms of each
-     layer's call, its bound, the twin's and cuDNN's ``conv3d_weight``.
+     layers (N=2, 12x192x192, 1 -> 8 and 8 -> 4 channels), at UNet3D's
+     1 -> 32 input layer (N=2, 16x192x192, the one layer of it that the
+     width rule gives the pair) and at ragged shapes against its plain twin
+     in float64, each no farther from it than cuDNN's ``conv3d_weight``,
+     and bit-equal over two runs; 4 launches in one PseudoConv3dModel 3D
+     adversarial train step and 2 in one UNet3D step (at 16x192x192), none
+     in either episode; the ms of each layer's call, its bound, the twin's
+     and cuDNN's ``conv3d_weight``.
 Then the ``kernels`` line for all nineteen kernel records, each with its
 launches in one random-chain call, one constrained solve, the bf16 episode
 and train step, one cardiac recipe pass, the 20 timed RandAugment calls,
@@ -523,14 +526,16 @@ def build_model(device, seed=0, dims=2, dropout=0.1, compute_dtype=None,
                 net=None, **options):
     """UNet_16 (2D, with the UNet's ``options``), :func:`zoo_net`'s
     ``net`` (a self-attention's ``gamma`` set to ATTENTION_GAMMA, off its
-    init of 0, so that the block moves the output) or PseudoConv3dModel
-    (3D; ``dropout`` applies), 4 classes, seeded random weights, the
-    wrapper's ``compute_dtype``."""
+    init of 0, so that the block moves the output), PseudoConv3dModel
+    (3D; ``dropout`` applies) or, with ``net="unet3d"``, the 3D U-Net at
+    its published widths, 4 classes, seeded random weights, the wrapper's
+    ``compute_dtype``."""
     import torch
     from advchain_tpu_torch.models import (PseudoConv3dModel,
-                                           SegmentationModel, UNet)
+                                           SegmentationModel, UNet, UNet3D)
     if dims == 3:
-        module = PseudoConv3dModel(num_classes=4, dropout=dropout)
+        module = (UNet3D(1, 4, 32) if net == "unet3d"
+                  else PseudoConv3dModel(num_classes=4, dropout=dropout))
     elif net is not None:
         module = zoo_net(net)
     else:
@@ -551,12 +556,19 @@ POWER_ITERATION = {2: "smart", 3: False}
 
 
 # the Conv3d weight gradient's launches in one 3D adversarial train step
-# (two layers, each in the supervised and the consistency backward) and in
-# one 3D episode (whose autograd.grad asks for no weight)
-WGRAD_LAUNCHES = {"train3d": 4, "episode3d": 0}
-# the 3D cell's two layers: (N, Cin, Cout) + the volume
+# (PseudoConv3dModel's two layers, each in the supervised and the
+# consistency backward; UNet3D's 1 -> 32 layer alone, the width rule leaving
+# its other 13 to cuDNN) and in one 3D episode (whose autograd.grad asks
+# for no weight)
+WGRAD_LAUNCHES = {"train3d": 4, "episode3d": 0, "train3d_unet3d": 2,
+                  "episode3d_unet3d": 0}
+# the volume of the UNet3D cell (a depth three 2x2x2 pools divide)
+SHAPE3D_UNET3D = (16, 192, 192)
+# the 3D cell's two layers and UNet3D's input layer: (N, Cin, Cout) + the
+# volume
 WGRAD_SHAPES = {"conv1": (BATCH3D, 1, 8) + SHAPE3D,
-                "conv2": (BATCH3D, 8, 4) + SHAPE3D}
+                "conv2": (BATCH3D, 8, 4) + SHAPE3D,
+                "unet3d_in": (BATCH3D, 1, 32) + SHAPE3D_UNET3D}
 # ragged shapes: a single plane, H and W that no tile divides, Cout not a
 # multiple of the 4 output channels a lane keeps
 WGRAD_RAGGED = {"d1": (2, 1, 8, 1, 7, 37), "odd": (2, 8, 4, 5, 17, 33),
@@ -5379,25 +5391,34 @@ def check_conv3d_wgrad(device, cases=None):
     return out
 
 
-def count_wgrad_launches(device, batch=BATCH3D, shape=SHAPE3D):
+def count_wgrad_launches(device, batch=BATCH3D, shape=SHAPE3D,
+                         shape_unet3d=SHAPE3D_UNET3D):
     """The Conv3d weight gradient's launches in one 3D adversarial train
-    step and in one 3D episode (each after a warm one), asserted against
-    WGRAD_LAUNCHES."""
+    step and in one 3D episode (each after a warm one, from counts set to
+    0 just before it), with PseudoConv3dModel at ``shape`` and with UNet3D
+    at ``shape_unet3d``, asserted against WGRAD_LAUNCHES."""
     import torch
-    step, state, data = build_train_step(device, batch, shape)
-    gen = torch.Generator(device=device).manual_seed(1)
-    state, _ = step(state, data, gen)
-    reset_launch_counts()
-    state, _ = step(state, data, gen)
-    sync(device)
-    got = {"train3d": launch_counts()["wgrad"]["bwd"]}
-    solver = build_solver(batch, shape)
-    model = build_model(device, dims=3)
-    image = data["image"]
-    episode_once(solver, model, image, POWER_ITERATION[3])
-    reset_launch_counts()
-    episode_once(solver, model, image, POWER_ITERATION[3])
-    got["episode3d"] = launch_counts()["wgrad"]["bwd"]
+    got = {}
+    for net, suffix, vol in ((None, "", shape),
+                             ("unet3d", "_unet3d", shape_unet3d)):
+        step, state, data = build_train_step(device, batch, vol, net=net)
+        gen = torch.Generator(device=device).manual_seed(1)
+        state, _ = step(state, data, gen)
+        sync(device)
+        reset_launch_counts()
+        state, _ = step(state, data, gen)
+        sync(device)
+        got["train3d" + suffix] = launch_counts()["wgrad"]["bwd"]
+        solver = build_solver(batch, vol)
+        model = build_model(device, dims=3, net=net)
+        image = data["image"]
+        episode_once(solver, model, image, POWER_ITERATION[3])
+        sync(device)
+        reset_launch_counts()
+        episode_once(solver, model, image, POWER_ITERATION[3])
+        sync(device)
+        got["episode3d" + suffix] = launch_counts()["wgrad"]["bwd"]
+        del step, state, data, solver, model
     if got != WGRAD_LAUNCHES:
         raise AssertionError(f"conv3d_wgrad launched {got}, not "
                              f"{WGRAD_LAUNCHES}")
@@ -5405,7 +5426,7 @@ def count_wgrad_launches(device, batch=BATCH3D, shape=SHAPE3D):
 
 
 def time_conv3d_wgrad(device):
-    """Phase 41's timings at the 3D cell's two layers: the kernel pair, its
+    """Phase 41's timings at WGRAD_SHAPES' layers: the kernel pair, its
     bound (x and dy read once, dW and db written once; the products' FMAs
     and the bias's adds), the twin on the card, and cuDNN's
     ``conv3d_weight`` (the weight gradient alone), the library
@@ -5434,7 +5455,8 @@ def time_conv3d_wgrad(device):
 
 def wgrad_record(launches, gaps, rows, shape_note):
     """The ``kernels`` line's entry of the Conv3d weight gradient, timed at
-    the 3D cell's 8 -> 4 layer (``conv1``: the 1 -> 8 layer's row)."""
+    the 3D cell's 8 -> 4 layer (``conv1``: the 1 -> 8 layer's row;
+    ``unet3d_in``: UNet3D's 1 -> 32 layer's)."""
     head = next(r for r in rows if r["layer"] == "conv2")
     return {
         "name": KERNEL_NAMES["wgrad"], "route": "cuda",
@@ -5447,6 +5469,7 @@ def wgrad_record(launches, gaps, rows, shape_note):
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "conv1": next(r for r in rows if r["layer"] == "conv1"),
+        "unet3d_in": next(r for r in rows if r["layer"] == "unet3d_in"),
         "shape": f"{shape_note} Cin=8 Cout=4"}
 
 

@@ -935,13 +935,14 @@ def test_stencil_warp_3d_launches_the_zband_pair(cuda):
     assert call == {"fwd": 1, "bwd": 1}, call
 
 
-@pytest.mark.parametrize("case", ["conv1", "conv2", "d1", "odd", "cout5",
-                                  "tiny"])
+@pytest.mark.parametrize("case", ["conv1", "conv2", "unet3d_in", "d1",
+                                  "odd", "cout5", "tiny"])
 def test_conv3d_wgrad_kernel_matches_twin_and_cudnn(cuda, case):
     """chip_smoke phase 41's gates at one of its shapes (the 3D cell's two
-    layers, then ragged ones): against the twin in float64, no farther
-    than cuDNN's ``conv3d_weight`` at the cell's shapes and within 1e-5 of
-    the largest entry elsewhere; two runs bit-equal."""
+    layers, UNet3D's 1 -> 32 input layer at 2 x 16 x 192 x 192, then
+    ragged ones): against the twin in float64, no farther than cuDNN's
+    ``conv3d_weight`` at the cells' shapes and within 1e-5 of the largest
+    entry elsewhere; two runs bit-equal."""
     import chip_smoke as cs
     from advchain_tpu_torch.kernels import conv3d_wgrad as cw
     shapes = {**cs.WGRAD_SHAPES, **cs.WGRAD_RAGGED}
@@ -1007,11 +1008,12 @@ def test_cuda_tensor_never_takes_the_conv3d_wgrad_twin(cuda, monkeypatch):
 
 
 def test_conv3d_wgrad_launches_in_the_3d_step_and_episode(cuda):
-    """4 launches in one 3D adversarial train step (two layers, in the
-    supervised and the consistency backward), none in its episode
-    (chip_smoke phase 41 at a small volume)."""
+    """4 launches in one PseudoConv3dModel 3D adversarial train step (two
+    layers, in the supervised and the consistency backward), 2 in one
+    UNet3D step (its 1 -> 32 layer), none in either episode (chip_smoke
+    phase 41 at small volumes)."""
     import chip_smoke as cs
-    assert cs.count_wgrad_launches(cuda, 2, (8, 64, 64)) == \
+    assert cs.count_wgrad_launches(cuda, 2, (8, 64, 64), (8, 64, 64)) == \
         cs.WGRAD_LAUNCHES
 
 
@@ -1050,3 +1052,64 @@ def test_conv3d_same_grad_modes_on_the_card(cuda, mode):
     for a, r in zip(*grads):
         torch.testing.assert_close(a, r, atol=1e-5 * float(r.abs().max()),
                                    rtol=0)
+
+
+def _unet3d_step(cuda, batch=2, shape=(16, 64, 64)):
+    """(step, state, data, module) of the 3D adversarial train step with
+    UNet3D at its published widths, the 3D chain and Adam 1e-4."""
+    import chip_smoke as cs
+    from advchain_tpu_torch.models import SegmentationModel, UNet3D
+    from advchain_tpu_torch.parallel import (TrainState,
+                                             make_adversarial_train_step)
+    model = SegmentationModel.create(UNet3D(1, 4, 32), seed=3, device=cuda)
+    opt = torch.optim.Adam(model.module.parameters(), lr=cs.LR)
+    step = make_adversarial_train_step(
+        model, cs.build_solver(batch, shape), opt, n_iter=1,
+        power_iteration=cs.POWER_ITERATION[3])
+    data = {"image": torch.as_tensor(cs.make_input(batch, shape),
+                                     device=cuda),
+            "label": torch.as_tensor(cs.make_labels(batch, shape),
+                                     device=cuda)}
+    return step, TrainState.create(model, opt), data, model.module
+
+
+def test_unet3d_step_counts_the_width_rule(cuda):
+    """In a UNet3D train step the 1 -> 32 layer alone takes the pair, in
+    the supervised and the consistency backward (2 launches, counted as
+    ``conv3d_wgrad.pair``, and as such while a profiler records); each
+    forward leaves its other 13 3x3x3 layers to cuDNN
+    (``conv3d_wgrad.cudnn``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from advchain_tpu_torch import _trace
+    from advchain_tpu_torch.kernels import conv3d_wgrad as cw
+    step, state, data, module = _unet3d_step(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    state, _ = step(state, data, gen)
+    forwards = []
+    module.register_forward_pre_hook(lambda m, a: forwards.append(1))
+    _trace.reset_counts()
+    before = cw.LAUNCHES
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        state, _ = step(state, data, gen)
+        torch.cuda.synchronize()
+    assert cw.LAUNCHES - before == 2
+    assert _trace.COUNTS["conv3d_wgrad.pair"] == 2
+    assert _trace.TRACED_COUNTS["conv3d_wgrad.pair"] == 2
+    assert _trace.COUNTS["conv3d_wgrad.cudnn"] == 13 * len(forwards) > 0
+
+
+def test_pseudo3d_step_still_launches_the_pair_four_times(cuda):
+    """PseudoConv3dModel's two layers (1 -> 8, 8 -> 4) stay on the pair
+    under the width rule: 4 launches a 3D train step, none left to
+    cuDNN."""
+    import chip_smoke as cs
+    from advchain_tpu_torch import _trace
+    step, state, data = cs.build_train_step(cuda, cs.BATCH3D, (8, 64, 64))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    state, _ = step(state, data, gen)
+    _trace.reset_counts()
+    state, _ = step(state, data, gen)
+    torch.cuda.synchronize()
+    assert _trace.COUNTS.get("conv3d_wgrad.pair") == 4
+    assert "conv3d_wgrad.cudnn" not in _trace.COUNTS
