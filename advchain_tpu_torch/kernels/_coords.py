@@ -16,7 +16,9 @@ advchain_tpu/kernels/gather_matmul.py: ``grid_sample_2d_pallas``
 
 Clips are written ``minimum(maximum(x, lo), hi)``: at an exact bound that
 passes half the gradient, as ``jnp.clip`` does, where ``torch.clamp``
-passes all of it (base grid corners sit exactly on +-1).
+passes all of it (base grid corners sit exactly on +-1).  A bound given as
+a number is a 0-d tensor cached on the device (``_consts.scalar``), so a
+clip makes no host-to-device copy.
 """
 
 from __future__ import annotations
@@ -25,17 +27,24 @@ from typing import NamedTuple
 
 import torch
 
+from advchain_tpu_torch._consts import scalar
 from advchain_tpu_torch._trace import to_device
 
 __all__ = ["clip", "prep_coord", "axis_terms", "corner_weights", "fold_2d",
            "corner_weights_3d", "nearest_weights", "plane_weights"]
 
 
+def _bound(b, x):
+    """A clip bound as a tensor like ``x``: a number's is cached on the
+    device; a tensor (a batch's range) is taken as it is."""
+    if isinstance(b, torch.Tensor):
+        return to_device(b, x.dtype, x.device)
+    return scalar(b, x.dtype, x.device)
+
+
 def clip(x, lo, hi):
     """``jnp.clip`` with its subgradient: 0.5 at an exact bound."""
-    lo = to_device(lo, x.dtype, x.device)
-    hi = to_device(hi, x.dtype, x.device)
-    return torch.minimum(torch.maximum(x, lo), hi)
+    return torch.minimum(torch.maximum(x, _bound(lo, x)), _bound(hi, x))
 
 
 def _unnormalize(coord, size: int, align_corners: bool):
@@ -114,7 +123,7 @@ def prep_coord(g, size: int, align_corners: bool, padding_mode: str,
             # the clip's value; autograd passes lo_tie at 0 (lo_tie * 0 is
             # the value there)
             ix = torch.where(ix > 0, torch.minimum(
-                ix, to_device(hi, ix.dtype, ix.device)),
+                ix, scalar(hi, ix.dtype, ix.device)),
                 torch.where(ix == 0, ix * lo_tie, torch.zeros_like(ix)))
         else:
             ix = clip(ix, 0.0, hi)

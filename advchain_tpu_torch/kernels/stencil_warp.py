@@ -49,6 +49,7 @@ import functools
 import numpy as np
 import torch
 
+from advchain_tpu_torch._consts import device_const
 from advchain_tpu_torch._trace import to_device
 from advchain_tpu_torch.kernels import _build
 
@@ -158,7 +159,7 @@ def out_of_window_plain(flow):
     return total
 
 
-@functools.lru_cache(maxsize=None)
+@device_const
 def _base(sizes: tuple, device: str):
     """The base grid's coordinates along each axis, the last spatial axis
     first, concatenated (f32 on ``device``): ``linspace(-1, 1, S)`` computed

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from advchain_tpu_torch._consts import device_const
 from advchain_tpu_torch._trace import to_device
 from advchain_tpu_torch.ops import collectives
 from advchain_tpu_torch.ops.conv import conv_same
@@ -59,6 +60,14 @@ def _sobel_kernels_3d(object_classes: int):
     gx_w = np.tile(gx.reshape(1, 1, 3, 3, 3).astype(np.float32), tile)
     gz_w = np.tile(gz.reshape(1, 1, 3, 3, 3).astype(np.float32), tile)
     return gx_w, gx_w, gz_w
+
+
+@device_const
+def _sobel_kernels(object_classes: int, ndim: int, dtype, device):
+    """The Sobel kernels of ``ndim`` spatial axes on ``device``, cached
+    there (``_consts``)."""
+    build = _sobel_kernels_2d if ndim == 2 else _sobel_kernels_3d
+    return tuple(to_device(k, dtype, device) for k in build(object_classes))
 
 
 def one_hot(labels, depth: int):
@@ -108,11 +117,10 @@ def contour_loss(input, target, ignore_background: bool = True,
     else:
         object_classes = num_classes
     m = mask[:, :object_classes]
-    kernels = (_sobel_kernels_2d if input.dim() == 4
-               else _sobel_kernels_3d)(object_classes)
+    kernels = _sobel_kernels(object_classes, input.dim() - 2, input.dtype,
+                             input.device)
     total = 0.0
     for k in kernels:
-        k = to_device(k, input.dtype, input.device)
         total = total + torch.mean((conv_same(input, k) * m
                                     - conv_same(target, k) * m) ** 2)
     return total / len(kernels)

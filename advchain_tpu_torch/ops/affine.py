@@ -9,7 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from advchain_tpu_torch._trace import count, to_device
+from advchain_tpu_torch._consts import device_const
+from advchain_tpu_torch._trace import to_device
 
 from . import collectives
 
@@ -17,10 +18,12 @@ __all__ = ["linspace", "affine_grid_2d", "affine_grid_3d", "affine_grid",
            "make_batch_eye", "invert_affine_matrix"]
 
 
+@device_const
 def linspace(start: float, stop: float, num: int, dtype=torch.float32,
              device=None):
     """``linspace`` computed in float64 and rounded once, so every device
-    gives the same values."""
+    gives the same values; cached on the device (``_consts``), so shared:
+    write into it nothing in place."""
     return to_device(np.linspace(start, stop, num), dtype, device)
 
 
@@ -82,6 +85,6 @@ def invert_affine_matrix(affine_matrix):
     last = make_batch_eye(n, d, affine_matrix.dtype,
                           affine_matrix.device)[:, d:, :]
     homo = torch.cat([affine_matrix, last], dim=1)
-    if homo.is_cuda:  # its error check reads a device value
-        count("host_syncs")
-    return torch.linalg.inv(homo)[:, :d, :]
+    # linalg.inv's factorisation without its error check, which reads the
+    # device from the host: the same values, no sync
+    return torch.linalg.inv_ex(homo).inverse[:, :d, :]

@@ -24,6 +24,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from advchain_tpu_torch._consts import device_const
 from advchain_tpu_torch._trace import to_device
 
 from .grid_sample import clip
@@ -128,7 +129,7 @@ def make_bspline_field_spec(image_size, control_point_spacing,
         downscale=int(downscale))
 
 
-@functools.lru_cache(maxsize=64)
+@device_const
 def _axis_matrices(spec: BSplineFieldSpec, dtype: torch.dtype,
                    device: torch.device) -> Tuple[torch.Tensor, ...]:
     """Per spatial axis, the matrix A (cropped length, control points) of

@@ -17,6 +17,7 @@ import functools
 import numpy as np
 import torch
 
+from advchain_tpu_torch._consts import device_const
 from advchain_tpu_torch._trace import to_device
 
 from . import collectives
@@ -53,8 +54,11 @@ def _interp_matrix_np(in_size: int, out_size: int,
     return w.astype(np.float32)
 
 
+@device_const
 def interp_matrix(in_size: int, out_size: int, align_corners: bool,
                   device=None):
+    """The f32 (out, in) linear interpolation matrix on ``device``, cached
+    there (``_consts``), so shared: write into it nothing in place."""
     return to_device(_interp_matrix_np(in_size, out_size, align_corners),
                      device=device)
 
@@ -68,6 +72,12 @@ def _nearest_idx_np(in_size: int, out_size: int) -> np.ndarray:
     return np.clip(idx, 0, in_size - 1)
 
 
+@device_const
+def _nearest_idx(in_size: int, out_size: int, device):
+    """:func:`_nearest_idx_np` on ``device``, cached there."""
+    return to_device(_nearest_idx_np(in_size, out_size), device=device)
+
+
 def _axis_matrix(in_size: int, out_size: int, mode: str,
                  align_corners: bool) -> np.ndarray:
     """The (out, in) matrix of one axis's resize: linear weights, or
@@ -77,6 +87,14 @@ def _axis_matrix(in_size: int, out_size: int, mode: str,
         w[np.arange(out_size), _nearest_idx_np(in_size, out_size)] = 1.0
         return w
     return _interp_matrix_np(in_size, out_size, align_corners)
+
+
+@device_const
+def _device_axis_matrix(in_size: int, out_size: int, mode: str,
+                        align_corners: bool, device):
+    """:func:`_axis_matrix` on ``device``, cached there."""
+    return to_device(_axis_matrix(in_size, out_size, mode, align_corners),
+                     device=device)
 
 
 def _slab_rows(x, sg, part, out_size: int, mode: str, align_corners: bool,
@@ -95,7 +113,8 @@ def _slab_rows(x, sg, part, out_size: int, mode: str, align_corners: bool,
     xw = sg.fetch(x, part, windows)
     a, e = target.rows(sg.index)
     lo, hi = windows[sg.index]
-    w = to_device(mat[a:a + e, lo:hi], device=x.device).to(x.dtype)
+    w = _device_axis_matrix(part.height, out_size, mode, align_corners,
+                            x.device)[a:a + e, lo:hi].contiguous().to(x.dtype)
     out = torch.movedim(torch.tensordot(xw, w, dims=([2], [1])), -1, 2)
     return sg.register(out, target)
 
@@ -139,7 +158,7 @@ def interpolate(x, size=None, scale_factor=None, mode: str = "bilinear",
         out = x
         for axis, (ins, outs) in enumerate(zip(spatial, size)):
             if ins != outs or (axis == 0 and sg is not None):
-                idx = to_device(_nearest_idx_np(ins, outs), device=x.device)
+                idx = _nearest_idx(ins, outs, x.device)
                 if axis == 0 and sg is not None:
                     idx = sg.slab(idx, 0)
                 out = torch.index_select(out, 2 + axis, idx)

@@ -1113,3 +1113,27 @@ def test_pseudo3d_step_still_launches_the_pair_four_times(cuda):
     torch.cuda.synchronize()
     assert _trace.COUNTS.get("conv3d_wgrad.pair") == 4
     assert "conv3d_wgrad.cudnn" not in _trace.COUNTS
+
+
+@pytest.mark.parametrize("dims,syncs", [(2, 0), (3, 4)])
+def test_warm_adversarial_step_syncs_only_for_the_step_count(cuda, dims,
+                                                            syncs):
+    """A warm headline 2D adversarial step makes no host sync; a warm 3D
+    one makes 4, each ``adaptive_step_count``'s read of the velocity
+    norm.  Neither fills a device constant (``_consts``)."""
+    import chip_smoke as cs
+    from advchain_tpu_torch import _trace
+    from advchain_tpu_torch.ops import integrate
+    batch, shape = ((cs.BATCH, cs.SHAPE) if dims == 2
+                    else (cs.BATCH3D, cs.SHAPE3D))
+    step, state, data = cs.build_train_step(cuda, batch, shape)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    state, _ = step(state, data, gen)
+    torch.cuda.synchronize()
+    _trace.reset_counts()
+    integrate.ADAPTIVE_STEPS.clear()
+    state, _ = step(state, data, gen)
+    torch.cuda.synchronize()
+    assert _trace.COUNTS.get("host_syncs", 0) == syncs
+    assert len(integrate.ADAPTIVE_STEPS) == syncs
+    assert "device_consts.fill" not in _trace.COUNTS
