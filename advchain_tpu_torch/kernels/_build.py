@@ -6,7 +6,9 @@ root; the digest covers the source, the shared headers (``csrc/*.cuh``) and
 the flags, so an edited source is rebuilt and an unchanged one is
 reused.  Nothing here runs at import time:
 the first call to :func:`load` (or :func:`build`) compiles.  A missing
-``nvcc`` or a failed compile raises; there is no fallback.
+``nvcc`` or a failed compile raises; there is no fallback.  Every entry
+is called through :func:`launch`, which picks the stream and raises on a
+launch error.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
@@ -82,3 +86,12 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _loaded[name] = ctypes.CDLL(str(_library_path(name)))
     return lib
+
+
+def launch(entry, device, name: str, *args) -> None:
+    """Call the C entry ``entry(*args, stream)`` on ``device``'s current
+    stream.  Every entry returns ``cudaGetLastError()``: nonzero raises."""
+    with torch.cuda.device(device):
+        err = entry(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")

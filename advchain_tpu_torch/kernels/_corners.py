@@ -1,12 +1,13 @@
-"""What the corner samplers share: the plain PyTorch twins of the band (2D)
-and z-band (3D) samplers, written once for d spatial axes, the weighted
-gather and its transpose at precomputed flat taps (which the flat-index
-corner and plane samplers also use), and the wrappers' argument checks,
-for the corner contract below and for the grid contract of the grid-level
-pairs (``img`` (N, C, *S), ``grid`` (N, P, d) normalised, a padding mode,
-``align_corners`` and a mode).
+"""What the corner samplers share: the corner sum and scatter at the body
+of the band (2D) and z-band (3D) plain versions, written once for d
+spatial axes, the weighted gather and its transpose at precomputed flat
+taps (which the flat-index corner and plane samplers also use), and the
+wrappers' argument checks: :func:`check` for the flat corner pair's
+indices and weights, :func:`check_grid` for the grid contract of the
+grid-level pairs (``img`` (N, C, *S), ``grid`` (N, P, d) normalised, a
+padding mode, ``align_corners`` and a mode).
 
-Contract: ``img`` (N, C, *S) with d = len(S) spatial axes, ``idx`` a tuple
+Corners: ``img`` (N, C, *S) with d = len(S) spatial axes, ``idx`` a tuple
 of d (N, P) int32 base corners (the first spatial axis first), ``w``
 (N, 2^d, P) with corner k's offset along axis a equal to bit (d - 1 - a)
 of k (2D: (0,0) (0,1) (1,0) (1,1); 3D: (dz, dy, dx) binary order);
@@ -89,13 +90,12 @@ def bwd_taps(g, img, flat, valid, w):
     return d_img.reshape(img.shape), d_w
 
 
-def check(name: str, img, idx, w, g=None, taps=None) -> bool:
+def check(name: str, img, idx, w, g=None, *, taps) -> bool:
     """Validate a sampler call with ``len(idx)`` index arrays against an
-    image of as many axes after (N, C), and ``taps`` weights per point
-    (default 2^d).  False: CPU tensors, which take the plain twin; True:
-    CUDA tensors the kernel takes; anything else raises."""
+    image of as many axes after (N, C), and ``taps`` weights per point.
+    False: CPU tensors, which take the plain twin; True: CUDA tensors the
+    kernel takes; anything else raises."""
     dims = len(idx)
-    taps = 2 ** dims if taps is None else taps
     if img.dim() != dims + 2:
         raise ValueError(f"{name}: img must have {dims} spatial axes, got "
                          f"{tuple(img.shape)}")

@@ -1,5 +1,5 @@
-"""Bilinear sampler: the CUDA kernels, their plain twins and the autograd
-wrappers, on two contracts.
+"""Bilinear sampler: the grid-level CUDA pair, its plain versions and the
+autograd wrapper.
 
 Replaces advchain_tpu/kernels/gather_matmul.py::band_gather (:839) and
 ::band_scatter (:923), wired there by ``_weighted_band_sample`` (:1407) with
@@ -9,26 +9,26 @@ Replaces advchain_tpu/kernels/gather_matmul.py::band_gather (:839) and
 ``csrc/band_sample.cu`` (which carries the design and bound note) and are
 built by ``_build`` on first use.
 
-Grid contract (``band_grid_sample_*``, ``BandGridSample``, the default 2D
+Contract (``band_grid_sample_*``, ``BandGridSample``, the default 2D
 route): ``img`` (N, C, H, W), ``grid`` (N, P, 2) normalised (x, y);
 ``padding_mode`` in {zeros, border, reflection}, ``align_corners``, ``mode``
 in {bilinear, nearest}; ``out`` (N, C, P), and from a cotangent ``g``
 (N, C, P) the gradients ``d_img`` and ``d_grid`` (zero in nearest mode).
-The kernels fold the corner weights in registers; the plain forward is
+The kernels fold the corner weights in registers.  The plain forward is
 ``_coords.corner_weights`` (or ``nearest_weights``) followed by the corner
-contract's plain forward, and the plain backward is the closed form the
-backward kernel computes, on ``_coords``' coordinate prep.
-
-Corner contract (``band_sample_*``, ``BandSample``): ``img`` (N, C, H, W),
+sum ``band_sample_fwd_plain``, and the plain backward is the closed form
+the backward kernel computes, on ``_coords``' coordinate prep and
+``band_sample_bwd_plain``.  Those two twins take the folded corners:
 ``yidx``/``xidx`` (N, P) int32 base corners, ``w`` (N, 4, P) in corner
 order (0,0) (0,1) (1,0) (1,1);
 ``out[n,c,p] = sum_k w[n,k,p] * img[n, c, y+dy_k, x+dx_k]``, where a tap
-outside the image reads zero and receives no gradient.
+outside the image reads zero and receives no gradient.  They are the body
+of the plain versions, not a route of their own.
 
-Dispatch: a CPU tensor takes the plain twin; a CUDA tensor launches the
-kernel or raises.  ``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` (corner contract) and
-``GRID_FWD_LAUNCHES`` / ``GRID_BWD_LAUNCHES`` (grid contract) count kernel
-launches and nothing else, so a run can show it went through the kernels.
+Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
+kernel or raises.  ``GRID_FWD_LAUNCHES`` / ``GRID_BWD_LAUNCHES`` count
+kernel launches and nothing else, so a run can show it went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -40,12 +40,13 @@ import torch
 
 from advchain_tpu_torch.kernels import _build, _coords, _corners
 
-__all__ = ["BandSample", "band_sample_fwd",
-           "band_sample_bwd", "band_sample_fwd_plain",
-           "band_sample_bwd_plain", "BandGridSample", "band_grid_sample_fwd",
+__all__ = ["band_sample_fwd_plain", "band_sample_bwd_plain",
+           "BandGridSample", "band_grid_sample_fwd",
            "band_grid_sample_bwd", "band_grid_sample_fwd_plain",
            "band_grid_sample_bwd_plain", "reset_launch_counts"]
 
+# no kernel counts FWD_LAUNCHES / BWD_LAUNCHES: they stay at 0 for
+# cudabench/sut.py::launch_counts, which reads them
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 GRID_FWD_LAUNCHES = 0
@@ -60,94 +61,22 @@ def reset_launch_counts() -> None:
     GRID_FWD_LAUNCHES = GRID_BWD_LAUNCHES = 0
 
 
-# ------------------------------------------------------------ plain twins
+# ------------------------------------------------------ plain versions
 def band_sample_fwd_plain(img, yidx, xidx, w):
-    """Plain PyTorch forward (any device, any float dtype): gather the four
-    corners, then sum k = 0..3 in order, as the kernel does."""
+    """The plain forward's corner sum (any device, any float dtype): gather
+    the four corners, then sum k = 0..3 in order, as the forward kernel
+    does."""
     return _corners.fwd_plain(img, (yidx, xidx), w)
 
 
 def band_sample_bwd_plain(g, img, yidx, xidx, w):
-    """Plain PyTorch backward: ``d_w[n,k,p] = sum_c g * v_k`` and
-    ``d_img`` += ``w_k * g`` at each valid tap (deterministic scatter)."""
+    """The plain backward's corner scatter: ``d_w[n,k,p] = sum_c g * v_k``
+    and ``d_img`` += ``w_k * g`` at each valid tap (deterministic)."""
     return _corners.bwd_plain(g, img, (yidx, xidx), w)
 
 
-# ---------------------------------------------------------------- kernels
-@functools.cache
-def _lib():
-    lib = _build.load("band_sample")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.advchain_band_sample_fwd.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
-    lib.advchain_band_sample_fwd.restype = i32
-    lib.advchain_band_sample_bwd.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
-    lib.advchain_band_sample_bwd.restype = i32
-    lib.advchain_band_grid_sample_fwd.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
-    lib.advchain_band_grid_sample_fwd.restype = i32
-    lib.advchain_band_grid_sample_bwd.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
-    lib.advchain_band_grid_sample_bwd.restype = i32
-    return lib
-
-
-def band_sample_fwd(img, yidx, xidx, w):
-    """Forward: ``out`` (N, C, P).  CPU tensors take the plain twin."""
-    global FWD_LAUNCHES
-    if not _corners.check("band_sample", img, (yidx, xidx), w):
-        return band_sample_fwd_plain(img, yidx, xidx, w)
-    (n, c, h, wd), p = img.shape, yidx.shape[1]
-    out = torch.empty(n, c, p, dtype=img.dtype, device=img.device)
-    with torch.cuda.device(img.device):
-        err = _lib().advchain_band_sample_fwd(
-            img.data_ptr(), yidx.data_ptr(), xidx.data_ptr(), w.data_ptr(),
-            out.data_ptr(), n, c, h, wd, p,
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"band_sample_fwd launch failed: CUDA error {err}")
-    FWD_LAUNCHES += 1
-    return out
-
-
-def band_sample_bwd(g, img, yidx, xidx, w):
-    """Backward: ``(d_img (N, C, H, W), d_w (N, 4, P))`` in one launch.
-    CPU tensors take the plain twin."""
-    global BWD_LAUNCHES
-    if not _corners.check("band_sample", img, (yidx, xidx), w, g):
-        return band_sample_bwd_plain(g, img, yidx, xidx, w)
-    (n, c, h, wd), p = img.shape, yidx.shape[1]
-    d_img = torch.zeros_like(img)
-    d_w = torch.empty_like(w)
-    with torch.cuda.device(img.device):
-        err = _lib().advchain_band_sample_bwd(
-            g.data_ptr(), img.data_ptr(), yidx.data_ptr(), xidx.data_ptr(),
-            w.data_ptr(), d_img.data_ptr(), d_w.data_ptr(), n, c, h, wd, p,
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"band_sample_bwd launch failed: CUDA error {err}")
-    BWD_LAUNCHES += 1
-    return d_img, d_w
-
-
-class BandSample(torch.autograd.Function):
-    """``out = band_sample_fwd(img, yidx, xidx, w)`` with gradients to
-    ``img`` and ``w`` from one ``band_sample_bwd`` launch (the JAX
-    ``_weighted_band_sample`` custom VJP).  The indices get no gradient."""
-
-    @staticmethod
-    def forward(ctx, img, yidx, xidx, w):
-        ctx.save_for_backward(img, yidx, xidx, w)
-        return band_sample_fwd(img, yidx, xidx, w)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        img, yidx, xidx, w = ctx.saved_tensors
-        d_img, d_w = band_sample_bwd(g.contiguous(), img, yidx, xidx, w)
-        return d_img, None, None, d_w
-
-
-# ------------------------------------------------- grid contract: twins
 def _corner_inputs(img, grid, padding_mode, align_corners, mode):
-    """The corner contract's ``(yidx, xidx, w)`` for ``grid`` (N, P, 2):
+    """The folded corners ``(yidx, xidx, w)`` for ``grid`` (N, P, 2):
     ``corner_weights`` or ``nearest_weights``."""
     h, w = img.shape[2:]
     plane = grid.reshape(grid.shape[0], grid.shape[1], 1, 2)
@@ -162,7 +91,7 @@ def band_grid_sample_fwd_plain(img, grid, padding_mode="zeros",
                                align_corners=True, mode="bilinear"):
     """Plain PyTorch forward (any device, any float dtype): the fold of
     ``_coords.corner_weights`` (or ``nearest_weights``), then the corner
-    contract's plain forward.  ``out`` (N, C, P)."""
+    sum :func:`band_sample_fwd_plain`.  ``out`` (N, C, P)."""
     return band_sample_fwd_plain(
         img, *_corner_inputs(img, grid, padding_mode, align_corners, mode))
 
@@ -170,8 +99,8 @@ def band_grid_sample_fwd_plain(img, grid, padding_mode="zeros",
 def band_grid_sample_bwd_plain(g, img, grid, padding_mode="zeros",
                                align_corners=True, mode="bilinear"):
     """Plain PyTorch backward: ``(d_img (N, C, H, W), d_grid (N, P, 2))``.
-    ``d_img`` and the folded weights' gradient ``d_w`` come from the corner
-    contract's plain backward; ``d_grid`` is the closed form of the
+    ``d_img`` and the folded weights' gradient ``d_w`` come from
+    :func:`band_sample_bwd_plain`; ``d_grid`` is the closed form of the
     backward kernel's ``grid_grad``, in its order: each raw tap takes the
     ``d_w`` of the corner it folds onto (zero where zeros padding masks
     it), ``d_f = d_w1 - d_w0`` per axis through ``raw = (wx * wy)``, then
@@ -198,7 +127,18 @@ def band_grid_sample_bwd_plain(g, img, grid, padding_mode="zeros",
     return d_img, d_grid.to(grid.dtype)
 
 
-# ----------------------------------------------- grid contract: kernels
+# ---------------------------------------------------------------- kernels
+@functools.cache
+def _lib():
+    lib = _build.load("band_sample")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.advchain_band_grid_sample_fwd.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
+    lib.advchain_band_grid_sample_fwd.restype = i32
+    lib.advchain_band_grid_sample_bwd.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
+    lib.advchain_band_grid_sample_bwd.restype = i32
+    return lib
+
+
 def band_grid_sample_fwd(img, grid, padding_mode="zeros", align_corners=True,
                          mode="bilinear"):
     """Forward: ``out`` (N, C, P) in one launch.  CPU tensors take the plain
@@ -211,14 +151,10 @@ def band_grid_sample_fwd(img, grid, padding_mode="zeros", align_corners=True,
     (n, c, h, w), p = img.shape, grid.shape[1]
     _check_batch(n)
     out = torch.empty(n, c, p, dtype=img.dtype, device=img.device)
-    with torch.cuda.device(img.device):
-        err = _lib().advchain_band_grid_sample_fwd(
-            img.data_ptr(), grid.data_ptr(), out.data_ptr(), n, c, h, w, p,
-            *_corners.grid_flags(padding_mode, align_corners, mode),
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"band_grid_sample_fwd launch failed: CUDA error "
-                           f"{err}")
+    _build.launch(_lib().advchain_band_grid_sample_fwd, img.device,
+                  "band_grid_sample_fwd", img.data_ptr(), grid.data_ptr(),
+                  out.data_ptr(), n, c, h, w, p,
+                  *_corners.grid_flags(padding_mode, align_corners, mode))
     GRID_FWD_LAUNCHES += 1
     return out
 
@@ -236,15 +172,11 @@ def band_grid_sample_bwd(g, img, grid, padding_mode="zeros",
     _check_batch(n)
     d_img = torch.zeros_like(img)
     d_grid = torch.empty_like(grid)
-    with torch.cuda.device(img.device):
-        err = _lib().advchain_band_grid_sample_bwd(
-            g.data_ptr(), img.data_ptr(), grid.data_ptr(), d_img.data_ptr(),
-            d_grid.data_ptr(), n, c, h, w, p,
-            *_corners.grid_flags(padding_mode, align_corners, mode),
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"band_grid_sample_bwd launch failed: CUDA error "
-                           f"{err}")
+    _build.launch(_lib().advchain_band_grid_sample_bwd, img.device,
+                  "band_grid_sample_bwd", g.data_ptr(), img.data_ptr(),
+                  grid.data_ptr(), d_img.data_ptr(), d_grid.data_ptr(), n, c,
+                  h, w, p,
+                  *_corners.grid_flags(padding_mode, align_corners, mode))
     GRID_BWD_LAUNCHES += 1
     return d_img, d_grid
 

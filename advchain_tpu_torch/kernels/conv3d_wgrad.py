@@ -167,13 +167,9 @@ def conv3d_wgrad(x, dy):
     partial = torch.empty(
         lib.advchain_conv3d_wgrad_scratch(n, cin, cout, d, h, w, rows),
         dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.advchain_conv3d_wgrad(
-            x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-            db.data_ptr(), n, cin, cout, d, h, w, rows,
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"conv3d_wgrad launch failed: CUDA error {err}")
+    _build.launch(lib.advchain_conv3d_wgrad, x.device, "conv3d_wgrad",
+                  x.data_ptr(), dy.data_ptr(), partial.data_ptr(),
+                  dw.data_ptr(), db.data_ptr(), n, cin, cout, d, h, w, rows)
     LAUNCHES += 1
     count("conv3d_wgrad.pair")
     return dw, db

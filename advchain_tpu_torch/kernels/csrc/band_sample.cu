@@ -1,14 +1,9 @@
-// Bilinear sampler for Hopper (sm_90a), two contracts on shared device code:
-//
-// 1. The grid-level pair (band_grid_sample_fwd / _bwd): the image and the
-//    normalised sampling grid go in; each thread unnormalises, pads and
-//    floors its point's coordinates (grid_coords.cuh, shared with the 3D
-//    sampler), folds the four corner weights onto the clipped base in
-//    registers, and gathers (forward) or scatters and differentiates
-//    (backward).  The default 2D route.
-// 2. The corner-level pair (band_sample_fwd / _bwd): base indices and
-//    folded weights built by the caller go in.  Kept as the kernel-level
-//    counterpart of the TPU kernels and as the timed pre-fusion route.
+// Bilinear sampler for Hopper (sm_90a): the grid-level pair
+// (band_grid_sample_fwd / _bwd).  The image and the normalised sampling grid
+// go in; each thread unnormalises, pads and floors its point's coordinates
+// (grid_coords.cuh, shared with the 3D sampler), folds the four corner
+// weights onto the clipped base in registers, and gathers (forward) or
+// scatters and differentiates (backward).  The default 2D route.
 //
 // Replaces the TPU kernels advchain_tpu/kernels/gather_matmul.py::band_gather
 // (forward of _weighted_band_sample) and ::band_scatter (its backward,
@@ -27,8 +22,9 @@
 //   (wx * wy) * mask are summed in (dy, dx) order onto the corner of the
 //   clipped base they fold to, and out = sum_k w_k v_k, k = 0..3 in order:
 //   the arithmetic of kernels/_coords.py::corner_weights followed by the
-//   corner-level forward, so the forward equals its plain version bit for
-//   bit.  Nearest: rint (half to even), the clip, one unit-weight tap.
+//   corner sum of band_sample.py::band_sample_fwd_plain (the body of the
+//   plain version), so the forward equals its plain version bit for bit.
+//   Nearest: rint (half to even), the clip, one unit-weight tap.
 // Backward: d_img += w_k g at each valid tap; d_w_k = sum_c g v_k; d_grid by
 //   the chain rule through the same steps: the fold passes d_w of a corner
 //   to each raw tap folded onto it, d_f = d_w1 - d_w0 per axis, floor and
@@ -37,25 +33,17 @@
 //   where it mirrors, and the unnormalisation scales by (S-1)/2 or S/2.
 //   Nearest mode: d_grid is zero.
 //
-// Corner-level contract (shared with the plain versions in band_sample.py):
-//   img (N, C, H, W) f32, yidx/xidx (N, P) i32 (the clipped base corner),
-//   w (N, 4, P) f32 in corner order (0,0) (0,1) (1,0) (1,1).
-//   out[n,c,p] = sum_k w[n,k,p] * img[n, c, y+dy_k, x+dx_k]
-//   A tap outside [0,H) x [0,W) reads zero and receives no gradient (the
-//   caller folds collapsed border taps into the weights).
-//
-// Bound: both pairs move bytes, not operations.  At the band pair's most
-// frequent call (the image and mask warps: N=128, C=1, H=W=192, P=H*W) the
-// grid-level forward must read img + grid and write out: 18.9 + 37.7 +
-// 18.9 MB = 75.5 MB, 0.0225 ms at 3.35 TB/s; the corner-level forward
-// moves 151 MB (indices and folded weights are 24 bytes a point against
-// the grid's 8) and its caller's fold takes about a hundred PyTorch
-// launches a sample.  The grid-level backward must read g, img and grid
-// and write d_img and d_grid: 132 MB, 0.0395 ms; zeroing d_img is one more
+// Bound: the pair moves bytes, not operations.  At its most frequent call
+// (the image and mask warps: N=128, C=1, H=W=192, P=H*W) the forward must
+// read img + grid and write out: 18.9 + 37.7 + 18.9 MB = 75.5 MB, 0.0225 ms
+// at 3.35 TB/s; base indices and folded weights built by a caller would be
+// 24 bytes a point against the grid's 8, and their fold about a hundred
+// PyTorch launches a sample.  The backward must read g, img and grid and
+// write d_img and d_grid: 132 MB, 0.0395 ms; zeroing d_img is one more
 // write.
 //
-// Design of the grid-level pair: one thread per output point, blocks of
-// kThreads points of one batch element (blockIdx.y), so no division.  Each
+// Design: one thread per output point, blocks of kThreads points of one
+// batch element (blockIdx.y), so no division.  Each
 // thread loads its (x, y) pair with one 8-byte float2 load, coalesced
 // across the warp (no shared-memory staging, which the 3D pair needs for
 // its 12-byte triples), keeps its folded weights and tap offsets in
@@ -103,76 +91,6 @@ __device__ __forceinline__ Taps corner_taps(int y, int x, int h, int w) {
   return t;
 }
 
-__global__ void __launch_bounds__(kThreads)
-band_sample_fwd_kernel(const float* __restrict__ img,
-                       const int* __restrict__ yidx,
-                       const int* __restrict__ xidx,
-                       const float* __restrict__ wts,
-                       float* __restrict__ out,
-                       int n, int c, int h, int w, int p) {
-  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (int64_t)n * p) return;
-  const int64_t ni = t / p, pi = t - ni * p;
-  const Taps tap = corner_taps(yidx[t], xidx[t], h, w);
-  const float* wp = wts + ni * 4 * p + pi;
-  const float w0 = wp[0], w1 = wp[p], w2 = wp[2 * (int64_t)p],
-              w3 = wp[3 * (int64_t)p];
-  const int64_t hw = (int64_t)h * w;
-  const float* src = img + ni * c * hw;
-  float* dst = out + ni * c * p + pi;
-  for (int ci = 0; ci < c; ++ci) {
-    const float* s = src + ci * hw;
-    const float v0 = tap.ok[0] ? s[tap.off[0]] : 0.f;
-    const float v1 = tap.ok[1] ? s[tap.off[1]] : 0.f;
-    const float v2 = tap.ok[2] ? s[tap.off[2]] : 0.f;
-    const float v3 = tap.ok[3] ? s[tap.off[3]] : 0.f;
-    // k = 0..3 in order, each product rounded: the plain version's sum
-    float acc = __fmul_rn(w0, v0);
-    acc = __fadd_rn(acc, __fmul_rn(w1, v1));
-    acc = __fadd_rn(acc, __fmul_rn(w2, v2));
-    acc = __fadd_rn(acc, __fmul_rn(w3, v3));
-    dst[ci * (int64_t)p] = acc;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-band_sample_bwd_kernel(const float* __restrict__ g,
-                       const float* __restrict__ img,
-                       const int* __restrict__ yidx,
-                       const int* __restrict__ xidx,
-                       const float* __restrict__ wts,
-                       float* __restrict__ d_img,
-                       float* __restrict__ d_w,
-                       int n, int c, int h, int w, int p) {
-  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (int64_t)n * p) return;
-  const int64_t ni = t / p, pi = t - ni * p;
-  const Taps tap = corner_taps(yidx[t], xidx[t], h, w);
-  const float* wp = wts + ni * 4 * p + pi;
-  const float wk[4] = {wp[0], wp[p], wp[2 * (int64_t)p], wp[3 * (int64_t)p]};
-  const int64_t hw = (int64_t)h * w;
-  const float* src = img + ni * c * hw;
-  float* dsrc = d_img + ni * c * hw;
-  const float* gp = g + ni * c * p + pi;
-  float dw[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int ci = 0; ci < c; ++ci) {
-    const float gv = gp[ci * (int64_t)p];
-    const float* s = src + ci * hw;
-    float* ds = dsrc + ci * hw;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (!tap.ok[k]) continue;
-      dw[k] += gv * s[tap.off[k]];
-      const float contrib = wk[k] * gv;
-      if (contrib != 0.f) atomicAdd(ds + tap.off[k], contrib);
-    }
-  }
-  float* dwp = d_w + ni * 4 * p + pi;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) dwp[k * (int64_t)p] = dw[k];
-}
-
-// ------------------------------------------------ grid-level kernels
 // One point: its two axes, folded weights and taps.
 struct Point {
   Axis ax, ay;
@@ -365,42 +283,11 @@ band_grid_bwd_kernel(const float* __restrict__ g,
   }
 }
 
-int blocks_for(int n, int p) {
-  return (int)(((int64_t)n * p + kThreads - 1) / kThreads);
-}
-
 }  // namespace
 
 extern "C" {
 
 // Each entry point launches on `stream` and returns cudaGetLastError().
-int advchain_band_sample_fwd(const float* img, const int* yidx,
-                             const int* xidx, const float* w, float* out,
-                             int n, int c, int h, int wd, int p,
-                             void* stream) {
-  if ((int64_t)n * p > 0) {
-    band_sample_fwd_kernel<<<blocks_for(n, p), kThreads, 0,
-                             (cudaStream_t)stream>>>(img, yidx, xidx, w, out,
-                                                     n, c, h, wd, p);
-  }
-  return (int)cudaGetLastError();
-}
-
-// d_img must be zeroed by the caller; d_w is fully written.
-int advchain_band_sample_bwd(const float* g, const float* img,
-                             const int* yidx, const int* xidx,
-                             const float* w, float* d_img, float* d_w,
-                             int n, int c, int h, int wd, int p,
-                             void* stream) {
-  if ((int64_t)n * p > 0) {
-    band_sample_bwd_kernel<<<blocks_for(n, p), kThreads, 0,
-                             (cudaStream_t)stream>>>(g, img, yidx, xidx, w,
-                                                     d_img, d_w, n, c, h, wd,
-                                                     p);
-  }
-  return (int)cudaGetLastError();
-}
-
 // padding: 0 zeros, 1 border, 2 reflection; align, nearest: 0 or 1.
 int advchain_band_grid_sample_fwd(const float* img, const float* grid,
                                   float* out, int n, int c, int h, int wd,

@@ -1,13 +1,9 @@
-// Trilinear sampler for Hopper (sm_90a), two contracts on shared device code:
-//
-// 1. The grid-level pair (zband_grid_sample_fwd / _bwd): the image and the
-//    normalised sampling grid go in; each thread unnormalises, pads and
-//    floors its point's coordinates, folds the eight corner weights onto
-//    the clipped base in registers, and gathers (forward) or scatters and
-//    differentiates (backward).  The default 3D route.
-// 2. The corner-level pair (zband_sample_fwd / _bwd): base indices and
-//    folded weights built by the caller go in.  Kept as the kernel-level
-//    counterpart of the TPU kernels and as the timed pre-fusion route.
+// Trilinear sampler for Hopper (sm_90a): the grid-level pair
+// (zband_grid_sample_fwd / _bwd).  The image and the normalised sampling
+// grid go in; each thread unnormalises, pads and floors its point's
+// coordinates, folds the eight corner weights onto the clipped base in
+// registers, and gathers (forward) or scatters and differentiates
+// (backward).  The default 3D route.
 //
 // Replaces the TPU kernels advchain_tpu/kernels/gather_matmul.py::zband_gather
 // (forward of _weighted_zband_sample) and ::zband_scatter (its backward,
@@ -31,9 +27,9 @@
 //   ((wz * wy) * wx) * mask are summed in (dz, dy, dx) order onto the corner
 //   of the clipped base they fold to, and out = sum_k w_k v_k, k = 0..7 in
 //   order: the arithmetic of kernels/_coords.py::corner_weights_3d followed
-//   by the corner-level forward, so the forward equals its plain version
-//   bit for bit.  Nearest: rint (half to even), the clip, one unit-weight
-//   tap.
+//   by the corner sum of zband_sample.py::zband_sample_fwd_plain (the body
+//   of the plain version), so the forward equals its plain version bit for
+//   bit.  Nearest: rint (half to even), the clip, one unit-weight tap.
 // Backward: d_img += w_k g at each valid tap; d_w_k = sum_c g v_k; d_grid by
 //   the chain rule through the same steps: the fold passes d_w of a corner
 //   to each raw tap folded onto it, d_f = d_w1 - d_w0 per axis, floor and
@@ -46,17 +42,15 @@
 // contract it into FMAs: a coordinate that rounds differently can flip
 // floor() to another tap.
 //
-// Bound: both pairs move bytes, not operations.  At the 3D episode's flow
-// compositions (N=2, C=3, 12x192x192, P = D*H*W) the grid-level forward must
-// read img + grid and write out: 10.6 + 10.6 + 10.6 MB = 31.9 MB, 0.0095 ms
-// at 3.35 TB/s; the corner-level forward moved 60.2 MB (indices and folded
-// weights are 44 bytes a point against the grid's 12), and its caller's fold
-// took hundreds of PyTorch launches a sample.  The grid-level backward must
-// read g, img and grid and write d_img and d_grid: 53.1 MB, 0.0158 ms.  The
-// corner-level backward ran at 5x its bound on 8*C global atomics per
-// point.
+// Bound: the pair moves bytes, not operations.  At the 3D episode's flow
+// compositions (N=2, C=3, 12x192x192, P = D*H*W) the forward must read
+// img + grid and write out: 10.6 + 10.6 + 10.6 MB = 31.9 MB, 0.0095 ms at
+// 3.35 TB/s; base indices and folded weights built by a caller would be 44
+// bytes a point against the grid's 12, and their fold hundreds of PyTorch
+// launches a sample.  The backward must read g, img and grid and write
+// d_img and d_grid: 53.1 MB, 0.0158 ms.
 //
-// Design of the grid-level pair:
+// Design:
 // - Forward: one thread per output point.  Each block stages its points'
 //   grid triples into shared memory with coalesced 16-byte loads (a 12-byte
 //   stride per thread loads badly); each thread keeps its folded weights and
@@ -309,73 +303,6 @@ zband_grid_bwd_kernel(const float* __restrict__ g,
   stage_out(d_grid + ((int64_t)ni * p + p0) * 3, sgrid, count * 3);
 }
 
-// -------------------------------------------- corner-level kernels
-__global__ void __launch_bounds__(kThreads)
-zband_sample_fwd_kernel(const float* __restrict__ img,
-                        const int* __restrict__ zidx,
-                        const int* __restrict__ yidx,
-                        const int* __restrict__ xidx,
-                        const float* __restrict__ wts,
-                        float* __restrict__ out,
-                        int n, int c, int d, int h, int w, int p) {
-  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (int64_t)n * p) return;
-  const int64_t ni = t / p, pi = t - ni * p;
-  const Taps tap = corner_taps(zidx[t], yidx[t], xidx[t], d, h, w);
-  const float* wp = wts + ni * 8 * p + pi;
-  float wk[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) wk[k] = wp[k * (int64_t)p];
-  const int64_t dhw = (int64_t)d * h * w;
-  const float* src = img + ni * c * dhw;
-  float* dst = out + ni * c * p + pi;
-  for (int ci = 0; ci < c; ++ci) {
-    float v[8];
-    read_corners(src + ci * dhw, tap, v);
-    dst[ci * (int64_t)p] = weighted_sum(wk, v);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-zband_sample_bwd_kernel(const float* __restrict__ g,
-                        const float* __restrict__ img,
-                        const int* __restrict__ zidx,
-                        const int* __restrict__ yidx,
-                        const int* __restrict__ xidx,
-                        const float* __restrict__ wts,
-                        float* __restrict__ d_img,
-                        float* __restrict__ d_w,
-                        int n, int c, int d, int h, int w, int p) {
-  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (int64_t)n * p) return;
-  const int64_t ni = t / p, pi = t - ni * p;
-  const Taps tap = corner_taps(zidx[t], yidx[t], xidx[t], d, h, w);
-  const float* wp = wts + ni * 8 * p + pi;
-  float wk[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) wk[k] = wp[k * (int64_t)p];
-  const int64_t dhw = (int64_t)d * h * w;
-  const float* src = img + ni * c * dhw;
-  float* dsrc = d_img + ni * c * dhw;
-  const float* gp = g + ni * c * p + pi;
-  float dw[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int ci = 0; ci < c; ++ci) {
-    const float gv = gp[ci * (int64_t)p];
-    const float* s = src + ci * dhw;
-    float* ds = dsrc + ci * dhw;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      if (!((tap.ok >> k) & 1)) continue;
-      dw[k] += gv * s[tap.off(k)];
-      const float contrib = wk[k] * gv;
-      if (contrib != 0.f) atomicAdd(ds + tap.off(k), contrib);
-    }
-  }
-  float* dwp = d_w + ni * 8 * p + pi;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) dwp[k * (int64_t)p] = dw[k];
-}
-
 int blocks_for(int n, int p) {
   return (int)(((int64_t)n * p + kThreads - 1) / kThreads);
 }
@@ -385,34 +312,6 @@ int blocks_for(int n, int p) {
 extern "C" {
 
 // Each entry point launches on `stream` and returns cudaGetLastError().
-int advchain_zband_sample_fwd(const float* img, const int* zidx,
-                              const int* yidx, const int* xidx,
-                              const float* w, float* out, int n, int c, int d,
-                              int h, int wd, int p, void* stream) {
-  if ((int64_t)n * p > 0) {
-    zband_sample_fwd_kernel<<<blocks_for(n, p), kThreads, 0,
-                              (cudaStream_t)stream>>>(img, zidx, yidx, xidx,
-                                                      w, out, n, c, d, h, wd,
-                                                      p);
-  }
-  return (int)cudaGetLastError();
-}
-
-// d_img must be zeroed by the caller; d_w is fully written.
-int advchain_zband_sample_bwd(const float* g, const float* img,
-                              const int* zidx, const int* yidx,
-                              const int* xidx, const float* w, float* d_img,
-                              float* d_w, int n, int c, int d, int h, int wd,
-                              int p, void* stream) {
-  if ((int64_t)n * p > 0) {
-    zband_sample_bwd_kernel<<<blocks_for(n, p), kThreads, 0,
-                              (cudaStream_t)stream>>>(g, img, zidx, yidx,
-                                                      xidx, w, d_img, d_w, n,
-                                                      c, d, h, wd, p);
-  }
-  return (int)cudaGetLastError();
-}
-
 // padding: 0 zeros, 1 border, 2 reflection; align, nearest: 0 or 1.
 int advchain_zband_grid_sample_fwd(const float* img, const float* grid,
                                    float* out, int n, int c, int d, int h,

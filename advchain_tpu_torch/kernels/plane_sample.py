@@ -1,5 +1,5 @@
-"""Plane samplers: the CUDA kernels, their plain twins and the autograd
-wrappers, on two contracts.
+"""Plane samplers: the CUDA kernels, their plain versions and the autograd
+wrappers, one contract per route.
 
 Replaces advchain_tpu/kernels/gather_matmul.py::corner_gather (:134, with
 ``_corner_gather_streamed`` :208), ::corner_scatter (:283, with
@@ -23,22 +23,23 @@ border padding whose grid slope at an exact lower bound is ``lower_slope``
 (a one-element f32 tensor on the image's device; None for 1), read by the
 backward.  The kernels build the planes and fold the weights in registers,
 one launch each way; the plain forward is ``_coords.plane_weights``
-followed by the flat contract's plain forward per z tap, and the plain
-backward is the closed form the backward kernel computes.
+followed by the flat plane sum ``plane_sample_fwd_plain`` per z tap, and
+the plain backward is the closed form the backward kernel computes, on
+``plane_sample_bwd_plain``.  Those two twins are the body of the plain
+versions, not a route of their own.
 
-Flat contract (``corner_sample_*`` / ``plane_sample_*``, ``CornerSample``,
-``PlaneSample``): ``img`` (N, C, S) for the corner pair or (N, C, D, HW)
-for the plane pair, ``idx`` / ``yxidx`` and ``zidx`` (N, P) int32, ``w``
-(N, K, P) and ``offsets`` K <= 4 non-negative ints;
+Flat contract (``corner_sample_*``, ``CornerSample``, the 2D route under
+``ADVCHAIN_BAND_KERNEL=0``; and the plane twins): ``img`` (N, C, S) for
+the corner pair or (N, C, D, HW) for the plane twins, ``idx`` / ``yxidx``
+and ``zidx`` (N, P) int32, ``w`` (N, K, P) and ``offsets`` K <= 4
+non-negative ints;
 ``out[n,c,p] = sum_k w[n,k,p] * img[n, c, (z,) idx + offsets[k]]``, where
 a tap at or past the flat end (S, or HW within its plane) or on a plane
 outside [0, D) reads zero and receives no gradient.  Unlike the band
 contract this does not zero a tap that leaves its row: at the last column
 the +1 tap is the next row's first pixel (the samplers give it weight 0,
-so only the kernel-level ``d_w`` shows it).  The corner pair is the plane
-pair with one plane, so one kernel pair serves both.  The 2D route under
-``ADVCHAIN_BAND_KERNEL=0`` takes the corner pair; the flat plane pair is
-the kernel-level counterpart of ``plane_gather`` / ``plane_scatter``.
+so only the kernel-level ``d_w`` shows it).  The corner pair launches the
+flat plane kernels with one plane and no z index.
 
 The corner backward takes the raster width of its P points (``width``,
 which must divide P; None: one row of P).  Its CUDA launch is chosen by
@@ -48,11 +49,12 @@ tile's points in shared memory before its global atomics; K < 4 (nearest's
 one tap) and other offsets take the flat kernel.  Both are hand-written;
 the width changes the tiling, not the result.
 
-Dispatch: a CPU tensor takes the plain twin; a CUDA tensor launches the
-kernel or raises.  ``LAUNCHES["corner"|"plane"|"plane_grid"]["fwd"|"bwd"]``
-count kernel launches (and nothing else) per route, and
+Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
+kernel or raises.  ``LAUNCHES["corner"|"plane_grid"]["fwd"|"bwd"]`` count
+kernel launches (and nothing else) per route, and
 ``LAUNCHES["corner_tile"]["bwd"]`` the corner tile kernel's, so a run can
-show which route and kernel it went through.
+show which route and kernel it went through.  ``LAUNCHES["plane"]`` stays
+at 0: no route launches the flat kernels with a z index.
 """
 
 from __future__ import annotations
@@ -65,9 +67,8 @@ import torch
 from advchain_tpu_torch._trace import to_device
 from advchain_tpu_torch.kernels import _build, _coords, _corners
 
-__all__ = ["CornerSample", "PlaneSample", "corner_sample_fwd",
-           "corner_sample_bwd", "corner_sample_fwd_plain",
-           "corner_sample_bwd_plain", "plane_sample_fwd", "plane_sample_bwd",
+__all__ = ["CornerSample", "corner_sample_fwd", "corner_sample_bwd",
+           "corner_sample_fwd_plain", "corner_sample_bwd_plain",
            "plane_sample_fwd_plain", "plane_sample_bwd_plain",
            "PlaneGridSample", "plane_grid_sample_fwd",
            "plane_grid_sample_bwd", "plane_grid_sample_fwd_plain",
@@ -75,6 +76,8 @@ __all__ = ["CornerSample", "PlaneSample", "corner_sample_fwd",
            "tile_offsets"]
 
 MAX_TAPS = 4
+# no route launches the flat kernels with a z index: "plane" stays at 0
+# for cudabench/sut.py::launch_counts, which reads it
 LAUNCHES = {"corner": {"fwd": 0, "bwd": 0}, "plane": {"fwd": 0, "bwd": 0},
             "plane_grid": {"fwd": 0, "bwd": 0}, "corner_tile": {"bwd": 0}}
 
@@ -122,7 +125,7 @@ def _taps(zidx, yxidx, offsets, d: int, hw: int):
     return torch.where(valid, flat, torch.zeros_like(flat)), valid
 
 
-# ------------------------------------------------------------ plain twins
+# ------------------------------------------------------ plain versions
 def corner_sample_fwd_plain(img, idx, w, offsets):
     """Plain PyTorch forward (any device, any float dtype): gather the K
     taps, then sum k = 0..K-1 in order, as the kernel does."""
@@ -138,13 +141,13 @@ def corner_sample_bwd_plain(g, img, idx, w, offsets):
 
 
 def plane_sample_fwd_plain(img, zidx, yxidx, w, offsets):
-    """Plain PyTorch forward of the plane contract (see the module)."""
+    """The plain grid forward's flat plane sum (see the module)."""
     return _corners.fwd_taps(img, *_taps(zidx, yxidx, offsets,
                                          *img.shape[2:]), w)
 
 
 def plane_sample_bwd_plain(g, img, zidx, yxidx, w, offsets):
-    """Plain PyTorch backward of the plane contract."""
+    """The plain grid backward's flat plane scatter."""
     return _corners.bwd_taps(g, img, *_taps(zidx, yxidx, offsets,
                                             *img.shape[2:]), w)
 
@@ -171,44 +174,32 @@ def _lib():
     return lib
 
 
-def _shape(img, yxidx, offsets):
-    """(n, c, d, hw, p, k, four offsets) for the C entry points."""
-    n, c = img.shape[:2]
-    d, hw = (1, img.shape[2]) if img.dim() == 3 else img.shape[2:]
+def _shape(img, idx, offsets):
+    """(n, c, d = 1, hw = S, p, k, four offsets) for the flat entry
+    points: the corner pair is one plane with no z index."""
+    n, c, s = img.shape
     offs = list(offsets) + [0] * (MAX_TAPS - len(offsets))
-    return [n, c, d, hw, yxidx.shape[1], len(offsets), *offs]
+    return [n, c, 1, s, idx.shape[1], len(offsets), *offs]
 
 
-def _fwd(route, img, zidx, yxidx, w, offsets):
-    out = torch.empty(img.shape[0], img.shape[1], yxidx.shape[1],
+def _fwd(img, idx, w, offsets):
+    out = torch.empty(img.shape[0], img.shape[1], idx.shape[1],
                       dtype=img.dtype, device=img.device)
-    with torch.cuda.device(img.device):
-        err = _lib().advchain_plane_sample_fwd(
-            img.data_ptr(), None if zidx is None else zidx.data_ptr(),
-            yxidx.data_ptr(), w.data_ptr(), out.data_ptr(),
-            *_shape(img, yxidx, offsets),
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"{route}_sample_fwd launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES[route]["fwd"] += 1
+    _build.launch(_lib().advchain_plane_sample_fwd, img.device,
+                  "corner_sample_fwd", img.data_ptr(), None, idx.data_ptr(),
+                  w.data_ptr(), out.data_ptr(), *_shape(img, idx, offsets))
+    LAUNCHES["corner"]["fwd"] += 1
     return out
 
 
-def _bwd(route, g, img, zidx, yxidx, w, offsets):
+def _bwd(g, img, idx, w, offsets):
     d_img = torch.zeros_like(img)
     d_w = torch.empty_like(w)
-    with torch.cuda.device(img.device):
-        err = _lib().advchain_plane_sample_bwd(
-            g.data_ptr(), img.data_ptr(),
-            None if zidx is None else zidx.data_ptr(), yxidx.data_ptr(),
-            w.data_ptr(), d_img.data_ptr(), d_w.data_ptr(),
-            *_shape(img, yxidx, offsets),
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"{route}_sample_bwd launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES[route]["bwd"] += 1
+    _build.launch(_lib().advchain_plane_sample_bwd, img.device,
+                  "corner_sample_bwd", g.data_ptr(), img.data_ptr(), None,
+                  idx.data_ptr(), w.data_ptr(), d_img.data_ptr(),
+                  d_w.data_ptr(), *_shape(img, idx, offsets))
+    LAUNCHES["corner"]["bwd"] += 1
     return d_img, d_w
 
 
@@ -217,15 +208,12 @@ def _tile_bwd(g, img, idx, w, offsets, width):
     d_w = torch.empty_like(w)
     n, c, s = img.shape
     p = idx.shape[1]
-    with torch.cuda.device(img.device):
-        err = _lib().advchain_corner_tile_sample_bwd(
-            g.data_ptr(), img.data_ptr(), idx.data_ptr(), w.data_ptr(),
-            d_img.data_ptr(), d_w.data_ptr(), n, c, s, p,
-            max(p, 1) if width is None else int(width), int(offsets[2]),
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"corner_tile_sample_bwd launch failed: CUDA "
-                           f"error {err}")
+    _build.launch(_lib().advchain_corner_tile_sample_bwd, img.device,
+                  "corner_tile_sample_bwd", g.data_ptr(), img.data_ptr(),
+                  idx.data_ptr(), w.data_ptr(), d_img.data_ptr(),
+                  d_w.data_ptr(), n, c, s, p,
+                  max(p, 1) if width is None else int(width),
+                  int(offsets[2]))
     LAUNCHES["corner_tile"]["bwd"] += 1
     return d_img, d_w
 
@@ -236,7 +224,7 @@ def corner_sample_fwd(img, idx, w, offsets):
     if not _corners.check("corner_sample", img, (idx,), w,
                           taps=len(offsets)):
         return corner_sample_fwd_plain(img, idx, w, offsets)
-    return _fwd("corner", img, None, idx, w, offsets)
+    return _fwd(img, idx, w, offsets)
 
 
 def corner_sample_bwd(g, img, idx, w, offsets, width=None):
@@ -252,26 +240,7 @@ def corner_sample_bwd(g, img, idx, w, offsets, width=None):
         return corner_sample_bwd_plain(g, img, idx, w, offsets)
     if tile_offsets(offsets):
         return _tile_bwd(g, img, idx, w, offsets, width)
-    return _bwd("corner", g, img, None, idx, w, offsets)
-
-
-def plane_sample_fwd(img, zidx, yxidx, w, offsets):
-    """Forward: ``out`` (N, C, P).  CPU tensors take the plain twin."""
-    _check_offsets("plane_sample", offsets, w)
-    if not _corners.check("plane_sample", img, (zidx, yxidx), w,
-                          taps=len(offsets)):
-        return plane_sample_fwd_plain(img, zidx, yxidx, w, offsets)
-    return _fwd("plane", img, zidx, yxidx, w, offsets)
-
-
-def plane_sample_bwd(g, img, zidx, yxidx, w, offsets):
-    """Backward: ``(d_img (N, C, D, HW), d_w (N, K, P))`` in one launch.
-    CPU tensors take the plain twin."""
-    _check_offsets("plane_sample", offsets, w)
-    if not _corners.check("plane_sample", img, (zidx, yxidx), w, g,
-                          taps=len(offsets)):
-        return plane_sample_bwd_plain(g, img, zidx, yxidx, w, offsets)
-    return _bwd("plane", g, img, zidx, yxidx, w, offsets)
+    return _bwd(g, img, idx, w, offsets)
 
 
 class CornerSample(torch.autograd.Function):
@@ -298,29 +267,9 @@ class CornerSample(torch.autograd.Function):
         return d_img, None, d_w, None, None
 
 
-class PlaneSample(torch.autograd.Function):
-    """``out = plane_sample_fwd(img, zidx, yxidx, w, offsets)`` with
-    gradients to ``img`` and ``w`` from one ``plane_sample_bwd`` launch
-    (the JAX ``_weighted_plane_sample`` custom VJP)."""
-
-    @staticmethod
-    def forward(ctx, img, zidx, yxidx, w, offsets):
-        ctx.save_for_backward(img, zidx, yxidx, w)
-        ctx.offsets = tuple(offsets)
-        return plane_sample_fwd(img, zidx, yxidx, w, ctx.offsets)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        img, zidx, yxidx, w = ctx.saved_tensors
-        d_img, d_w = plane_sample_bwd(g.contiguous(), img, zidx, yxidx, w,
-                                      ctx.offsets)
-        return d_img, None, None, d_w, None
-
-
 # ------------------------------------------------- grid contract: twins
 def _plane_inputs(img, grid, padding_mode, align_corners):
-    """The flat plane pair's ``(zidx, yxidx, weights, offsets)`` for
+    """The flat plane twins' ``(zidx, yxidx, weights, offsets)`` for
     ``grid`` (N, P, 3), and ``img`` viewed (N, C, D, HW)."""
     n, c, d, h, w = img.shape
     zidx, yxidx, weights = _coords.plane_weights(
@@ -333,7 +282,7 @@ def _plane_inputs(img, grid, padding_mode, align_corners):
 def plane_grid_sample_fwd_plain(img, grid, padding_mode="zeros",
                                 align_corners=True):
     """Plain PyTorch forward (any device, any float dtype):
-    ``_coords.plane_weights``, then the flat plane forward of each z tap,
+    ``_coords.plane_weights``, then the flat plane sum of each z tap,
     summed dz = 0 then 1.  ``out`` (N, C, P)."""
     flat, zidx, yxidx, weights, offsets = _plane_inputs(
         img, grid, padding_mode, align_corners)
@@ -346,7 +295,7 @@ def plane_grid_sample_bwd_plain(g, img, grid, padding_mode="zeros",
                                 align_corners=True, lower_slope=None):
     """Plain PyTorch backward: ``(d_img (N, C, D, H, W), d_grid (N, P,
     3))``.  ``d_img`` and the folded weights' gradient ``d_w`` of each z tap
-    come from the flat plane backward; ``d_grid`` is the closed form of the
+    come from the flat plane scatter; ``d_grid`` is the closed form of the
     backward kernel's ``plane_grid_grad``, in its order: each raw in-plane
     tap takes the ``d_w`` of the tap it folds onto (zero where zeros
     padding masks it), ``d_f = d_w1 - d_w0`` per axis through
@@ -395,13 +344,9 @@ def plane_grid_sample_fwd(img, grid, padding_mode="zeros",
     out = torch.empty(n, c, p, dtype=img.dtype, device=img.device)
     padding, align, _ = _corners.grid_flags(padding_mode, align_corners,
                                             "bilinear")
-    with torch.cuda.device(img.device):
-        err = _lib().advchain_plane_grid_sample_fwd(
-            img.data_ptr(), grid.data_ptr(), out.data_ptr(), n, c, d, h, w,
-            p, padding, align, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"plane_grid_sample_fwd launch failed: CUDA error "
-                           f"{err}")
+    _build.launch(_lib().advchain_plane_grid_sample_fwd, img.device,
+                  "plane_grid_sample_fwd", img.data_ptr(), grid.data_ptr(),
+                  out.data_ptr(), n, c, d, h, w, p, padding, align)
     LAUNCHES["plane_grid"]["fwd"] += 1
     return out
 
@@ -419,16 +364,11 @@ def plane_grid_sample_bwd(g, img, grid, padding_mode="zeros",
     d_grid = torch.empty_like(grid)
     padding, align, _ = _corners.grid_flags(padding_mode, align_corners,
                                             "bilinear")
-    with torch.cuda.device(img.device):
-        err = _lib().advchain_plane_grid_sample_bwd(
-            g.data_ptr(), img.data_ptr(), grid.data_ptr(), d_img.data_ptr(),
-            d_grid.data_ptr(),
-            None if lower_slope is None else lower_slope.data_ptr(),
-            n, c, d, h, w, p, padding, align,
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"plane_grid_sample_bwd launch failed: CUDA error "
-                           f"{err}")
+    _build.launch(_lib().advchain_plane_grid_sample_bwd, img.device,
+                  "plane_grid_sample_bwd", g.data_ptr(), img.data_ptr(),
+                  grid.data_ptr(), d_img.data_ptr(), d_grid.data_ptr(),
+                  None if lower_slope is None else lower_slope.data_ptr(),
+                  n, c, d, h, w, p, padding, align)
     LAUNCHES["plane_grid"]["bwd"] += 1
     return d_img, d_grid
 

@@ -228,13 +228,10 @@ def dispatch_slope(flow, radius: int):
     base = _base(tuple(sizes), str(flow.device))
     words = torch.zeros(4, dtype=torch.int32, device=flow.device)
     out = words[:2].view(torch.float32)
-    with torch.cuda.device(flow.device):
-        err = _lib().advchain_dispatch_slope(
-            flow.data_ptr(), base.data_ptr(), out.data_ptr(),
-            words[2:].data_ptr(), n, dims, d, h, w, radius - 1e-3,
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"dispatch_slope launch failed: CUDA error {err}")
+    _build.launch(_lib().advchain_dispatch_slope, flow.device,
+                  "dispatch_slope", flow.data_ptr(), base.data_ptr(),
+                  out.data_ptr(), words[2:].data_ptr(), n, dims, d, h, w,
+                  radius - 1e-3)
     SLOPE_LAUNCHES += 1
     return out
 
@@ -279,12 +276,9 @@ def stencil_warp_fwd(img, flow):
         return stencil_warp_fwd_plain(img, flow)
     n, c, h, w = img.shape
     out = torch.empty_like(img)
-    with torch.cuda.device(img.device):
-        err = _lib().advchain_stencil_warp_fwd(
-            img.data_ptr(), flow.data_ptr(), out.data_ptr(), n, c, h, w,
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"stencil_warp_fwd launch failed: CUDA error {err}")
+    _build.launch(_lib().advchain_stencil_warp_fwd, img.device,
+                  "stencil_warp_fwd", img.data_ptr(), flow.data_ptr(),
+                  out.data_ptr(), n, c, h, w)
     FWD_LAUNCHES += 1
     return out
 
@@ -305,14 +299,12 @@ def stencil_warp_bwd(g, img, flow, lower_slope=None):
     d_img = torch.empty_like(img)
     d_flow = torch.empty_like(flow)
     outside = torch.zeros(1, dtype=torch.int32, device=img.device)
-    with torch.cuda.device(img.device):
-        err = _lib().advchain_stencil_warp_bwd(
-            g.data_ptr(), img.data_ptr(), flow.data_ptr(),
-            None if lower_slope is None else lower_slope.data_ptr(),
-            d_img.data_ptr(), d_flow.data_ptr(), outside.data_ptr(), n, c, h,
-            w, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"stencil_warp_bwd launch failed: CUDA error {err}")
+    _build.launch(_lib().advchain_stencil_warp_bwd, img.device,
+                  "stencil_warp_bwd", g.data_ptr(), img.data_ptr(),
+                  flow.data_ptr(),
+                  None if lower_slope is None else lower_slope.data_ptr(),
+                  d_img.data_ptr(), d_flow.data_ptr(), outside.data_ptr(), n,
+                  c, h, w)
     BWD_LAUNCHES += 1
     LAST_OUT_OF_WINDOW = outside
     return d_img, d_flow

@@ -12,50 +12,43 @@ Phases (any failure raises and the script exits non-zero):
   1. print the card's name and power limit, build the CUDA kernels from
      ``advchain_tpu_torch/kernels/csrc`` (one nvcc per source, started
      together) and print the build time;
-  2. hold each 2D kernel against its plain PyTorch twin on the card at the
-     main path's shapes (N=128, 192x192): the corner-level band pair at C
-     in {1, 2, 5} on a 30-degree rotation with zeros padding and a
-     near-identity warp with border padding; the band grid pair (the
-     default 2D route, bilinear and nearest) at C in {1, 2, 4, 5} with
-     three paddings and both align_corners on the near-identity grid, that
-     grid with 5% exact +-1 entries, and the rotation;
+  2. hold the band grid pair (the default 2D route, bilinear and nearest)
+     against its plain versions on the card at the main path's shapes
+     (N=128, 192x192) at C in {1, 2, 4, 5} with three paddings and both
+     align_corners on a near-identity warp, that grid with 5% exact +-1
+     entries, and a 30-degree rotation;
   3. check the 2D episode on a small input against the same episode on the
      CPU (plain twins), with identical weights and transform parameters;
   4. run the headline adversarial episode (noise -> bias -> affine -> morph,
      batch 128 at 192x192, UNet_16 with 4 classes and seeded random
      weights, mse + contour, n_iter=1, smart power iteration), count the
-     kernel launches of one episode (12 / 6 on the band grid pair, none on
-     the corner-level pair, no call of a host-side fold; 32 / 16 on the
+     kernel launches of one episode (12 / 6 on the band grid pair, no call
+     of a host-side fold; 32 / 16 on the
      stencil pair and 16 dispatch predicates, one per composition whose
      grid takes a gradient) and time 5 episodes after 2 warm-ups;
   5. time each 2D kernel, its twin and ``F.grid_sample`` (the library
      yardstick, never used by the port; a backward row times the library's
      backward alone, its graph built before the timed window, and its
-     forward and backward together), and a whole 2D sample three ways
-     in turns: the pre-fusion route (the host-side fold and the
-     corner-level pair), the band grid pair, and ``F.grid_sample``;
-  6. hold the corner-level z-band kernels against their twins at the 3D
-     episode's shapes (N=2, 12x192x192, C in {1, 3, 5}; a 10-degree
-     rotation about each axis with zeros padding and a near-identity warp
-     of up to 1 voxel with border padding), the fused grid-level pair
-     (trilinear and nearest) against its plain versions at the same shapes
-     with three paddings and both align_corners on the near-identity grid,
-     that grid with 5% exact +-1 entries, and the rotation (samples past
-     the volume); and 2D and 3D nearest sampling on the card against the
-     CPU;
+     forward and backward together), and a whole 2D sample two ways in
+     turns: the band grid pair and ``F.grid_sample``;
+  6. hold the fused grid-level z-band pair (trilinear and nearest) against
+     its plain versions at the 3D episode's shapes (N=2, 12x192x192, C in
+     {1, 3, 5}) with three paddings and both align_corners on a
+     near-identity warp of up to 1 voxel, that grid with 5% exact +-1
+     entries, and a 10-degree rotation about each axis (samples past the
+     volume); and 2D and 3D nearest sampling on the card against the CPU;
   7. check a small 3D episode (batch 2, 1x8x32x32, dropout 0) against the
      same episode on the CPU;
   8. run the 3D volume episode of bench.py:349-404 (noise -> bias ->
      affine -> morph in 3D, batch 2 at 1x12x192x192, PseudoConv3dModel
      with 4 classes, dropout 0.1 and seeded random weights, mse,
-     n_iter=1), count its kernel launches (44 / 22 on the fused pair, none
-     on the corner-level pair, no call of the host-side fold, one dispatch
+     n_iter=1), count its kernel launches (44 / 22 on the fused pair, no
+     call of the host-side fold, one dispatch
      predicate per squaring of the PGD step's two exponentiations), print
      its adaptive step counts and time 5 episodes after 2 warm-ups;
-  9. time the corner-level and fused z-band kernels, their twins and
-     ``F.grid_sample`` on 5-D input, nearest sampling on both pairs, and a
-     whole 3D sample three ways in turns: the pre-fusion route (the
-     host-side fold and the corner-level pair), the fused pair, and
+  9. time the fused z-band kernels, their plain versions and
+     ``F.grid_sample`` on 5-D input, nearest sampling on the pair, and a
+     whole 3D sample two ways in turns: the fused pair and
      ``F.grid_sample``;
  10. hold the stencil-warp kernels (every 2D flow composition) against
      their twins at the compositions' shapes (N=128, 192x192, C in
@@ -71,8 +64,8 @@ Phases (any failure raises and the script exits non-zero):
  12. run the headline fused adversarial train step of bench.py:408-447
      (batch 128 at 192x192, UNet_16, Adam 1e-4, n_iter=1, smart power
      iteration, mse + contour, seeded random weights and labels), count
-     the kernel launches of one step (12 / 8 on the band grid pair, none on
-     the corner-level pair, no call of a host-side fold; 32 / 16 on the
+     the kernel launches of one step (12 / 8 on the band grid pair, no
+     call of a host-side fold; 32 / 16 on the
      stencil pair and 16 dispatch predicates) and time 5 steps after 2
      warm-ups; then time the supervised step the same way;
  13. time the stencil kernels, their twins and ``F.grid_sample`` (the
@@ -82,11 +75,9 @@ Phases (any failure raises and the script exits non-zero):
      dispatch predicate;
  14. hold the flat-index corner kernels (the 2D route under
      ADVCHAIN_BAND_KERNEL=0) against their twins at the 2D episode's
-     shapes (N=128, 192x192, C in {1, 2, 5}, K in {1, 4}) and the flat
-     plane kernels at the 3D episode's (N=2, 12x192x192, C in {1, 3, 5},
-     K in {2, 4}), on phase 2's and 6's grids with 5% of the
-     near-identity entries on exactly +-1 (bases on the last column, row
-     and plane: the 2D wrap and the plane edge); and the plane grid pair
+     shapes (N=128, 192x192, C in {1, 2, 5}, K in {1, 4}) on phase 2's
+     grids with 5% of the near-identity entries on exactly +-1 (bases on
+     the last column and row: the 2D wrap); and the plane grid pair
      (the 3D route under ADVCHAIN_ZBAND=0) against its plain versions as
      phase 6 holds the z-band grid pair (C in {1, 3, 5}, three grids,
      zeros / border / reflection and edge with both dispatch slopes, both
@@ -105,17 +96,15 @@ Phases (any failure raises and the script exits non-zero):
      episodes after 2 warm-ups;
  16. the same for the 3D volume episode with ADVCHAIN_ZBAND=0: the plane
      grid pair launched as often as the default route's z-band grid pair
-     (44 / 22), the flat plane pair and the z-band pairs 0 times, no call
-     of a host-side fold (``plane_weights`` included);
- 17. time the corner and flat plane kernels (the plane pair per launch and
-     per sample, two launches), the plane grid pair, their twins and
-     ``F.grid_sample``, and a whole 3D sample on the plane route three ways
-     in turns (``plane_weights`` with two flat launches, the plane grid
-     pair, ``F.grid_sample``); time the corner tile backward and the kept
-     flat backward in turns at the image warps' call (N=128, C=1, 192x192,
-     the rotation, zeros), at C=4, on the near-identity grid, and the flat
-     one at K=1, with the global atomics per point reckoned from the
-     indices;
+     (44 / 22), the z-band grid pair 0 times, no call of a host-side fold
+     (``plane_weights`` included);
+ 17. time the corner kernels, the plane grid pair, their twins and
+     ``F.grid_sample``, and a whole 3D sample on the plane route two ways
+     in turns (the plane grid pair, ``F.grid_sample``); time the corner
+     tile backward and the kept flat backward in turns at the image warps'
+     call (N=128, C=1, 192x192, the rotation, zeros), at C=4, on the
+     near-identity grid, and the flat one at K=1, with the global atomics
+     per point reckoned from the indices;
  18. run one constrained solve (config #3 of bench.py:294-346: noise ->
      bias -> affine -> morph with "lowest" padding on the affine and the
      morph, batch 4 at 192x192, UNet_16, mse + contour, n_iter=3, the
@@ -357,36 +346,30 @@ TOL_DFLOW_REL = 1e-5         # of max|d_flow|
 TOL_ROUTES = 1e-4            # episode loss, legacy route vs default route
 LR = 1e-4                    # the headline train step's Adam rate
 _CSRC = "advchain_tpu_torch/kernels/csrc/"
-KERNEL_SOURCES = {"band": _CSRC + "band_sample.cu",
-                  "band_grid": _CSRC + "band_sample.cu",
-                  "zband": _CSRC + "zband_sample.cu",
+KERNEL_SOURCES = {"band_grid": _CSRC + "band_sample.cu",
                   "zband_grid": _CSRC + "zband_sample.cu",
                   "stencil": _CSRC + "stencil_warp.cu",
                   "slope": _CSRC + "stencil_warp.cu",
-                  # one flat kernel pair serves the corner (2D) and plane
-                  # (3D) contracts; the plane grid pair is the 3D route
+                  # the flat kernel pair with one plane is the corner
+                  # route (2D); the plane grid pair is the 3D route
                   "corner": _CSRC + "plane_sample.cu",
                   # the corner route's bilinear backward (K = 4)
                   "corner_tile": _CSRC + "plane_sample.cu",
-                  "plane": _CSRC + "plane_sample.cu",
                   "plane_grid": _CSRC + "plane_sample.cu",
                   # the 3D model's Conv3d weight gradient (not a Pallas
                   # kernel: cuDNN's, which the port no longer calls there)
                   "wgrad": _CSRC + "conv3d_wgrad.cu"}
-KERNEL_NAMES = {"band": "band_sample", "band_grid": "band_grid_sample",
-                "zband": "zband_sample",
+KERNEL_NAMES = {"band_grid": "band_grid_sample",
                 "zband_grid": "zband_grid_sample",
                 "stencil": "stencil_warp", "slope": "dispatch_slope",
                 "corner": "corner_sample",
-                "corner_tile": "corner_tile_sample", "plane": "plane_sample",
+                "corner_tile": "corner_tile_sample",
                 "plane_grid": "plane_grid_sample", "wgrad": "conv3d_wgrad"}
 # the sources to build, one nvcc each
 BUILD = sorted({src.rsplit("/", 1)[1][:-3] for src in KERNEL_SOURCES.values()})
 # the TPU kernels each pair replaces
 _GM = "advchain_tpu/kernels/gather_matmul.py"
-REPLACES = {"band": {"fwd": f"{_GM}:839", "bwd": f"{_GM}:923"},
-            "band_grid": {"fwd": f"{_GM}:839", "bwd": f"{_GM}:923"},
-            "zband": {"fwd": f"{_GM}:1081", "bwd": f"{_GM}:1230"},
+REPLACES = {"band_grid": {"fwd": f"{_GM}:839", "bwd": f"{_GM}:923"},
             "zband_grid": {"fwd": f"{_GM}:1081", "bwd": f"{_GM}:1230"},
             "stencil": {"fwd": "advchain_tpu/kernels/stencil.py:132",
                         "bwd": "advchain_tpu/kernels/stencil.py:172"},
@@ -394,13 +377,12 @@ REPLACES = {"band": {"fwd": f"{_GM}:839", "bwd": f"{_GM}:923"},
             "slope": {"fwd": "advchain_tpu/ops/integrate.py:103"},
             "corner": {"fwd": f"{_GM}:134", "bwd": f"{_GM}:283"},
             "corner_tile": {"bwd": f"{_GM}:283"},
-            "plane": {"fwd": f"{_GM}:466", "bwd": f"{_GM}:603"},
             "plane_grid": {"fwd": f"{_GM}:466", "bwd": f"{_GM}:603"},
             # not a Pallas kernel: JAX leaves the Conv3d's weight gradient
             # to lax.conv_general_dilated's transpose
             "wgrad": {"bwd": "advchain_tpu/models/unet.py:328"}}
 # substrings of the port's CUDA kernel names (the profiler's rows)
-PORT_KERNEL_NAMES = ("band_sample", "band_grid", "zband_grid",
+PORT_KERNEL_NAMES = ("band_grid", "zband_grid",
                      "stencil_warp", "dispatch_slope", "plane_sample",
                      "plane_grid", "corner_tile", "conv3d_wgrad")
 # the switches that send 2D / 3D sampling to the corner / plane kernels
@@ -409,8 +391,6 @@ LEGACY_SWITCH = {2: "ADVCHAIN_BAND_KERNEL", 3: "ADVCHAIN_ZBAND"}
 # LEGACY_SWITCH sends it to
 DEFAULT_FAMILY = {2: "band_grid", 3: "zband_grid"}
 LEGACY_FAMILY = {2: "corner", 3: "plane_grid"}
-# the corner-level pairs no default route takes since the grid-level pairs
-CORNER_LEVEL = {2: "band", 3: "zband"}
 # the grid-level pair's launches (fwd, bwd) in one 2D episode, one 2D train
 # step and one 3D episode
 GRID_LAUNCHES = {"episode2d": {"fwd": 12, "bwd": 6},
@@ -591,10 +571,11 @@ def reset_launch_counts():
 
 
 def launch_counts():
-    """Launches per family: band and zband (the corner-level pairs),
-    band_grid and zband_grid (the grid-level pairs), stencil, the dispatch
-    predicate (slope), corner and plane (the two routes of one kernel
-    pair, counted apart), and the Conv3d weight gradient (wgrad)."""
+    """Launches per family: band_grid and zband_grid (the grid-level
+    pairs), stencil, the dispatch predicate (slope), corner and
+    corner_tile (the corner route), plane_grid (the 3D plane route), and
+    the Conv3d weight gradient (wgrad).  band, zband and plane read 0: no
+    route launches them, and cudabench/sut.py reads their counters."""
     from advchain_tpu_torch.kernels import (band_sample, conv3d_wgrad,
                                             plane_sample, zband_sample)
     counts = {fam: {"fwd": mod.FWD_LAUNCHES, "bwd": mod.BWD_LAUNCHES}
@@ -615,12 +596,6 @@ def sync(device):
     import torch
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
-
-
-def sampler(dims):
-    """(family name, kernel module) of the corner sampler for 2D / 3D."""
-    from advchain_tpu_torch.kernels import band_sample, zband_sample
-    return ("band", band_sample) if dims == 2 else ("zband", zband_sample)
 
 
 def route_family(dims):
@@ -663,42 +638,6 @@ def sample_grids(n, shape, device, seed=0):
     near = ident + (2 * torch.rand(ident.shape, generator=gen,
                                    device=device) - 1) * scale
     return [(name, "zeros", rot_grid), ("near_identity", "border", near)]
-
-
-def kernel_inputs(n, c, shape, grid, padding, device, seed=0):
-    """img, base indices (tuple), folded weights and a cotangent for the
-    sampler kernels of ``len(shape)`` dims."""
-    import torch
-    from advchain_tpu_torch.ops.grid_sample import (corner_weights,
-                                                    corner_weights_3d)
-    gen = torch.Generator(device=device).manual_seed(seed + c)
-    img = torch.randn((n, c) + tuple(shape), generator=gen, device=device)
-    prep = corner_weights if len(shape) == 2 else corner_weights_3d
-    *idx, wts = prep(grid, *shape, padding, True)
-    g = torch.randn(n, c, grid[0, ..., 0].numel(), generator=gen,
-                    device=device)
-    return img, tuple(idx), wts, g
-
-
-def check_kernels(n, shape, device, channels=(1, 2, 5)):
-    """Phases 2 and 6: each kernel against its twin.  Returns the largest
-    errors."""
-    fam, mod = sampler(len(shape))
-    fwd, fwd_plain = (getattr(mod, f"{fam}_sample_fwd"),
-                      getattr(mod, f"{fam}_sample_fwd_plain"))
-    bwd, bwd_plain = (getattr(mod, f"{fam}_sample_bwd"),
-                      getattr(mod, f"{fam}_sample_bwd_plain"))
-    worst = {"fwd": 0.0, "bwd": 0.0}
-    for name, padding, grid in sample_grids(n, shape, device):
-        for c in channels:
-            img, idx, wts, g = kernel_inputs(n, c, shape, grid, padding,
-                                             device)
-            hold_against_twin(
-                f"{fam:5s} {name:13s} {padding:6s} C={c}", device,
-                lambda: fwd(img, *idx, wts), lambda: fwd_plain(img, *idx, wts),
-                lambda: bwd(g, img, *idx, wts),
-                lambda: bwd_plain(g, img, *idx, wts), worst)
-    return worst
 
 
 def hold_against_twin(label, device, fwd, fwd_plain, bwd, bwd_plain, worst):
@@ -874,14 +813,11 @@ def run_episode(device, batch, shape, warm=2, reps=5, compute_dtype=None):
                              f"for {compositions} differentiated "
                              f"compositions (adaptive steps {steps})")
     # a legacy route replaces the default family's bilinear launches (the
-    # episodes sample nothing with nearest); no route takes the
-    # corner-level band or z-band pair since the grid-level pairs
-    idle = ([DEFAULT_FAMILY[dims]] if fam != DEFAULT_FAMILY[dims] else []) \
-        + [CORNER_LEVEL[dims]]
-    for other in idle:
-        if any(launches[other].values()):
-            raise AssertionError(f"the {dims}D episode on the {fam} route "
-                                 f"launched {other} kernels: {launches}")
+    # episodes sample nothing with nearest)
+    default = DEFAULT_FAMILY[dims]
+    if fam != default and any(launches[default].values()):
+        raise AssertionError(f"the {dims}D episode on the {fam} route "
+                             f"launched {default} kernels: {launches}")
     peak = torch.cuda.max_memory_allocated() if data.is_cuda else 0
     return launches, statistics.median(times), times, loss, peak, steps
 
@@ -931,120 +867,6 @@ def bound_ms(nbytes, flops):
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
-
-
-def time_kernels(n, shape, device, channels=(1, 2, 5)):
-    """Phases 5 and 9: timings per case: kernel, twin, library, and the
-    bound.  Bytes: each input read once and each output written once (f32
-    and int32, 4 bytes); operations: the weighted sum's multiplies and adds
-    (forward), the weight gradient's and the scatter's (backward)."""
-    import torch
-    import torch.nn.functional as F
-    dims = len(shape)
-    fam, mod = sampler(dims)
-    fwd, fwd_plain = (getattr(mod, f"{fam}_sample_fwd"),
-                      getattr(mod, f"{fam}_sample_fwd_plain"))
-    bwd, bwd_plain = (getattr(mod, f"{fam}_sample_bwd"),
-                      getattr(mod, f"{fam}_sample_bwd_plain"))
-    k = 2 ** dims  # corners
-    s = math.prod(shape)
-    rows = []
-    for name, padding, grid in sample_grids(n, shape, device):
-        p = grid[0, ..., 0].numel()
-        for c in channels:
-            img, idx, wts, g = kernel_inputs(n, c, shape, grid, padding,
-                                             device)
-            f4 = 4
-            fwd_bytes = f4 * (n * c * s + dims * n * p + k * n * p
-                              + n * c * p)
-            bwd_bytes = f4 * (n * c * p + n * c * s + dims * n * p
-                              + k * n * p + n * c * s + k * n * p)
-            fwd_bound = bound_ms(fwd_bytes, (2 * k - 1) * n * c * p)
-            bwd_bound = bound_ms(bwd_bytes, 4 * k * n * c * p)
-            img_g = img.clone().requires_grad_(True)
-            grid_g = grid.clone().requires_grad_(True)
-            g_img = g.reshape(img.shape)
-
-            def lib():
-                return F.grid_sample(img_g, grid_g, mode="bilinear",
-                                     padding_mode=padding, align_corners=True)
-
-            with torch.no_grad():
-                row = {
-                    "kernel": fam, "case": name, "padding": padding, "C": c,
-                    "fwd_ms": time_ms(lambda: fwd(img, *idx, wts)),
-                    "fwd_plain_ms": time_ms(lambda: fwd_plain(img, *idx,
-                                                              wts)),
-                    "fwd_library_ms": time_ms(lambda: F.grid_sample(
-                        img, grid, mode="bilinear", padding_mode=padding,
-                        align_corners=True)),
-                    "fwd_bound_ms": fwd_bound[0],
-                    "bwd_ms": time_ms(lambda: bwd(g, img, *idx, wts)),
-                    "bwd_plain_ms": time_ms(lambda: bwd_plain(g, img, *idx,
-                                                              wts)),
-                    "bwd_bound_ms": bwd_bound[0],
-                }
-            row.update(library_bwd_ms(lib, (img_g, grid_g), g_img))
-            row["bound_by"] = [fwd_bound[1], bwd_bound[1]]
-            rows.append(row)
-            print("[timing] " + json.dumps(row), flush=True)
-    return rows
-
-
-def time_nearest(device, cases=((BATCH, SHAPE), (BATCH3D, SHAPE3D))):
-    """Phase 9: nearest sampling rides the sampler kernels with unit
-    corner-0 weights; time each kernel on those inputs (C=1, the rotation
-    grid, zeros padding) beside its twin and ``F.grid_sample(mode=
-    "nearest")``, with the kernels' byte bound."""
-    import torch
-    import torch.nn.functional as F
-    from advchain_tpu_torch.ops.grid_sample import nearest_weights
-    rows = []
-    for n, shape in cases:
-        dims = len(shape)
-        fam, mod = sampler(dims)
-        name, padding, grid = sample_grids(n, shape, device)[0]
-        gen = torch.Generator(device=device).manual_seed(5)
-        img = torch.randn((n, 1) + tuple(shape), generator=gen,
-                          device=device)
-        idx, wts = nearest_weights(grid, shape, padding)
-        p = wts.shape[2]
-        g = torch.randn(n, 1, p, generator=gen, device=device)
-        k, s = 2 ** dims, math.prod(shape)
-        fwd_bound = bound_ms(4 * (n * s + dims * n * p + k * n * p + n * p),
-                             (2 * k - 1) * n * p)
-        bwd_bound = bound_ms(4 * (n * p + 2 * n * s + dims * n * p
-                                  + 2 * k * n * p), 4 * k * n * p)
-        img_g = img.clone().requires_grad_(True)
-        g_img = g.reshape((n, 1) + tuple(grid.shape[1:-1]))
-
-        def lib():
-            return F.grid_sample(img_g, grid, mode="nearest",
-                                 padding_mode=padding, align_corners=True)
-
-        with torch.no_grad():
-            row = {
-                "kernel": fam, "mode": "nearest", "case": name,
-                "padding": padding, "C": 1,
-                "fwd_ms": time_ms(lambda: getattr(mod, f"{fam}_sample_fwd")(
-                    img, *idx, wts)),
-                "fwd_plain_ms": time_ms(lambda: getattr(
-                    mod, f"{fam}_sample_fwd_plain")(img, *idx, wts)),
-                "fwd_library_ms": time_ms(lambda: F.grid_sample(
-                    img, grid, mode="nearest", padding_mode=padding,
-                    align_corners=True)),
-                "fwd_bound_ms": fwd_bound[0],
-                "bwd_ms": time_ms(lambda: getattr(mod, f"{fam}_sample_bwd")(
-                    g, img, *idx, wts)),
-                "bwd_plain_ms": time_ms(lambda: getattr(
-                    mod, f"{fam}_sample_bwd_plain")(g, img, *idx, wts)),
-                "bwd_bound_ms": bwd_bound[0],
-            }
-        row.update(library_bwd_ms(lib, img_g, g_img))
-        row["bound_by"] = [fwd_bound[1], bwd_bound[1]]
-        rows.append(row)
-        print("[timing] " + json.dumps(row), flush=True)
-    return rows
 
 
 def profile_episode(device, batch, shape, path):
@@ -1573,8 +1395,7 @@ def flat_grids(n, shape, device):
     """Phase 14's grids: :func:`sample_grids`' two, with 5% of the
     near-identity grid's entries set to exactly +-1, so that bases sit on
     the last column (in 2D its +1 tap wraps to the next row) and on the
-    last row and plane (taps past the plane's flat end read zero), beside
-    the rotation's samples past the border."""
+    last row and plane, beside the rotation's samples past the border."""
     import torch
     grids = sample_grids(n, shape, device)
     name, padding, near = grids[1]
@@ -1587,54 +1408,45 @@ def flat_grids(n, shape, device):
 
 
 def flat_inputs(n, c, shape, grid, padding, k, device, seed=0):
-    """(route, img, index tuple, weights, cotangent, offsets) for the
-    corner (2D) or plane (3D) kernels with ``k`` taps, built as the routes
-    build them: K=4 the folded bilinear weights on offsets (0, 1, w, w+1)
-    (in 3D those of the dz = 0 launch); 2D K=1 nearest's unit tap; 3D K=2
-    the first two of those weights on offsets (0, 1), the taps of JAX's
-    4-base formulation."""
+    """(img, flat index, weights, cotangent, offsets) for the corner
+    kernels with ``k`` taps, built as the 2D route builds them:
+    K=4 the folded bilinear weights on offsets (0, 1, w, w+1), K=1
+    nearest's unit tap."""
     import torch
     from advchain_tpu_torch.ops.grid_sample import (corner_weights,
-                                                    nearest_weights,
-                                                    plane_weights)
+                                                    nearest_weights)
     gen = torch.Generator(device=device).manual_seed(seed + c)
     img = torch.randn((n, c) + tuple(shape), generator=gen, device=device)
-    *lead, h, w = shape
-    if not lead:
-        if k == 1:
-            (yidx, xidx), wts = nearest_weights(grid, shape, padding)
-        else:
-            yidx, xidx, wts = corner_weights(grid, h, w, padding, True)
-        route, idx = "corner", (yidx * w + xidx,)
+    h, w = shape
+    if k == 1:
+        (yidx, xidx), wts = nearest_weights(grid, shape, padding)
     else:
-        zidx, yxidx, wts = plane_weights(grid, lead[0], h, w, padding, True)
-        route, idx, wts = "plane", (zidx[0], yxidx), wts[0]
-    img = img.reshape(n, c, *lead, h * w)
-    g = torch.randn(n, c, idx[-1].shape[1], generator=gen, device=device)
+        yidx, xidx, wts = corner_weights(grid, h, w, padding, True)
+    idx = yidx * w + xidx
+    img = img.reshape(n, c, h * w)
+    g = torch.randn(n, c, idx.shape[1], generator=gen, device=device)
     offsets = {1: (0,), 2: (0, 1), 4: (0, 1, w, w + 1)}[k]
-    return route, img, idx, wts[:, :k].contiguous(), g, offsets
+    return img, idx, wts[:, :k].contiguous(), g, offsets
 
 
 def check_flat_kernels(n, shape, device, channels, taps):
-    """Phase 14: the corner (2D) or plane (3D) kernels against their twins
-    on :func:`flat_grids`, for each channel count and tap count, at phase
+    """Phase 14: the corner kernels against their twins on
+    :func:`flat_grids`, for each channel count and tap count, at phase
     2's tolerances.  Returns the largest errors."""
     from advchain_tpu_torch.kernels import plane_sample as ps
     worst = {"fwd": 0.0, "bwd": 0.0}
     for name, padding, grid in flat_grids(n, shape, device):
         for c in channels:
             for k in taps:
-                route, img, idx, wts, g, offs = flat_inputs(
+                img, idx, wts, g, offs = flat_inputs(
                     n, c, shape, grid, padding, k, device)
-                kern = {f"{kind}{plain}": getattr(
-                    ps, f"{route}_sample_{kind}{plain}")
-                    for kind in ("fwd", "bwd") for plain in ("", "_plain")}
                 hold_against_twin(
-                    f"{route:6s} {name:13s} {padding:6s} C={c} K={k}",
-                    device, lambda: kern["fwd"](img, *idx, wts, offs),
-                    lambda: kern["fwd_plain"](img, *idx, wts, offs),
-                    lambda: kern["bwd"](g, img, *idx, wts, offs),
-                    lambda: kern["bwd_plain"](g, img, *idx, wts, offs),
+                    f"corner {name:13s} {padding:6s} C={c} K={k}", device,
+                    lambda: ps.corner_sample_fwd(img, idx, wts, offs),
+                    lambda: ps.corner_sample_fwd_plain(img, idx, wts, offs),
+                    lambda: ps.corner_sample_bwd(g, img, idx, wts, offs),
+                    lambda: ps.corner_sample_bwd_plain(g, img, idx, wts,
+                                                       offs),
                     worst)
     return worst
 
@@ -1690,35 +1502,21 @@ def run_legacy_episode(device, batch, shape, card):
 
 def time_flat_kernels(n, shape, device, c, k=4):
     """Phase 17: kernel, twin and ``F.grid_sample`` times of the corner
-    (2D: the image warps' case, the rotation grid, zeros padding) or plane
-    (3D: the compositions' case, near-identity, border) pair, with the
-    bounds of one launch: each input read once and each output written
-    once (f32 and int32, 4 bytes), the weighted sum's operations.  A 3D
-    sample is two plane launches (one per z tap): ``sample_*_ms`` times
-    both, the work ``F.grid_sample`` does in one call."""
+    pair (the image warps' case, the rotation grid, zeros padding; the
+    backward on the flat kernel, which the tap square no longer takes),
+    with the bounds of one launch: each input read once and each output
+    written once (f32 and int32, 4 bytes), the weighted sum's
+    operations."""
     import torch
     import torch.nn.functional as F
     from advchain_tpu_torch.kernels import plane_sample as ps
-    from advchain_tpu_torch.ops.grid_sample import plane_weights
-    dims = len(shape)
-    name, padding, grid = sample_grids(n, shape, device)[dims - 2]
-    route, img, idx, wts, g, offs = flat_inputs(n, c, shape, grid, padding,
-                                                k, device)
-    fwd, bwd = (getattr(ps, f"{route}_sample_fwd"),
-                getattr(ps, f"{route}_sample_bwd"))
-    if dims == 2:  # the flat kernel, which the tap square no longer takes
-        def bwd(g, img, idx, w, offsets):
-            return ps._bwd("corner", g, img, None, idx, w, offsets)
-    fwd_plain, bwd_plain = (getattr(ps, f"{route}_sample_fwd_plain"),
-                            getattr(ps, f"{route}_sample_bwd_plain"))
-    calls = [(idx, wts)]
-    if dims == 3:  # the dz = 1 launch of the same sample
-        zidx, yxidx, wz = plane_weights(grid, *shape, padding, True)
-        calls.append(((zidx[1], yxidx), wz[1]))
+    name, padding, grid = sample_grids(n, shape, device)[0]
+    img, idx, wts, g, offs = flat_inputs(n, c, shape, grid, padding, k,
+                                         device)
     p, s = wts.shape[2], img[0, 0].numel()
-    fwd_bound = bound_ms(4 * (n * c * s + len(idx) * n * p + k * n * p
-                              + n * c * p), (2 * k - 1) * n * c * p)
-    bwd_bound = bound_ms(4 * (n * c * p + 2 * n * c * s + len(idx) * n * p
+    fwd_bound = bound_ms(4 * (n * c * s + n * p + k * n * p + n * c * p),
+                         (2 * k - 1) * n * c * p)
+    bwd_bound = bound_ms(4 * (n * c * p + 2 * n * c * s + n * p
                               + 2 * k * n * p), 4 * k * n * c * p)
     full = img.reshape((n, c) + tuple(shape))
     img_g = full.clone().requires_grad_(True)
@@ -1731,23 +1529,20 @@ def time_flat_kernels(n, shape, device, c, k=4):
 
     with torch.no_grad():
         row = {
-            "kernel": route, "case": name, "padding": padding, "C": c,
+            "kernel": "corner", "case": name, "padding": padding, "C": c,
             "K": k,
-            "fwd_ms": time_ms(lambda: fwd(img, *idx, wts, offs)),
-            "fwd_plain_ms": time_ms(lambda: fwd_plain(img, *idx, wts,
-                                                      offs)),
+            "fwd_ms": time_ms(lambda: ps.corner_sample_fwd(img, idx, wts,
+                                                           offs)),
+            "fwd_plain_ms": time_ms(lambda: ps.corner_sample_fwd_plain(
+                img, idx, wts, offs)),
             "fwd_library_ms": time_ms(lambda: F.grid_sample(
                 full, grid, mode="bilinear", padding_mode=padding,
                 align_corners=True)),
             "fwd_bound_ms": fwd_bound[0],
-            "sample_fwd_ms": time_ms(lambda: [fwd(img, *i, w, offs)
-                                              for i, w in calls]),
-            "bwd_ms": time_ms(lambda: bwd(g, img, *idx, wts, offs)),
-            "bwd_plain_ms": time_ms(lambda: bwd_plain(g, img, *idx, wts,
-                                                      offs)),
+            "bwd_ms": time_ms(lambda: ps._bwd(g, img, idx, wts, offs)),
+            "bwd_plain_ms": time_ms(lambda: ps.corner_sample_bwd_plain(
+                g, img, idx, wts, offs)),
             "bwd_bound_ms": bwd_bound[0],
-            "sample_bwd_ms": time_ms(lambda: [bwd(g, img, *i, w, offs)
-                                              for i, w in calls]),
         }
     row.update(library_bwd_ms(lib, (img_g, grid_g), g_full))
     row["bound_by"] = [fwd_bound[1], bwd_bound[1]]
@@ -1892,7 +1687,8 @@ def time_grid_kernels(n, shape, device, channels=(1, 3, 5), fam=None):
     the grid and writes out, the backward reads g, img and the grid and
     writes d_img and d_grid (its zeroing of d_img is one more write, not
     counted); operations: the corner arithmetic per (point, channel) and
-    GRID_PREP_OPS per point.  Rows as :func:`time_kernels`'."""
+    GRID_PREP_OPS per point.  A row per case: the kernel's, the plain
+    version's and the library's ms each way and the bound."""
     import torch
     import torch.nn.functional as F
     dims = len(shape)
@@ -1970,43 +1766,22 @@ def time_grid_routes(n, shape, device, c=3, case=1, legacy=False):
     on :func:`sample_grids`' ``case`` (2D: the rotation, zeros, the image
     warps' call; 3D: near-identity, border, the compositions'), C
     channels, forward and forward+backward (gradients to the image and the
-    grid), three ways in turns (a b c c b a): (a) the pre-fusion route,
-    the host-side fold (``corner_weights`` / ``corner_weights_3d``,
-    autograd over it) and the corner-level pair, or with ``legacy`` (3D)
-    ``plane_weights`` and one flat plane launch per z tap, summed; (b) the
-    grid-level pair (with ``legacy`` the plane grid pair); (c)
-    ``F.grid_sample``, the yardstick the port never calls.  Each as wall ms
-    (:func:`wall_ms`) and device ms (:func:`time_ms`), the mean of its two
-    turns."""
+    grid), two ways in turns (a b b a): (a) the grid-level pair (with
+    ``legacy`` (3D) the plane grid pair); (b) ``F.grid_sample``, the
+    yardstick the port never calls.  Each as wall ms (:func:`wall_ms`) and
+    device ms (:func:`time_ms`), the mean of its two turns."""
     import torch
     import torch.nn.functional as F
-    from advchain_tpu_torch.kernels import _coords
-    from advchain_tpu_torch.kernels.band_sample import (BandGridSample,
-                                                        BandSample)
-    from advchain_tpu_torch.kernels.plane_sample import (PlaneGridSample,
-                                                         PlaneSample)
-    from advchain_tpu_torch.kernels.zband_sample import (ZBandGridSample,
-                                                         ZBandSample)
+    from advchain_tpu_torch.kernels.band_sample import BandGridSample
+    from advchain_tpu_torch.kernels.plane_sample import PlaneGridSample
+    from advchain_tpu_torch.kernels.zband_sample import ZBandGridSample
     dims = len(shape)
-    fold, corner_level, grid_level = (
-        (_coords.corner_weights, BandSample, BandGridSample) if dims == 2
-        else (_coords.corner_weights_3d, ZBandSample, ZBandGridSample))
+    grid_level = BandGridSample if dims == 2 else ZBandGridSample
     case_name, padding, gridd = sample_grids(n, shape, device)[case]
     gen = torch.Generator(device=device).manual_seed(c)
     img = torch.randn((n, c) + tuple(shape), generator=gen, device=device)
     cot = torch.randn((n, c) + tuple(gridd.shape[1:-1]), generator=gen,
                       device=device)
-
-    def pre_fusion(x, gr):
-        if legacy:
-            zidx, yxidx, wts = _coords.plane_weights(gr, *shape, padding,
-                                                     True)
-            flat = x.reshape(n, c, shape[0], -1)
-            offs = (0, 1, shape[2], shape[2] + 1)
-            return (PlaneSample.apply(flat, zidx[0], yxidx, wts[0], offs)
-                    + PlaneSample.apply(flat, zidx[1], yxidx, wts[1], offs))
-        *idx, wts = fold(gr, *shape, padding, True)
-        return corner_level.apply(x, *idx, wts)
 
     def fused(x, gr):  # what grid_sample_2d / grid_sample_3d run
         gr = gr.reshape(n, -1, dims).contiguous()
@@ -2018,7 +1793,7 @@ def time_grid_routes(n, shape, device, c=3, case=1, legacy=False):
         return F.grid_sample(x, gr, mode="bilinear", padding_mode=padding,
                              align_corners=True)
 
-    routes = {"pre_fusion": pre_fusion, "fused": fused, "library": library}
+    routes = {"fused": fused, "library": library}
     x = img.clone().requires_grad_(True)
     gr = gridd.clone().requires_grad_(True)
 
@@ -2031,8 +1806,7 @@ def time_grid_routes(n, shape, device, c=3, case=1, legacy=False):
         torch.autograd.grad(out, (x, gr), cot.reshape(out.shape))
 
     times = {name: {} for name in routes}
-    for name in ("pre_fusion", "fused", "library", "library", "fused",
-                 "pre_fusion"):
+    for name in ("fused", "library", "library", "fused"):
         route = routes[name]
         for kind, fn in (("fwd", lambda: fwd(route)),
                          ("fwd_bwd", lambda: fwd_bwd(route))):
@@ -2210,15 +1984,14 @@ def time_corner_bwd(n, shape, device):
     rows = []
     for gi, c, k in ((0, 1, 4), (0, 4, 4), (1, 1, 4), (0, 1, 1)):
         name, padding, grid = grids[gi]
-        _, img, (idx,), wts, g, offs = flat_inputs(n, c, shape, grid,
-                                                   padding, k, device)
+        img, idx, wts, g, offs = flat_inputs(n, c, shape, grid, padding,
+                                             k, device)
         wo, p, s = grid.shape[2], idx.shape[1], img.shape[2]
         bound = bound_ms(4 * (n * c * p + 2 * n * c * s + n * p
                               + 2 * k * n * p), 4 * k * n * c * p)
         fns = {"tile": lambda: ps.corner_sample_bwd(g, img, idx, wts, offs,
                                                     wo),
-               "flat": lambda: ps._bwd("corner", g, img, None, idx, wts,
-                                       offs)}
+               "flat": lambda: ps._bwd(g, img, idx, wts, offs)}
         order = ["tile", "flat", "flat", "tile"] if k == 4 else ["flat"]
         times = {}
         with torch.no_grad():
@@ -2349,16 +2122,14 @@ def profile_legacy_2d(device, path, median_s, peak):
 
 def assert_grid_only(label, dims, launches, expected, folds):
     """Raise unless a run sampled through the grid-level pair alone: its
-    launches equal ``expected``, the corner-level pair never launched, and
-    no host-side fold was called (``folds``, from :func:`count_calls`)."""
+    launches equal ``expected`` and no host-side fold was called
+    (``folds``, from :func:`count_calls`)."""
     fam = DEFAULT_FAMILY[dims]
-    if launches[fam] != expected \
-            or any(launches[CORNER_LEVEL[dims]].values()) \
-            or any(folds.values()):
+    if launches[fam] != expected or any(folds.values()):
         raise AssertionError(
             f"the {label} did not sample through the {fam} pair alone "
-            f"({expected['fwd']} / {expected['bwd']} launches, no "
-            f"{CORNER_LEVEL[dims]} launch, no fold): {launches}, {folds}")
+            f"({expected['fwd']} / {expected['bwd']} launches, no fold): "
+            f"{launches}, {folds}")
 
 
 def assert_stencil_launches(label, launches):
@@ -2537,12 +2308,12 @@ def counted_samples():
 def assert_on_kernels(label, launches, calls, folds):
     """Raise unless every 2D sample of a run launched the band grid
     forward, every flow composition the stencil forward, each
-    differentiated composition one dispatch predicate, and no run took
-    the corner-level pair or a host-side fold."""
+    differentiated composition one dispatch predicate, and no run called
+    a host-side fold."""
     if (launches["band_grid"]["fwd"] != calls["grid_sample_2d"]
             or launches["stencil"]["fwd"] != calls["compose_flow"]
             or launches["slope"]["fwd"] != launches["stencil"]["bwd"]
-            or any(launches["band"].values()) or any(folds.values())):
+            or any(folds.values())):
         raise AssertionError(
             f"the {label} did not run every sample on the band grid pair "
             f"and every composition on the stencil: launches {launches}, "
@@ -5476,8 +5247,8 @@ def wgrad_record(launches, gaps, rows, shape_note):
 def kernel_launches(launches):
     """Launches by kernel record name (the ``kernels`` line's names)."""
     out = {f"{KERNEL_NAMES[fam]}_{kind}": launches[fam][kind]
-           for fam in ("band", "band_grid", "zband", "zband_grid",
-                       "stencil", "corner", "plane", "plane_grid")
+           for fam in ("band_grid", "zband_grid", "stencil", "corner",
+                       "plane_grid")
            for kind in ("fwd", "bwd")}
     out[f"{KERNEL_NAMES['corner_tile']}_bwd"] = launches["corner_tile"]["bwd"]
     out[KERNEL_NAMES["slope"]] = launches["slope"]["fwd"]
@@ -5507,11 +5278,6 @@ def kernel_records(fam, launches, worst, rows, case, c_head, shape_note):
         "library_ms": head[f"{kind}_library_ms"],
         "shape": f"{shape_note} C={c_head} {case} {head['padding']}",
     } for i, kind in enumerate(("fwd", "bwd"))]
-    for rec, kind in zip(records, ("fwd", "bwd")):
-        if f"sample_{kind}_ms" in head:
-            # the launches of one sampler call, the work library_ms times
-            # (a 3D sample is two plane launches)
-            rec["sample_ms"] = head[f"sample_{kind}_ms"]
     # library_ms of a backward times the library's backward alone
     records[1]["library_fwd_bwd_ms"] = head["fwd_bwd_library_ms"]
     if "squarings_bwd_ms" in head:  # the stencil backward (phase 13)
@@ -5567,7 +5333,6 @@ def main(argv=None):
                     for name in ("ops.grid_sample", "kernels._coords")]
 
     # 2D: the headline episode, its bilinear samples on the band grid pair
-    worst2 = check_kernels(BATCH, SHAPE, device)
     worst_b = check_grid_kernels(BATCH, SHAPE, device, channels=(1, 2, 4, 5))
     check_episode_against_cpu(device)
     with count_calls(fold_modules, FOLDS) as folds2:
@@ -5588,13 +5353,11 @@ def main(argv=None):
     assert_stencil_launches("2D episode", launches2)
     if args.profile:
         profile_episode(device, BATCH, SHAPE, args.profile)
-    rows2 = time_kernels(BATCH, SHAPE, device)
     rows_b = time_grid_kernels(BATCH, SHAPE, device, channels=(1, 4))
     time_grid_routes(BATCH, SHAPE, device, c=1, case=0)
 
     # 3D: the volume episode, its trilinear and nearest samples on the
     # fused z-band pair
-    worst3 = check_kernels(BATCH3D, SHAPE3D, device, channels=(1, 3, 5))
     worst_g = check_grid_kernels(BATCH3D, SHAPE3D, device)
     check_nearest(device)
     check_episode_against_cpu(device, 2, (8, 32, 32))
@@ -5612,9 +5375,7 @@ def main(argv=None):
                      folds)
     if args.profile3d:
         profile_3d(device, args.profile3d, sec3)
-    rows3 = time_kernels(BATCH3D, SHAPE3D, device, channels=(1, 3, 5))
     rows_g = time_grid_kernels(BATCH3D, SHAPE3D, device)
-    time_nearest(device)
     time_grid_routes(BATCH3D, SHAPE3D, device)
 
     # the fused adversarial train step, with every 2D composition on the
@@ -5660,15 +5421,12 @@ def main(argv=None):
     rows_s, slope_row = time_stencil(BATCH, SHAPE, device)
 
     # the legacy routes, selected by the JAX package's switches: the
-    # flat-index corner kernels (2D) and the plane grid kernels (3D); the
-    # flat plane kernels are the TPU plane kernels' kernel-level
-    # counterpart
+    # flat-index corner kernels (2D) and the plane grid kernels (3D)
     worst_c = check_flat_kernels(BATCH, SHAPE, device, (1, 2, 5), (1, 4))
     worst_ct = check_corner_bwd(BATCH, SHAPE, device)
     # the flat corner backward's record: its own cases (K=4 at the tap
     # square takes the tile kernel)
     worst_c["bwd"] = worst_ct["corner"]
-    worst_p = check_flat_kernels(BATCH3D, SHAPE3D, device, (1, 3, 5), (2, 4))
     worst_pg = check_grid_kernels(BATCH3D, SHAPE3D, device, fam="plane_grid")
     launches_c, sec_c, _, _, peak_c, _ = run_legacy_episode(device, BATCH,
                                                             SHAPE, card)
@@ -5685,21 +5443,18 @@ def main(argv=None):
         launches_p, sec_p = run_legacy_episode(device, BATCH3D, SHAPE3D,
                                                card)[:2]
     print(f"[legacy] 3D plane route: plane_grid {launches_p['plane_grid']}, "
-          f"flat plane {launches_p['plane']}, host-side fold calls "
-          f"{json.dumps(folds_p)}", flush=True)
+          f"host-side fold calls {json.dumps(folds_p)}", flush=True)
     if not (launches_p["plane_grid"] == launches3["zband_grid"]
-            and not any(launches_p["plane"].values())
             and not any(folds_p.values())):
         raise AssertionError(
             f"the 3D plane route did not sample through the plane grid pair "
-            f"alone ({launches3['zband_grid']} launches, no flat plane "
-            f"launch, no fold): {launches_p}, {folds_p}")
+            f"alone ({launches3['zband_grid']} launches, no fold): "
+            f"{launches_p}, {folds_p}")
     if args.profile3d_legacy:
         with legacy_route(3):
             profile_3d(device, args.profile3d_legacy, sec_p)
     rows_c = time_flat_kernels(BATCH, SHAPE, device, 1)
     rows_ct = time_corner_bwd(BATCH, SHAPE, device)
-    rows_p = time_flat_kernels(BATCH3D, SHAPE3D, device, 3)
     rows_pg = time_grid_kernels(BATCH3D, SHAPE3D, device, channels=(3,),
                                 fam="plane_grid")
     time_grid_routes(BATCH3D, SHAPE3D, device, legacy=True)
@@ -6126,12 +5881,8 @@ def main(argv=None):
 
     shape2 = f"N={BATCH} {SHAPE[0]}x{SHAPE[1]}"
     shape3 = f"N={BATCH3D} {'x'.join(map(str, SHAPE3D))}"
-    kernels = (kernel_records("band", launches2, worst2, rows2, "rot30", 1,
-                              shape2)
-               + kernel_records("band_grid", launches2, worst_b, rows_b,
-                                "rot30", 1, shape2)
-               + kernel_records("zband", launches3, worst3, rows3,
-                                "near_identity", 3, shape3)
+    kernels = (kernel_records("band_grid", launches2, worst_b, rows_b,
+                              "rot30", 1, shape2)
                + kernel_records("zband_grid", launches3, worst_g, rows_g,
                                 "near_identity", 3, shape3)
                + kernel_records("stencil", launches_t, worst_s, rows_s,
@@ -6140,8 +5891,6 @@ def main(argv=None):
                                 "rot30", 1, shape2 + " K=4")
                + [tile_record(launches_c, worst_ct, rows_ct,
                               shape2 + " K=4")]
-               + kernel_records("plane", launches_p, worst_p, rows_p,
-                                "near_identity", 3, shape3 + " K=4")
                + kernel_records("plane_grid", launches_p, worst_pg, rows_pg,
                                 "near_identity", 3, shape3)
                + [slope_record(launches_t, slope_row, worst_slope, shape2)]

@@ -292,13 +292,13 @@ def main(argv=None):
     for gi, c, k in ((0, 1, 4), (0, 4, 4), (0, 5, 4), (1, 1, 4), (1, 4, 4),
                      (1, 5, 4), (0, 1, 1)):
         name, padding, grid = cs.sample_grids(n, shape, "cuda")[gi]
-        _, img, (idx,), wts, g, offs = cs.flat_inputs(
+        img, idx, wts, g, offs = cs.flat_inputs(
             n, c, shape, grid, padding, k, "cuda")
         wo, p, s = grid.shape[2], idx.shape[1], img.shape[2]
 
         def run(design):
             if design == "flat":
-                return ps._bwd("corner", g, img, None, idx, wts, offs)
+                return ps._bwd(g, img, idx, wts, offs)
             d_img = torch.zeros_like(img)
             d_w = torch.empty_like(wts)
             stream = torch.cuda.current_stream().cuda_stream
@@ -347,8 +347,7 @@ def main(argv=None):
     for i, (g, img, idx, wts, offs, wo) in enumerate(episode_calls(cs, ps)):
         n, c, s = img.shape
         p = idx.shape[1]
-        fns = {"flat": lambda: ps._bwd("corner", g, img, None, idx, wts,
-                                       offs),
+        fns = {"flat": lambda: ps._bwd(g, img, idx, wts, offs),
                "box": lambda: ps.corner_sample_bwd(g, img, idx, wts, offs,
                                                    wo)}
         times = {}

@@ -7,10 +7,10 @@ near-identity warp, a 30-degree rotation that runs past the border, and the
 near-identity warp with 5% of its entries on exactly +-1):
 
 - the plain forward equals ``corner_weights`` (or ``nearest_weights``)
-  followed by the corner-level band twin, bit for bit: it is the
-  definition the CUDA forward repeats;
+  followed by the corner sum ``band_sample_fwd_plain``, bit for bit: it is
+  the definition the CUDA forward repeats;
 - the plain backward (the closed form the CUDA backward computes) is
-  within 1e-6 of autograd through the fold and ``BandSample``;
+  within 1e-6 of autograd through the fold and that corner sum;
 - the whole sample (output, ``d_img``, ``d_grid``) is within 1e-5 of JAX's
   ``grid_sample_2d_pallas`` / ``grid_sample_2d_pallas_nearest``, which run
   the Pallas band kernels in interpret mode on the CPU with the scatter's
@@ -32,9 +32,8 @@ from advchain_tpu.kernels import gather_matmul as gm
 from advchain_tpu_torch.kernels import _coords
 from advchain_tpu_torch.kernels import band_sample as bs
 from advchain_tpu_torch.kernels.band_sample import (
-    BandGridSample, BandSample, band_grid_sample_bwd,
-    band_grid_sample_bwd_plain, band_grid_sample_fwd,
-    band_grid_sample_fwd_plain)
+    BandGridSample, band_grid_sample_bwd, band_grid_sample_bwd_plain,
+    band_grid_sample_fwd, band_grid_sample_fwd_plain, band_sample_fwd_plain)
 from advchain_tpu_torch.ops.grid_sample import grid_sample_2d
 
 MODES = ["bilinear", "nearest"]
@@ -79,7 +78,8 @@ def _flat(grid):
 
 def _through_the_fold(img, grid, cot, padding, align, mode):
     """The route before the grid pair: ``corner_weights`` (autograd over
-    the fold) or ``nearest_weights``, and the corner-level ``BandSample``."""
+    the fold) or ``nearest_weights``, and autograd through the corner sum
+    ``band_sample_fwd_plain``."""
     h, w = img.shape[2:]
     x = img.clone().requires_grad_(True)
     gr = grid.clone().requires_grad_(True)
@@ -88,7 +88,7 @@ def _through_the_fold(img, grid, cot, padding, align, mode):
                                                     align)
     else:
         yidx, xidx, wts = _coords.corner_weights(gr, h, w, padding, align)
-    out = BandSample.apply(x, yidx, xidx, wts)
+    out = band_sample_fwd_plain(x, yidx, xidx, wts)
     out.backward(cot.reshape(out.shape))
     grad = gr.grad if gr.grad is not None else torch.zeros_like(gr)
     return out.detach(), x.grad, grad.reshape(grid.shape[0], -1, 2)

@@ -21,10 +21,7 @@ from advchain_tpu.kernels import gather_matmul as gm
 # shadows the submodule under attribute lookup
 jgs = importlib.import_module("advchain_tpu.ops.grid_sample")
 
-from advchain_tpu_torch.kernels.band_sample import (BandSample,
-                                                    band_sample_bwd,
-                                                    band_sample_bwd_plain,
-                                                    band_sample_fwd,
+from advchain_tpu_torch.kernels.band_sample import (band_sample_bwd_plain,
                                                     band_sample_fwd_plain)
 from advchain_tpu_torch.ops.grid_sample import corner_weights, grid_sample_2d
 
@@ -76,32 +73,6 @@ def test_twin_bwd_matches_pallas_band_scatter(seed, monkeypatch):
     d_img, d_w = band_sample_bwd_plain(*_t(g, img, y, x, wts))
     np.testing.assert_allclose(d_img.numpy(), np.asarray(ref_img), atol=1e-5)
     np.testing.assert_allclose(d_w.numpy(), np.asarray(ref_w), atol=1e-5)
-
-
-def test_wrappers_take_the_twins_for_cpu_tensors():
-    img, y, x, wts, g = _t(*_band_inputs(2))
-    assert torch.equal(band_sample_fwd(img, y, x, wts),
-                       band_sample_fwd_plain(img, y, x, wts))
-    for a, b in zip(band_sample_bwd(g, img, y, x, wts),
-                    band_sample_bwd_plain(g, img, y, x, wts)):
-        assert torch.equal(a, b)
-
-
-def test_wrapper_rejects_bad_shapes():
-    img, y, x, wts, g = _t(*_band_inputs(3))
-    with pytest.raises(ValueError):
-        band_sample_fwd(img, y, x, wts[:, :3])
-    with pytest.raises(ValueError):
-        band_sample_bwd(g[:, :1], img, y, x, wts)
-
-
-def test_band_sample_gradcheck_float64():
-    img, y, x, wts, _ = _band_inputs(4, n=1, c=2, h=5, w=6, p=20)
-    img_t = torch.from_numpy(img).double().requires_grad_(True)
-    w_t = torch.from_numpy(wts).double().requires_grad_(True)
-    y_t, x_t = _t(y, x)
-    assert torch.autograd.gradcheck(
-        lambda a, b: BandSample.apply(a, y_t, x_t, b), (img_t, w_t))
 
 
 def _grid_case(seed, n=2, c=3, h=12, w=14, ho=9, wo=11, spread=1.3):

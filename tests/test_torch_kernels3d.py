@@ -24,10 +24,7 @@ from advchain_tpu.kernels import gather_matmul as gm
 # shadows the submodule under attribute lookup
 jgs = importlib.import_module("advchain_tpu.ops.grid_sample")
 
-from advchain_tpu_torch.kernels.zband_sample import (ZBandSample,
-                                                     zband_sample_bwd,
-                                                     zband_sample_bwd_plain,
-                                                     zband_sample_fwd,
+from advchain_tpu_torch.kernels.zband_sample import (zband_sample_bwd_plain,
                                                      zband_sample_fwd_plain)
 from advchain_tpu_torch.ops.grid_sample import (corner_weights_3d,
                                                 grid_sample, grid_sample_2d,
@@ -86,34 +83,6 @@ def test_twin_bwd_matches_pallas_zband_scatter(seed, monkeypatch):
     d_img, d_w = zband_sample_bwd_plain(*_t(g, img, z, y, x, wts))
     np.testing.assert_allclose(d_img.numpy(), np.asarray(ref_img), atol=1e-5)
     np.testing.assert_allclose(d_w.numpy(), np.asarray(ref_w), atol=1e-5)
-
-
-def test_wrappers_take_the_twins_for_cpu_tensors():
-    img, z, y, x, wts, g = _t(*_zband_inputs(2))
-    assert torch.equal(zband_sample_fwd(img, z, y, x, wts),
-                       zband_sample_fwd_plain(img, z, y, x, wts))
-    for a, b in zip(zband_sample_bwd(g, img, z, y, x, wts),
-                    zband_sample_bwd_plain(g, img, z, y, x, wts)):
-        assert torch.equal(a, b)
-
-
-def test_wrapper_rejects_bad_shapes():
-    img, z, y, x, wts, g = _t(*_zband_inputs(3))
-    with pytest.raises(ValueError):
-        zband_sample_fwd(img, z, y, x, wts[:, :4])
-    with pytest.raises(ValueError):
-        zband_sample_fwd(img[:, :, 0], z, y, x, wts)
-    with pytest.raises(ValueError):
-        zband_sample_bwd(g[:, :1], img, z, y, x, wts)
-
-
-def test_zband_sample_gradcheck_float64():
-    img, z, y, x, wts, _ = _zband_inputs(4, n=1, c=2, d=3, h=4, w=5, p=40)
-    img_t = torch.from_numpy(img).double().requires_grad_(True)
-    w_t = torch.from_numpy(wts).double().requires_grad_(True)
-    z_t, y_t, x_t = _t(z, y, x)
-    assert torch.autograd.gradcheck(
-        lambda a, b: ZBandSample.apply(a, z_t, y_t, x_t, b), (img_t, w_t))
 
 
 def _grid_case(seed, n=2, c=2, d=5, h=6, w=7, do=4, ho=5, wo=6,

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (band and z-band, corner-level and grid-level,
-corner and plane samplers, the stencil warp) on the card, against their
-plain twins and the CPU path.
+"""The port's CUDA kernels (the band, z-band and plane grid pairs, the
+corner sampler, the stencil warp, the Conv3d weight gradient) on the card,
+against their plain twins and the CPU path.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 
@@ -27,44 +27,6 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(device, n=4, c=3, h=37, w=45, seed=0):
-    gen = torch.Generator(device=device).manual_seed(seed)
-    img = torch.randn(n, c, h, w, generator=gen, device=device)
-    p = 500
-    y = torch.randint(-1, h + 1, (n, p), generator=gen, device=device,
-                      dtype=torch.int32)
-    x = torch.randint(-1, w + 1, (n, p), generator=gen, device=device,
-                      dtype=torch.int32)
-    wts = torch.rand(n, 4, p, generator=gen, device=device)
-    g = torch.randn(n, c, p, generator=gen, device=device)
-    return img, y, x, wts, g
-
-
-def test_fwd_kernel_matches_twin(cuda):
-    from advchain_tpu_torch.kernels import band_sample as bs
-    img, y, x, wts, _ = _inputs(cuda)
-    before = bs.FWD_LAUNCHES
-    out = bs.band_sample_fwd(img, y, x, wts)
-    torch.cuda.synchronize()
-    assert bs.FWD_LAUNCHES == before + 1
-    torch.testing.assert_close(out, bs.band_sample_fwd_plain(img, y, x, wts),
-                               atol=1e-5, rtol=0)
-
-
-def test_bwd_kernel_matches_twin(cuda):
-    from advchain_tpu_torch.kernels import band_sample as bs
-    img, y, x, wts, g = _inputs(cuda, seed=1)
-    before = bs.BWD_LAUNCHES
-    d_img, d_w = bs.band_sample_bwd(g, img, y, x, wts)
-    torch.cuda.synchronize()
-    assert bs.BWD_LAUNCHES == before + 1
-    r_img, r_w = bs.band_sample_bwd_plain(g, img, y, x, wts)
-    torch.testing.assert_close(d_w, r_w, atol=1e-5, rtol=0)
-    # atomics sum in no fixed order: f32 reassociation of max|d_img|
-    scale = float(r_img.abs().max())
-    assert float((d_img - r_img).abs().max()) <= 1e-5 * scale
-
-
 @pytest.mark.parametrize("padding", ["zeros", "border", "reflection"])
 def test_grid_sample_gradients_match_the_cpu(cuda, padding):
     from advchain_tpu_torch.ops.grid_sample import grid_sample_2d
@@ -81,13 +43,6 @@ def test_grid_sample_gradients_match_the_cpu(cuda, padding):
         results.append([t.detach().cpu() for t in (out, x.grad, gr.grad)])
     for a, b in zip(*results):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-5)
-
-
-def test_cuda_tensor_never_takes_the_twin(cuda):
-    from advchain_tpu_torch.kernels import band_sample as bs
-    img, y, x, wts, _ = _inputs(cuda, seed=3)
-    with pytest.raises(TypeError):
-        bs.band_sample_fwd(img.double(), y, x, wts)
 
 
 def _band_grid_inputs(device, kind, c=3, n=2, shape=(37, 45), seed=0):
@@ -195,42 +150,6 @@ def test_cuda_tensor_never_takes_the_band_grid_twin(cuda, monkeypatch):
     bs.band_grid_sample_fwd(img, grid)
     bs.band_grid_sample_bwd(g, img, grid)
     torch.cuda.synchronize()
-
-
-def _zband_inputs(device, n=2, c=3, d=7, h=13, w=17, seed=0):
-    gen = torch.Generator(device=device).manual_seed(seed)
-    img = torch.randn(n, c, d, h, w, generator=gen, device=device)
-    p = 700
-    idx = [torch.randint(-1, s + 1, (n, p), generator=gen, device=device,
-                         dtype=torch.int32) for s in (d, h, w)]
-    wts = torch.rand(n, 8, p, generator=gen, device=device)
-    g = torch.randn(n, c, p, generator=gen, device=device)
-    return img, idx, wts, g
-
-
-def test_zband_fwd_kernel_matches_twin(cuda):
-    from advchain_tpu_torch.kernels import zband_sample as zs
-    img, idx, wts, _ = _zband_inputs(cuda)
-    before = zs.FWD_LAUNCHES
-    out = zs.zband_sample_fwd(img, *idx, wts)
-    torch.cuda.synchronize()
-    assert zs.FWD_LAUNCHES == before + 1
-    torch.testing.assert_close(out, zs.zband_sample_fwd_plain(img, *idx, wts),
-                               atol=1e-5, rtol=0)
-
-
-def test_zband_bwd_kernel_matches_twin(cuda):
-    from advchain_tpu_torch.kernels import zband_sample as zs
-    img, idx, wts, g = _zband_inputs(cuda, seed=1)
-    before = zs.BWD_LAUNCHES
-    d_img, d_w = zs.zband_sample_bwd(g, img, *idx, wts)
-    torch.cuda.synchronize()
-    assert zs.BWD_LAUNCHES == before + 1
-    r_img, r_w = zs.zband_sample_bwd_plain(g, img, *idx, wts)
-    torch.testing.assert_close(d_w, r_w, atol=1e-5, rtol=0)
-    # atomics sum in no fixed order: f32 reassociation of max|d_img|
-    scale = float(r_img.abs().max())
-    assert float((d_img - r_img).abs().max()) <= 1e-5 * scale
 
 
 @pytest.mark.parametrize("padding", ["zeros", "border", "reflection"])
@@ -360,9 +279,6 @@ def test_grid_sample_3d_takes_the_fused_pair(cuda, monkeypatch):
 
 def test_cuda_tensor_never_takes_the_zband_twin(cuda):
     from advchain_tpu_torch.kernels import zband_sample as zs
-    img, idx, wts, _ = _zband_inputs(cuda, seed=3)
-    with pytest.raises(TypeError):
-        zs.zband_sample_fwd(img.double(), *idx, wts)
     img, grid, _ = _zband_grid_inputs(cuda, 1.0)
     with pytest.raises(TypeError):
         zs.zband_grid_sample_fwd(img, grid.double())
@@ -583,54 +499,45 @@ def test_cuda_tensor_never_takes_the_stencil_twin(cuda):
         sw.stencil_warp_fwd(img.double(), flow.double())
 
 
-def _plane_inputs(device, k, n=3, c=3, d=4, h=13, w=17, seed=0,
-                  planes=True):
-    """Flat-index inputs with points on the last column (the +1 tap wraps
-    to the next row), the last row and the last pixel of a plane (taps past
-    HW read zero), and, for the plane pair, planes outside [0, D)."""
+def _plane_inputs(device, k, n=3, c=3, h=13, w=17, seed=0):
+    """Flat-index inputs for the corner pair, with points on the last
+    column (the +1 tap wraps to the next row), the last row and the last
+    pixel (taps past HW read zero)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     hw = h * w
-    img = torch.randn((n, c, d, hw) if planes else (n, c, hw), generator=gen,
-                      device=device)
+    img = torch.randn(n, c, hw, generator=gen, device=device)
     p = 600
     yx = torch.randint(0, hw, (n, p), generator=gen, device=device,
                        dtype=torch.int32)
     yx[:, :10] = torch.arange(10, device=device) % h * w + w - 1
     yx[:, 10:20] = (h - 1) * w + torch.arange(10, device=device) % w
     yx[:, 20:30] = hw - 1
-    z = torch.randint(-1, d + 1, (n, p), generator=gen, device=device,
-                      dtype=torch.int32) if planes else None
     wts = torch.rand(n, k, p, generator=gen, device=device)
     g = torch.randn(n, c, p, generator=gen, device=device)
     offsets = {1: (0,), 2: (0, 1), 4: (0, 1, w, w + 1)}[k]
-    return img, z, yx, wts, g, offsets
+    return img, yx, wts, g, offsets
 
 
 @pytest.mark.parametrize("k", [1, 2, 4])
-@pytest.mark.parametrize("route", ["corner", "plane"])
-def test_plane_sample_kernels_match_twins(cuda, route, k):
+def test_plane_sample_kernels_match_twins(cuda, k):
+    """The corner pair, the flat plane kernels with one plane and no z
+    index (the tile kernel at the tap square), against its plain twins."""
     from advchain_tpu_torch.kernels import plane_sample as ps
-    img, z, yx, wts, g, offsets = _plane_inputs(cuda, k, seed=k,
-                                                planes=route == "plane")
-    idx = (yx,) if route == "corner" else (z, yx)
-    fwd = getattr(ps, f"{route}_sample_fwd")
-    bwd = getattr(ps, f"{route}_sample_bwd")
+    img, yx, wts, g, offsets = _plane_inputs(cuda, k, seed=k)
     # the corner backward at the tap square launches the tile kernel
-    bwd_fam = ("corner_tile" if route == "corner" and ps.tile_offsets(offsets)
-               else route)
-    before = {"fwd": ps.LAUNCHES[route]["fwd"],
+    bwd_fam = "corner_tile" if ps.tile_offsets(offsets) else "corner"
+    before = {"fwd": ps.LAUNCHES["corner"]["fwd"],
               "bwd": ps.LAUNCHES[bwd_fam]["bwd"]}
-    out = fwd(img, *idx, wts, offsets)
-    d_img, d_w = bwd(g, img, *idx, wts, offsets)
+    out = ps.corner_sample_fwd(img, yx, wts, offsets)
+    d_img, d_w = ps.corner_sample_bwd(g, img, yx, wts, offsets)
     torch.cuda.synchronize()
-    assert {"fwd": ps.LAUNCHES[route]["fwd"],
+    assert {"fwd": ps.LAUNCHES["corner"]["fwd"],
             "bwd": ps.LAUNCHES[bwd_fam]["bwd"]} == {
                 "fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
     # the forward sums in the twin's order with rounded products: equal
-    assert torch.equal(out, getattr(ps, f"{route}_sample_fwd_plain")(
-        img, *idx, wts, offsets))
-    r_img, r_w = getattr(ps, f"{route}_sample_bwd_plain")(g, img, *idx, wts,
-                                                          offsets)
+    assert torch.equal(out, ps.corner_sample_fwd_plain(img, yx, wts,
+                                                       offsets))
+    r_img, r_w = ps.corner_sample_bwd_plain(g, img, yx, wts, offsets)
     torch.testing.assert_close(d_w, r_w, atol=1e-5, rtol=0)
     # atomics sum in no fixed order: f32 reassociation of max|d_img|
     scale = float(r_img.abs().max())
@@ -722,12 +629,11 @@ def test_corner_route_takes_the_tile_kernel(cuda, mode, monkeypatch):
 
 def test_cuda_tensor_never_takes_the_plane_twin(cuda):
     from advchain_tpu_torch.kernels import plane_sample as ps
-    img, z, yx, wts, _, offsets = _plane_inputs(cuda, 4, seed=9)
+    img, yx, wts, _, offsets = _plane_inputs(cuda, 4, seed=9)
     with pytest.raises(TypeError):
-        ps.plane_sample_fwd(img.double(), z, yx, wts, offsets)
+        ps.corner_sample_fwd(img.double(), yx, wts, offsets)
     with pytest.raises(TypeError):
-        ps.corner_sample_fwd(img[:, :, 0].contiguous(), yx.long(), wts,
-                             offsets)
+        ps.corner_sample_fwd(img, yx.long(), wts, offsets)
 
 
 def _plane_grid_inputs(device, n=3, c=4, shape=(13, 17, 19), seed=0):

@@ -24,10 +24,7 @@ from advchain_tpu import augmentor as jaug
 from advchain_tpu.kernels import gather_matmul as gm
 
 from advchain_tpu_torch import augmentor as taug
-from advchain_tpu_torch.kernels.plane_sample import (PlaneSample,
-                                                     plane_sample_bwd,
-                                                     plane_sample_bwd_plain,
-                                                     plane_sample_fwd,
+from advchain_tpu_torch.kernels.plane_sample import (plane_sample_bwd_plain,
                                                      plane_sample_fwd_plain)
 
 from test_torch_corner import _spy_jax, _t, jax_env  # noqa: F401
@@ -138,32 +135,6 @@ def test_planes_outside_the_volume_read_zero():
                                     yx[:, 20:], wts[:, :, 20:].contiguous(),
                                     offsets)
     torch.testing.assert_close(d_w[:, :, 20:], ref, atol=0, rtol=0)
-
-
-def test_wrappers_take_the_twins_for_cpu_tensors():
-    img, z, yx, wts, g, offsets = _plane_inputs(7, 4)
-    img, z, yx, wts, g = _t(img, z, yx, wts, g)
-    assert torch.equal(plane_sample_fwd(img, z, yx, wts, offsets),
-                       plane_sample_fwd_plain(img, z, yx, wts, offsets))
-    for a, b in zip(plane_sample_bwd(g, img, z, yx, wts, offsets),
-                    plane_sample_bwd_plain(g, img, z, yx, wts, offsets)):
-        assert torch.equal(a, b)
-    with pytest.raises(ValueError):
-        plane_sample_fwd(img, z, yx, wts, offsets[:2])
-    with pytest.raises(ValueError):
-        plane_sample_fwd(img[:, :, 0], z, yx, wts, offsets)
-    with pytest.raises(ValueError):
-        plane_sample_fwd(img, z[:, :5], yx, wts, offsets)
-
-
-def test_plane_sample_gradcheck_float64():
-    img, z, yx, wts, _, offsets = _plane_inputs(8, 4, n=1, c=2, p=40)
-    img_t = torch.from_numpy(img).double().requires_grad_(True)
-    w_t = torch.from_numpy(wts).double().requires_grad_(True)
-    z_t, yx_t = _t(z, yx)
-    assert torch.autograd.gradcheck(
-        lambda a, b: PlaneSample.apply(a, z_t, yx_t, b, offsets),
-        (img_t, w_t))
 
 
 # ------------------------------------------------------------ the route

@@ -6,8 +6,8 @@ the JAX package.
 The plain forward is ``_coords.plane_weights`` followed by one flat plane
 forward per z tap; the plain backward is the closed-form chain rule the
 CUDA backward computes.  They are held against the route before the pair
-(``plane_weights`` with autograd over the fold, and two ``PlaneSample``
-calls), against JAX's ``_grid_sample_3d_pallas_packed`` (the packed
+(``plane_weights`` with autograd over the fold, and autograd through two
+calls of the flat plane sum ``plane_sample_fwd_plain``), against JAX's ``_grid_sample_3d_pallas_packed`` (the packed
 formulation, its Pallas ``plane_gather`` / ``plane_scatter`` in interpret
 mode on the CPU), and, through ``compose_flow``, against JAX's default
 stencil-or-sampler dispatch at grids with entries exactly on +-1.  Grids
@@ -30,9 +30,9 @@ from advchain_tpu_torch.kernels import _coords
 from advchain_tpu_torch.kernels import plane_sample as ps
 from advchain_tpu_torch.kernels import zband_sample as zs
 from advchain_tpu_torch.kernels.plane_sample import (
-    PlaneGridSample, PlaneSample, plane_grid_sample_bwd,
-    plane_grid_sample_bwd_plain, plane_grid_sample_fwd,
-    plane_grid_sample_fwd_plain)
+    PlaneGridSample, plane_grid_sample_bwd, plane_grid_sample_bwd_plain,
+    plane_grid_sample_fwd, plane_grid_sample_fwd_plain,
+    plane_sample_fwd_plain)
 
 from test_torch_corner import _spy_jax, jax_env  # noqa: F401
 from test_torch_dispatch3d import (_flows, _jax_compose, _port_compose,
@@ -62,7 +62,8 @@ def _case(seed, volume, c=2, n=2, p=60, spread=1.3):
 
 def _replaced_route(img, grid, cot, padding, align, slope):
     """The route before the pair: ``plane_weights`` (autograd over the
-    fold) and one ``PlaneSample`` per z tap, summed."""
+    fold) and autograd through one ``plane_sample_fwd_plain`` per z tap,
+    summed."""
     n, c, d, h, w = img.shape
     p = grid.shape[1]
     x = img.clone().requires_grad_(True)
@@ -71,8 +72,8 @@ def _replaced_route(img, grid, cot, padding, align, slope):
         gr.reshape(n, p, 1, 1, 3), d, h, w, padding, align, slope)
     flat = x.reshape(n, c, d, h * w)
     offsets = (0, 1, w, w + 1)
-    out = (PlaneSample.apply(flat, zidx[0], yxidx, wts[0], offsets)
-           + PlaneSample.apply(flat, zidx[1], yxidx, wts[1], offsets))
+    out = (plane_sample_fwd_plain(flat, zidx[0], yxidx, wts[0], offsets)
+           + plane_sample_fwd_plain(flat, zidx[1], yxidx, wts[1], offsets))
     out.backward(cot)
     return out.detach(), x.grad, gr.grad
 
@@ -212,7 +213,7 @@ def test_plain_pair_gradcheck_float64(padding):
 
 def test_grid_sample_3d_takes_the_plain_pair_on_cpu(monkeypatch):
     """With ``ADVCHAIN_ZBAND=0``, grid_sample_3d on CPU tensors reaches the
-    plain pair once each way, and neither the flat plane pair, the z-band
+    plain pair once each way, and neither the flat corner pair, the z-band
     pair nor the library's grid_sample."""
     monkeypatch.setenv("ADVCHAIN_ZBAND", "0")
     calls = []
@@ -228,7 +229,8 @@ def test_grid_sample_3d_takes_the_plain_pair_on_cpu(monkeypatch):
 
     spy("plane_grid_sample_fwd_plain", ps.plane_grid_sample_fwd_plain)
     spy("plane_grid_sample_bwd_plain", ps.plane_grid_sample_bwd_plain)
-    for module, name in ((ps, "plane_sample_fwd"), (ps, "plane_sample_bwd"),
+    for module, name in ((ps, "corner_sample_fwd"),
+                         (ps, "corner_sample_bwd"),
                          (zs, "zband_grid_sample_fwd"),
                          (zs, "zband_grid_sample_bwd"),
                          (torch.nn.functional, "grid_sample")):

@@ -3,8 +3,9 @@ advchain_tpu_torch.kernels.zband_sample's grid contract) against autograd
 through the corner fold and against the JAX package.
 
 The plain backward is the closed-form chain rule the CUDA backward
-computes; it is held against autograd through ``corner_weights_3d`` +
-``ZBandSample`` (the route before the fused pair), and the whole sample
+computes; it is held against autograd through ``corner_weights_3d`` and
+the corner sum ``zband_sample_fwd_plain`` (the route before the fused
+pair), and the whole sample
 against JAX's ``grid_sample_3d_pallas`` / ``grid_sample_3d_pallas_nearest``,
 which run the Pallas z-band kernels in interpret mode on the CPU with the
 scatter's exact f32 tier (``ADVCHAIN_SCATTER_SPLIT=3``).  Grids carry
@@ -24,9 +25,9 @@ from advchain_tpu.kernels import gather_matmul as gm
 
 from advchain_tpu_torch.kernels import zband_sample as zs
 from advchain_tpu_torch.kernels.zband_sample import (
-    ZBandGridSample, ZBandSample, zband_grid_sample_bwd,
-    zband_grid_sample_bwd_plain, zband_grid_sample_fwd,
-    zband_grid_sample_fwd_plain)
+    ZBandGridSample, zband_grid_sample_bwd, zband_grid_sample_bwd_plain,
+    zband_grid_sample_fwd, zband_grid_sample_fwd_plain,
+    zband_sample_fwd_plain)
 from advchain_tpu_torch.ops.grid_sample import (corner_weights_3d,
                                                 grid_sample_3d)
 
@@ -58,14 +59,15 @@ def _case(seed, volume, c=3, n=2, out=(3, 4, 5), align=True):
 
 def _autograd_through_fold(img, grid, cot, padding, align):
     """The route before the fused pair: ``corner_weights_3d`` (autograd
-    over the fold) and ``ZBandSample``."""
+    over the fold) and autograd through the corner sum
+    ``zband_sample_fwd_plain``."""
     n, p = grid.shape[:2]
     d, h, w = img.shape[2:]
     x = img.clone().requires_grad_(True)
     gr = grid.clone().requires_grad_(True)
     zidx, yidx, xidx, wts = corner_weights_3d(
         gr.reshape(n, p, 1, 1, 3), d, h, w, padding, align)
-    out = ZBandSample.apply(x, zidx, yidx, xidx, wts)
+    out = zband_sample_fwd_plain(x, zidx, yidx, xidx, wts)
     out.backward(cot)
     return out.detach(), x.grad, gr.grad
 
