@@ -3,6 +3,8 @@ PyTorch twins; built from ``csrc/`` on first use, never at import."""
 
 from advchain_tpu_torch.kernels.band_sample import (band_sample_bwd_plain,
                                                     band_sample_fwd_plain)
+from advchain_tpu_torch.kernels.batch_norm import (BatchNormTrain,
+                                                   batch_norm_bwd_plain)
 # the module's own name stays the package's attribute: its wrapper
 # function, conv3d_wgrad.conv3d_wgrad, is not re-exported here
 from advchain_tpu_torch.kernels.conv3d_wgrad import (Conv3dSame,
@@ -34,4 +36,5 @@ __all__ = ["band_sample_fwd_plain", "band_sample_bwd_plain",
            "plane_sample_fwd_plain", "plane_sample_bwd_plain",
            "PlaneGridSample", "plane_grid_sample_fwd", "plane_grid_sample_bwd",
            "plane_grid_sample_fwd_plain", "plane_grid_sample_bwd_plain",
-           "Conv3dSame", "conv3d_wgrad_plain"]
+           "Conv3dSame", "conv3d_wgrad_plain", "BatchNormTrain",
+           "batch_norm_bwd_plain"]

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from advchain_tpu_torch._trace import count
 from advchain_tpu_torch.kernels import _build
+from advchain_tpu_torch.kernels._autograd import grad_node, will_run
 
 __all__ = ["Conv3dSame", "conv3d_same", "conv3d_wgrad",
            "conv3d_wgrad_plain", "reset_launch_counts", "takes_pair",
@@ -176,27 +177,6 @@ def conv3d_wgrad(x, dy):
 
 
 # --------------------------------------------------------------- autograd
-def _node(t):
-    """The autograd node that receives ``t``'s gradient (its
-    ``AccumulateGrad`` for a leaf), or None where ``t`` takes none."""
-    if t is None or not t.requires_grad:
-        return None
-    return torch.autograd.graph._get_grad_fn_or_grad_acc(t)
-
-
-def _will_run(node) -> bool:
-    """Whether the running backward passes a gradient on to ``node``: true
-    under ``loss.backward()``, false for a weight under
-    ``torch.autograd.grad(loss, [upstream])``.  The engine refuses the
-    query for a leaf that ``torch.autograd.grad`` asks for, which runs."""
-    if node is None:
-        return False
-    try:
-        return torch._C._will_engine_execute_node(node)
-    except RuntimeError:  # a leaf captured by torch.autograd.grad
-        return True
-
-
 class Conv3dSame(torch.autograd.Function):
     """``F.conv3d(x, weight, bias, padding=1)`` for a 3x3x3 ``weight``,
     with the data gradient from ``torch.nn.grad.conv3d_input`` and the
@@ -212,15 +192,15 @@ class Conv3dSame(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias):
         ctx.save_for_backward(x, weight)
-        ctx.nodes = (_node(weight), _node(bias))
+        ctx.nodes = (grad_node(weight), grad_node(bias))
         return F.conv3d(x, weight, bias, padding=1)
 
     @staticmethod
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
         need_x, need_w, need_b = ctx.needs_input_grad
-        need_w = need_w and _will_run(ctx.nodes[0])
-        need_b = need_b and _will_run(ctx.nodes[1])
+        need_w = need_w and will_run(ctx.nodes[0])
+        need_b = need_b and will_run(ctx.nodes[1])
         if torch.is_grad_enabled():
             return torch.ops.aten.convolution_backward(
                 dy, x, weight, [weight.shape[0]], [1] * 3, [1] * 3, [1] * 3,

@@ -60,6 +60,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from advchain_tpu_torch._trace import count, to_device, trace
+from advchain_tpu_torch.kernels import batch_norm as bn_pair
 from advchain_tpu_torch.kernels.conv3d_wgrad import (conv3d_same,
                                                      scratch_fits, takes_pair)
 from advchain_tpu_torch.ops import collectives
@@ -282,10 +283,14 @@ class _FrozenStats(_StatsWriter):
     """Training mode uses batch statistics without updating the running
     ones, unless ``write_back`` is set (the JAX package's TorchBatchNorm
     with a mutable ``batch_stats`` collection); eval mode uses the running
-    ones.  Inside a data group (``ops.collectives.data_group``) training
-    mode normalises by the global batch's statistics (every rank's rows and,
-    with a space group, slabs), and the write-back takes the unbiased
-    variance over the global count."""
+    ones.  Outside a data group a CUDA f32 4D contiguous input in training
+    mode keeps ``F.batch_norm``'s forward and write-back and takes the
+    port's deterministic backward pair (``kernels.batch_norm.takes_pair``);
+    every other input keeps ``F.batch_norm``.  Inside a data group
+    (``ops.collectives.data_group``) training mode normalises by the
+    global batch's statistics (every rank's rows and, with a space group,
+    slabs), and the write-back takes the unbiased variance over the global
+    count."""
 
     def forward(self, x):
         return self._normalize(x, self.weight, self.bias)
@@ -298,6 +303,11 @@ class _FrozenStats(_StatsWriter):
                                 weight, bias, training=False, eps=self.eps)
         dg = collectives.current_data_group()
         if dg is None:
+            stats = ((self.running_mean, self.running_var, self.momentum)
+                     if self.write_back else None)
+            if bn_pair.takes_pair(x, weight, bias, stats):
+                return bn_pair.batch_norm_train(x, weight, bias, self.eps,
+                                                stats)
             if self.write_back:
                 return F.batch_norm(x, self.running_mean, self.running_var,
                                     weight, bias, training=True,

@@ -66,8 +66,9 @@ Phases (any failure raises and the script exits non-zero):
      iteration, mse + contour, seeded random weights and labels), count
      the kernel launches of one step (12 / 8 on the band grid pair, no
      call of a host-side fold; 32 / 16 on the
-     stencil pair and 16 dispatch predicates) and time 5 steps after 2
-     warm-ups; then time the supervised step the same way;
+     stencil pair and 16 dispatch predicates, 54 of the BatchNorm
+     backward pair) and time 5 steps after 2 warm-ups; then time the
+     supervised step the same way (18 of the BatchNorm pair);
  13. time the stencil kernels, their twins and ``F.grid_sample`` (the
      backward alone) at the composition shape (N=128, C=2, 192x192), the
      backward summed over the 8 squaring inputs of a seeded headline morph
@@ -140,9 +141,10 @@ Phases (any failure raises and the script exits non-zero):
      0.95; one bf16 ``apply_train`` leaves every buffer f32 and finite;
  23. the headline episode of phase 4 in bf16, timed in turns with f32
      (f32, bf16, bf16, f32; 5 episodes after 2 warm-ups each), each
-     turn's launches equal to phase 4's, with its peak memory;
+     turn's sampling launches equal to phase 4's, with its peak memory;
  24. the headline train step of phase 12 in bf16, in the same turns, each
-     turn's launches equal to phase 12's;
+     turn's sampling launches equal to phase 12's (the bf16 mode keeps
+     the library's BatchNorm);
  25. the UNet's options (encoder and decoder dropout 0.1, self-attention
      with gamma 0.5, spectral norm): logits on the card against the CPU
      within 1e-4 (batch 2, 64x64, both BN modes, the card's dropout masks
@@ -290,8 +292,20 @@ Phases (any failure raises and the script exits non-zero):
      and bit-equal over two runs; 4 launches in one PseudoConv3dModel 3D
      adversarial train step and 2 in one UNet3D step (at 16x192x192), none
      in either episode; the ms of each layer's call, its bound, the twin's
-     and cuDNN's ``conv3d_weight``.
-Then the ``kernels`` line for all nineteen kernel records, each with its
+     and cuDNN's ``conv3d_weight``;
+ 42. the 2D models' training BatchNorm (``kernels/batch_norm.py``: the
+     library's forward and write-back, and the pair that replaces cuDNN's
+     NCHW backward ``bn_bw_1C11_kernel_new``; the gates in
+     ``tests/batch_norm_gates.py``) at UNet_16's five BatchNorm shapes at
+     batch 128 and at ragged ones: the forward and write-back equal to
+     ``F.batch_norm``'s bit for bit, the backward against the plain twin
+     in float64 beside cuDNN's, two runs bit-equal; a module with an
+     in-place ReLU after it against float64; the ms of the pair and of
+     each of its kernels at the widest and the narrowest shape against
+     their byte bounds, the twin's and cuDNN's backward and forward.  Its
+     launches are counted in phase 12's train steps at their own shapes
+     (54 in the adversarial step, 18 in the supervised one).
+Then the ``kernels`` line for all fourteen kernel records, each with its
 launches in one random-chain call, one constrained solve, the bf16 episode
 and train step, one cardiac recipe pass, the 20 timed RandAugment calls,
 each rank's data-parallel train step, phase 31's sharded calls, each
@@ -358,13 +372,18 @@ KERNEL_SOURCES = {"band_grid": _CSRC + "band_sample.cu",
                   "plane_grid": _CSRC + "plane_sample.cu",
                   # the 3D model's Conv3d weight gradient (not a Pallas
                   # kernel: cuDNN's, which the port no longer calls there)
-                  "wgrad": _CSRC + "conv3d_wgrad.cu"}
+                  "wgrad": _CSRC + "conv3d_wgrad.cu",
+                  # the 2D models' training BatchNorm backward (not a
+                  # Pallas kernel: cuDNN's, which the port no longer calls
+                  # there)
+                  "bn": _CSRC + "batch_norm.cu"}
 KERNEL_NAMES = {"band_grid": "band_grid_sample",
                 "zband_grid": "zband_grid_sample",
                 "stencil": "stencil_warp", "slope": "dispatch_slope",
                 "corner": "corner_sample",
                 "corner_tile": "corner_tile_sample",
-                "plane_grid": "plane_grid_sample", "wgrad": "conv3d_wgrad"}
+                "plane_grid": "plane_grid_sample", "wgrad": "conv3d_wgrad",
+                "bn": "batch_norm"}
 # the sources to build, one nvcc each
 BUILD = sorted({src.rsplit("/", 1)[1][:-3] for src in KERNEL_SOURCES.values()})
 # the TPU kernels each pair replaces
@@ -380,11 +399,15 @@ REPLACES = {"band_grid": {"fwd": f"{_GM}:839", "bwd": f"{_GM}:923"},
             "plane_grid": {"fwd": f"{_GM}:466", "bwd": f"{_GM}:603"},
             # not a Pallas kernel: JAX leaves the Conv3d's weight gradient
             # to lax.conv_general_dilated's transpose
-            "wgrad": {"bwd": "advchain_tpu/models/unet.py:328"}}
+            "wgrad": {"bwd": "advchain_tpu/models/unet.py:328"},
+            # not a Pallas kernel: JAX leaves BatchNorm's backward to XLA's
+            # differentiation of TorchBatchNorm
+            "bn": {"bwd": "advchain_tpu/models/norm.py:34"}}
 # substrings of the port's CUDA kernel names (the profiler's rows)
 PORT_KERNEL_NAMES = ("band_grid", "zband_grid",
                      "stencil_warp", "dispatch_slope", "plane_sample",
-                     "plane_grid", "corner_tile", "conv3d_wgrad")
+                     "plane_grid", "corner_tile", "conv3d_wgrad",
+                     "batch_norm_grad_reduce", "batch_norm_grad_input")
 # the switches that send 2D / 3D sampling to the corner / plane kernels
 LEGACY_SWITCH = {2: "ADVCHAIN_BAND_KERNEL", 3: "ADVCHAIN_ZBAND"}
 # the family the default route sends bilinear sampling to, and the one
@@ -542,6 +565,8 @@ POWER_ITERATION = {2: "smart", 3: False}
 # for no weight)
 WGRAD_LAUNCHES = {"train3d": 4, "episode3d": 0, "train3d_unet3d": 2,
                   "episode3d_unet3d": 0}
+# the program counter of the 2D training BatchNorm's backward pair
+BN_COUNTER = "batchnorm.pair"
 # the volume of the UNet3D cell (a depth three 2x2x2 pools divide)
 SHAPE3D_UNET3D = (16, 192, 192)
 # the 3D cell's two layers and UNet3D's input layer: (N, Cin, Cout) + the
@@ -563,19 +588,24 @@ def _kernel_modules():
 
 
 def reset_launch_counts():
+    from advchain_tpu_torch import _trace
     from advchain_tpu_torch.kernels import conv3d_wgrad, plane_sample
     for mod in _kernel_modules().values():
         mod.reset_launch_counts()
     plane_sample.reset_launch_counts()
     conv3d_wgrad.reset_launch_counts()
+    _trace.COUNTS.pop(BN_COUNTER, None)
 
 
 def launch_counts():
     """Launches per family: band_grid and zband_grid (the grid-level
     pairs), stencil, the dispatch predicate (slope), corner and
-    corner_tile (the corner route), plane_grid (the 3D plane route), and
-    the Conv3d weight gradient (wgrad).  band, zband and plane read 0: no
-    route launches them, and cudabench/sut.py reads their counters."""
+    corner_tile (the corner route), plane_grid (the 3D plane route), the
+    Conv3d weight gradient (wgrad) and the BatchNorm backward pair
+    (batch_norm, the program counter ``batchnorm.pair``).  band, zband and
+    plane read 0: no route launches them, and cudabench/sut.py reads their
+    counters."""
+    from advchain_tpu_torch import _trace
     from advchain_tpu_torch.kernels import (band_sample, conv3d_wgrad,
                                             plane_sample, zband_sample)
     counts = {fam: {"fwd": mod.FWD_LAUNCHES, "bwd": mod.BWD_LAUNCHES}
@@ -589,6 +619,7 @@ def launch_counts():
     counts.update({route: dict(c) for route, c in
                    plane_sample.LAUNCHES.items()})
     counts["wgrad"] = {"bwd": conv3d_wgrad.LAUNCHES}
+    counts["batch_norm"] = {"bwd": _trace.COUNTS.get(BN_COUNTER, 0)}
     return counts
 
 
@@ -5253,7 +5284,144 @@ def kernel_launches(launches):
     out[f"{KERNEL_NAMES['corner_tile']}_bwd"] = launches["corner_tile"]["bwd"]
     out[KERNEL_NAMES["slope"]] = launches["slope"]["fwd"]
     out[KERNEL_NAMES["wgrad"]] = launches["wgrad"]["bwd"]
+    out[f"{KERNEL_NAMES['bn']}_bwd"] = launches["batch_norm"]["bwd"]
     return out
+
+
+def sampler_launches(launches):
+    """:func:`kernel_launches` but the BatchNorm pair's, which the model's
+    precision decides (the bf16 compute mode keeps the library's): the
+    kernels that the chain's sampling launches."""
+    out = kernel_launches(launches)
+    del out[f"{KERNEL_NAMES['bn']}_bwd"]
+    return out
+
+
+# --------------------------------------------------------------- phase 42
+# the 2D training BatchNorm's backward pair: its launches in one headline
+# adversarial train step (the PGD, supervised and consistency passes each
+# take a backward through UNet_16's 18 layers; the clean pass takes none)
+# and in one supervised step
+BN_LAUNCHES = {"train": 54, "supervised": 18}
+# the pair's kernels and the passes over an (N, C, H, W) tensor each must
+# make: the sums read dy and x, then dx reads them again and writes dx
+BN_KERNELS = {"batch_norm_grad_reduce_kernel": 2,
+              "batch_norm_grad_input_kernel": 3}
+
+
+def bn_gates():
+    """``tests/batch_norm_gates.py``: the phase's gates and inputs, which
+    the GPU tests share."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    return importlib.import_module("batch_norm_gates")
+
+
+def assert_bn_launches(what, launches):
+    """The pair's launches in a 2D train step, from counts set to 0 just
+    before it, against BN_LAUNCHES."""
+    got = launches["batch_norm"]["bwd"]
+    if got != BN_LAUNCHES[what]:
+        raise AssertionError(f"the {what} step launched the BatchNorm pair "
+                             f"{got} times, not {BN_LAUNCHES[what]}")
+
+
+def kernel_device_ms(fn, names, reps=10):
+    """Mean device ms a launch of each kernel named in ``names``, each
+    launched once a call, over ``reps`` calls of ``fn`` under the profiler
+    (after one warm call, behind ``batch_norm_gates.lead_in``: a profile
+    taken late in this process drops its earliest records)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync("cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bn_gates().lead_in()
+        for _ in range(reps):
+            fn()
+        sync("cuda")
+    out = {}
+    for e in prof.key_averages():
+        for name in names:
+            if name in e.key and e.count:
+                out[name] = e.self_device_time_total / 1e3 / e.count
+                if e.count != reps:
+                    raise AssertionError(f"the profiler recorded {e.count} "
+                                         f"of {reps} launches of {name}")
+    return out
+
+
+def time_batch_norm(device, cases=("c16", "c256")):
+    """Phase 42's timings at the widest and the narrowest of UNet_16's
+    BatchNorm shapes: the pair's backward (CUDA events) and each of its
+    kernels (the profiler), each against its byte bound (BN_KERNELS'
+    passes, 5 in all); the twin on the card; cuDNN's backward alone
+    (``library_ms``, what the pair replaces), with its forward
+    (``library_fwd_bwd_ms``) and its forward alone (``library_fwd_ms``,
+    the forward the port keeps).  The narrowest layer's 19 MB fit the 50
+    MB L2: its repeated calls read warm."""
+    import torch
+    import torch.nn.functional as F
+    from advchain_tpu_torch.kernels import batch_norm as bn
+    gates = bn_gates()
+    rows = []
+    for name in cases:
+        shape = gates.SHAPES[name]
+        x, w, b, _, dy = gates.inputs(shape, device)
+        mean, invstd = gates.saved_statistics(x, w, b)
+        tensor_bytes = 4 * x.numel()
+        row = {"layer": name, "shape": list(shape),
+               "ms": time_ms(lambda: bn.batch_norm_bwd(x, dy, mean, invstd,
+                                                       w)),
+               "bound_ms": bound_ms(sum(BN_KERNELS.values()) * tensor_bytes,
+                                    0)[0],
+               "plain_ms": time_ms(lambda: bn.batch_norm_bwd_plain(
+                   x, dy, mean, invstd, w), iters=5),
+               "library_fwd_ms": time_ms(lambda: F.batch_norm(
+                   x, None, None, w, b, training=True, eps=gates.EPS))}
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        lib = library_bwd_ms(
+            lambda: F.batch_norm(leaves[0], None, None, leaves[1],
+                                 leaves[2], training=True, eps=gates.EPS),
+            leaves, dy)
+        row.update(library_ms=lib["bwd_library_ms"],
+                   library_fwd_bwd_ms=lib["fwd_bwd_library_ms"])
+        per = kernel_device_ms(
+            lambda: bn.batch_norm_bwd(x, dy, mean, invstd, w),
+            list(BN_KERNELS))
+        row["kernels"] = {
+            k: {"ms": per.get(k),
+                "bound_ms": bound_ms(passes * tensor_bytes, 0)[0]}
+            for k, passes in BN_KERNELS.items()}
+        for r in row["kernels"].values():
+            r["share_of_bound"] = (r["bound_ms"] / r["ms"] if r["ms"]
+                                   else None)
+        rows.append(row)
+    return rows
+
+
+def bn_record(launches_t, launches_s, gaps, module_gaps, rows, shape_note):
+    """The ``kernels`` line's entry of the BatchNorm backward pair, timed
+    at UNet_16's widest BatchNorm layer (``c256``: the narrowest's row)."""
+    head = next(r for r in rows if r["layer"] == "c16")
+    return {
+        "name": f"{KERNEL_NAMES['bn']}_bwd", "route": "cuda",
+        "source": KERNEL_SOURCES["bn"], "replaces": REPLACES["bn"]["bwd"],
+        "launches": launches_t["batch_norm"]["bwd"],
+        "launches_supervised": launches_s["batch_norm"]["bwd"],
+        "max_abs_err": max(max(g["dx"], g["dw"], g["db"])
+                           for g in gaps.values()),
+        "cudnn_err": {k: max(g["cudnn_dx"], g["cudnn_dw"], g["cudnn_db"])
+                      for k, g in gaps.items()},
+        "module_err": max(module_gaps.values()),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": "bytes",
+        "library_ms": head["library_ms"],
+        "library_fwd_bwd_ms": head["library_fwd_bwd_ms"],
+        "library_fwd_ms": head["library_fwd_ms"],
+        "kernels_ms": head["kernels"],
+        "c256": next(r for r in rows if r["layer"] == "c256"),
+        "shape": f"{shape_note} C=16"}
 
 
 def card_line():
@@ -5395,7 +5563,8 @@ def main(argv=None):
           f"{launches_t['stencil']['bwd']}, band_grid fwd "
           f"{launches_t['band_grid']['fwd']} bwd "
           f"{launches_t['band_grid']['bwd']}, dispatch predicates "
-          f"{launches_t['slope']['fwd']}, host-side fold calls over 7 "
+          f"{launches_t['slope']['fwd']}, BatchNorm backward pair "
+          f"{launches_t['batch_norm']['bwd']}, host-side fold calls over 7 "
           f"steps {json.dumps(folds_t)}, median {sec_t * 1e3:.1f} ms "
           f"({BATCH / sec_t:.2f} img/s) over "
           f"{[round(t * 1e3, 1) for t in times_t]} ms, peak "
@@ -5403,9 +5572,12 @@ def main(argv=None):
     assert_grid_only("train step", 2, launches_t, GRID_LAUNCHES["train"],
                      folds_t)
     assert_stencil_launches("train step", launches_t)
-    _, sec_s, times_s, first_s, peak_s = run_train_step(
+    assert_bn_launches("train", launches_t)
+    launches_s, sec_s, times_s, first_s, peak_s = run_train_step(
         device, BATCH, SHAPE, supervised=True)
-    print(f"[train] supervised step, batch {BATCH}: loss {first_s}, median "
+    assert_bn_launches("supervised", launches_s)
+    print(f"[train] supervised step, batch {BATCH}: loss {first_s}, "
+          f"BatchNorm backward pair {launches_s['batch_norm']['bwd']}, median "
           f"{sec_s * 1e3:.1f} ms ({BATCH / sec_s:.2f} img/s) over "
           f"{[round(t * 1e3, 1) for t in times_s]} ms, peak "
           f"{peak_s / 1e9:.2f} GB on {card}", flush=True)
@@ -5542,7 +5714,7 @@ def main(argv=None):
             launches, sec_e, times_e, loss_e, peak_e, _ = run_episode(
                 device, BATCH, SHAPE, compute_dtype=dt)
         if not (math.isfinite(loss_e)
-                and kernel_launches(launches) == kernel_launches(launches2)):
+                and sampler_launches(launches) == sampler_launches(launches2)):
             raise AssertionError(f"the 2D episode ({dt}) launched "
                                  f"{launches}, not phase 4's {launches2}")
         assert_grid_only("2D episode", 2, launches,
@@ -5556,7 +5728,7 @@ def main(argv=None):
         with count_calls(fold_modules, FOLDS) as folds_b:
             launches, sec_b, times_b, _, peak_b = run_train_step(
                 device, BATCH, SHAPE, compute_dtype=dt)
-        if kernel_launches(launches) != kernel_launches(launches_t):
+        if sampler_launches(launches) != sampler_launches(launches_t):
             raise AssertionError(f"the train step ({dt}) launched "
                                  f"{launches}, not phase 12's {launches_t}")
         assert_grid_only("train step", 2, launches, GRID_LAUNCHES["train"],
@@ -5578,7 +5750,7 @@ def main(argv=None):
                     args.profile_train_bf16)
     check_options_against_cpu(device)
     launches_o, ms_o, step_ms_o = run_options(device, BATCH, SHAPE)
-    if kernel_launches(launches_o) != kernel_launches(launches2):
+    if sampler_launches(launches_o) != sampler_launches(launches2):
         raise AssertionError(f"the options model's episode launched "
                              f"{launches_o}, not phase 4's {launches2}")
     check_zoo_nets(device)
@@ -5879,6 +6051,22 @@ def main(argv=None):
           f"{json.dumps(launches_wg)}; timings {json.dumps(rows_wg)}; phase "
           f"41 in {time.perf_counter() - t_wg:.1f} s on {card}", flush=True)
 
+    # phase 42: the 2D models' training BatchNorm backward
+    t_bn = time.perf_counter()
+    gates_bn = bn_gates()
+    gaps_bn = gates_bn.check_pair(device)
+    module_bn = gates_bn.check_module(device)
+    rows_bn = time_batch_norm(device)
+    print(f"[batchnorm] the library's forward and write-back bit for bit, "
+          f"the pair's backward against its float64 twin (largest gap over "
+          f"the largest entry; cuDNN's backward beside it): "
+          f"{json.dumps(gaps_bn)}; two runs bit-equal; the module with an "
+          f"in-place ReLU: {json.dumps(module_bn)}; launches in the train "
+          f"step {launches_t['batch_norm']['bwd']}, supervised "
+          f"{launches_s['batch_norm']['bwd']}; timings "
+          f"{json.dumps(rows_bn)}; phase 42 in "
+          f"{time.perf_counter() - t_bn:.1f} s on {card}", flush=True)
+
     shape2 = f"N={BATCH} {SHAPE[0]}x{SHAPE[1]}"
     shape3 = f"N={BATCH3D} {'x'.join(map(str, SHAPE3D))}"
     kernels = (kernel_records("band_grid", launches2, worst_b, rows_b,
@@ -5895,7 +6083,9 @@ def main(argv=None):
                                 "near_identity", 3, shape3)
                + [slope_record(launches_t, slope_row, worst_slope, shape2)]
                + [wgrad_record(launches_wg["train3d"], gaps_wg, rows_wg,
-                               shape3)])
+                               shape3)]
+               + [bn_record(launches_t, launches_s, gaps_bn, module_bn,
+                            rows_bn, shape2)])
     by_name = (kernel_launches(launches_rc),
                kernel_launches(runs_cs[0][0]))
     bf16_names = (kernel_launches(turns_e["bf16"][0][0]),

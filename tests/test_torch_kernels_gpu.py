@@ -1,6 +1,6 @@
 """The port's CUDA kernels (the band, z-band and plane grid pairs, the
-corner sampler, the stencil warp, the Conv3d weight gradient) on the card,
-against their plain twins and the CPU path.
+corner sampler, the stencil warp, the Conv3d weight gradient, the training
+BatchNorm pair) on the card, against their plain twins and the CPU path.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 
@@ -1043,3 +1043,153 @@ def test_warm_adversarial_step_syncs_only_for_the_step_count(cuda, dims,
     assert _trace.COUNTS.get("host_syncs", 0) == syncs
     assert len(integrate.ADAPTIVE_STEPS) == syncs
     assert "device_consts.fill" not in _trace.COUNTS
+
+
+@pytest.mark.parametrize("case", ["c16", "c32", "c64", "c128", "c256",
+                                  "odd", "row3", "n1"])
+def test_batch_norm_kernels_match_twin_and_cudnn(cuda, case):
+    """chip_smoke phase 42's gates at one of its shapes (UNet_16's five
+    BatchNorm shapes at batch 128, then ragged ones): the forward and
+    write-back are the library's bit for bit, the pair's backward within
+    1e-5 of the float64 twin's largest entry; two runs bit-equal, each
+    launching the pair once."""
+    import batch_norm_gates as gates
+    from advchain_tpu_torch import _trace
+    shapes = {**gates.SHAPES, **gates.RAGGED}
+    before = _trace.COUNTS.get(gates.COUNTER, 0)
+    gaps = gates.check_pair(cuda, {case: shapes[case]})
+    assert _trace.COUNTS.get(gates.COUNTER, 0) == before + 2
+    assert max(v for k, v in gaps[case].items()
+               if not k.startswith("cudnn")) <= gates.TOL
+
+
+def test_batch_norm_module_with_an_in_place_relu(cuda):
+    """The module route with ``write_back`` and an in-place ReLU after it:
+    one launch of the pair, within 1e-5 of float64."""
+    import batch_norm_gates as gates
+    gaps = gates.check_module(cuda)
+    assert max(gaps.values()) <= gates.TOL
+
+
+def test_batch_norm_count_equals_the_kernel_launches(cuda):
+    """A profiled warm 2D adversarial train step: the traced
+    ``batchnorm.pair`` count is 54 (three backwards through UNet_16's 18
+    BatchNorm layers) and equals the trace's launches of each of the
+    pair's two kernels (behind ``lead_in``: earlier profiles in this
+    process make a profile drop its earliest records)."""
+    import batch_norm_gates as gates
+    import chip_smoke as cs
+    from torch.profiler import ProfilerActivity, profile
+    from advchain_tpu_torch import _trace
+    step, state, data = cs.build_train_step(cuda, 8, (64, 64))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    state, _ = step(state, data, gen)
+    torch.cuda.synchronize()
+    _trace.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        gates.lead_in()
+        state, _ = step(state, data, gen)
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if str(e.device_type()).upper().endswith("CUDA")]
+    counted = _trace.TRACED_COUNTS.get("batchnorm.pair")
+    assert counted == 54
+    for kernel in ("batch_norm_grad_reduce_kernel",
+                   "batch_norm_grad_input_kernel"):
+        assert sum(kernel in n for n in names) == counted, kernel
+
+
+def test_cuda_tensor_never_takes_the_batch_norm_twin(cuda, monkeypatch):
+    import batch_norm_gates as gates
+    from advchain_tpu_torch.kernels import batch_norm as bn
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor took the plain twin")
+
+    x, w, b, _, dy = gates.inputs((2, 3, 5, 6), cuda)
+    mean, invstd = gates.saved_statistics(x, w, b)
+    monkeypatch.setattr(bn, "batch_norm_bwd_plain", refuse)
+    bn.batch_norm_bwd(x, dy, mean, invstd, w)
+    with pytest.raises(ValueError):
+        bn.batch_norm_bwd(x.double(), dy.double(), mean, invstd, None)
+    with pytest.raises(ValueError):
+        bn.batch_norm_bwd(x.transpose(2, 3), dy.transpose(2, 3), mean,
+                          invstd, w)
+    with pytest.raises(ValueError):
+        bn.batch_norm_bwd(x, dy, mean, invstd, w.double())
+
+
+def test_batch_norm_launch_error_raises(cuda, monkeypatch):
+    """An error code from the launch raises and counts nothing."""
+    import batch_norm_gates as gates
+    from advchain_tpu_torch import _trace
+    from advchain_tpu_torch.kernels import batch_norm as bn
+    x, w, b, _, dy = gates.inputs((2, 3, 5, 6), cuda)
+    mean, invstd = gates.saved_statistics(x, w, b)
+    lib = bn._lib()
+
+    class Refused:
+        advchain_batch_norm_resident = lib.advchain_batch_norm_resident
+
+        @staticmethod
+        def advchain_batch_norm_bwd(*args):
+            return 9  # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(bn, "_lib", lambda: Refused)
+    counted = _trace.COUNTS.get(gates.COUNTER)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        bn.batch_norm_bwd(x, dy, mean, invstd, w)
+    assert _trace.COUNTS.get(gates.COUNTER) == counted
+
+
+@pytest.mark.parametrize("case,takes", [
+    ("train", True), ("write_back", True), ("eval", False),
+    ("bf16", False), ("channels_last", False), ("5d", False)])
+def test_batch_norm_route_on_the_card(cuda, case, takes):
+    """Which CUDA inputs of the module take the pair: training mode in
+    f32 on a contiguous NCHW tensor, write-back or not, whose backward
+    launches it once; eval, bf16, channels-last and 5D inputs keep
+    ``F.batch_norm``."""
+    from advchain_tpu_torch import _trace
+    from advchain_tpu_torch.models.unet import FrozenStatsBN, FrozenStatsBN3d
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(4, 3, 8, 12, generator=gen, device=cuda)
+    norm = FrozenStatsBN(3).to(cuda).train()
+    if case == "write_back":
+        norm.write_back = True
+    elif case == "eval":
+        norm.eval()
+    elif case == "bf16":
+        x = x.to(torch.bfloat16)
+    elif case == "channels_last":
+        x = x.to(memory_format=torch.channels_last)
+    elif case == "5d":
+        norm = FrozenStatsBN3d(3).to(cuda).train()
+        x = x.unsqueeze(2)
+    y = norm(x.requires_grad_(True))
+    assert (type(y.grad_fn).__name__ == "BatchNormTrainBackward") == takes
+    if takes:
+        before = _trace.COUNTS.get("batchnorm.pair", 0)
+        y.sum().backward()
+        assert _trace.COUNTS.get("batchnorm.pair", 0) - before == 1
+
+
+@pytest.mark.parametrize("supervised,pairs", [(False, 54), (True, 18)])
+def test_2d_train_step_counts_the_batch_norm_pair(cuda, supervised, pairs):
+    """A warm 2D adversarial step takes three backwards through UNet_16's
+    18 BatchNorm layers (its PGD, supervised and consistency passes; the
+    clean pass takes none), a supervised step one, each on the pair, and
+    the step stays free of host syncs."""
+    import chip_smoke as cs
+    from advchain_tpu_torch import _trace
+    step, state, data = cs.build_train_step(cuda, 8, (64, 64),
+                                            supervised=supervised)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    state, _ = step(state, data, gen)
+    torch.cuda.synchronize()
+    _trace.reset_counts()
+    state, _ = step(state, data, gen)
+    torch.cuda.synchronize()
+    assert _trace.COUNTS.get("batchnorm.pair") == pairs
+    assert _trace.COUNTS.get("host_syncs", 0) == 0
