@@ -1,6 +1,7 @@
-"""The UNet family, the reference's building blocks, the 3D demo model
-and the 3D U-Net as torch modules, their solver wrapper, weight conversion
-from the JAX package's Flax pytrees and the reference checkpoint loader."""
+"""The UNet family, the reference's building blocks, the 3D demo model,
+the 3D U-Net and Swin-Unet as torch modules, their solver wrapper, weight
+conversion from the JAX package's Flax pytrees and the reference
+checkpoint loader."""
 
 from advchain_tpu_torch.models.unet import (UNet, UNetv2,
                                             DeeplySupervisedUNet,
@@ -8,6 +9,7 @@ from advchain_tpu_torch.models.unet import (UNet, UNetv2,
                                             SelfAttn2d, SpectralConv2d,
                                             ZDecomposedConv3d,
                                             PseudoConv3dModel, UNet3D)
+from advchain_tpu_torch.models.swin import SwinUNet
 from advchain_tpu_torch.models.norm import TorchBatchNorm
 from advchain_tpu_torch.models.wrapper import SegmentationModel
 from advchain_tpu_torch.models.blocks import (
@@ -27,7 +29,7 @@ from advchain_tpu_torch.models.convert import (flax_blocks_to_torch_state,
 
 __all__ = ["UNet", "UNetv2", "DeeplySupervisedUNet", "DoubleConv", "Down",
            "Up", "OutConv", "SelfAttn2d", "SpectralConv2d",
-           "ZDecomposedConv3d", "PseudoConv3dModel", "UNet3D",
+           "ZDecomposedConv3d", "PseudoConv3dModel", "UNet3D", "SwinUNet",
            "TorchBatchNorm",
            "SegmentationModel", "get_unet_model",
            "flax_unet_to_torch_state", "flax_unetv2_to_torch_state",

@@ -35,6 +35,7 @@ from advchain_tpu_torch.kernels.band_sample import (
     BandGridSample, band_grid_sample_bwd, band_grid_sample_bwd_plain,
     band_grid_sample_fwd, band_grid_sample_fwd_plain, band_sample_fwd_plain)
 from advchain_tpu_torch.ops.grid_sample import grid_sample_2d
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 MODES = ["bilinear", "nearest"]
 PADDINGS = ["zeros", "border", "reflection"]

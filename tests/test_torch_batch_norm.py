@@ -18,6 +18,7 @@ from torch import nn
 from advchain_tpu_torch import _trace
 from advchain_tpu_torch.kernels import batch_norm as bn
 from advchain_tpu_torch.models import SegmentationModel, blocks, unet
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 EPS = 1e-5
 MOMENTUM = 0.1

@@ -28,6 +28,7 @@ from advchain_tpu_torch import augmentor as taug
 from advchain_tpu_torch import models as tm
 
 from test_torch_model_zoo import _carry, _flax, _np_tree
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 N, H, W = 2, 64, 64
 SIZE = [N, 1, H, W]

@@ -34,6 +34,7 @@ from advchain_tpu_torch.models import blocks as tb
 from advchain_tpu_torch.models.unet import EpisodeDropout, _StatsWriter
 
 from test_torch_mesh import run_ranks
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 N = 2
 TOL_OUT = 1e-5

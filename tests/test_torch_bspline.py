@@ -17,6 +17,7 @@ import torch
 
 from advchain_tpu_torch.ops import bspline as tbs
 from advchain_tpu_torch.ops.resize import interpolate
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 # (image, control_point_spacing, downscale): tests/test_torch_ops.py's and
 # tests/test_torch_ops3d.py's specs, and the 2D headline's and 3D volume

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from advchain_tpu_torch.kernels import conv3d_wgrad as cw
 from advchain_tpu_torch.models import SegmentationModel, unet
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 # (N, Cin, Cout, D, H, W): the model's two layers (1 -> 8, 8 -> 4), a
 # single plane, and H and W that no tile divides

@@ -34,6 +34,7 @@ from advchain_tpu_torch.kernels.plane_sample import (CornerSample,
 
 from test_torch_e2e import FULL, MORPH_FREE, _episode, _image, _params
 from test_torch_e2e import models  # noqa: F401  (the carried UNet_16)
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 # the JAX ops package re-exports a function named grid_sample, which
 # shadows the submodule under attribute lookup

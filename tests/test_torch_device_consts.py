@@ -20,6 +20,7 @@ from advchain_tpu_torch import _consts, _trace, models, parallel
 from advchain_tpu_torch.kernels._coords import clip
 from advchain_tpu_torch.losses import consistency
 from advchain_tpu_torch.ops import affine, integrate, resize
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 FILL = "device_consts.fill"
 CPU = torch.device("cpu")

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 from advchain_tpu.ops import integrate as jint
 
 from advchain_tpu_torch.ops import integrate as tint
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 SHAPE = (4, 7, 6)  # D, H, W: a shape no other test traces
 

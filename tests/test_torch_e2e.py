@@ -29,6 +29,7 @@ from advchain_tpu.models import UNet as FlaxUNet
 from advchain_tpu_torch import augmentor as taug
 from advchain_tpu_torch.models import (SegmentationModel, UNet,
                                        flax_unet_to_torch_state)
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 N, H, W = 2, 32, 32
 SIZE = [N, 1, H, W]

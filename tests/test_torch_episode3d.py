@@ -27,6 +27,7 @@ from advchain_tpu_torch import augmentor as taug
 from advchain_tpu_torch.models import (PseudoConv3dModel, SegmentationModel,
                                        flax_pseudo3d_to_torch_state)
 from advchain_tpu_torch.models.unet import EpisodeDropout
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 N = 2
 SHAPE = (8, 32, 32)

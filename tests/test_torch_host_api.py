@@ -37,6 +37,7 @@ from advchain_tpu_torch.models import (SegmentationModel, UNet,
                                        flax_unet_to_torch_state)
 from advchain_tpu_torch.ops import integrate as tint
 from advchain_tpu_torch.ops import norms as tnorms
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 N, H, W = 2, 32, 32
 SIZE = [N, 1, H, W]

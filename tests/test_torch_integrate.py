@@ -18,6 +18,7 @@ from advchain_tpu.ops import integrate as jint
 
 from advchain_tpu_torch import ops as tops
 from advchain_tpu_torch.ops import integrate as tint
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 
 @pytest.fixture(autouse=True)

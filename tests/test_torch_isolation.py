@@ -8,6 +8,7 @@ import sys
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "advchain_tpu_torch").rglob("*.py")) + [

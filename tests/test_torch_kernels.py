@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 
 from advchain_tpu.kernels import gather_matmul as gm
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 # the JAX ops package re-exports a function named grid_sample, which
 # shadows the submodule under attribute lookup

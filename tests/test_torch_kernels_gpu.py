@@ -1193,3 +1193,78 @@ def test_2d_train_step_counts_the_batch_norm_pair(cuda, supervised, pairs):
     torch.cuda.synchronize()
     assert _trace.COUNTS.get("batchnorm.pair") == pairs
     assert _trace.COUNTS.get("host_syncs", 0) == 0
+
+
+def _swin_run(forward, weights, x, cot, dtype):
+    """Logits and the gradients of ``sum(logits * cot)`` (every parameter,
+    then the input) of ``forward(params, x)`` in ``dtype``, as float64."""
+    p = {k: v.to(dtype).requires_grad_(True) for k, v in weights.items()}
+    x = x.to(dtype).requires_grad_(True)
+    y = forward(p, x)
+    grads = torch.autograd.grad((y * cot.to(dtype)).sum(), [*p.values(), x])
+    return [y.detach().double()] + [g.double() for g in grads]
+
+
+def test_swin_unet_matches_the_reference_on_the_card(cuda):
+    """``SwinUNet`` at the published widths, batch 2 at 224 x 224 (the
+    zero tables and biases of the benchmark's draw drawn too), forward and
+    backward on the card against the plain reference
+    (``cudabench/reference/model_SwinUNet.py``) in f32 with TF32 off, both
+    measured against the reference in float64: the port's logits and each
+    gradient lie no farther from float64 than 10 times the plain f32
+    reference's own gap (or 1e-6 of the largest entry), and within 1e-4 of
+    it (on an H100 the worst leaf read 3.0 times, 3.2e-6 against 1.1e-6;
+    TF32 rounds at 1e-3).  The message names the attention backend that ran.  Each of the
+    forward's 14 window attentions and their backwards launch the fused
+    memory-efficient kernels (behind ``lead_in``: earlier profiles in this
+    process make a profile drop its earliest records), none PyTorch's
+    unfused math backend."""
+    import batch_norm_gates as gates
+    from torch.profiler import ProfilerActivity, profile
+    from advchain_tpu_torch import _trace
+    from advchain_tpu_torch.models import SwinUNet
+    from cudabench import inputs
+    from cudabench.reference import model_SwinUNet as ref
+    weights = inputs.make_weights(
+        {"model": {"name": "SwinUNet", "args": {},
+                   "init": {"bn_weight_std": 0.02}}}, 5, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    weights = {k: v if v.any() else
+               0.02 * torch.randn(v.shape, generator=gen, device=cuda)
+               for k, v in weights.items()}
+    x = torch.rand(2, 1, 224, 224, generator=gen, device=cuda)
+    cot = torch.randn(2, 4, 224, 224, generator=gen, device=cuda)
+    module = SwinUNet().to(cuda)
+    before = _trace.COUNTS.get("swin.window_attn", 0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        gates.lead_in()
+        port = _swin_run(lambda p, y: torch.func.functional_call(
+            module, p, (y,)), weights, x, cot, torch.float32)
+        torch.cuda.synchronize()
+    calls = {e.key: e.count for e in prof.key_averages()
+             if "scaled_dot_product" in e.key or "fmha" in e.key}
+    backend = sorted(calls)
+    assert _trace.COUNTS["swin.window_attn"] - before == 14
+    fused = {way: sum(n for k, n in calls.items()
+                      if k.startswith(f"fmha_cutlass{way}_f32"))
+             for way in "FB"}
+    assert fused == {"F": 14, "B": 14}, calls
+    assert not any("math" in k for k in calls), calls
+
+    def plain(p, y):
+        return ref.forward(p, y, {}, None)
+    ref32 = _swin_run(plain, weights, x, cot, torch.float32)
+    ref64 = _swin_run(plain, weights, x, cot, torch.float64)
+    names = ["logits", *weights, "input"]
+    worst = []
+    for name, a, b, want in zip(names, port, ref32, ref64):
+        scale = float(want.abs().max())
+        ours = float((a - want).abs().max()) / scale
+        theirs = float((b - want).abs().max()) / scale
+        worst.append((ours / max(theirs, 1e-6), ours, theirs, name))
+        assert ours <= max(10 * theirs, 1e-6) and ours <= 1e-4, \
+            (name, ours, theirs, backend)
+    worst.sort(reverse=True)
+    print(f"swin on the card, backend {backend}: worst port / reference "
+          f"gaps to float64 {worst[:3]}")

@@ -37,6 +37,7 @@ import torch
 import torch.distributed as dist
 
 from chip_smoke import spawn_ranks
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 JOIN_TIMEOUT_S = 120.0
 

@@ -22,6 +22,7 @@ from advchain_tpu import models as jm
 
 from advchain_tpu_torch import models as tm
 from advchain_tpu_torch.models.unet import EpisodeDropout, FrozenStatsBN
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 N = 2
 

@@ -13,6 +13,7 @@ from advchain_tpu.models import UNet as FlaxUNet
 
 from advchain_tpu_torch.models import (SegmentationModel, UNet,
                                        flax_unet_to_torch_state)
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 
 def _flax_model(seed=0, shape=(2, 1, 64, 64)):

@@ -27,6 +27,7 @@ from advchain_tpu_torch.ops import conv as tconv
 from advchain_tpu_torch.ops import integrate as tint
 from advchain_tpu_torch.ops import norms as tnorms
 from advchain_tpu_torch.ops import resize as tres
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 
 def _close(ours, ref, atol=1e-5):

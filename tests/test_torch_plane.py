@@ -30,6 +30,7 @@ from advchain_tpu_torch.kernels.plane_sample import (plane_sample_bwd_plain,
 from test_torch_corner import _spy_jax, _t, jax_env  # noqa: F401
 from test_torch_episode3d import FULL, MORPH_FREE, _episode, _params, _volume
 from test_torch_episode3d import models  # noqa: F401  (carried weights)
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 jgs = importlib.import_module("advchain_tpu.ops.grid_sample")
 tgs = importlib.import_module("advchain_tpu_torch.ops.grid_sample")

@@ -37,6 +37,7 @@ from advchain_tpu_torch.kernels.plane_sample import (
 from test_torch_corner import _spy_jax, jax_env  # noqa: F401
 from test_torch_dispatch3d import (_flows, _jax_compose, _port_compose,
                                    _within)
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 tgs = importlib.import_module("advchain_tpu_torch.ops.grid_sample")
 

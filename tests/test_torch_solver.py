@@ -8,6 +8,7 @@ import torch
 
 from advchain_tpu_torch import augmentor as taug
 from advchain_tpu_torch.models import SegmentationModel, UNet
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 N, H, W = 2, 32, 32
 SIZE = [N, 1, H, W]

@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from test_torch_mesh import run_ranks
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 N = 2
 TOL_OUT = 1e-5

@@ -57,6 +57,7 @@ from test_torch_mesh import TRAIN_CLASSES, TRAIN_CONFIGS, run_ranks
 from test_torch_space_train import (CHAINS, LR_JAX, _losses_close,
                                     _rel, _rel_l2, _replicated, _state_close,
                                     run_space_case)
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 JAX_MESH = (2, 4)
 STEP_CASES = {

@@ -74,6 +74,7 @@ import torch
 
 from test_torch_mesh import (TRAIN_CLASSES, TRAIN_CONFIGS, TRAIN_CONFIGS_3D,
                              run_ranks, train_batch)
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 FULL = ("noise", "bias", "affine", "morph")
 SIZE = {32: [4, 1, 32, 32], 64: [4, 1, 64, 64], 3: [2, 1, 8, 16, 16]}

@@ -44,6 +44,7 @@ from test_torch_mesh import run_ranks
 from test_torch_space_train import (FULL, _close, _losses_close, _rel,
                                     _rel_l2, _replicated, _state_close,
                                     run_space_case)
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 SIZE = [4, 1, 32, 32]
 GAMMA = 0.5

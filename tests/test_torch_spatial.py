@@ -34,6 +34,7 @@ import pytest
 import torch
 
 from test_torch_mesh import run_ranks
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 HALOS = (1, 2, 3)          # d_loc = 4 planes a shard
 MAX_DISP = {2: 0.13, 3: 0.1}

@@ -31,6 +31,7 @@ from advchain_tpu.ops import integrate as jint
 from advchain_tpu_torch.kernels import stencil_warp as tsw
 from advchain_tpu_torch.ops import integrate as tint
 from advchain_tpu_torch.ops.grid_sample import grid_sample_2d, stencil_warp_2d
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 jgs = importlib.import_module("advchain_tpu.ops.grid_sample")
 jstencil = importlib.import_module("advchain_tpu.kernels.stencil")

@@ -20,6 +20,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from advchain_tpu_torch import _trace, augmentor, models, parallel
 from advchain_tpu_torch.utils import profiling
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 # span -> (the spans it may be directly nested in, its count a step as a
 # function of n_iter)

@@ -99,6 +99,7 @@ from advchain_tpu_torch.parallel import (TrainState,
 from test_torch_mesh import (TRAIN_CLASSES, TRAIN_CONFIGS, TRAIN_SIZE,
                              run_ranks, run_train_case, train_batch,
                              train_rank)
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 N, H, W = 2, 32, 32
 SIZE = [N, 1, H, W]

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 from advchain_tpu import augmentor as jaug
 from advchain_tpu_torch import augmentor as taug
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 N, H, W = 2, 32, 32
 SIZE = [N, 1, H, W]

@@ -21,22 +21,12 @@ from advchain_tpu_torch.models import SegmentationModel, UNet3D, unet
 from cudabench import harness, inputs
 from cudabench.reference import model_UNet3D as ref
 from cudabench.tests.tiny import TinyManifest
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 ARGS = {"input_channel": 1, "num_classes": 4, "base_filters": 4}
 CELL = "unet3d_cardiac3d.adv_b2_t3"
 SEED = 2 ** 33 + 11
 BN_EPS, BN_MOMENTUM = 1e-5, 0.1
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: the suite runs several worker processes on the
-    machine's cores, and CPU 3D convolutions on oversubscribed cores run
-    tens of times slower."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _weights(args, seed=0):

@@ -28,6 +28,7 @@ from advchain_tpu_torch.utils.rand_augment import GEOMETRIC_OPS
 from chip_smoke import (build_solver, cardiac_chain, make_image, make_labels,
                         nearest_tie_mask, recipe_volume, tensors_of,
                         train_parts, write_nifti, write_nrrd)
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 TIE_TOL = 1e-4
 TOL = 1e-6

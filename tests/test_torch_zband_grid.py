@@ -30,6 +30,7 @@ from advchain_tpu_torch.kernels.zband_sample import (
     zband_sample_fwd_plain)
 from advchain_tpu_torch.ops.grid_sample import (corner_weights_3d,
                                                 grid_sample_3d)
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 PADDINGS = ["zeros", "border", "reflection"]
 # (D, H, W) volumes; the last has one plane, so every +1 z tap collapses
